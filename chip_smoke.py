@@ -1,0 +1,347 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (opendcvc_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits nonzero and prints no result):
+  1. build the CUDA kernels from opendcvc_tpu_torch/csrc (nvcc, sm_90a);
+  2. hold K1 (lane rANS encode) and K2 (decode) against their plain
+     PyTorch versions at the main path's shapes (4096 lanes, 272 steps,
+     a 256-row combined table, ~30 % skip slots), bit for bit, and time
+     both (median of 20 launches);
+  3. DMCI at 1080p full width (N = 256, z 128), f32, force_zero_thres
+     0.12, flat q banks: one I-frame compress + decompress, the decoded
+     frame equal to the encoder's;
+  4. DMC at 1080p full width seeded from phase 3's frame: four P-frames
+     compress, then decompress, the decoder's feature equal to the
+     encoder's after every frame;
+  5. a 64x64 I-frame coded on the GPU and on the CPU with the same
+     weights: the two decoders agree (the CPU path is the one the test
+     suite holds against the JAX package).
+The kernel launch counters are zeroed before phase 3 and read after
+phase 4, so the counts are the main path's.  Then it prints the card's
+name and power limit, one JSON line describing each kernel, and, last,
+{"ok": true, "device": {...}}.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+H, W = 1080, 1920
+QP = 21
+FZ = 0.12
+L_MAIN, K_MAIN = 4096, 272
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM
+SCALAR_OPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
+REPS = 20
+
+
+def _fail(msg):
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def _log(msg):
+    print(msg, flush=True)
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _median_ms(fn, dev, reps=REPS):
+    """Median over `reps` calls; CUDA events around each call."""
+    times = []
+    for _ in range(reps):
+        if dev.type == "cuda":
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _max_abs_err(got, ref):
+    return max(int((g.to(torch.int64) - r.to(torch.int64)).abs().max())
+               for g, r in zip(got, ref))
+
+
+def _bound_ms(n_bytes, n_ops):
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / SCALAR_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def random_tables(rng, nr):
+    """(nr, 257) int32 valid cumulative rows (every freq >= 1, sum 2^16)."""
+    rows = []
+    for _ in range(nr):
+        freqs = rng.integers(1, 600, 256).astype(np.int64)
+        freqs = freqs * (65536 - 256) // freqs.sum() + 1
+        freqs[0] += 65536 - freqs.sum()
+        rows.append(np.concatenate([[0], np.cumsum(freqs)]))
+    return np.stack(rows).astype(np.int32)
+
+
+def phase_kernels(dev, L, K):
+    """K1/K2 kernel vs plain, bit for bit; returns the kernel records."""
+    from opendcvc_tpu_torch.ops import lane_rans as LR
+
+    rng = np.random.default_rng(0)
+    n_y_rows = 128
+    k_z = max(1, K // 17)                 # 16 of 272 steps are z
+    table = torch.from_numpy(random_tables(rng, 2 * n_y_rows)).to(dev)
+    sym = rng.integers(-128, 128, (K, L))
+    rows = rng.integers(0, n_y_rows, (K, L))
+    rows[K - k_z:] += n_y_rows            # z steps: combined rows 128..255
+    skip = rng.random((K, L)) < 0.3
+    skip[K - k_z:] = False                # z is never skipped
+    rows = np.where(skip, LR.ENC_SKIP, rows)
+    sym = np.where(skip, 0, sym)
+    packed = LR.pack_operand(torch.from_numpy(sym),
+                             torch.from_numpy(rows)).to(dev)
+    mw = max(8, int(K * 0.5 / 2)) + 4     # the main path's first rung
+
+    # K1 at the main path's shapes (random symbols overflow some lanes:
+    # dropped words and over-counting cursors are part of the contract)
+    got = LR.encode_scan(packed, table, mw)
+    ref = LR.encode_scan_plain(packed, table, mw)
+    enc_err = _max_abs_err(got, ref)
+    if enc_err:
+        _fail(f"K1 differs from its plain version (max |err| {enc_err})")
+    enc_ms = _median_ms(lambda: LR.encode_scan(packed, table, mw), dev)
+    enc_plain_ms = _median_ms(
+        lambda: LR.encode_scan_plain(packed, table, mw), dev)
+    n_coded = int((~torch.from_numpy(skip)).sum())
+    enc_bytes = (packed.numel() * 4 + table.numel() * 4 + L * mw * 4
+                 + L * 4 + L * 8)
+    enc_bound, enc_by = _bound_ms(enc_bytes, 8 * n_coded)
+
+    # K2 on a valid stream: encode against the y rows with room for every
+    # word, then decode one K-step launch and check the round trip
+    t_y = table[:n_y_rows].contiguous()
+    rows_y = np.where(skip, LR.ENC_SKIP, rng.integers(0, n_y_rows, (K, L)))
+    packed_y = LR.pack_operand(torch.from_numpy(sym),
+                               torch.from_numpy(rows_y)).to(dev)
+    buf, lens, states = LR.encode_scan(packed_y, t_y, K)
+    ln = lens.cpu().numpy()
+    if int(ln.max()) > K:
+        _fail("K1 full-rectangle staging overflowed")
+    col = torch.arange(K, device=dev)[None, :]
+    idx = (lens.to(torch.int64)[:, None] - 1 - col).clamp(min=0)
+    data = torch.where(col < lens[:, None], torch.gather(buf, 1, idx), 0) \
+        .to(torch.int32).contiguous()
+    rows_dec = torch.from_numpy(
+        np.where(skip, 255, rows_y)[::-1].copy()).to(torch.int32).to(dev)
+    ptr0 = torch.zeros((L,), dtype=torch.int32, device=dev)
+    got = LR.decode_scan(data, rows_dec, t_y, states, ptr0)
+    ref = LR.decode_scan_plain(data, rows_dec, t_y, states, ptr0)
+    dec_err = _max_abs_err(got, ref)
+    if dec_err:
+        _fail(f"K2 differs from its plain version (max |err| {dec_err})")
+    want = torch.from_numpy(np.where(skip, 0, sym)[::-1].copy()).to(dev)
+    if not torch.equal(got[0].to(torch.int64), want):
+        _fail("K2 did not decode what K1 encoded")
+    dec_ms = _median_ms(
+        lambda: LR.decode_scan(data, rows_dec, t_y, states, ptr0), dev)
+    dec_plain_ms = _median_ms(
+        lambda: LR.decode_scan_plain(data, rows_dec, t_y, states, ptr0), dev)
+    dec_bytes = (data.numel() * 4 + rows_dec.numel() * 4 + t_y.numel() * 4
+                 + L * 12 + K * L * 4 + L * 12)
+    dec_bound, dec_by = _bound_ms(dec_bytes, 14 * n_coded)
+    _log(f"phase 2: K1 {enc_ms:.4f} ms (plain {enc_plain_ms:.3f} ms), "
+         f"K2 {dec_ms:.4f} ms (plain {dec_plain_ms:.3f} ms) at L={L} K={K}, "
+         f"{n_coded} coded symbols; bit-exact")
+    src = "opendcvc_tpu_torch/csrc/lane_rans.cu"
+    return [
+        {"name": "lane_rans_encode (K1)", "route": "cuda", "source": src,
+         "replaces": "opendcvc_tpu/ops/pallas_rans.py:98",
+         "max_abs_err": enc_err, "ms": enc_ms, "plain_ms": enc_plain_ms,
+         "bound_ms": enc_bound, "bound_by": enc_by, "library_ms": None},
+        {"name": "lane_rans_decode (K2)", "route": "cuda", "source": src,
+         "replaces": "opendcvc_tpu/ops/pallas_rans.py:267",
+         "max_abs_err": dec_err, "ms": dec_ms, "plain_ms": dec_plain_ms,
+         "bound_ms": dec_bound, "bound_by": dec_by, "library_ms": None},
+    ]
+
+
+def synthetic_frames(height, width, n):
+    """Noise frames rolled 4 px per frame, replicate-padded to 16."""
+    from opendcvc_tpu_torch.models import common as C
+    pr, pb = C.get_padding_size(height, width, 16)
+    base = np.random.default_rng(0).random((1, height, width, 3),
+                                           dtype=np.float32)
+    return [np.pad(np.roll(base, 4 * t, axis=2),
+                   ((0, 0), (0, pb), (0, pr), (0, 0)), mode="edge")
+            for t in range(n)]
+
+
+def _timed(fn, dev):
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_intra(dev, frame, qp, fz):
+    from opendcvc_tpu_torch.models.dmci import DMCI
+    net = DMCI(device=dev)
+    net.init_params(seed=0)
+    # flat banks (bench.py's surrogate for trained rate statistics)
+    net.params["q_scale_enc"] = torch.ones_like(
+        net.params["q_scale_enc"]) * 0.2
+    net.params["q_scale_dec"] = torch.ones_like(net.params["q_scale_dec"])
+    net.update(force_zero_thres=fz)
+    sps = {"height": frame.shape[1], "width": frame.shape[2]}
+    results = []
+    for _ in range(2):   # the first pass warms cuDNN; the second is timed
+        enc, enc_ms = _timed(lambda: net.compress(frame, qp), dev)
+        dec, dec_ms = _timed(
+            lambda: net.decompress(enc["bit_stream"], sps, qp), dev)
+        if not torch.equal(enc["x_hat"], dec["x_hat"]):
+            _fail("DMCI decoded frame differs from the encoder's")
+        results.append((enc, enc_ms, dec_ms))
+    enc, enc_ms, dec_ms = results[-1]
+    x_hat = enc["x_hat"]
+    if tuple(x_hat.shape) != tuple(frame.shape) or \
+            not bool(torch.isfinite(x_hat).all()):
+        _fail("DMCI x_hat has the wrong shape or is not finite")
+    bpp = len(enc["bit_stream"]) * 8 / (frame.shape[1] * frame.shape[2])
+    _log(f"phase 3: DMCI {frame.shape[1]}x{frame.shape[2]} enc "
+         f"{enc_ms:.1f} ms dec {dec_ms:.1f} ms (second pass), bpp "
+         f"{bpp:.4f}, reruns {net._ec_rerun_count}; decoded frame exact")
+    return x_hat, net
+
+
+def phase_p(dev, x_ref, frames, qp, fz):
+    from opendcvc_tpu_torch.models.dmc import DMC
+    enc_net = DMC(device=dev)
+    enc_net.init_params(seed=1)
+    enc_net.params["q_encoder"] = torch.ones_like(
+        enc_net.params["q_encoder"]) * 0.25
+    enc_net.params["q_decoder"] = torch.ones_like(
+        enc_net.params["q_decoder"])
+    enc_net.update(force_zero_thres=fz)
+    dec_net = DMC(device=dev)
+    dec_net.load_params(enc_net.params)
+    dec_net.update(force_zero_thres=fz)
+    for net in (enc_net, dec_net):
+        net.add_ref_frame(None, x_ref)
+    sps = {"height": frames[0].shape[1], "width": frames[0].shape[2]}
+    streams, feats, enc_ms = [], [], []
+    for x in frames:
+        s, ms = _timed(lambda: enc_net.compress(x, qp)["bit_stream"], dev)
+        streams.append(s)
+        enc_ms.append(ms)
+        feats.append(enc_net.dpb[0].feature.clone())
+    dec_ms = []
+    for i, s in enumerate(streams):
+        out, ms = _timed(lambda: dec_net.decompress(s, sps, qp), dev)
+        dec_ms.append(ms)
+        if not torch.equal(dec_net.dpb[0].feature, feats[i]):
+            _fail(f"DMC enc/dec feature chain diverged at P-frame {i}")
+        if not bool(torch.isfinite(out["x_hat"]).all()):
+            _fail("DMC x_hat is not finite")
+    bpp = [len(s) * 8 / (sps["height"] * sps["width"]) for s in streams]
+    _log("phase 4: DMC P-frames enc ms " + " ".join(f"{t:.1f}" for t in
+                                                     enc_ms)
+         + " | dec ms " + " ".join(f"{t:.1f}" for t in dec_ms)
+         + " | bpp " + " ".join(f"{b:.4f}" for b in bpp)
+         + f" | reruns {enc_net._ec_rerun_count}; feature chain exact")
+
+
+def phase_reference(dev, qp, fz):
+    """The same 64x64 I-frame through the GPU and the CPU port."""
+    from opendcvc_tpu_torch.models.dmci import DMCI
+    nets = {}
+    for d in (dev, torch.device("cpu")):
+        nets[d.type] = DMCI(device=d)
+    nets["cpu"].init_params(seed=3)
+    nets[dev.type].load_params(nets["cpu"].params)
+    for net in nets.values():
+        net.update(force_zero_thres=fz)
+    x = np.random.default_rng(3).random((1, 64, 64, 3), dtype=np.float32)
+    sps = {"height": 64, "width": 64}
+    enc = {k: n.compress(x, qp) for k, n in nets.items()}
+    x_dev = enc[dev.type]["x_hat"].cpu()
+    x_cpu = enc["cpu"]["x_hat"]
+    cross = nets["cpu"].decompress(enc[dev.type]["bit_stream"], sps,
+                                   qp)["x_hat"]
+    err = max(float((x_dev - x_cpu).abs().max()),
+              float((cross - x_dev).abs().max()))
+    same = enc[dev.type]["bit_stream"] == enc["cpu"]["bit_stream"]
+    if err > 1e-3:
+        _fail(f"GPU and CPU ports disagree on a 64x64 I-frame ({err:g})")
+    _log(f"phase 5: 64x64 I-frame GPU vs CPU port: max |x_hat diff| "
+         f"{err:.3g}, CPU decodes the GPU stream, streams identical: "
+         f"{same}")
+
+
+def main():
+    if not torch.cuda.is_available():
+        _fail("CUDA is not available")
+    try:
+        import opendcvc_tpu_torch  # noqa: F401  (pins cuDNN determinism)
+        from opendcvc_tpu_torch.ops import _build
+        from opendcvc_tpu_torch.ops import lane_rans as LR
+    except ImportError as e:
+        _fail(f"the port's package is missing: {e}")
+    dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    t0 = time.perf_counter()
+    _build.load_kernels()
+    _log(f"phase 1: kernels built and loaded in "
+         f"{time.perf_counter() - t0:.1f} s")
+    for name, log in _build.BUILD_LOG.items():
+        for line in log.splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                _log(f"  {name}: {line.strip()}")
+
+    kernels = phase_kernels(dev, L_MAIN, K_MAIN)
+
+    frames = synthetic_frames(H, W, 5)
+    LR.encode_scan.launches = 0
+    LR.decode_scan.launches = 0
+    x_ref, _ = phase_intra(dev, frames[0], QP, FZ)
+    phase_p(dev, x_ref, frames[1:], QP, FZ)
+    launches = [LR.encode_scan.launches, LR.decode_scan.launches]
+    _log(f"main path launches: K1 {launches[0]}, K2 {launches[1]}")
+    if min(launches) == 0:
+        _fail("a kernel of the main path was never launched")
+    for k, n in zip(kernels, launches):
+        k["launches"] = n
+
+    phase_reference(dev, QP, FZ)
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if card.returncode != 0:
+        _fail(f"nvidia-smi failed: {card.stderr.strip()}")
+    _log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(card.stdout.strip().splitlines()[0])   # name, power limit
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

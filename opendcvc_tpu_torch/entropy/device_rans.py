@@ -1,0 +1,246 @@
+"""Device-side entropy coding: the "tpu-lane" lane rANS container.
+
+Counterpart of the JAX package's `entropy/device_rans.py`, cut to what the
+DMC/DMCI device-EC path uses.  L independent rANS lanes are advanced in
+lockstep by the scans in `ops/lane_rans.py` (kernels K1/K2 on CUDA);
+renormalisation is 16-bit (state in [2^16, 2^32)), so a step moves at
+most one u16 word per lane.  Tables are plain int32 (NR, 257) cumulative
+rows; the container bytes do not depend on how a device looks them up.
+
+Container (v6, byte-identical to the JAX package's):
+  u8 FRAME_MAGIC | u32 n | u16 L | u16 K | u16 MW | u32 cap | u16 kyc |
+  u32 data_len | lens u16*L | states u32*L | dense u16*total
+with each lane's words in decode order, lanes back to back.  The port
+writes kyc = 0 (no skip compaction).
+"""
+
+import numpy as np
+import torch
+
+#: sentinel local row id of a force_zero_thres-skipped symbol: the scans
+#: pass it through at zero rate and decode it as 0.  Real local row ids
+#: stay below it (y rows <= 127, z rows < the z channel count).
+SKIP_ROW = 255
+
+FRAME_MAGIC = 0xD6  # container format/version marker (v6)
+
+
+def full_range_cdf_rows(cdfs, cdf_sizes, offsets):
+    """Convert escape-format quantized CDF rows into full-range 256-bin
+    rows (freq >= 1 everywhere, sum == 2^16).
+
+    cdfs: (n, max_len) int32 rows; cdf_sizes: (n,); offsets: (n,).
+    Returns (n, 257) int32 cumulative rows over symbols -128..127.
+    """
+    cdfs = np.asarray(cdfs, np.int64)
+    sizes = np.asarray(cdf_sizes, np.int64).reshape(-1)
+    offsets = np.asarray(offsets, np.int64).reshape(-1)
+    n, w = cdfs.shape
+    in_f = cdfs[:, 1:] - cdfs[:, :-1]                    # (n, w-1)
+    n_sym = sizes - 2              # in-range symbols (last bin = escape)
+    col = np.arange(w - 1)[None, :]
+    valid = col < n_sym[:, None]
+    # scatter each row's in-range block at bin offset+128
+    freqs = np.ones((n, 256), np.int64)
+    lo = offsets + 128             # bin index of first in-range symbol
+    dest = lo[:, None] + col                             # (n, w-1)
+    valid &= (dest >= 0) & (dest < 256)
+    in_f = np.where(valid, np.maximum(in_f, 1), 0)
+    dest_c = np.clip(dest, 0, 255)
+    rows_i = np.repeat(np.arange(n), w - 1)
+    np.add.at(freqs, (rows_i, dest_c.reshape(-1)),
+              (np.where(valid, in_f - 1, 0)).reshape(-1))
+    excess = freqs.sum(axis=1) - (1 << 16)
+    j = np.argmax(freqs, axis=1)
+    if not np.all(freqs[np.arange(n), j] - excess >= 1):
+        raise ValueError("cannot normalize full-range cdf")
+    freqs[np.arange(n), j] -= excess
+    out = np.zeros((n, 257), np.int64)
+    out[:, 1:] = np.cumsum(freqs, axis=1)
+    return out.astype(np.int32)
+
+
+def encode_carry_init(lanes, max_words, device="cpu"):
+    """Fresh encode carry: (state (L,) int64 = 2^16, cursors (L,) int64,
+    staging (L, max_words) int32 zeros)."""
+    return (torch.full((lanes,), 1 << 16, dtype=torch.int64, device=device),
+            torch.zeros((lanes,), dtype=torch.int64, device=device),
+            torch.zeros((lanes, max_words), dtype=torch.int32,
+                        device=device))
+
+
+def densify_segment(buf, lens, states, cap):
+    """Compact the encode staging on the device: each lane's emitted words,
+    reversed into decode order, back to back lane-major (the container's
+    data layout), so only ~true-bpp bytes cross to the host.
+
+    Returns ONE int32 vector of u16 values: [dense words (cap) | lens (L)
+    | state hi (L) | state lo (L)].  Overflow (sum(lens) > cap) leaves the
+    tail truncated; the host detects it from the lens and re-runs at the
+    next ladder step."""
+    L, MW = buf.shape
+    dev = buf.device
+    lens64 = lens.to(torch.int64)
+    offs = torch.cumsum(lens64, 0) - lens64          # exclusive, lane-major
+    col = torch.arange(MW, device=dev)[None, :]
+    dst = offs[:, None] + (lens64[:, None] - 1 - col)
+    # invalid slots and overflow park in the pad slot `cap`
+    dst = torch.where(col < lens64[:, None], dst, cap).clamp(max=cap)
+    dense = torch.zeros((cap + 1,), dtype=torch.int32, device=dev)
+    dense.scatter_(0, dst.reshape(-1), buf.reshape(-1))
+    states = states.to(torch.int64)
+    return torch.cat([dense[:cap], lens.to(torch.int32) & 0xFFFF,
+                      (states >> 16).to(torch.int32),
+                      (states & 0xFFFF).to(torch.int32)])
+
+
+def undensify_packed(packed, cap, L):
+    """Host-side split of densify_segment's output (numpy u16)."""
+    dense = packed[:cap]
+    lens = packed[cap:cap + L].astype(np.int32)
+    states = (packed[cap + L:cap + 2 * L].astype(np.uint32) << 16) \
+        | packed[cap + 2 * L:cap + 3 * L].astype(np.uint32)
+    return dense, lens, states
+
+
+def _undensify_device(staging, cap, L, MW):
+    """Compact staging [dense | lens | st_hi | st_lo] (int32 u16 values,
+    on the device) -> ((L, MW) int32 decode-order lane words, (L,) int64
+    states).  Inverse of densify_segment, run on the device so a decode
+    uploads only ~true-bpp bytes.  Positions past a lane's length stay 0
+    (the decode scan never reads them)."""
+    dev = staging.device
+    dense = staging[:cap]
+    lens = staging[cap:cap + L].to(torch.int64)
+    states = (staging[cap + L:cap + 2 * L].to(torch.int64) << 16) \
+        | staging[cap + 2 * L:cap + 3 * L].to(torch.int64)
+    ends = torch.cumsum(lens, 0)
+    pos = torch.arange(cap, device=dev)
+    lane = torch.searchsorted(ends, pos, right=True)   # ends[lane-1] <= pos
+    lane_c = lane.clamp(max=L - 1)
+    j = pos - (ends[lane_c] - lens[lane_c])
+    # words past the last lane (and of a corrupt lane longer than MW)
+    # park in the pad slot
+    dst = torch.where((lane < L) & (j < MW), lane_c * MW + j, L * MW)
+    data = torch.zeros((L * MW + 1,), dtype=torch.int32, device=dev)
+    data.scatter_(0, dst, dense)
+    return data[:L * MW].reshape(L, MW), states
+
+
+def effective_lanes(max_lanes, n_symbols, min_lanes=256, min_steps=64):
+    """Scale the lane count to the frame's symbol count: the container
+    carries ~6 bytes of per-lane state, so small frames halve the lane
+    count until each lane has >= min_steps symbols.  The decoder needs no
+    configuration: every container records its own L."""
+    lanes = max_lanes
+    while lanes > min_lanes and lanes * min_steps > n_symbols:
+        lanes //= 2
+    return max(lanes, min_lanes)
+
+
+def settle_staging(arr, lanes, n_total, k_total, plan, bps, base_bps,
+                   rerun):
+    """Overflow-check a fetched compact staging and serialize it.
+
+    `arr` was launched at the rung `plan(bps)` -> (mw, cap).  While a lane
+    reached mw - 2 words or the payload exceeds cap (lane cursors count
+    every emission, so overflow always shows), double bps (at most 3.0,
+    the top rung, where cap is the whole rectangle and everything fits)
+    and re-encode with `rerun(mw, cap)`.  The container then records the
+    rung a ladder started at `base_bps` settles at, computed from the
+    payload alone, so a stream does not depend on the rung it was
+    launched at.  Returns (stream, settled bps, reruns)."""
+    g_bps = bps
+    mw, cap = plan(g_bps)
+    reruns = 0
+    for _ in range(8):
+        dense, ln, st = undensify_packed(arr, cap, lanes)
+        if int(ln.max(initial=0)) < mw - 2 and int(ln.sum()) <= cap:
+            break
+        g_bps = min(g_bps * 2, 3.0)
+        mw, cap = plan(g_bps)
+        reruns += 1
+        arr = rerun(mw, cap)
+    else:
+        raise OverflowError(
+            "device rANS staging overflowed at the top ladder rung")
+    ln_max, ln_sum = int(ln.max(initial=0)), int(ln.sum())
+    s_bps = base_bps
+    for _ in range(8):
+        s_mw, s_cap = plan(s_bps)
+        if ln_max < s_mw - 2 and ln_sum <= s_cap:
+            return (serialize_frame_dense(dense, ln, st, n_total, k_total,
+                                          s_mw, s_cap), g_bps, reruns)
+        s_bps = min(s_bps * 2, 3.0)
+    raise OverflowError(
+        "device rANS staging overflowed at the top ladder rung")
+
+
+def serialize_frame_dense(dense, lens, states, n_symbols, K, MW, cap,
+                          kyc=0):
+    """v6 container from an already-dense (decode-order, lane-major) word
+    vector (layout in the module docstring).  `cap` records the encoder's
+    dense staging capacity so the decoder rebuilds the exact staging
+    layout; `kyc` is the skip-compaction rung (0 = none)."""
+    L = lens.shape[0]
+    total = int(lens.sum())
+    head = [np.uint8(FRAME_MAGIC).tobytes(),
+            np.uint32(n_symbols).tobytes(),
+            np.uint16(L).tobytes(), np.uint16(K).tobytes(),
+            np.uint16(MW).tobytes(),
+            np.uint32(cap).tobytes(),
+            np.uint16(kyc).tobytes(),
+            np.uint32(2 * total).tobytes()]
+    return b"".join(head + [lens.astype(np.uint16).tobytes(),
+                            states.astype(np.uint32).tobytes(),
+                            np.ascontiguousarray(dense[:total])
+                            .astype(np.uint16).tobytes()])
+
+
+def parse_frame_parts(stream, offset=0):
+    """Parse one v6 container into its raw parts.
+
+    Returns (meta, dense (total,) u16, lens (L,) u16, states (L,) u32,
+    next_offset); meta carries n/L/K/MW/cap/kyc/total."""
+    if stream[offset] != FRAME_MAGIC:
+        raise ValueError(
+            f"bad container magic 0x{stream[offset]:02x} (expected "
+            f"0x{FRAME_MAGIC:02x}): stream written by an incompatible "
+            "format version")
+    off = offset + 1
+    n = int(np.frombuffer(stream, np.uint32, 1, off)[0]); off += 4
+    L = int(np.frombuffer(stream, np.uint16, 1, off)[0]); off += 2
+    K = int(np.frombuffer(stream, np.uint16, 1, off)[0]); off += 2
+    mw = int(np.frombuffer(stream, np.uint16, 1, off)[0]); off += 2
+    cap = int(np.frombuffer(stream, np.uint32, 1, off)[0]); off += 4
+    kyc = int(np.frombuffer(stream, np.uint16, 1, off)[0]); off += 2
+    dlen = int(np.frombuffer(stream, np.uint32, 1, off)[0]); off += 4
+    lens = np.frombuffer(stream, np.uint16, L, off); off += 2 * L
+    states = np.frombuffer(stream, np.uint32, L, off); off += 4 * L
+    total = dlen // 2
+    dense = np.frombuffer(stream, np.uint16, total, off); off += dlen
+    meta = {"n": n, "L": L, "K": K, "MW": mw, "cap": cap, "kyc": kyc,
+            "total": total}
+    return meta, dense, lens, states, off
+
+
+def staging_from_parts(dense, lens, states, cap):
+    """Host-side staging vector [dense padded to cap | lens | st_hi |
+    st_lo] (u16): the layout densify_segment produced on the encoder."""
+    L = lens.shape[0]
+    staging = np.zeros(cap + 3 * L, np.uint16)
+    staging[:dense.shape[0]] = dense
+    staging[cap:cap + L] = lens
+    staging[cap + L:cap + 2 * L] = (states >> 16).astype(np.uint16)
+    staging[cap + 2 * L:] = (states & 0xFFFF).astype(np.uint16)
+    return staging
+
+
+def parse_frame(stream, offset=0):
+    """Parse one v6 container into the compact staging vector (numpy u16)
+    that _undensify_device expands on the device.
+
+    Returns (meta, staging_u16, next_offset)."""
+    meta, dense, lens, states, off = parse_frame_parts(stream, offset)
+    staging = staging_from_parts(dense, lens, states, meta["cap"])
+    return meta, staging, off

@@ -1,0 +1,149 @@
+"""Entropy models: QP-banked factorized prior + conditional Gaussian, as
+builders of the quantized CDF tables (`cdf_info`).
+
+Counterpart of the JAX package's `entropy/models.py`.  Tables are sampled
+on the host in float64 numpy (deterministic across machines: encoder and
+decoder must derive identical tables) and are equal to the JAX package's
+for the same parameters.  The host coder binding (`add_cdf`) is not part
+of the device-EC path and is not ported.
+"""
+
+import math
+
+import numpy as np
+import torch
+from scipy import special as sp_special
+
+from .cdf import pmf_to_cdf
+
+
+def bitparm_init(gen, qp_num, channel, final=False):
+    p = {"h": 0.01 * torch.randn((qp_num, channel), generator=gen),
+         "b": 0.01 * torch.randn((qp_num, channel), generator=gen)}
+    if not final:
+        p["a"] = 0.01 * torch.randn((qp_num, channel), generator=gen)
+    return p
+
+
+def bit_estimator_init(gen, qp_num, channel):
+    return {"f1": bitparm_init(gen, qp_num, channel),
+            "f2": bitparm_init(gen, qp_num, channel),
+            "f3": bitparm_init(gen, qp_num, channel),
+            "f4": bitparm_init(gen, qp_num, channel, final=True)}
+
+
+def _np_bitparm(p, x):
+    """Host float64 Bitparm forward; p entries are (Q, C), x is (Q, C, L)."""
+    h = np.log1p(np.exp(p["h"]))  # softplus
+    x = x * h[:, :, None] + p["b"][:, :, None]
+    if "a" in p:
+        x = x + np.tanh(x) * np.tanh(p["a"][:, :, None])
+    return x
+
+
+def _np_cdf(params_np, x):
+    for name in ("f1", "f2", "f3", "f4"):
+        x = _np_bitparm(params_np[name], x)
+    return 1.0 / (1.0 + np.exp(-x))
+
+
+class BitEstimator:
+    """CDF tables of the factorized prior over z, one row per (qp,
+    channel).  support: half-width of the symbol-support scan (8 for the
+    RT models)."""
+
+    def __init__(self, qp_num, channel, support=8):
+        self.qp_num = qp_num
+        self.channel = channel
+        self.support = support
+        self.cdf_info = None
+
+    def update(self, params):
+        """Sample the learned CDF and quantize it: scan the support,
+        evaluate the pmf at half-integer offsets.  params: the
+        `bit_estimator_z` dict of tensors."""
+        p = {name: {k: v.detach().to("cpu", torch.float32).numpy()
+                    .astype(np.float64) for k, v in layer.items()}
+             for name, layer in params.items()}
+        Q, C = self.qp_num, self.channel
+        S = self.support
+
+        def cdf_at(v):
+            x = np.full((Q, C, 1), float(v), dtype=np.float64)
+            return _np_cdf(p, x)[:, :, 0]
+
+        minima = np.full((Q, C), S, dtype=np.int64)
+        for i in range(S, 1, -1):
+            probs = cdf_at(-i)
+            minima = np.where(probs < 1e-4, i, minima)
+        maxima = np.full((Q, C), S, dtype=np.int64)
+        for i in range(S, 1, -1):
+            probs = cdf_at(i)
+            maxima = np.where(probs > 0.9999, i, maxima)
+
+        offset = -minima
+        pmf_start = -minima.astype(np.float64)
+        pmf_length = maxima + minima + 1
+        max_length = int(pmf_length.max())
+
+        samples = np.arange(max_length, dtype=np.float64)[None, None, :] \
+            + pmf_start[:, :, None]
+        lower = _np_cdf(p, samples - 0.5)
+        upper = _np_cdf(p, samples + 0.5)
+        pmf = upper - lower
+
+        cdf_at_max = _np_cdf(p, maxima.astype(np.float64)[:, :, None])[:, :, 0]
+        tail_mass = lower[:, :, 0] + (1.0 - cdf_at_max)
+
+        pmf = pmf.reshape(-1, max_length)
+        tail_mass = tail_mass.reshape(-1, 1)
+        pmf_length = pmf_length.reshape(-1)
+        offset = offset.reshape(-1)
+        quantized_cdf = pmf_to_cdf(pmf, tail_mass, pmf_length, max_length)
+        cdf_length = pmf_length + 2
+        self.cdf_info = (quantized_cdf, cdf_length.astype(np.int32),
+                         offset.astype(np.int32))
+        return self.cdf_info
+
+
+def _normal_cdf(x):
+    return 0.5 * (1.0 + sp_special.erf(x / math.sqrt(2.0)))
+
+
+class GaussianEncoder:
+    """Zero-mean Gaussian CDF tables over a log-spaced scale table (the RT
+    generation: [0.11, 16], 128 levels)."""
+
+    SCALE_MIN = 0.11
+    SCALE_MAX = 16.0
+    SCALE_LEVELS = 128
+
+    def __init__(self, support=8):
+        self.support = support
+        self.scale_table = np.exp(np.linspace(
+            math.log(self.SCALE_MIN), math.log(self.SCALE_MAX),
+            self.SCALE_LEVELS))
+        self.cdf_info = None
+
+    def update(self):
+        S = self.support
+        scales = self.scale_table.astype(np.float64)
+        pmf_center = np.full(self.SCALE_LEVELS, S, dtype=np.int64)
+        for i in range(S, 1, -1):
+            probs = _normal_cdf(i / scales)
+            pmf_center = np.where(probs > 0.9999, i, pmf_center)
+
+        pmf_length = 2 * pmf_center + 1
+        max_length = int(pmf_length.max())
+        samples = (np.arange(max_length, dtype=np.float64)[None, :]
+                   - pmf_center[:, None])
+        upper = _normal_cdf((samples + 0.5) / scales[:, None])
+        lower = _normal_cdf((samples - 0.5) / scales[:, None])
+        pmf = upper - lower
+        tail_mass = 2 * lower[:, :1]
+
+        quantized_cdf = pmf_to_cdf(pmf, tail_mass, pmf_length, max_length)
+        self.cdf_info = (quantized_cdf,
+                         (pmf_length + 2).astype(np.int32),
+                         (-pmf_center).astype(np.int32))
+        return self.cdf_info

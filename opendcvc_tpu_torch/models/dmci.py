@@ -1,0 +1,327 @@
+"""DMCI — the DCVC-RT intra codec, device-EC path (NCHW).
+
+Counterpart of the JAX package's `models/dmci.py`: pixel-unshuffle 8, enc/dec
+width 368, y N = 256 at 1/16, z 128 at 1/64, a four-pass quadtree
+checkerboard prior.  The five symbol planes (z and four passes) are coded
+back to back per lane by one K1 launch against the combined [y rows | z
+subtable] table and decoded by five K2 launches (z, y0..y3) that carry
+one rANS state per lane; the container is the JAX package's v6 byte for
+byte.  Stages both sides evaluate are shared functions (see models/dmc.py
+for the bit-exactness contract).
+"""
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from ..entropy.device_rans import (_undensify_device, effective_lanes,
+                                   full_range_cdf_rows, parse_frame,
+                                   settle_staging)
+from ..entropy.models import (BitEstimator, GaussianEncoder,
+                              bit_estimator_init)
+from ..layers import blocks as L
+from ..ops import fused as F
+from ..utils.params import to_device
+from . import common as C
+from .dmc import (_cm_unflat, _dcb_seq, _dec_plane, _dec_y_plane,
+                  _encode_staging, _indexes_of, _pack_frame, _q_vec,
+                  _z_rows)
+
+G_CH_SRC = 3 * 8 * 8
+G_CH_ENC_DEC = 368
+
+
+def dmci_init(gen, N=256, z_channel=128, qp_num=C.QP_NUM,
+              enc_dec_ch=G_CH_ENC_DEC):
+    dcb = L.depth_conv_block_init
+    p = {}
+    p["enc1"] = dcb(gen, G_CH_SRC, enc_dec_ch)
+    p["enc2"] = [dcb(gen, enc_dec_ch, enc_dec_ch) for _ in range(6)]
+    p["enc_down"] = L.conv_init(gen, enc_dec_ch, N, 3)
+    p["hyper_enc"] = [dcb(gen, N, z_channel),
+                      L.res_block_stride2_init(gen, z_channel, z_channel),
+                      L.res_block_stride2_init(gen, z_channel, z_channel)]
+    p["hyper_dec"] = [L.res_block_upsample_init(gen, z_channel, z_channel),
+                      L.res_block_upsample_init(gen, z_channel, z_channel),
+                      dcb(gen, z_channel, N)]
+    p["y_prior_fusion"] = [dcb(gen, N, N * 2), dcb(gen, N * 2, N * 2),
+                           dcb(gen, N * 2, N * 2),
+                           L.conv_init(gen, N * 2, N * 2 + 2, 1)]
+    p["reduction"] = L.conv_init(gen, N * 2 + 2, N, 1)
+    for k in (1, 2, 3):
+        p[f"adaptor_{k}"] = dcb(gen, N * 2, N * 2, force_adaptor=True)
+    p["y_spatial_prior"] = [dcb(gen, N * 2, N * 2) for _ in range(3)] \
+        + [L.conv_init(gen, N * 2, N * 2, 1)]
+    p["dec1_up"] = L.res_block_upsample_init(gen, N, enc_dec_ch)
+    p["dec1"] = [dcb(gen, enc_dec_ch, enc_dec_ch) for _ in range(12)]
+    p["dec2"] = dcb(gen, enc_dec_ch, G_CH_SRC)
+    # log-spaced rate ladder, qp 0 = highest rate (the JAX package's init)
+    ladder = torch.exp(torch.linspace(math.log(4.0), math.log(0.4),
+                                      qp_num))[:, None]
+    p["q_scale_enc"] = torch.ones((qp_num, enc_dec_ch)) * ladder
+    p["q_scale_dec"] = torch.ones((qp_num, enc_dec_ch)) / ladder
+    p["bit_estimator_z"] = bit_estimator_init(gen, qp_num, z_channel)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# sub-networks and stages
+# ---------------------------------------------------------------------------
+
+def intra_encoder(p, x, q_enc):
+    out = L.depth_conv_block_apply(p["enc1"], F.space_to_depth(x, 8),
+                                   quant_step=q_enc)
+    out = _dcb_seq(p["enc2"], out)
+    return L.conv_apply(p["enc_down"], out, stride=2, padding=1)
+
+
+def intra_decoder(p, y_hat, q_dec):
+    out = L.res_block_upsample_apply(p["dec1_up"], y_hat)
+    out = _dcb_seq(p["dec1"][:-1], out)
+    out = L.depth_conv_block_apply(p["dec1"][-1], out, quant_step=q_dec)
+    out = L.depth_conv_block_apply(p["dec2"], out)
+    return F.depth_to_space(out, 8)
+
+
+def hyper_encoder(p, y_pad):
+    h = L.depth_conv_block_apply(p["hyper_enc"][0], y_pad)
+    h = L.res_block_stride2_apply(p["hyper_enc"][1], h)
+    return L.res_block_stride2_apply(p["hyper_enc"][2], h)
+
+
+def hyper_decoder(p, z_hat):
+    h = L.res_block_upsample_apply(p["hyper_dec"][0], z_hat)
+    h = L.res_block_upsample_apply(p["hyper_dec"][1], h)
+    return L.depth_conv_block_apply(p["hyper_dec"][2], h)
+
+
+def prior_fusion(p, params_in):
+    h = _dcb_seq(p["y_prior_fusion"][:3], params_in)
+    return L.conv_apply(p["y_prior_fusion"][3], h)
+
+
+def spatial_prior(p, adaptor_p, x):
+    h = L.depth_conv_block_apply(adaptor_p, x)
+    h = _dcb_seq(p["y_spatial_prior"][:3], h)
+    return L.conv_apply(p["y_spatial_prior"][3], h)
+
+
+def _stage_enc_front(p, x, qp):
+    """Encoder-only: frame -> y, rounded z."""
+    y = intra_encoder(p, x, _q_vec(p["q_scale_enc"], qp))
+    z = hyper_encoder(p, C.pad_for_y(y))
+    z_hat, z_int8 = F.round_and_to_int8(z)
+    return y, z_hat, z_int8
+
+
+def _stage_prior(p, z_hat, y_h, y_w):
+    """Shared: z_hat -> separated prior + reduced context."""
+    params = prior_fusion(p, hyper_decoder(p, z_hat))
+    params = params[:, :, :y_h, :y_w]
+    q_enc, q_dec, scales, means = C.separate_prior_image(params)
+    reduced = L.conv_apply(p["reduction"], params)
+    return q_enc, q_dec, scales, means, reduced
+
+
+def _stage_spatial(p, k, y_hat_so_far, reduced):
+    """Shared: spatial-prior pass k in {1, 2, 3} -> (scales, means)."""
+    out = spatial_prior(p, p[f"adaptor_{k}"],
+                        torch.cat((y_hat_so_far, reduced), dim=1))
+    c = out.shape[1] // 2
+    return out[:, :c], out[:, c:]
+
+
+def _masks_4x(t):
+    _, c, h, w = t.shape
+    return F.checkerboard_masks_4x(h, w, c, t.dtype, t.device)
+
+
+def _stage_fold_index(scales, k, force_zero_thres):
+    """Shared: fold the active-quarter scales, build CDF indexes."""
+    return _indexes_of(F.fold_quarters(scales * _masks_4x(scales)[k]),
+                       force_zero_thres)
+
+
+def _stage_enc_pass(y_s, scales, means, y_hat_so_far, k, force_zero_thres):
+    """Encoder-only pass k: masked quantization -> (folded symbols int32,
+    indexes, keep mask, running y_hat)."""
+    mask = _masks_4x(y_s)[k]
+    _, y_q, y_hat_k, _ = F.process_with_mask(y_s, scales, means, mask,
+                                             force_zero_thres)
+    idx, keep = _indexes_of(F.fold_quarters(scales * mask),
+                            force_zero_thres)
+    so_far = y_hat_k if y_hat_so_far is None else y_hat_so_far + y_hat_k
+    return F.fold_quarters(y_q).to(torch.int32), idx, keep, so_far
+
+
+def _stage_dec_restore(y_q_r, means, y_hat_so_far, k):
+    """Decoder-only: scatter decoded symbols through mask k, accumulate."""
+    y_hat_k = F.restore_y_4x(y_q_r, means, _masks_4x(means)[k])
+    return y_hat_k if y_hat_so_far is None else y_hat_so_far + y_hat_k
+
+
+def _stage_recon(p, y_hat_so_far, q_dec_prior, qp):
+    """Shared: final dequant + intra decoder + clamp."""
+    x_hat = intra_decoder(p, y_hat_so_far * q_dec_prior,
+                          _q_vec(p["q_scale_dec"], qp))
+    return torch.clamp(x_hat, 0.0, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# per-frame encoder and decoder
+# ---------------------------------------------------------------------------
+
+def _compress_frame_i(p, x, qp, lanes, n_y_rows, fz=None):
+    """Frame -> (x_hat NCHW, K1 operand over y3..y0 then z)."""
+    y, z_hat, z_int8 = _stage_enc_front(p, x, qp)
+    q_enc, q_dec_prior, scales, means, reduced = _stage_prior(
+        p, z_hat, y.shape[2], y.shape[3])
+    y_s = y * q_enc
+    planes, so_far = [], None
+    for k in range(4):
+        if k > 0:
+            scales, means = _stage_spatial(p, k, so_far, reduced)
+        sym, idx, keep, so_far = _stage_enc_pass(y_s, scales, means,
+                                                 so_far, k, fz)
+        planes.append((sym, idx, keep))
+    x_hat = _stage_recon(p, so_far, q_dec_prior, qp)
+    return x_hat, _pack_frame(planes[::-1], z_int8, lanes, n_y_rows, fz)
+
+
+def _decompress_frame_i(p, staging, qp, table, n_y_rows, zh, zw, y_h, y_w,
+                        z_channel, lanes, cap, mw, fz=None):
+    """Compact staging -> x_hat (NCHW)."""
+    data, states = _undensify_device(staging, cap, lanes, mw)
+    carry = (states, torch.zeros((lanes,), dtype=torch.int32,
+                                 device=data.device))
+    z_base = n_y_rows + qp * z_channel
+    z_flat, carry = _dec_plane(data,
+                               _z_rows(zh * zw * z_channel, z_channel,
+                                       data.device),
+                               table[z_base:z_base + z_channel], carry,
+                               lanes)
+    z_hat = _cm_unflat(z_flat, (1, z_channel, zh, zw)).to(torch.float32)
+    _, q_dec_prior, scales, means, reduced = _stage_prior(p, z_hat, y_h,
+                                                          y_w)
+    cum_y = table[:n_y_rows]
+    so_far = None
+    for k in range(4):
+        if k > 0:
+            scales, means = _stage_spatial(p, k, so_far, reduced)
+        idx, keep = _stage_fold_index(scales, k, fz)
+        y_flat, carry = _dec_y_plane(data, idx, keep, cum_y, carry, lanes,
+                                     fz)
+        y_q_r = _cm_unflat(y_flat, idx.shape).to(means.dtype)
+        so_far = _stage_dec_restore(y_q_r, means, so_far, k)
+    return _stage_recon(p, so_far, q_dec_prior, qp)
+
+
+# ---------------------------------------------------------------------------
+# host orchestrator
+# ---------------------------------------------------------------------------
+
+class DMCI:
+    """DCVC-RT intra codec with device-side entropy coding.
+
+    lanes and bytes_per_symbol size the lane rANS staging (the JAX
+    package's OPENDCVC_TPU_EC_LANES / _EC_BPS)."""
+
+    def __init__(self, N=256, z_channel=128, enc_dec_ch=G_CH_ENC_DEC,
+                 device="cuda", lanes=4096, bytes_per_symbol=0.5):
+        self.device = C.resolve_device(device)
+        self.N = N
+        self.z_channel = z_channel
+        self.enc_dec_ch = enc_dec_ch
+        self.lanes = lanes
+        self.bytes_per_symbol = bytes_per_symbol
+        self.params = None
+        self.bit_estimator_z = BitEstimator(C.QP_NUM, z_channel)
+        self.gaussian_encoder = GaussianEncoder()
+        self.force_zero_thres = None
+        self.table = None
+        self.n_y_rows = 0
+        # learned launch staging rate per (H, W) (see DMC._ec_learned)
+        self._ec_learned = {}
+        self._ec_rerun_count = 0
+
+    # -- setup ---------------------------------------------------------------
+
+    def init_params(self, seed=0):
+        gen = torch.Generator().manual_seed(seed)
+        self.params = to_device(
+            dmci_init(gen, self.N, self.z_channel,
+                      enc_dec_ch=self.enc_dec_ch), self.device)
+        return self.params
+
+    def load_params(self, params):
+        self.params = to_device(params, self.device)
+
+    def update(self, force_zero_thres=None):
+        """Build the CDF tables (y scale rows, then z rows by qp, channel)."""
+        self.force_zero_thres = force_zero_thres
+        y_rows = full_range_cdf_rows(*self.gaussian_encoder.update())
+        z_rows = full_range_cdf_rows(
+            *self.bit_estimator_z.update(self.params["bit_estimator_z"]))
+        self.n_y_rows = y_rows.shape[0]
+        self.table = torch.from_numpy(
+            np.concatenate([y_rows, z_rows])).to(self.device)
+
+    # -- compress ------------------------------------------------------------
+
+    def _plan(self, H, W):
+        """Lane count (scaled to the symbol count), symbol slots and steps
+        per lane for a frame size."""
+        y_h, y_w = C.get_downsampled_shape(H, W, 16)
+        zh, zw = C.get_downsampled_shape(H, W, 64)
+        n_y = y_h * y_w * self.N // 4
+        n_z = zh * zw * self.z_channel
+        lanes = effective_lanes(self.lanes, 4 * n_y + n_z)
+        k_total = 4 * -(-n_y // lanes) + -(-n_z // lanes)
+        return lanes, lanes * k_total, k_total
+
+    @staticmethod
+    def _rung(lanes, k_total, bps):
+        """(mw, cap) of the staging ladder at `bps` bytes per symbol; the
+        top rung (bps 3.0) takes the whole rectangle."""
+        mw = max(8, int(k_total * bps / 2)) + 4
+        return mw, lanes * mw if bps >= 3.0 else max(4096, lanes * mw // 2)
+
+    def compress(self, x, qp):
+        """x: (1, H, W, 3) NHWC in [0, 1], H and W multiples of 16.
+        Returns {"bit_stream": bytes, "x_hat": NHWC tensor}."""
+        x = C.frame_to_nchw(x, self.device)
+        H, W = x.shape[2], x.shape[3]
+        bps = max(self.bytes_per_symbol, self._ec_learned.get((H, W), 0.0))
+        lanes, n_total, k_total = self._plan(H, W)
+        plan = functools.partial(self._rung, lanes, k_total)
+        x_hat, packed = _compress_frame_i(self.params, x, qp, lanes,
+                                          self.n_y_rows,
+                                          self.force_zero_thres)
+
+        def run(mw, cap):
+            return _encode_staging(packed, self.table, self.n_y_rows, qp,
+                                   self.z_channel, mw, cap)
+
+        stream, g_bps, reruns = settle_staging(
+            run(*plan(bps)), lanes, n_total, k_total, plan, bps,
+            self.bytes_per_symbol, run)
+        self._ec_rerun_count += reruns
+        if g_bps > bps:
+            self._ec_learned[(H, W)] = g_bps
+        return {"bit_stream": stream, "x_hat": C.frame_to_nhwc(x_hat)}
+
+    # -- decompress ----------------------------------------------------------
+
+    def decompress(self, bit_stream, sps, qp):
+        """Returns {"x_hat": NHWC (1, H, W, 3)}."""
+        meta, staging, _ = parse_frame(bit_stream)
+        staging = torch.from_numpy(staging.astype(np.int32)).to(self.device)
+        zh, zw = C.get_downsampled_shape(sps["height"], sps["width"], 64)
+        y_h, y_w = C.get_downsampled_shape(sps["height"], sps["width"], 16)
+        x_hat = _decompress_frame_i(
+            self.params, staging, qp, self.table, self.n_y_rows, zh, zw,
+            y_h, y_w, self.z_channel, meta["L"], meta["cap"], meta["MW"],
+            self.force_zero_thres)
+        return {"x_hat": C.frame_to_nhwc(x_hat)}

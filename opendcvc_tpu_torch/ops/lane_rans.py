@@ -1,0 +1,199 @@
+"""Lane rANS scans: kernels K1 (encode) and K2 (decode) and their plain
+PyTorch versions.
+
+K1 replaces the JAX package's `ops/pallas_rans.py::_enc_kernel`
+(`encode_scan_pallas_packed`), K2 replaces `_dec_kernel`
+(`decode_scan_pallas`).  Both are bit for bit the XLA scans of the JAX
+package (`entropy/device_rans.py` `_encode_scan_carry`,
+`_decode_scan_carry`); the CUDA sources are `csrc/lane_rans.cu` with the
+per-lane arithmetic in `csrc/lane_rans_step.cuh`, whose notes say what
+bounds them and how they are laid out.
+
+A wrapper runs the plain version for tensors on the CPU and launches its
+kernel for tensors on a CUDA device (raising if the launch fails); each
+wrapper counts its kernel launches in its `launches` attribute.  The plain
+versions loop over steps with vectorised lane ops in int64, because
+PyTorch's uint32 lacks most arithmetic.
+"""
+
+import torch
+
+from ..entropy.device_rans import SKIP_ROW
+
+#: the packed encode operand is (sym + 128) << ENC_ROW_BITS | row; rows
+#: take 9 bits because a combined per-frame table reaches 256 rows, where
+#: the 8-bit SKIP_ROW would collide with a real row id
+ENC_ROW_BITS = 9
+ENC_ROW_MASK = (1 << ENC_ROW_BITS) - 1
+ENC_SKIP = ENC_ROW_MASK
+
+
+def pack_operand(sym, rows):
+    """(sym in [-128, 127], local rows or ENC_SKIP) -> packed int32."""
+    return ((sym.to(torch.int32) + 128) << ENC_ROW_BITS) \
+        | rows.to(torch.int32)
+
+
+def _check(name, t, dtype, ndim, device):
+    if t.dtype != dtype or t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim}-d {dtype}, got "
+                         f"{t.dim()}-d {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_table(table, device, max_rows):
+    _check("table", table, torch.int32, 2, device)
+    if table.shape[1] != 257 or not 0 < table.shape[0] <= max_rows:
+        raise ValueError(f"table must be (1..{max_rows}, 257), got "
+                         f"{tuple(table.shape)}")
+
+
+def _lib():
+    from . import _build
+    return _build.load_kernels()["lane_rans"]
+
+
+# ---------------------------------------------------------------------------
+# K1: encode
+# ---------------------------------------------------------------------------
+
+def encode_scan(packed, table, mw):
+    """Encode L lanes over K steps from a fresh carry.
+
+    packed: (K, L) int32 step-major, (sym + 128) << 9 | row, encode order
+    (each lane's last symbol first); row == ENC_SKIP is a zero-rate
+    passthrough.  table: (nr, 257) int32 cumulative rows, nr <= 511.
+    mw: staging width.  Returns (staging (L, mw) int32 u16 words in emit
+    order, zero past each lane's last word; lens (L,) int32, counting
+    words past mw too; states (L,) int64 u32 values)."""
+    dev = packed.device
+    _check("packed", packed, torch.int32, 2, dev)
+    _check_table(table, dev, ENC_SKIP)
+    if mw < 1:
+        raise ValueError("mw must be positive")
+    if dev.type == "cpu":
+        return encode_scan_plain(packed, table, mw)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    K, L = packed.shape
+    staging = torch.empty((L, mw), dtype=torch.int32, device=dev)
+    lens = torch.empty((L,), dtype=torch.int32, device=dev)
+    states = torch.empty((L,), dtype=torch.int64, device=dev)
+    err = _lib().lr_encode_launch(
+        packed.data_ptr(), table.data_ptr(), staging.data_ptr(),
+        lens.data_ptr(), states.data_ptr(), K, L, table.shape[0], mw,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"lane rANS encode launch failed: cudaError {err}")
+    encode_scan.launches += 1
+    return staging, lens, states
+
+
+encode_scan.launches = 0
+
+
+def encode_scan_plain(packed, table, mw):
+    """Plain PyTorch version of encode_scan (same contract)."""
+    from ..entropy.device_rans import encode_carry_init
+    K, L = packed.shape
+    dev = packed.device
+    tab = table.to(torch.int64)
+    nr = tab.shape[0]
+    state, cur, buf = encode_carry_init(L, mw, dev)
+    lane = torch.arange(L, device=dev)
+    for k in range(K):
+        pk = packed[k].to(torch.int64)
+        row = pk & ENC_ROW_MASK
+        skip = row == ENC_SKIP
+        row = row.clamp(max=nr - 1)
+        sym = (pk >> ENC_ROW_BITS) & 255
+        start = tab[row, sym]
+        freq = (tab[row, sym + 1] - start).clamp(min=1)
+        emit = (state >= (freq << 16)) & ~skip
+        word = (state & 0xFFFF).to(torch.int32)
+        # words past mw are dropped; the cursor still counts them
+        at = cur.clamp(max=mw - 1)
+        buf[lane, at] = torch.where(emit & (cur < mw), word, buf[lane, at])
+        state1 = torch.where(emit, state >> 16, state)
+        cur = cur + emit.to(torch.int64)
+        state2 = ((state1 // freq) << 16) + state1 % freq + start
+        state = torch.where(skip, state, state2)
+    return buf, cur.to(torch.int32), state
+
+
+# ---------------------------------------------------------------------------
+# K2: decode
+# ---------------------------------------------------------------------------
+
+def decode_scan(data, rows, table, state, ptr):
+    """Decode L lanes over K steps, continuing the carry (state, ptr).
+
+    data: (L, MW) int32 u16 words in decode order; rows: (K, L) int32
+    local row ids in decode order, SKIP_ROW (255) decodes 0 at zero rate;
+    table: (nr, 257) int32, nr < 255; state: (L,) int64 u32 values; ptr:
+    (L,) int32.  Returns (symbols (K, L) int32 in [-128, 127], state,
+    ptr)."""
+    dev = data.device
+    _check("data", data, torch.int32, 2, dev)
+    _check("rows", rows, torch.int32, 2, dev)
+    _check_table(table, dev, SKIP_ROW - 1)
+    _check("state", state, torch.int64, 1, dev)
+    _check("ptr", ptr, torch.int32, 1, dev)
+    L, MW = data.shape
+    K = rows.shape[0]
+    if rows.shape[1] != L or state.shape[0] != L or ptr.shape[0] != L:
+        raise ValueError("data, rows, state and ptr disagree on the lane "
+                         "count")
+    if dev.type == "cpu":
+        return decode_scan_plain(data, rows, table, state, ptr)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    syms = torch.empty((K, L), dtype=torch.int32, device=dev)
+    state_out = torch.empty((L,), dtype=torch.int64, device=dev)
+    ptr_out = torch.empty((L,), dtype=torch.int32, device=dev)
+    err = _lib().lr_decode_launch(
+        data.data_ptr(), rows.data_ptr(), table.data_ptr(),
+        state.data_ptr(), ptr.data_ptr(), syms.data_ptr(),
+        state_out.data_ptr(), ptr_out.data_ptr(), K, L, table.shape[0], MW,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"lane rANS decode launch failed: cudaError {err}")
+    decode_scan.launches += 1
+    return syms, state_out, ptr_out
+
+
+decode_scan.launches = 0
+
+
+def decode_scan_plain(data, rows, table, state, ptr):
+    """Plain PyTorch version of decode_scan (same contract)."""
+    L, MW = data.shape
+    K = rows.shape[0]
+    dev = data.device
+    tab = table.to(torch.int64)
+    nr = tab.shape[0]
+    words = torch.cat([data.to(torch.int64),
+                       torch.zeros((L, 1), dtype=torch.int64, device=dev)],
+                      dim=1)
+    lane = torch.arange(L, device=dev)
+    state = state.to(torch.int64)
+    ptr = ptr.to(torch.int64)
+    out = torch.empty((K, L), dtype=torch.int32, device=dev)
+    for k in range(K):
+        r = rows[k].to(torch.int64)
+        skip = r == SKIP_ROW
+        cum = tab[r.clamp(max=nr - 1)]                       # (L, 257)
+        f = state & 0xFFFF
+        sym = (cum[:, 1:] <= f[:, None]).sum(dim=1)          # last bin <= f
+        start = cum[lane, sym]
+        freq = cum[lane, sym + 1] - start
+        state1 = torch.where(skip, state, freq * (state >> 16) + f - start)
+        need = state1 < (1 << 16)
+        at = torch.where((ptr >= 0) & (ptr < MW), ptr, MW)   # past end -> 0
+        state = torch.where(need, (state1 << 16) | words[lane, at], state1)
+        ptr = ptr + need.to(torch.int64)
+        out[k] = torch.where(skip, 0, sym - 128).to(torch.int32)
+    return out, state, ptr.to(torch.int32)
