@@ -6,9 +6,19 @@
 Phases (any failure exits nonzero and prints no result):
   1. build the CUDA kernels from opendcvc_tpu_torch/csrc (nvcc, sm_90a);
   2. hold K1 (lane rANS encode) and K2 (decode) against their plain
-     PyTorch versions at the main path's shapes (4096 lanes, 272 steps,
-     a 256-row combined table, ~30 % skip slots), bit for bit, and time
-     both (median of 20 launches);
+     PyTorch versions, bit for bit: K1 at 4096 lanes, 272 steps, a
+     256-row combined table, ~30 % skip slots; K2 on one 272-step launch
+     over a 128-row table, then at the main path's own launch shapes, a
+     DMC frame's z (16 steps, the port's 128-row z table), y0 and y1
+     (128 steps, its 128-row y table; symbols drawn from each row) and a
+     DMCI frame's z and four y quarters, with the (state, ptr) carry
+     handed from launch to launch, and on arbitrary words at the
+     contract's edges (a partial warp, clamped rows, pointers past either
+     end).  Every launch is timed as the median of 20 launches with CUDA
+     events around the wrapper call (`ms`, the host's call time
+     included) and again queued behind a sleep so the events time the
+     device alone (`device_ms`); K2's per-frame totals are the sums of
+     the timed launches of each frame;
   3. DMCI at 1080p full width (N = 256, z 128), f32, force_zero_thres
      0.12, flat q banks: one I-frame compress + decompress, the decoded
      frame equal to the encoder's;
@@ -39,6 +49,7 @@ L_MAIN, K_MAIN = 4096, 272
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 SCALAR_OPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
 REPS = 20
+SLEEP_CYCLES = 1_000_000    # ~0.5 ms: covers one wrapper call's host time
 
 
 def _fail(msg):
@@ -55,13 +66,18 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def _median_ms(fn, dev, reps=REPS):
-    """Median over `reps` calls; CUDA events around each call."""
+def median_ms(fn, dev, reps=REPS, queued=False):
+    """Median over `reps` calls; CUDA events around each call, so they
+    take the host time of the call as well.  queued: a sleep kernel ahead
+    of the first event keeps the card busy while the host runs the call,
+    so the events time the device's work alone."""
     times = []
     for _ in range(reps):
         if dev.type == "cuda":
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
+            if queued:
+                torch.cuda._sleep(SLEEP_CYCLES)
             a.record()
             fn()
             b.record()
@@ -123,60 +139,193 @@ def phase_kernels(dev, L, K):
     enc_err = _max_abs_err(got, ref)
     if enc_err:
         _fail(f"K1 differs from its plain version (max |err| {enc_err})")
-    enc_ms = _median_ms(lambda: LR.encode_scan(packed, table, mw), dev)
-    enc_plain_ms = _median_ms(
+    enc_ms = median_ms(lambda: LR.encode_scan(packed, table, mw), dev)
+    enc_dev_ms = median_ms(lambda: LR.encode_scan(packed, table, mw), dev,
+                           queued=True)
+    enc_plain_ms = median_ms(
         lambda: LR.encode_scan_plain(packed, table, mw), dev)
     n_coded = int((~torch.from_numpy(skip)).sum())
     enc_bytes = (packed.numel() * 4 + table.numel() * 4 + L * mw * 4
                  + L * 4 + L * 8)
     enc_bound, enc_by = _bound_ms(enc_bytes, 8 * n_coded)
 
-    # K2 on a valid stream: encode against the y rows with room for every
-    # word, then decode one K-step launch and check the round trip
-    t_y = table[:n_y_rows].contiguous()
-    rows_y = np.where(skip, LR.ENC_SKIP, rng.integers(0, n_y_rows, (K, L)))
-    packed_y = LR.pack_operand(torch.from_numpy(sym),
-                               torch.from_numpy(rows_y)).to(dev)
-    buf, lens, states = LR.encode_scan(packed_y, t_y, K)
-    ln = lens.cpu().numpy()
-    if int(ln.max()) > K:
+    k2 = phase_k2(dev, LR, rng, table, n_y_rows, sym, skip, L, K)
+    _log(f"phase 2: K1 {enc_ms:.4f} ms, device {enc_dev_ms:.4f} ms (plain "
+         f"{enc_plain_ms:.3f} ms) at "
+         f"L={L} K={K}, {n_coded} coded symbols; bit-exact")
+    return [
+        {"name": "lane_rans_encode (K1)", "route": "cuda",
+         "source": "opendcvc_tpu_torch/csrc/lane_rans.cu",
+         "replaces": "opendcvc_tpu/ops/pallas_rans.py:98",
+         "max_abs_err": enc_err, "ms": enc_ms, "device_ms": enc_dev_ms,
+         "plain_ms": enc_plain_ms,
+         "bound_ms": enc_bound, "bound_by": enc_by, "library_ms": None},
+        k2,
+    ]
+
+
+def _k1_stream(dev, LR, rows, sym, skip, t_enc):
+    """K1 over decode-order (K, L) row ids of t_enc and symbols, skip
+    slots at zero rate; returns the words in decode order (with room for
+    every word) and the final states."""
+    K, L = rows.shape
+    rows_enc = np.where(skip, LR.ENC_SKIP, rows)
+    sym = np.where(skip, 0, sym)
+    packed = LR.pack_operand(torch.from_numpy(sym[::-1].copy()),
+                             torch.from_numpy(rows_enc[::-1].copy())).to(dev)
+    buf, lens, states = LR.encode_scan(packed, t_enc, K)
+    if int(lens.max()) > K:
         _fail("K1 full-rectangle staging overflowed")
     col = torch.arange(K, device=dev)[None, :]
     idx = (lens.to(torch.int64)[:, None] - 1 - col).clamp(min=0)
     data = torch.where(col < lens[:, None], torch.gather(buf, 1, idx), 0) \
         .to(torch.int32).contiguous()
-    rows_dec = torch.from_numpy(
-        np.where(skip, 255, rows_y)[::-1].copy()).to(torch.int32).to(dev)
-    ptr0 = torch.zeros((L,), dtype=torch.int32, device=dev)
-    got = LR.decode_scan(data, rows_dec, t_y, states, ptr0)
-    ref = LR.decode_scan_plain(data, rows_dec, t_y, states, ptr0)
-    dec_err = _max_abs_err(got, ref)
-    if dec_err:
-        _fail(f"K2 differs from its plain version (max |err| {dec_err})")
-    want = torch.from_numpy(np.where(skip, 0, sym)[::-1].copy()).to(dev)
-    if not torch.equal(got[0].to(torch.int64), want):
-        _fail("K2 did not decode what K1 encoded")
-    dec_ms = _median_ms(
-        lambda: LR.decode_scan(data, rows_dec, t_y, states, ptr0), dev)
-    dec_plain_ms = _median_ms(
-        lambda: LR.decode_scan_plain(data, rows_dec, t_y, states, ptr0), dev)
-    dec_bytes = (data.numel() * 4 + rows_dec.numel() * 4 + t_y.numel() * 4
-                 + L * 12 + K * L * 4 + L * 12)
-    dec_bound, dec_by = _bound_ms(dec_bytes, 14 * n_coded)
-    _log(f"phase 2: K1 {enc_ms:.4f} ms (plain {enc_plain_ms:.3f} ms), "
-         f"K2 {dec_ms:.4f} ms (plain {dec_plain_ms:.3f} ms) at L={L} K={K}, "
-         f"{n_coded} coded symbols; bit-exact")
-    src = "opendcvc_tpu_torch/csrc/lane_rans.cu"
-    return [
-        {"name": "lane_rans_encode (K1)", "route": "cuda", "source": src,
-         "replaces": "opendcvc_tpu/ops/pallas_rans.py:98",
-         "max_abs_err": enc_err, "ms": enc_ms, "plain_ms": enc_plain_ms,
-         "bound_ms": enc_bound, "bound_by": enc_by, "library_ms": None},
-        {"name": "lane_rans_decode (K2)", "route": "cuda", "source": src,
-         "replaces": "opendcvc_tpu/ops/pallas_rans.py:267",
-         "max_abs_err": dec_err, "ms": dec_ms, "plain_ms": dec_plain_ms,
-         "bound_ms": dec_bound, "bound_by": dec_by, "library_ms": None},
-    ]
+    return data, states
+
+
+def _k2_bound(rows, dec_table, ptr_in, ptr_out):
+    """Bytes: rows and symbols, the compact table once, the words this
+    run consumed, the carry in and out; operations: ~14 a coded step."""
+    n_words = int((ptr_out.to(torch.int64) - ptr_in.to(torch.int64)).sum())
+    n_coded = int((rows != 255).sum())
+    L = rows.shape[1]
+    n_bytes = (2 * rows.numel() * 4 + dec_table.numel() * 4 + n_words * 4
+               + 2 * L * 12)
+    return _bound_ms(n_bytes, 14 * n_coded)
+
+
+def _model_tables():
+    """The port's own y rows (GaussianEncoder) and one qp's z rows
+    (BitEstimator, seeded init): (128, 257) int32 each."""
+    from opendcvc_tpu_torch.entropy import models as M
+    from opendcvc_tpu_torch.entropy.device_rans import full_range_cdf_rows
+    be = M.bit_estimator_init(torch.Generator().manual_seed(1), 1, 128)
+    return (full_range_cdf_rows(*M.GaussianEncoder().update()),
+            full_range_cdf_rows(*M.BitEstimator(1, 128).update(be)))
+
+
+def _draw(rng, cum, ids):
+    """A symbol for every slot, drawn from the distribution of its row."""
+    u = rng.integers(0, 65536, ids.shape)
+    sym = np.empty(ids.shape, np.int64)
+    for r in np.unique(ids):
+        at = ids == r
+        sym[at] = np.searchsorted(cum[r], u[at], side="right") - 129
+    return sym
+
+
+def phase_k2(dev, LR, rng, table, n_y_rows, sym, skip, L, K):
+    """K2 vs its plain version, bit for bit: one K-step launch over a
+    128-row random table (uniform symbols), then a DMC frame's three and
+    a DMCI frame's five carried launches at the main path's shapes over
+    the port's own y and z tables, symbols drawn from each row; times
+    every launch.  Returns K2's kernel record."""
+    t_y = table[:n_y_rows].contiguous()
+    d_y = LR.prepare_decode_table(t_y)
+    errs, shapes = [], []
+
+    def check(args, want, what):
+        got = LR.decode_scan(*args)
+        ref = LR.decode_scan_plain(*args)
+        errs.append(_max_abs_err(got, ref))
+        if errs[-1]:
+            _fail(f"K2 differs from its plain version at {what} "
+                  f"(max |err| {errs[-1]})")
+        if not torch.equal(got[0].to(torch.int64), want):
+            _fail(f"K2 did not decode what K1 encoded at {what}")
+        return got
+
+    def timed(args, got, what):
+        ms = median_ms(lambda: LR.decode_scan(*args), dev)
+        dev_ms = median_ms(lambda: LR.decode_scan(*args), dev, queued=True)
+        plain = median_ms(lambda: LR.decode_scan_plain(*args), dev)
+        bound, by = _k2_bound(args[1], args[2], args[4], got[2])
+        shapes.append({"steps": args[1].shape[0], "launch": what, "ms": ms,
+                       "device_ms": dev_ms, "plain_ms": plain,
+                       "bound_ms": bound, "bound_by": by})
+        return shapes[-1]
+
+    def dec_rows(ids, skip_mask):
+        return torch.from_numpy(np.where(skip_mask, 255, ids)) \
+            .to(torch.int32).to(dev)
+
+    # one K-step launch over the y rows (random rows, uniform symbols)
+    ids = rng.integers(0, n_y_rows, (K, L))
+    data, states = _k1_stream(dev, LR, ids, sym, skip, t_y)
+    args = (data, dec_rows(ids, skip), d_y, states,
+            torch.zeros((L,), dtype=torch.int32, device=dev))
+    got = check(args, torch.from_numpy(sym).to(dev), f"K={K}")
+    head = timed(args, got, "one launch")
+
+    # a frame: z (16 steps, never skipped), then n_y launches of 128 y
+    # steps (DMC: two halves, DMCI: four quarters), coded by one K1 launch
+    # against the combined [y | z] table and decoded with the carry
+    k_z, k_y = 16, 128
+    cum_y, cum_z = _model_tables()
+    t_frame = torch.from_numpy(np.concatenate([cum_y, cum_z])).to(dev)
+    d_fy, d_fz = (LR.prepare_decode_table(t_frame[a:a + len(cum_y)])
+                  for a in (0, len(cum_y)))
+    frame = {}
+    for codec, n_y in (("DMC", 2), ("DMCI", 4)):
+        ids = rng.integers(0, len(cum_y), (k_z + n_y * k_y, L))
+        skip_f = rng.random(ids.shape) < 0.3
+        skip_f[:k_z] = False
+        sym_f = np.concatenate([_draw(rng, cum_z, ids[:k_z]),
+                                _draw(rng, cum_y, ids[k_z:])])
+        sym_f = np.where(skip_f, 0, sym_f)
+        comb = ids.copy()
+        comb[:k_z] += len(cum_y)
+        data, states = _k1_stream(dev, LR, comb, sym_f, skip_f, t_frame)
+        carry = (states, torch.zeros((L,), dtype=torch.int32, device=dev))
+        segs = [("z", 0, k_z, d_fz)] + [
+            (f"y{i}", k_z + i * k_y, k_z + (i + 1) * k_y, d_fy)
+            for i in range(n_y)]
+        frame[codec] = {"ms": 0.0, "device_ms": 0.0}
+        for what, a, b, dt in segs:
+            args = (data, dec_rows(ids[a:b], skip_f[a:b]), dt) + carry
+            got = check(args, torch.from_numpy(sym_f[a:b]).to(dev),
+                        f"{codec} {what} (K={b - a})")
+            rec = timed(args, got, f"{codec} {what}")
+            for key in frame[codec]:
+                frame[codec][key] += rec[key]
+            carry = got[1:]
+    # the contract's edges on arbitrary words: 100 lanes (a partial warp),
+    # a 24-row table, row ids past it, skips, pointers past either end
+    lanes, k_e, nr_e, mw_e = 100, 40, 24, 20
+    rows_e = rng.integers(0, nr_e + 8, (k_e, lanes))
+    rows_e[rng.random(rows_e.shape) < 0.2] = 255
+    arrays = (rng.integers(0, 1 << 16, (lanes, mw_e)).astype(np.int32),
+              rows_e.astype(np.int32),
+              rng.integers(1 << 16, 1 << 32, lanes),
+              rng.integers(-3, mw_e + 3, lanes).astype(np.int32))
+    data_e, rows_e, state_e, ptr_e = (torch.from_numpy(a).to(dev)
+                                      for a in arrays)
+    d_e = LR.prepare_decode_table(
+        torch.from_numpy(random_tables(rng, nr_e)).to(dev))
+    args = (data_e, rows_e, d_e, state_e, ptr_e)
+    errs.append(_max_abs_err(LR.decode_scan(*args),
+                             LR.decode_scan_plain(*args)))
+    if errs[-1]:
+        _fail(f"K2 differs from its plain version at the contract's edges "
+              f"(max |err| {errs[-1]})")
+
+    for s in shapes:
+        _log(f"phase 2: K2 {s['launch']} K={s['steps']}: {s['ms']:.4f} ms, "
+             f"device {s['device_ms']:.4f} ms (plain {s['plain_ms']:.3f} ms, "
+             f"bound {s['bound_ms']:.5f} ms by {s['bound_by']})")
+    for codec, t in frame.items():
+        _log(f"phase 2: K2 per {codec} frame (sum of its timed launches): "
+             f"{t['ms']:.4f} ms, device {t['device_ms']:.4f} ms")
+    _log(f"phase 2: K2 {len(d_y)}-row tables, {d_y.numel() * 4} B of "
+         f"shared memory a block; bit-exact, carry exact across each "
+         f"frame's launches, and at the contract's edges")
+    return {"name": "lane_rans_decode (K2)", "route": "cuda",
+            "source": "opendcvc_tpu_torch/csrc/lane_rans.cu",
+            "replaces": "opendcvc_tpu/ops/pallas_rans.py:267",
+            "max_abs_err": max(errs), "ms": head["ms"],
+            "device_ms": head["device_ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": None, "shapes": shapes, "frame_ms": frame}
 
 
 def synthetic_frames(height, width, n):

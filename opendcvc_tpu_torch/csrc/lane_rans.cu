@@ -6,24 +6,45 @@
 //   K2 _dec_kernel (decode_scan_pallas), same file
 // with the contract of the XLA scans they mirror (see lane_rans_step.cuh).
 //
-// Design: one thread per lane, the u32 state and the cursor/pointer in
+// Both run one thread per lane, the u32 state and the cursor/pointer in
 // registers, a loop over the K steps inside the thread.  The operands are
 // step-major (K, L), so the 32 lanes of a warp read 32 neighbouring words
 // per step.  The Pallas kernels' one-hot matmul row lookup and 8-bit limb
 // division exist only because the TPU lacks a gather and a u32 divide;
-// here a lane reads its two cumulative bins directly (K1) or
-// binary-searches its row (K2), and divides in u32.
+// here a lane reads its two cumulative bins directly (K1) or searches a
+// compact row in shared memory (K2), and divides in u32.
 //
-// Tables: the int32 (nr, 257) rows are read through L1/L2, not staged in
-// shared memory.  K1's combined table (256 rows, 263 KB) would not fit a
-// block's 227 KB as int32; it fits L2 (50 MB) many times over, and each
-// step touches only two bins of one row per lane.
+// Neither is bound by bytes (a few MB a launch) but by the per-lane chain
+// of K dependent steps: with one chain a thread and 4096 lanes, a step's
+// latency is the kernel's time.
 //
-// Bound on this card: the per-lane chain of K dependent steps (a u32
-// divide and two table reads per step), not memory: the bytes the scans
-// must move are a few MB.  At 4096 lanes, 128 threads a block gives 32
-// blocks on 132 SMs; filling the card (more lanes, or several threads a
-// lane) is left for a later change.
+// K1 reads its int32 (nr, 257) rows through L1/L2: the combined table (256
+// rows, 263 KB) does not fit a block's 227 KB as int32.  128 threads a
+// block give 32 blocks on 132 SMs.
+//
+// K2 keeps every memory load off the chain from one step's state to the
+// next, and the step free of branches but for the rare long search:
+//   * the slice's compact table (784 B a row, 98 KB for 128 rows) is
+//     copied into shared memory once a block by one bulk copy (TMA,
+//     cp.async.bulk) that completes on an mbarrier, while the lanes load
+//     their carry, first row ids and first refill words;
+//   * the symbol search reads only shared memory (lr_find_sym_compact:
+//     a bucket index, then the bucket's few u16 bins at once);
+//   * row ids and refill words reach each lane through two rings in
+//     shared memory, filled by cp.async kRing steps (rows) or kRing words
+//     (words) ahead; every step issues one copy to each ring, commits one
+//     group and moves the next row id and refill word into registers, so
+//     the chain finds them there.  Rings, and not registers loaded from
+//     global memory, because the scoreboard is per warp: a register that
+//     a load fills a step ahead stalls the warp wherever it is read or
+//     moved before the load lands;
+//   * a skipped slot is a select, not a branch; symbols are stored and
+//     never read back.
+// One warp a block, so 4096 lanes make 128 blocks on 132 SMs.  What bounds
+// K2 then is the issue of one step's instructions (about a hundred) by a
+// warp that has its scheduler to itself, with nothing to fill the stalls:
+// on an H100 a step takes ~0.15 us whether its slot is coded or skipped
+// (tools/probe_k2.py).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -31,7 +52,10 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;     // K1
+constexpr int kDecThreads = 32;   // K2: one warp a block
+constexpr int kRing = 16;         // K2: row ids and words in flight
+constexpr int kMaxDecRows = LR_DEC_SKIP - 1;
 
 __global__ void lr_encode_kernel(int K, int L, int nr, int mw,
                                  const int32_t* __restrict__ packed,
@@ -44,19 +68,161 @@ __global__ void lr_encode_kernel(int K, int L, int nr, int mw,
     lr_encode_lane(lane, K, L, nr, mw, packed, table, staging, lens, states);
 }
 
-__global__ void lr_decode_kernel(int K, int L, int nr, int mw,
-                                 const int32_t* __restrict__ data,
-                                 const int32_t* __restrict__ rows,
-                                 const int32_t* __restrict__ table,
-                                 const int64_t* __restrict__ state_in,
-                                 const int32_t* __restrict__ ptr_in,
-                                 int32_t* __restrict__ syms,
-                                 int64_t* __restrict__ state_out,
-                                 int32_t* __restrict__ ptr_out) {
-  int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < L)
-    lr_decode_lane(lane, K, L, nr, mw, data, rows, table, state_in, ptr_in,
-                   syms, state_out, ptr_out);
+__device__ inline uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ inline void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also expects `bytes` of asynchronous copy.
+__device__ inline void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Spins until the phase completes; traps (a launch error, not a hang) if a
+// copy never lands.
+__device__ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  for (uint32_t polls = 0;; ++polls) {
+    if (polls == (1u << 26)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+  }
+}
+
+// Bulk copy global -> shared on the TMA unit (16-byte aligned ends, size a
+// multiple of 16), completing `bytes` on `bar`.
+__device__ inline void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                 uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// 4-byte cp.async; src_bytes 0 stores a zero word and reads nothing (src
+// may then point anywhere).
+__device__ inline void copy4_async(void* dst, const int32_t* src,
+                                   uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ inline void async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ inline void async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__global__ void __launch_bounds__(kDecThreads)
+    lr_decode_kernel(int K, int L, int nr, int mw,
+                     const int32_t* __restrict__ data,
+                     const int32_t* __restrict__ rows,
+                     const int32_t* __restrict__ dtab,
+                     const int64_t* __restrict__ state_in,
+                     const int32_t* __restrict__ ptr_in,
+                     int32_t* __restrict__ syms,
+                     int64_t* __restrict__ state_out,
+                     int32_t* __restrict__ ptr_out) {
+  extern __shared__ __align__(128) uint8_t tab[];  // nr compact rows
+  // row id of step k at row_ring[k % kRing], word q at word_ring[q % kRing];
+  // word_ring[kRing] takes the empty copy of a lane that did not refill
+  __shared__ int32_t row_ring[kRing][kDecThreads];
+  __shared__ uint32_t word_ring[kRing + 1][kDecThreads];
+  __shared__ __align__(8) uint64_t tab_full;
+  const int t = threadIdx.x;
+  const int lane = blockIdx.x * kDecThreads + t;
+  const bool live = lane < L;
+  const int src = live ? lane : L - 1;  // a dead lane shadows the last one
+
+  if (t == 0) mbar_init(&tab_full, 1);
+  __syncthreads();
+  if (t == 0) {
+    uint32_t bytes = (uint32_t)nr * LR_DEC_ROW_BYTES;
+    mbar_arrive_expect_tx(&tab_full, bytes);
+    bulk_load(tab, dtab, bytes, &tab_full);
+  }
+
+  // while the table lands: the carry, the first row ids, the first words
+  uint32_t state = (uint32_t)state_in[src];
+  int32_t ptr = ptr_in[src];
+  const int32_t* words = data + (int64_t)src * mw;
+  const int32_t* row_next = rows + src;  // row id of step k + kRing
+  int32_t* sym_out = syms + lane;
+  for (int k = 0; k < kRing; ++k, row_next += L)
+    copy4_async(&row_ring[k][t], k < K ? row_next : rows, k < K ? 4u : 0u);
+  for (int j = 0; j < kRing; ++j) {
+    // a word past either end of the lane's row reads as 0
+    int32_t q = ptr + j;
+    bool ok = q >= 0 && q < mw;
+    copy4_async(&word_ring[q & (kRing - 1)][t], ok ? words + q : words,
+                ok ? 4u : 0u);
+  }
+  async_commit();
+  async_wait<0>();
+  int row = row_ring[0][t];
+  mbar_wait(&tab_full, 0);
+
+  // Ring invariant: row ids of steps [k, k + kRing) and words [ptr, ptr +
+  // kRing) are requested.  Step k requests row k + kRing into row k's slot
+  // and, if it refills, word ptr + kRing into word ptr's slot, and commits
+  // one group.  A step consumes one row and at most one word, so at the
+  // top of step k the next row was requested by step k + 1 - kRing and
+  // the current word by step k - kRing or earlier: waiting for all but
+  // the newest kRing - 2 groups finds both landed, and reading them there
+  // keeps both reads off the state chain.
+  auto step = [&](int k, bool more) {
+    async_wait<kRing - 2>();
+    const int next_row = row_ring[(k + 1) & (kRing - 1)][t];
+    const uint32_t word = word_ring[ptr & (kRing - 1)][t];
+    if (more) copy4_async(&row_ring[k & (kRing - 1)][t], row_next, 4u);
+
+    const int32_t p = ptr;
+    const int sym = lr_dec_lane_step(tab, nr, row, word, &state, &ptr);
+    const bool refill = ptr != p;
+
+    const int32_t q = p + kRing;  // a word past either end reads as 0
+    const bool fetch = refill && (uint32_t)q < (uint32_t)mw;
+    copy4_async(&word_ring[refill ? p & (kRing - 1) : kRing][t], words + q,
+                fetch ? 4u : 0u);
+    async_commit();
+    if (live) *sym_out = sym;
+    row = next_row;
+    row_next += L;
+    sym_out += L;
+  };
+  int k = 0;
+  for (; k < K - kRing; ++k) step(k, true);
+  for (; k < K; ++k) step(k, false);
+  if (live) {
+    state_out[lane] = (int64_t)state;
+    ptr_out[lane] = ptr;
+  }
+  async_wait<0>();  // the rings' last copies land before the block ends
 }
 
 }  // namespace
@@ -72,15 +238,31 @@ extern "C" int lr_encode_launch(const void* packed, const void* table,
   return (int)cudaGetLastError();
 }
 
+// dtab: nr compact rows (16-byte aligned), 1 <= nr <= kMaxDecRows.
 extern "C" int lr_decode_launch(const void* data, const void* rows,
-                                const void* table, const void* state_in,
+                                const void* dtab, const void* state_in,
                                 const void* ptr_in, void* syms,
                                 void* state_out, void* ptr_out, int K,
                                 int L, int nr, int mw, void* stream) {
-  int blocks = (L + kThreads - 1) / kThreads;
-  lr_decode_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  if (nr < 1 || nr > kMaxDecRows) return (int)cudaErrorInvalidValue;
+  // allow the largest table once per device, not on every launch
+  static bool smem_allowed[64];
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!smem_allowed[dev]) {
+    err = cudaFuncSetAttribute(lr_decode_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxDecRows * LR_DEC_ROW_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    smem_allowed[dev] = true;
+  }
+  int smem = nr * LR_DEC_ROW_BYTES;
+  int blocks = (L + kDecThreads - 1) / kDecThreads;
+  lr_decode_kernel<<<blocks, kDecThreads, smem, (cudaStream_t)stream>>>(
       K, L, nr, mw, (const int32_t*)data, (const int32_t*)rows,
-      (const int32_t*)table, (const int64_t*)state_in,
+      (const int32_t*)dtab, (const int64_t*)state_in,
       (const int32_t*)ptr_in, (int32_t*)syms, (int64_t*)state_out,
       (int32_t*)ptr_out);
   return (int)cudaGetLastError();

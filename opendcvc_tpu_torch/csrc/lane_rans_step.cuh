@@ -19,6 +19,14 @@
 //     state change, decoded as 0.
 // Row ids at or above the table's row count (other than the sentinel) are
 // clamped to its last row, so a bad operand cannot read outside the table.
+//
+// Decode reads the compact rows of ops/lane_rans.py prepare_decode_table:
+// LR_DEC_ROW_BYTES a row, u16 bins[s] = cum[s] - 1 mod 2^16 for s in [0,
+// 256) (bins[0] = 0xFFFF for cum[0] = 0 pads the 255 inner bins), 16 bytes
+// of 0xFF (bins[256..263]: cum[256] - 1, and room for bins[s + j] reads),
+// then u8 bucket[b] at LR_DEC_BUCKET_OFF = the last s with cum[s] <= b << 8.
+// The 784-byte stride also puts the same bin of neighbouring rows in
+// different shared-memory banks.
 #pragma once
 
 #include <stdint.h>
@@ -28,6 +36,9 @@
 #define LR_ENC_SKIP 511  // 9-bit: combined encode tables reach 256 rows
 #define LR_DEC_SKIP 255  // decode tables stay below 255 rows
 #define LR_BINS 257
+#define LR_DEC_ROW_BYTES 784
+#define LR_DEC_BUCKET_OFF 528
+#define LR_DEC_SCAN 5  // bucket ranges up to this many symbols: one read
 
 // One encode step.  *emit is set when the low 16 bits of the incoming
 // state leave the lane (the caller stores them before the call).
@@ -39,14 +50,72 @@ __host__ __device__ inline uint32_t lr_enc_step(uint32_t state,
   return ((state / freq) << 16) + state % freq + start;
 }
 
-// Last bin s in [0, 255] with cum[s] <= f (rows strictly increase).
-__host__ __device__ inline int lr_find_sym(const int32_t* cum, uint32_t f) {
-  int lo = 0, hi = 256;  // invariant: cum[lo] <= f < cum[hi]
-  while (hi - lo > 1) {
-    int mid = (lo + hi) >> 1;
-    if ((uint32_t)cum[mid] <= f) lo = mid; else hi = mid;
+// The bin s in [lo, lo + LR_DEC_SCAN) with cum[s] <= f < cum[s + 1] on a
+// compact row, from bins lo .. lo + LR_DEC_SCAN read at once; *start =
+// cum[s], *freq = cum[s + 1] - cum[s].  The bins hold cum - 1 mod 2^16, so
+// cum[lo + j] <= f reads bins[lo + j] < f for j >= 1, and the 0xFFFF
+// padding past bin 255 (cum[256] - 1) is never below f.  Those compares
+// hold for a prefix of j, so two levels of selects pick the two bins.
+__host__ __device__ inline int lr_scan_bins(const uint16_t* bins, int lo,
+                                            uint32_t f, uint32_t* start,
+                                            uint32_t* freq) {
+  static_assert(LR_DEC_SCAN == 5, "the selects below pick among five");
+  const uint16_t* at = bins + lo;
+  uint32_t c[LR_DEC_SCAN + 1];
+#pragma unroll
+  for (int j = 0; j <= LR_DEC_SCAN; ++j) c[j] = at[j];
+#ifdef __CUDA_ARCH__
+  // All six reads issue before the compares: left alone, ptxas puts the
+  // read of a bin only one select uses under that select's predicate, a
+  // second dependent shared read on the chain.
+#pragma unroll
+  for (int j = 0; j <= LR_DEC_SCAN; ++j) asm volatile("" : "+r"(c[j]));
+#endif
+  const bool le1 = c[1] < f, le2 = c[2] < f, le3 = c[3] < f, le4 = c[4] < f;
+  uint32_t c0 = le2 ? (le3 ? c[3] : c[2]) : (le1 ? c[1] : c[0]);
+  uint32_t c1 = le2 ? (le3 ? c[4] : c[3]) : (le1 ? c[2] : c[1]);
+  if (le4) {
+    c0 = c[4];
+    c1 = c[5];
   }
-  return lo;
+  *start = (c0 + 1u) & 0xFFFFu;
+  *freq = (c1 - c0) & 0xFFFFu;
+  return lo + le1 + le2 + le3 + le4;
+}
+
+// Last bin s in [0, 255] with cum[s] <= f on a compact row, with its
+// start and frequency.  f's bucket b = f >> 8 bounds s to [bucket[b],
+// bucket[b + 1]] (to 255 in the last bucket).  A range of up to
+// LR_DEC_SCAN symbols (all of a Gaussian row's bulk) costs two dependent
+// reads, the bucket's and the bins', and no branch; a wider one (a row's
+// tail) is halved down to that first.
+__host__ __device__ inline int lr_find_sym_compact(const uint8_t* row,
+                                                   uint32_t f,
+                                                   uint32_t* start,
+                                                   uint32_t* freq) {
+  const uint16_t* bins = (const uint16_t*)row;
+  const uint8_t* bucket = row + LR_DEC_BUCKET_OFF;
+  const uint32_t b = f >> 8;
+  // invariant: cum[lo] <= f < cum[hi]
+  int lo = bucket[b];
+  int hi = bucket[(b + 1u) & 255u] + 1;
+  if (b == 255u) hi = 256;
+  int s = lr_scan_bins(bins, lo, f, start, freq);
+  if (hi - lo > LR_DEC_SCAN) {
+    do {
+      // an eight-way step: bins lo + q, ..., lo + 7q read at once (past hi
+      // they compare false, padding included), so a bucket of up to 256
+      // symbols narrows to a scan in two rounds
+      const int q = (hi - lo + 7) >> 3;
+      int n = 0;
+#pragma unroll
+      for (int i = 1; i < 8; ++i) n += bins[lo + q * i] < f;
+      lo += q * n;
+      if (lo + q < hi) hi = lo + q;
+    } while (hi - lo > LR_DEC_SCAN);
+    s = lr_scan_bins(bins, lo, f, start, freq);
+  }
+  return s;
 }
 
 // One decode step before the refill: freq * (state >> 16) + f - start.
@@ -54,6 +123,30 @@ __host__ __device__ inline uint32_t lr_dec_step(uint32_t state,
                                                 uint32_t start,
                                                 uint32_t freq) {
   return freq * (state >> 16) + (state & 0xFFFFu) - start;
+}
+
+// One step of K2's contract for one lane on the compact table `tab` (nr
+// rows): the skip row keeps the state and decodes 0, a row id at or past
+// nr is clamped to the last row, and a state that falls below 2^16 pulls
+// `word` and advances *ptr.  `word` is data[*ptr] (0 past either end of
+// the lane's row), read before the state asks for it.  Branch-free: a
+// skipped slot still searches the clamped row and discards the result.
+// Returns the symbol in [-128, 127].
+__host__ __device__ inline int lr_dec_lane_step(const uint8_t* tab, int nr,
+                                                int row, uint32_t word,
+                                                uint32_t* state,
+                                                int32_t* ptr) {
+  const bool skip = row == LR_DEC_SKIP;
+  const uint32_t last = (uint32_t)nr - 1u;
+  const uint32_t r = (uint32_t)row < last ? (uint32_t)row : last;
+  uint32_t start, freq;
+  const int s = lr_find_sym_compact(tab + r * LR_DEC_ROW_BYTES,
+                                    *state & 0xFFFFu, &start, &freq);
+  const uint32_t decoded = lr_dec_step(*state, start, freq);
+  const bool refill = !skip && decoded < (1u << 16);
+  if (!skip) *state = refill ? (decoded << 16) | word : decoded;
+  *ptr += refill;
+  return skip ? 0 : s - 128;
 }
 
 // Encode lane `lane` over all K steps from a fresh carry (state 2^16,
@@ -88,40 +181,4 @@ __host__ __device__ inline void lr_encode_lane(
   for (int c = cur; c < mw; ++c) out[c] = 0;
   lens[lane] = cur;
   states[lane] = (int64_t)state;
-}
-
-// Decode lane `lane` over K steps, continuing the carry (state, ptr).
-// data (L, mw) u16 words in decode order (int32); rows (K, L) local row
-// ids or LR_DEC_SKIP, step-major; syms (K, L) receives symbols in
-// [-128, 127].
-__host__ __device__ inline void lr_decode_lane(
-    int lane, int K, int L, int nr, int mw, const int32_t* data,
-    const int32_t* rows, const int32_t* table, const int64_t* state_in,
-    const int32_t* ptr_in, int32_t* syms, int64_t* state_out,
-    int32_t* ptr_out) {
-  uint32_t state = (uint32_t)state_in[lane];
-  int32_t ptr = ptr_in[lane];
-  const int32_t* words = data + (int64_t)lane * mw;
-  for (int k = 0; k < K; ++k) {
-    int64_t at = (int64_t)k * L + lane;
-    int row = rows[at];
-    if (row == LR_DEC_SKIP) {
-      syms[at] = 0;
-      continue;
-    }
-    if (row >= nr) row = nr - 1;
-    const int32_t* cum = table + (int64_t)row * LR_BINS;
-    int s = lr_find_sym(cum, state & 0xFFFFu);
-    uint32_t start = (uint32_t)cum[s];
-    uint32_t freq = (uint32_t)(cum[s + 1] - cum[s]);
-    state = lr_dec_step(state, start, freq);
-    if (state < (1u << 16)) {
-      uint32_t w = (ptr >= 0 && ptr < mw) ? (uint32_t)words[ptr] : 0u;
-      state = (state << 16) | w;
-      ++ptr;
-    }
-    syms[at] = s - 128;
-  }
-  state_out[lane] = (int64_t)state;
-  ptr_out[lane] = ptr;
 }

@@ -33,7 +33,8 @@ from ..entropy.models import (BitEstimator, GaussianEncoder,
                               bit_estimator_init)
 from ..layers import blocks as L
 from ..ops import fused as F
-from ..ops.lane_rans import ENC_SKIP, decode_scan, encode_scan, pack_operand
+from ..ops.lane_rans import (ENC_SKIP, decode_scan, encode_scan, pack_operand,
+                              prepare_decode_table)
 from ..utils.params import to_device
 from . import common as C
 
@@ -328,21 +329,21 @@ def _pack_frame(y_planes, z_int8, lanes, n_y_rows, fz):
     return torch.cat([pack_operand(s, r) for s, r in pieces])
 
 
-def _dec_plane(data, rows_flat, table, carry, lanes):
-    """One K2 launch over a flat plane of local row ids; returns (flat
-    symbols, carry)."""
+def _dec_plane(data, rows_flat, dec_table, carry, lanes):
+    """One K2 launch over a flat plane of local row ids into a slice of
+    the prepared decode table; returns (flat symbols, carry)."""
     n = rows_flat.shape[0]
     syms, state, ptr = decode_scan(data, _lane_layout_t(rows_flat, lanes,
                                                         False),
-                                   table, *carry)
+                                   dec_table, *carry)
     return _lane_unlayout_t(syms, n), (state, ptr)
 
 
-def _dec_y_plane(data, idx, keep, table, carry, lanes, fz):
+def _dec_y_plane(data, idx, keep, dec_table, carry, lanes, fz):
     rows = _cm_flat(idx).to(torch.int32)
     if fz is not None:
         rows = torch.where(_cm_flat(keep), rows, SKIP_ROW)
-    return _dec_plane(data, rows, table, carry, lanes)
+    return _dec_plane(data, rows, dec_table, carry, lanes)
 
 
 def _encode_staging(packed, table, n_y_rows, qp, c_z, mw, cap):
@@ -379,11 +380,12 @@ def _compress_frame_core(p, x, feature, qp, lanes, n_y_rows, fz=None):
     return feature_out, packed
 
 
-def _decompress_frame_core(p, staging, feature, qp, table, n_y_rows, zh,
-                           zw, lanes, cap, mw, fz=None):
+def _decompress_frame_core(p, staging, feature, qp, dec_table, n_y_rows,
+                           zh, zw, lanes, cap, mw, fz=None):
     """Decoder body on an adapted feature: compact staging -> (next
     reference feature, x_hat NCHW).  The three K2 launches share one rANS
-    state/pointer carry; every shared stage is the code the encoder ran."""
+    state/pointer carry and read row slices of the prepared decode table;
+    every shared stage is the code the encoder ran."""
     x1, ctx_t = _stage_fe_part1(p, feature, qp)
     data, states = _undensify_device(staging, cap, lanes, mw)
     carry = (states, torch.zeros((lanes,), dtype=torch.int32,
@@ -391,14 +393,15 @@ def _decompress_frame_core(p, staging, feature, qp, table, n_y_rows, zh,
     n_z = zh * zw * G_CH_Z
     z_base = n_y_rows + qp * G_CH_Z
     z_syms, carry = _dec_plane(data, _z_rows(n_z, G_CH_Z, data.device),
-                               table[z_base:z_base + G_CH_Z], carry, lanes)
+                               dec_table[z_base:z_base + G_CH_Z], carry,
+                               lanes)
     z_hat = _cm_unflat(z_syms, (1, G_CH_Z, zh, zw)).to(x1.dtype)
     params_prior = _stage_prior(p, z_hat, ctx_t)
 
-    cum_y = table[:n_y_rows]
+    dec_y = dec_table[:n_y_rows]
     idx0, keep0 = _stage_dec_index0(params_prior, fz)
     ctx = _stage_fe_part2(p, x1)
-    y0_syms, carry = _dec_y_plane(data, idx0, keep0, cum_y, carry, lanes,
+    y0_syms, carry = _dec_y_plane(data, idx0, keep0, dec_y, carry, lanes,
                                   fz)
     means0 = C.separate_prior_video_decoding(params_prior)[2]
     y_hat_0 = _stage_dec_restore_2x(
@@ -406,7 +409,7 @@ def _decompress_frame_core(p, staging, feature, qp, table, n_y_rows, zh,
 
     scales1, means1 = _stage_spatial(p, y_hat_0, params_prior)
     idx1, keep1 = _stage_fold_index_2x(scales1, 1, fz)
-    y1_syms, carry = _dec_y_plane(data, idx1, keep1, cum_y, carry, lanes,
+    y1_syms, carry = _dec_y_plane(data, idx1, keep1, dec_y, carry, lanes,
                                   fz)
     y_hat_1 = _stage_dec_restore_2x(
         _cm_unflat(y1_syms, idx1.shape).to(x1.dtype), means1, 1)
@@ -452,6 +455,7 @@ class DMC:
         self.gaussian_encoder = GaussianEncoder()
         self.force_zero_thres = None
         self.table = None
+        self.dec_table = None
         self.n_y_rows = 0
 
         self.dpb = []
@@ -474,7 +478,8 @@ class DMC:
 
     def update(self, force_zero_thres=None):
         """Build the CDF tables: rows [0, n_y) are the gaussian scale rows,
-        rows n_y + qp * 128 + channel the z rows."""
+        rows n_y + qp * 128 + channel the z rows; K1 reads `table`, K2
+        slices of its prepared form `dec_table`."""
         self.force_zero_thres = force_zero_thres
         y_rows = full_range_cdf_rows(*self.gaussian_encoder.update())
         z_rows = full_range_cdf_rows(
@@ -482,6 +487,7 @@ class DMC:
         self.n_y_rows = y_rows.shape[0]
         self.table = torch.from_numpy(
             np.concatenate([y_rows, z_rows])).to(self.device)
+        self.dec_table = prepare_decode_table(self.table)
 
     # -- DPB management ------------------------------------------------------
 
@@ -593,7 +599,7 @@ class DMC:
         zh, zw = C.get_downsampled_shape(sps["height"], sps["width"], 64)
         feature = self.apply_feature_adaptor()
         feature_out, x_hat = _decompress_frame_core(
-            self.params, staging, feature, qp, self.table, self.n_y_rows,
+            self.params, staging, feature, qp, self.dec_table, self.n_y_rows,
             zh, zw, meta["L"], meta["cap"], meta["MW"],
             self.force_zero_thres)
         x_hat = C.frame_to_nhwc(x_hat)

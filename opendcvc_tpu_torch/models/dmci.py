@@ -23,6 +23,7 @@ from ..entropy.models import (BitEstimator, GaussianEncoder,
                               bit_estimator_init)
 from ..layers import blocks as L
 from ..ops import fused as F
+from ..ops.lane_rans import prepare_decode_table
 from ..utils.params import to_device
 from . import common as C
 from .dmc import (_cm_unflat, _dcb_seq, _dec_plane, _dec_y_plane,
@@ -190,9 +191,10 @@ def _compress_frame_i(p, x, qp, lanes, n_y_rows, fz=None):
     return x_hat, _pack_frame(planes[::-1], z_int8, lanes, n_y_rows, fz)
 
 
-def _decompress_frame_i(p, staging, qp, table, n_y_rows, zh, zw, y_h, y_w,
-                        z_channel, lanes, cap, mw, fz=None):
-    """Compact staging -> x_hat (NCHW)."""
+def _decompress_frame_i(p, staging, qp, dec_table, n_y_rows, zh, zw, y_h,
+                        y_w, z_channel, lanes, cap, mw, fz=None):
+    """Compact staging -> x_hat (NCHW); the K2 launches read row slices of
+    the prepared decode table."""
     data, states = _undensify_device(staging, cap, lanes, mw)
     carry = (states, torch.zeros((lanes,), dtype=torch.int32,
                                  device=data.device))
@@ -200,18 +202,18 @@ def _decompress_frame_i(p, staging, qp, table, n_y_rows, zh, zw, y_h, y_w,
     z_flat, carry = _dec_plane(data,
                                _z_rows(zh * zw * z_channel, z_channel,
                                        data.device),
-                               table[z_base:z_base + z_channel], carry,
+                               dec_table[z_base:z_base + z_channel], carry,
                                lanes)
     z_hat = _cm_unflat(z_flat, (1, z_channel, zh, zw)).to(torch.float32)
     _, q_dec_prior, scales, means, reduced = _stage_prior(p, z_hat, y_h,
                                                           y_w)
-    cum_y = table[:n_y_rows]
+    dec_y = dec_table[:n_y_rows]
     so_far = None
     for k in range(4):
         if k > 0:
             scales, means = _stage_spatial(p, k, so_far, reduced)
         idx, keep = _stage_fold_index(scales, k, fz)
-        y_flat, carry = _dec_y_plane(data, idx, keep, cum_y, carry, lanes,
+        y_flat, carry = _dec_y_plane(data, idx, keep, dec_y, carry, lanes,
                                      fz)
         y_q_r = _cm_unflat(y_flat, idx.shape).to(means.dtype)
         so_far = _stage_dec_restore(y_q_r, means, so_far, k)
@@ -241,6 +243,7 @@ class DMCI:
         self.gaussian_encoder = GaussianEncoder()
         self.force_zero_thres = None
         self.table = None
+        self.dec_table = None
         self.n_y_rows = 0
         # learned launch staging rate per (H, W) (see DMC._ec_learned)
         self._ec_learned = {}
@@ -259,7 +262,8 @@ class DMCI:
         self.params = to_device(params, self.device)
 
     def update(self, force_zero_thres=None):
-        """Build the CDF tables (y scale rows, then z rows by qp, channel)."""
+        """Build the CDF tables (y scale rows, then z rows by qp, channel):
+        K1 reads `table`, K2 slices of its prepared form `dec_table`."""
         self.force_zero_thres = force_zero_thres
         y_rows = full_range_cdf_rows(*self.gaussian_encoder.update())
         z_rows = full_range_cdf_rows(
@@ -267,6 +271,7 @@ class DMCI:
         self.n_y_rows = y_rows.shape[0]
         self.table = torch.from_numpy(
             np.concatenate([y_rows, z_rows])).to(self.device)
+        self.dec_table = prepare_decode_table(self.table)
 
     # -- compress ------------------------------------------------------------
 
@@ -321,7 +326,7 @@ class DMCI:
         zh, zw = C.get_downsampled_shape(sps["height"], sps["width"], 64)
         y_h, y_w = C.get_downsampled_shape(sps["height"], sps["width"], 16)
         x_hat = _decompress_frame_i(
-            self.params, staging, qp, self.table, self.n_y_rows, zh, zw,
+            self.params, staging, qp, self.dec_table, self.n_y_rows, zh, zw,
             y_h, y_w, self.z_channel, meta["L"], meta["cap"], meta["MW"],
             self.force_zero_thres)
         return {"x_hat": C.frame_to_nhwc(x_hat)}

@@ -115,8 +115,8 @@ def load_host_shim():
                        f"liblane_rans_host_{_tag([src] + _headers())}.so")
     if not os.path.exists(out):
         tmp = f"{out[:-3]}.{os.getpid()}.tmp.so"
-        cmd = ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-I", CSRC,
-               src, "-o", tmp]
+        cmd = ["g++", "-O2", "-std=c++17", "-fno-strict-aliasing", "-shared",
+               "-fPIC", "-I", CSRC, src, "-o", tmp]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"host shim build failed:\n{res.stderr}")
@@ -126,4 +126,7 @@ def load_host_shim():
     lib.lr_encode_host.restype = None
     lib.lr_decode_host.argtypes = [_P] * 8 + [_I] * 4
     lib.lr_decode_host.restype = None
+    # dtab, nr, sym, start, next
+    lib.lr_lookup_host.argtypes = [_P, _I, _P, _P, _P]
+    lib.lr_lookup_host.restype = None
     return lib

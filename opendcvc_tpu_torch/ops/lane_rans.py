@@ -7,7 +7,8 @@ K1 replaces the JAX package's `ops/pallas_rans.py::_enc_kernel`
 package (`entropy/device_rans.py` `_encode_scan_carry`,
 `_decode_scan_carry`); the CUDA sources are `csrc/lane_rans.cu` with the
 per-lane arithmetic in `csrc/lane_rans_step.cuh`, whose notes say what
-bounds them and how they are laid out.
+bounds them and how they are laid out.  K1 reads (nr, 257) int32
+cumulative rows; K2 reads the compact rows of `prepare_decode_table`.
 
 A wrapper runs the plain version for tensors on the CPU and launches its
 kernel for tensors on a CUDA device (raising if the launch fails); each
@@ -128,18 +129,69 @@ def encode_scan_plain(packed, table, mw):
 # K2: decode
 # ---------------------------------------------------------------------------
 
-def decode_scan(data, rows, table, state, ptr):
+#: int32 words of a prepared decode row: 256 u16 bins, 16 bytes of
+#: padding, 256 u8 buckets (784 bytes: every row of a slice starts 16-byte
+#: aligned for K2's bulk copy into shared memory, and the stride spreads
+#: one bin of neighbouring rows over the shared-memory banks)
+DEC_ROW_WORDS = 196
+
+
+def prepare_decode_table(table):
+    """Compact K2 table of (nr, 257) int32 cumulative rows.
+
+    Every row must hold cum[0] = 0, cum[256] = 65536 and every frequency
+    >= 1 (`full_range_cdf_rows`); a row that does not raises ValueError.
+    Returns (nr, DEC_ROW_WORDS) int32 on the table's device, a row being
+    the bytes of u16 bins[s] = cum[s] - 1 mod 2^16 for s in [0, 256) (the
+    255 inner bins fit 16 bits on a valid row; bins[0] = 0xFFFF pads
+    them), 16 bytes of 0xFF (cum[256] - 1, and room for K2's scan to read
+    past bin 255), and u8 bucket[b] = the last s with cum[s] <= b << 8,
+    which bounds the symbol of a slot f to [bucket[f >> 8],
+    bucket[(f >> 8) + 1]].  With the offset, cum[s] <= f is bins[s] < f,
+    and no bin past 255 is below f.  Built once per model table; the
+    decode calls slice it by row."""
+    if table.dim() != 2 or table.shape[1] != 257:
+        raise ValueError(f"table must be (nr, 257), got {tuple(table.shape)}")
+    cum = table.to(torch.int64)
+    if bool((cum[:, 0] != 0).any()) or bool((cum[:, 256] != 65536).any()) \
+            or bool((cum[:, 1:] <= cum[:, :-1]).any()):
+        raise ValueError("every decode row needs cum[0] = 0, cum[256] = "
+                         "65536 and every frequency >= 1")
+    bins = (cum[:, :256] - 1) & 0xFFFF
+    bins = (bins - ((bins >> 15) << 16)).to(torch.int16)    # u16 bit pattern
+    edges = (torch.arange(256, device=cum.device) << 8).expand(
+        cum.shape[0], 256).contiguous()
+    bucket = torch.searchsorted(cum.contiguous(), edges, right=True) - 1
+    pad = torch.full((cum.shape[0], 16), 0xFF, dtype=torch.uint8,
+                     device=cum.device)
+    return torch.cat([bins.view(torch.uint8), pad, bucket.to(torch.uint8)],
+                     dim=1).view(torch.int32)
+
+
+def expand_decode_table(dec_table):
+    """Inverse of prepare_decode_table: (nr, 257) int64 cumulative rows."""
+    bins = (dec_table.view(torch.int16)[:, :256].to(torch.int64) + 1) \
+        & 0xFFFF
+    return torch.cat([bins, torch.full_like(bins[:, :1], 65536)], dim=1)
+
+
+def decode_scan(data, rows, dec_table, state, ptr):
     """Decode L lanes over K steps, continuing the carry (state, ptr).
 
     data: (L, MW) int32 u16 words in decode order; rows: (K, L) int32
-    local row ids in decode order, SKIP_ROW (255) decodes 0 at zero rate;
-    table: (nr, 257) int32, nr < 255; state: (L,) int64 u32 values; ptr:
-    (L,) int32.  Returns (symbols (K, L) int32 in [-128, 127], state,
-    ptr)."""
+    local row ids in decode order, SKIP_ROW (255) decodes 0 at zero rate,
+    an id >= nr reads row nr - 1; dec_table: (nr, DEC_ROW_WORDS) int32
+    rows of prepare_decode_table, nr < 255; state: (L,) int64 u32 values;
+    ptr: (L,) int32, a word past either end of a lane's row reads as 0.
+    Returns (symbols (K, L) int32 in [-128, 127], state, ptr)."""
     dev = data.device
     _check("data", data, torch.int32, 2, dev)
     _check("rows", rows, torch.int32, 2, dev)
-    _check_table(table, dev, SKIP_ROW - 1)
+    _check("dec_table", dec_table, torch.int32, 2, dev)
+    if dec_table.shape[1] != DEC_ROW_WORDS or \
+            not 0 < dec_table.shape[0] < SKIP_ROW:
+        raise ValueError(f"dec_table must be (1..{SKIP_ROW - 1}, "
+                         f"{DEC_ROW_WORDS}), got {tuple(dec_table.shape)}")
     _check("state", state, torch.int64, 1, dev)
     _check("ptr", ptr, torch.int32, 1, dev)
     L, MW = data.shape
@@ -148,17 +200,20 @@ def decode_scan(data, rows, table, state, ptr):
         raise ValueError("data, rows, state and ptr disagree on the lane "
                          "count")
     if dev.type == "cpu":
-        return decode_scan_plain(data, rows, table, state, ptr)
+        return decode_scan_plain(data, rows, dec_table, state, ptr)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    if dec_table.data_ptr() % 16:
+        raise ValueError("dec_table must start 16-byte aligned (a row "
+                         "slice of an aligned table does)")
     syms = torch.empty((K, L), dtype=torch.int32, device=dev)
     state_out = torch.empty((L,), dtype=torch.int64, device=dev)
     ptr_out = torch.empty((L,), dtype=torch.int32, device=dev)
     err = _lib().lr_decode_launch(
-        data.data_ptr(), rows.data_ptr(), table.data_ptr(),
+        data.data_ptr(), rows.data_ptr(), dec_table.data_ptr(),
         state.data_ptr(), ptr.data_ptr(), syms.data_ptr(),
-        state_out.data_ptr(), ptr_out.data_ptr(), K, L, table.shape[0], MW,
-        torch.cuda.current_stream(dev).cuda_stream)
+        state_out.data_ptr(), ptr_out.data_ptr(), K, L, dec_table.shape[0],
+        MW, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"lane rANS decode launch failed: cudaError {err}")
     decode_scan.launches += 1
@@ -168,12 +223,13 @@ def decode_scan(data, rows, table, state, ptr):
 decode_scan.launches = 0
 
 
-def decode_scan_plain(data, rows, table, state, ptr):
-    """Plain PyTorch version of decode_scan (same contract)."""
+def decode_scan_plain(data, rows, dec_table, state, ptr):
+    """Plain PyTorch version of decode_scan (same contract), on the
+    cumulative rows the prepared table expands back to."""
     L, MW = data.shape
     K = rows.shape[0]
     dev = data.device
-    tab = table.to(torch.int64)
+    tab = expand_decode_table(dec_table)
     nr = tab.shape[0]
     words = torch.cat([data.to(torch.int64),
                        torch.zeros((L, 1), dtype=torch.int64, device=dev)],

@@ -186,8 +186,8 @@ def _decode_all(pl, decode_one):
 def _port_decode_one(data, rows, table, state, ptr):
     syms, st, p = LR.decode_scan(
         torch.from_numpy(data), torch.from_numpy(rows.T.copy()),
-        torch.from_numpy(table), torch.from_numpy(state),
-        torch.from_numpy(ptr))
+        LR.prepare_decode_table(torch.from_numpy(table)),
+        torch.from_numpy(state), torch.from_numpy(ptr))
     return syms.numpy().T, st.numpy(), p.numpy()
 
 
@@ -208,6 +208,7 @@ def _pallas_decode_one(data, rows, table, state, ptr):
 
 def _host_decode_one(data, rows, table, state, ptr):
     lib = _build.load_host_shim()
+    dtab = LR.prepare_decode_table(torch.from_numpy(table)).numpy()
     rows_t = np.ascontiguousarray(rows.T).astype(np.int32)
     k = rows_t.shape[0]
     syms = np.zeros((k, L), np.int32)
@@ -216,9 +217,9 @@ def _host_decode_one(data, rows, table, state, ptr):
     state = np.ascontiguousarray(state, np.int64)
     ptr = np.ascontiguousarray(ptr, np.int32)
     lib.lr_decode_host(data.ctypes.data, rows_t.ctypes.data,
-                       table.ctypes.data, state.ctypes.data, ptr.ctypes.data,
+                       dtab.ctypes.data, state.ctypes.data, ptr.ctypes.data,
                        syms.ctypes.data, st.ctypes.data, p.ctypes.data, k, L,
-                       table.shape[0], data.shape[1])
+                       dtab.shape[0], data.shape[1])
     return syms.T, st, p
 
 
@@ -329,6 +330,7 @@ def test_wrappers_reject_bad_operands():
         LR.encode_scan(packed.t(), table, 8)      # not contiguous
     with pytest.raises(ValueError):
         LR.decode_scan(torch.zeros((L, 8), dtype=torch.int32), packed,
-                       torch.zeros((300, 257), dtype=torch.int32),
+                       torch.zeros((300, LR.DEC_ROW_WORDS),
+                                   dtype=torch.int32),
                        torch.zeros(L, dtype=torch.int64),
                        torch.zeros(L, dtype=torch.int32))
