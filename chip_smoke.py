@@ -7,18 +7,24 @@ Phases (any failure exits nonzero and prints no result):
   1. build the CUDA kernels from opendcvc_tpu_torch/csrc (nvcc, sm_90a);
   2. hold K1 (lane rANS encode) and K2 (decode) against their plain
      PyTorch versions, bit for bit: K1 at 4096 lanes, 272 steps, a
-     256-row combined table, ~30 % skip slots; K2 on one 272-step launch
-     over a 128-row table, then at the main path's own launch shapes, a
-     DMC frame's z (16 steps, the port's 128-row z table), y0 and y1
-     (128 steps, its 128-row y table; symbols drawn from each row) and a
-     DMCI frame's z and four y quarters, with the (state, ptr) carry
-     handed from launch to launch, and on arbitrary words at the
-     contract's edges (a partial warp, clamped rows, pointers past either
-     end).  Every launch is timed as the median of 20 launches with CUDA
-     events around the wrapper call (`ms`, the host's call time
-     included) and again queued behind a sleep so the events time the
-     device alone (`device_ms`); K2's per-frame totals are the sums of
-     the timed launches of each frame;
+     256-row combined random table, ~30 % skip slots, then at the main
+     path's own frames, one launch each over the port's combined y + z
+     table (symbols drawn from each row, ~30 % skips): a DMC frame (16 z
+     + 2 x 128 y steps) and a DMCI frame (16 + 4 x 128), each at the
+     staging ladder's first and top rung, and at the contract's edges (a
+     partial warp, row ids past the table, odd staging widths that some
+     lanes overflow); K2 on one 272-step launch over
+     a 128-row table, then at the main path's own launch shapes, decoding
+     those two frames: a DMC frame's z (16 steps, the port's 128-row z
+     table), y0 and y1 (128 steps, its 128-row y table) and a DMCI
+     frame's z and four y quarters, with the (state, ptr) carry handed
+     from launch to launch, and on arbitrary words at the contract's
+     edges (a partial warp, clamped rows, pointers past either end).
+     Every launch is timed as the median of 20 launches with CUDA events
+     around the wrapper call (`ms`, the host's call time included) and
+     again queued behind a sleep so the events time the device alone
+     (`device_ms`); K2's per-frame totals are the sums of the timed
+     launches of each frame;
   3. DMCI at 1080p full width (N = 256, z 128), f32, force_zero_thres
      0.12, flat q banks: one I-frame compress + decompress, the decoded
      frame equal to the encoder's;
@@ -115,6 +121,7 @@ def random_tables(rng, nr):
 
 def phase_kernels(dev, L, K):
     """K1/K2 kernel vs plain, bit for bit; returns the kernel records."""
+    from opendcvc_tpu_torch.entropy.device_rans import staging_width
     from opendcvc_tpu_torch.ops import lane_rans as LR
 
     rng = np.random.default_rng(0)
@@ -130,53 +137,113 @@ def phase_kernels(dev, L, K):
     sym = np.where(skip, 0, sym)
     packed = LR.pack_operand(torch.from_numpy(sym),
                              torch.from_numpy(rows)).to(dev)
-    mw = max(8, int(K * 0.5 / 2)) + 4     # the main path's first rung
 
-    # K1 at the main path's shapes (random symbols overflow some lanes:
-    # dropped words and over-counting cursors are part of the contract)
-    got = LR.encode_scan(packed, table, mw)
-    ref = LR.encode_scan_plain(packed, table, mw)
-    enc_err = _max_abs_err(got, ref)
-    if enc_err:
-        _fail(f"K1 differs from its plain version (max |err| {enc_err})")
-    enc_ms = median_ms(lambda: LR.encode_scan(packed, table, mw), dev)
-    enc_dev_ms = median_ms(lambda: LR.encode_scan(packed, table, mw), dev,
-                           queued=True)
-    enc_plain_ms = median_ms(
-        lambda: LR.encode_scan_plain(packed, table, mw), dev)
-    n_coded = int((~torch.from_numpy(skip)).sum())
-    enc_bytes = (packed.numel() * 4 + table.numel() * 4 + L * mw * 4
-                 + L * 4 + L * 8)
-    enc_bound, enc_by = _bound_ms(enc_bytes, 8 * n_coded)
-
-    k2 = phase_k2(dev, LR, rng, table, n_y_rows, sym, skip, L, K)
-    _log(f"phase 2: K1 {enc_ms:.4f} ms, device {enc_dev_ms:.4f} ms (plain "
-         f"{enc_plain_ms:.3f} ms) at "
-         f"L={L} K={K}, {n_coded} coded symbols; bit-exact")
+    # K1 at PR 1's shape (random symbols overflow some lanes at the first
+    # rung: dropped words and over-counting cursors are part of the
+    # contract), then at the main path's frames inside phase_k2
+    k1_shapes = []
+    _k1_case(dev, LR, packed, LR.prepare_encode_table(table),
+             staging_width(K, 0.5), "random", k1_shapes)
+    k2 = phase_k2(dev, LR, rng, table, n_y_rows, sym, skip, L, K, k1_shapes)
+    k1_edges = _k1_edges(dev, LR, rng)
+    for s in k1_shapes:
+        _log(f"phase 2: K1 {s['launch']} K={s['steps']} mw={s['mw']}: "
+             f"{s['ms']:.4f} ms, device {s['device_ms']:.4f} ms (plain "
+             f"{s['plain_ms']:.3f} ms, bound {s['bound_ms']:.5f} ms by "
+             f"{s['bound_by']}), {s['coded']} coded slots; bit-exact")
+    head = k1_shapes[0]
     return [
         {"name": "lane_rans_encode (K1)", "route": "cuda",
          "source": "opendcvc_tpu_torch/csrc/lane_rans.cu",
          "replaces": "opendcvc_tpu/ops/pallas_rans.py:98",
-         "max_abs_err": enc_err, "ms": enc_ms, "device_ms": enc_dev_ms,
-         "plain_ms": enc_plain_ms,
-         "bound_ms": enc_bound, "bound_by": enc_by, "library_ms": None},
+         "max_abs_err": max([s["max_abs_err"] for s in k1_shapes]
+                            + k1_edges),
+         "ms": head["ms"], "device_ms": head["device_ms"],
+         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+         "bound_by": head["bound_by"], "library_ms": None,
+         "shapes": k1_shapes},
         k2,
     ]
 
 
-def _k1_stream(dev, LR, rows, sym, skip, t_enc):
-    """K1 over decode-order (K, L) row ids of t_enc and symbols, skip
-    slots at zero rate; returns the words in decode order (with room for
-    every word) and the final states."""
-    K, L = rows.shape
+def _k1_bound(packed, mw, LR):
+    """Bytes: the operand, 4 B (start and freq, each 16 bits) of every
+    (row, symbol) it codes, once, the staging, lens and states;
+    operations: ~10 a coded step."""
+    coded = (packed & LR.ENC_ROW_MASK) != LR.ENC_SKIP
+    n_entries = int(torch.unique(packed[coded]).numel())
+    L = packed.shape[1]
+    n_bytes = (packed.numel() * 4 + n_entries * 4 + L * mw * 4 + L * 12)
+    n_coded = int(coded.sum())
+    return _bound_ms(n_bytes, 10 * n_coded) + (n_coded,)
+
+
+def _k1_case(dev, LR, packed, enc_table, mw, what, shapes):
+    """K1 vs its plain version, bit for bit, then timed; appends the
+    shape's record and returns K1's output."""
+    K = packed.shape[0]
+    got = LR.encode_scan(packed, enc_table, mw)
+    err = _max_abs_err(got, LR.encode_scan_plain(packed, enc_table, mw))
+    if err:
+        _fail(f"K1 differs from its plain version at {what} K={K} mw={mw} "
+              f"(max |err| {err})")
+    ms = median_ms(lambda: LR.encode_scan(packed, enc_table, mw), dev)
+    dev_ms = median_ms(lambda: LR.encode_scan(packed, enc_table, mw), dev,
+                       queued=True)
+    plain = median_ms(lambda: LR.encode_scan_plain(packed, enc_table, mw),
+                      dev)
+    bound, by, coded = _k1_bound(packed, mw, LR)
+    shapes.append({"steps": K, "mw": mw, "launch": what, "ms": ms,
+                   "device_ms": dev_ms, "plain_ms": plain,
+                   "bound_ms": bound, "bound_by": by, "coded": coded,
+                   "max_abs_err": err})
+    return got
+
+
+def _k1_edges(dev, LR, rng):
+    """K1 vs its plain version, bit for bit, at the contract's edges: 99
+    lanes (a partial warp, and a last block whose staging ends off a
+    16-byte boundary), a 24-row table, row ids past it, ~20 % skips, odd
+    staging widths that some lanes overflow, K below the entry lead (20)
+    and past the operand ring (100).  Returns the max |err| of each."""
+    lanes, nr = 99, 24
+    table = LR.prepare_encode_table(
+        torch.from_numpy(random_tables(rng, nr)).to(dev))
+    errs = []
+    for k, mw in ((20, 7), (100, 41)):
+        rows = rng.integers(0, nr + 8, (k, lanes))
+        rows[rng.random(rows.shape) < 0.2] = LR.ENC_SKIP
+        packed = LR.pack_operand(
+            torch.from_numpy(rng.integers(-128, 128, (k, lanes))),
+            torch.from_numpy(rows)).to(dev)
+        got = LR.encode_scan(packed, table, mw)
+        errs.append(_max_abs_err(got, LR.encode_scan_plain(packed, table,
+                                                           mw)))
+        over = int((got[1] > mw).sum())
+        if errs[-1] or not 0 < over < lanes:
+            _fail(f"K1 at the contract's edges, K={k} mw={mw}: max |err| "
+                  f"{errs[-1]}, {over} of {lanes} lanes overflowed")
+        _log(f"phase 2: K1 at the contract's edges K={k} mw={mw}: "
+             f"{over} of {lanes} lanes overflowed; bit-exact")
+    return errs
+
+
+def _enc_operand(dev, LR, rows, sym, skip):
+    """K1's operand for decode-order (K, L) row ids and symbols, skip
+    slots at zero rate: encode order reverses the steps."""
     rows_enc = np.where(skip, LR.ENC_SKIP, rows)
     sym = np.where(skip, 0, sym)
-    packed = LR.pack_operand(torch.from_numpy(sym[::-1].copy()),
-                             torch.from_numpy(rows_enc[::-1].copy())).to(dev)
-    buf, lens, states = LR.encode_scan(packed, t_enc, K)
-    if int(lens.max()) > K:
-        _fail("K1 full-rectangle staging overflowed")
-    col = torch.arange(K, device=dev)[None, :]
+    return LR.pack_operand(torch.from_numpy(sym[::-1].copy()),
+                           torch.from_numpy(rows_enc[::-1].copy())).to(dev)
+
+
+def _decode_order(got, K):
+    """K1's output with room for every word -> the (L, K) words in decode
+    order and the final states."""
+    buf, lens, states = got
+    if int(lens.max()) > buf.shape[1]:
+        _fail("K1 staging with room for every word overflowed")
+    col = torch.arange(K, device=buf.device)[None, :]
     idx = (lens.to(torch.int64)[:, None] - 1 - col).clamp(min=0)
     data = torch.where(col < lens[:, None], torch.gather(buf, 1, idx), 0) \
         .to(torch.int32).contiguous()
@@ -214,12 +281,15 @@ def _draw(rng, cum, ids):
     return sym
 
 
-def phase_k2(dev, LR, rng, table, n_y_rows, sym, skip, L, K):
+def phase_k2(dev, LR, rng, table, n_y_rows, sym, skip, L, K, k1_shapes):
     """K2 vs its plain version, bit for bit: one K-step launch over a
     128-row random table (uniform symbols), then a DMC frame's three and
     a DMCI frame's five carried launches at the main path's shapes over
     the port's own y and z tables, symbols drawn from each row; times
-    every launch.  Returns K2's kernel record."""
+    every launch.  Each frame is coded by one K1 launch, checked and
+    timed at the first and the top staging rung (into k1_shapes).
+    Returns K2's kernel record."""
+    from opendcvc_tpu_torch.entropy.device_rans import staging_width
     t_y = table[:n_y_rows].contiguous()
     d_y = LR.prepare_decode_table(t_y)
     errs, shapes = [], []
@@ -251,7 +321,9 @@ def phase_k2(dev, LR, rng, table, n_y_rows, sym, skip, L, K):
 
     # one K-step launch over the y rows (random rows, uniform symbols)
     ids = rng.integers(0, n_y_rows, (K, L))
-    data, states = _k1_stream(dev, LR, ids, sym, skip, t_y)
+    data, states = _decode_order(LR.encode_scan(
+        _enc_operand(dev, LR, ids, sym, skip), LR.prepare_encode_table(t_y),
+        K), K)
     args = (data, dec_rows(ids, skip), d_y, states,
             torch.zeros((L,), dtype=torch.int32, device=dev))
     got = check(args, torch.from_numpy(sym).to(dev), f"K={K}")
@@ -263,6 +335,7 @@ def phase_k2(dev, LR, rng, table, n_y_rows, sym, skip, L, K):
     k_z, k_y = 16, 128
     cum_y, cum_z = _model_tables()
     t_frame = torch.from_numpy(np.concatenate([cum_y, cum_z])).to(dev)
+    e_frame = LR.prepare_encode_table(t_frame)
     d_fy, d_fz = (LR.prepare_decode_table(t_frame[a:a + len(cum_y)])
                   for a in (0, len(cum_y)))
     frame = {}
@@ -275,7 +348,13 @@ def phase_k2(dev, LR, rng, table, n_y_rows, sym, skip, L, K):
         sym_f = np.where(skip_f, 0, sym_f)
         comb = ids.copy()
         comb[:k_z] += len(cum_y)
-        data, states = _k1_stream(dev, LR, comb, sym_f, skip_f, t_frame)
+        packed = _enc_operand(dev, LR, comb, sym_f, skip_f)
+        k_f = len(ids)
+        _k1_case(dev, LR, packed, e_frame, staging_width(k_f, 0.5),
+                 f"{codec} frame, first rung", k1_shapes)
+        data, states = _decode_order(_k1_case(
+            dev, LR, packed, e_frame, staging_width(k_f, 3.0),
+            f"{codec} frame, top rung", k1_shapes), k_f)
         carry = (states, torch.zeros((L,), dtype=torch.int32, device=dev))
         segs = [("z", 0, k_z, d_fz)] + [
             (f"y{i}", k_z + i * k_y, k_z + (i + 1) * k_y, d_fy)

@@ -11,16 +11,43 @@
 // step-major (K, L), so the 32 lanes of a warp read 32 neighbouring words
 // per step.  The Pallas kernels' one-hot matmul row lookup and 8-bit limb
 // division exist only because the TPU lacks a gather and a u32 divide;
-// here a lane reads its two cumulative bins directly (K1) or searches a
-// compact row in shared memory (K2), and divides in u32.
+// here a lane gathers a prepared table entry (K1) or searches a compact
+// row in shared memory (K2), and Hopper's own lack of an integer divide
+// is met by a multiply with a precomputed magic (K1).
 //
 // Neither is bound by bytes (a few MB a launch) but by the per-lane chain
 // of K dependent steps: with one chain a thread and 4096 lanes, a step's
-// latency is the kernel's time.
+// latency is the kernel's time.  Both run one warp a block, so 4096 lanes
+// make 128 blocks on 132 SMs.
 //
-// K1 reads its int32 (nr, 257) rows through L1/L2: the combined table (256
-// rows, 263 KB) does not fit a block's 227 KB as int32.  128 threads a
-// block give 32 blocks on 132 SMs.
+// K1 issues every memory read ahead of the state chain, which encode
+// allows because a slot's table entry depends only on its operand, never
+// on the state:
+//   * the table is the prepared one of prepare_encode_table: one 16-byte
+//     entry a (row, symbol), 4 KB a row, 1 MB for the combined 256-row
+//     table (it stays in L2; no shared-memory copy);
+//   * packed operands reach each lane through a cp.async ring in shared
+//     memory kOpRing steps ahead; once step j's operand has landed, its
+//     entry is requested into a second ring, kEncLead steps ahead.  One
+//     commit group a step, and one cp.async.wait_group at the top of step
+//     k finds the entry of step k + 1 and the operand of step k +
+//     kEncLead + 1 landed.  Both are used a step later: the entry
+//     unpacked (lr_enc_op), the operand turned into the address of the
+//     next entry request, so neither a shared load nor an address holds
+//     up the copies or the chain.  A skip slot's entry is the all-zero
+//     identity, a zero-fill copy that reads nothing;
+//   * the chain is a compare, a select, an exact division by a 48-bit
+//     magic (a high multiply, a wide multiply-add, a shift) and a
+//     multiply-add (lr_enc_lane_step), branch-free;
+//   * a word leaves by a store no later instruction waits on, onto rows
+//     the warp zeroed together, with 16-byte stores, while its first
+//     copies were in flight (the 32 staging rows of a warp are one
+//     block).  Zeroing only past each lane's last word, after the loop
+//     and a row at a time, made a K = 0 launch take 0.0123 ms on an H100
+//     against 0.0076 ms this way (tools/probe_lane_rans.py).
+// What bounds K1 then is the issue of a step's ~55 instructions (the
+// rings' bookkeeping and addresses are most of them) by one warp with its
+// scheduler to itself: ~0.05 us a step on an H100, coded or skipped.
 //
 // K2 keeps every memory load off the chain from one step's state to the
 // next, and the step free of branches but for the rare long search:
@@ -40,11 +67,11 @@
 //     moved before the load lands;
 //   * a skipped slot is a select, not a branch; symbols are stored and
 //     never read back.
-// One warp a block, so 4096 lanes make 128 blocks on 132 SMs.  What bounds
-// K2 then is the issue of one step's instructions (about a hundred) by a
-// warp that has its scheduler to itself, with nothing to fill the stalls:
+// What bounds K2 then is the issue of one step's instructions (about a
+// hundred) by a warp that has its scheduler to itself, with nothing to
+// fill the stalls:
 // on an H100 a step takes ~0.15 us whether its slot is coded or skipped
-// (tools/probe_k2.py).
+// (tools/probe_lane_rans.py).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,21 +79,12 @@
 
 namespace {
 
-constexpr int kThreads = 128;     // K1
+constexpr int kEncThreads = 32;   // K1: one warp a block
+constexpr int kOpRing = 64;       // K1: operands in flight, in steps
+constexpr int kEncLead = 32;      // K1: entries requested this far ahead
 constexpr int kDecThreads = 32;   // K2: one warp a block
 constexpr int kRing = 16;         // K2: row ids and words in flight
 constexpr int kMaxDecRows = LR_DEC_SKIP - 1;
-
-__global__ void lr_encode_kernel(int K, int L, int nr, int mw,
-                                 const int32_t* __restrict__ packed,
-                                 const int32_t* __restrict__ table,
-                                 int32_t* __restrict__ staging,
-                                 int32_t* __restrict__ lens,
-                                 int64_t* __restrict__ states) {
-  int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < L)
-    lr_encode_lane(lane, K, L, nr, mw, packed, table, staging, lens, states);
-}
 
 __device__ inline uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -129,6 +147,20 @@ __device__ inline void copy4_async(void* dst, const int32_t* src,
                : "memory");
 }
 
+// 16-byte cp.async, L2 only (both ends 16-byte aligned); `zero` stores
+// zeros and reads nothing (the ignore-src form: no source-size operand).
+__device__ inline void copy16_async(void* dst, const uint32_t* src,
+                                    bool zero) {
+  asm volatile(
+      "{\n"
+      ".reg .pred z;\n"
+      "setp.ne.b32 z, %2, 0;\n"
+      "cp.async.cg.shared.global [%0], [%1], 16, z;\n"
+      "}\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"((uint32_t)zero)
+      : "memory");
+}
+
 __device__ inline void async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -136,6 +168,129 @@ __device__ inline void async_commit() {
 template <int N>
 __device__ inline void async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A store under a predicate, not behind a branch; nothing in the kernel
+// reads it back.
+__device__ inline void store_if(bool p, int32_t* dst, uint32_t v) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %0, 0;\n"
+      "@p st.global.b32 [%1], %2;\n"
+      "}\n" ::"r"((uint32_t)p),
+      "l"(dst), "r"(v));
+}
+
+__global__ void __launch_bounds__(kEncThreads)
+    lr_encode_kernel(int K, int L, int nr, int mw,
+                     const int32_t* __restrict__ packed,
+                     const uint32_t* __restrict__ etab,
+                     int32_t* __restrict__ staging,
+                     int32_t* __restrict__ lens,
+                     int64_t* __restrict__ states) {
+  static_assert((kOpRing & (kOpRing - 1)) == 0 &&
+                    (kEncLead & (kEncLead - 1)) == 0,
+                "ring sizes are powers of two");
+  // operand of step j at op_ring[j % kOpRing], entry of step j at
+  // ent_ring[j % kEncLead]
+  __shared__ int32_t op_ring[kOpRing][kEncThreads];
+  __shared__ uint4 ent_ring[kEncLead][kEncThreads];
+  const int t = threadIdx.x;
+  const int lane = blockIdx.x * kEncThreads + t;
+  const bool live = lane < L;
+  const int src = live ? lane : L - 1;  // a dead lane shadows the last one
+  const uint32_t last = (uint32_t)nr - 1u;
+
+  // Where the entry of step j with operand pk comes from: the all-zero
+  // identity (a copy that reads nothing) for a skip slot, and for a step
+  // past the last, whose operand slot holds zeros or a stale operand (left
+  // to read, the zeros of every lane would all ask for one entry).
+  const uint32_t* ent_src;
+  bool ent_zero;
+  auto locate_entry = [&](int j, int32_t pk) {
+    ent_src = etab + lr_enc_entry_at(pk, last);
+    ent_zero = lr_enc_is_skip(pk) || j >= K;
+  };
+
+  // operands past the last step are zeros, copied from nowhere (the
+  // table stands in for a source address: `packed` may be empty)
+  const int32_t* op_next = packed + src;  // operand of step k + kOpRing
+  for (int j = 0; j < kOpRing; ++j, op_next += L)
+    copy4_async(&op_ring[j][t], j < K ? op_next : (const int32_t*)etab,
+                j < K ? 4u : 0u);
+  async_commit();
+
+  // While the operands travel, the warp zeroes its lanes' staging rows,
+  // one contiguous block of words, together: int4 stores, then the last
+  // words one at a time.  The block starts 16-byte aligned, since the
+  // staging does (the wrapper allocates it) and a block's 32 rows span
+  // 128 mw bytes.  The words the lanes emit land on top (the __syncwarp
+  // orders the two), so the staging holds zeros past each lane's last
+  // word.
+  {
+    const int rows = min(L - (int)blockIdx.x * kEncThreads, kEncThreads);
+    int32_t* blk = staging + (int64_t)blockIdx.x * kEncThreads * mw;
+    const int n = rows * mw;
+    const int b = n & ~3;
+#pragma unroll 1
+    for (int c = 4 * t; c < b; c += 4 * kEncThreads)
+      *(int4*)(blk + c) = make_int4(0, 0, 0, 0);
+    if (b + t < n) blk[b + t] = 0;
+    __syncwarp();
+  }
+  async_wait<0>();
+  for (int j = 0; j < kEncLead; ++j) {
+    locate_entry(j, op_ring[j][t]);
+    copy16_async(&ent_ring[j][t], ent_src, ent_zero);
+  }
+  async_commit();
+  async_wait<0>();
+  uint4 e = ent_ring[0][t];
+  LrEncOp op = lr_enc_op(e.x, e.y, e.z, e.w);
+  locate_entry(kEncLead, op_ring[kEncLead][t]);
+
+  // Ring invariant: at the top of step k, operands of steps [k + kEncLead
+  // + 1, k + kOpRing) and entries of steps [k, k + kEncLead) are
+  // requested, and the source of step k + kEncLead's entry is located.
+  // Step k requests that entry into entry k's slot (read a step earlier)
+  // and the operand of step k + kOpRing into operand k's (read kEncLead +
+  // 1 steps earlier), commits one group, and reads the entry of step k + 1
+  // and the operand of step k + kEncLead + 1.  Those were requested by
+  // steps k + 1 - kEncLead and k + kEncLead + 1 - kOpRing: waiting for all
+  // but the newest kEncLead - 2 groups finds both landed (kOpRing >= 2
+  // kEncLead).  What a step reads is used a step later, so no shared load
+  // and no address computation holds up the copies or the chain.
+  static_assert(kOpRing >= 2 * kEncLead, "operand lead too short");
+  uint32_t state = 1u << 16;
+  int32_t cur = 0;
+  int32_t* out = staging + (int64_t)src * mw;
+  const int32_t room = live ? mw : 0;  // a dead lane stores nothing
+  int k = 0;
+  auto step = [&](bool more) {
+    async_wait<kEncLead - 2>();
+    e = ent_ring[(k + 1) & (kEncLead - 1)][t];
+    const int32_t pk = op_ring[(k + kEncLead + 1) & (kOpRing - 1)][t];
+    copy16_async(&ent_ring[k & (kEncLead - 1)][t], ent_src, ent_zero);
+    if (more) copy4_async(&op_ring[k & (kOpRing - 1)][t], op_next, 4u);
+    async_commit();
+
+    const int32_t slot = cur;
+    uint32_t word;
+    const bool emit = lr_enc_lane_step(op, &state, &cur, &word);
+    store_if(emit & (slot < room), out + (uint32_t)slot, word);
+    op = lr_enc_op(e.x, e.y, e.z, e.w);
+    locate_entry(more ? 0 : k + kEncLead + 1, pk);
+    op_next += L;
+    ++k;
+  };
+  while (k < K - kOpRing) step(true);
+  while (k < K) step(false);
+  if (live) {
+    lens[lane] = cur;
+    states[lane] = (int64_t)state;
+  }
+  async_wait<0>();  // the rings' last copies land before the block ends
 }
 
 __global__ void __launch_bounds__(kDecThreads)
@@ -228,12 +383,16 @@ __global__ void __launch_bounds__(kDecThreads)
 }  // namespace
 
 // Launch on `stream` and return cudaGetLastError() (0 on success).
-extern "C" int lr_encode_launch(const void* packed, const void* table,
+// etab: nr prepared encode rows (16-byte aligned), 1 <= nr <= LR_ENC_SKIP;
+// staging: (L, mw) words, 16-byte aligned.
+extern "C" int lr_encode_launch(const void* packed, const void* etab,
                                 void* staging, void* lens, void* states,
                                 int K, int L, int nr, int mw, void* stream) {
-  int blocks = (L + kThreads - 1) / kThreads;
-  lr_encode_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      K, L, nr, mw, (const int32_t*)packed, (const int32_t*)table,
+  if (nr < 1 || nr > LR_ENC_SKIP || (uintptr_t)staging % 16)
+    return (int)cudaErrorInvalidValue;
+  int blocks = (L + kEncThreads - 1) / kEncThreads;
+  lr_encode_kernel<<<blocks, kEncThreads, 0, (cudaStream_t)stream>>>(
+      K, L, nr, mw, (const int32_t*)packed, (const uint32_t*)etab,
       (int32_t*)staging, (int32_t*)lens, (int64_t*)states);
   return (int)cudaGetLastError();
 }

@@ -6,12 +6,47 @@
 
 #include "lane_rans_step.cuh"
 
-extern "C" void lr_encode_host(const int32_t* packed, const int32_t* table,
+// K1, one lane after another, on the prepared table `etab` (nr rows of
+// LR_ENC_ROW_WORDS): the kernel's own entry lookup and step
+// (lr_enc_entry_at, lr_enc_op, lr_enc_lane_step), which the kernel runs
+// with the operands and entries prefetched; a skip slot reads the
+// all-zero entry, as the kernel's zero-fill copy gives it.
+extern "C" void lr_encode_host(const int32_t* packed, const int32_t* etab,
                                int32_t* staging, int32_t* lens,
                                int64_t* states, int K, int L, int nr,
                                int mw) {
-  for (int lane = 0; lane < L; ++lane)
-    lr_encode_lane(lane, K, L, nr, mw, packed, table, staging, lens, states);
+  const uint32_t* tab = (const uint32_t*)etab;
+  const uint32_t zero[LR_ENC_ENTRY_WORDS] = {0u, 0u, 0u, 0u};
+  for (int lane = 0; lane < L; ++lane) {
+    uint32_t state = 1u << 16;
+    int32_t cur = 0;
+    int32_t* out = staging + (int64_t)lane * mw;
+    for (int k = 0; k < K; ++k) {
+      const int32_t pk = packed[(int64_t)k * L + lane];
+      const uint32_t* e = lr_enc_is_skip(pk)
+                              ? zero
+                              : tab + lr_enc_entry_at(pk, (uint32_t)nr - 1u);
+      const LrEncOp op = lr_enc_op(e[0], e[1], e[2], e[3]);
+      const int32_t slot = cur;
+      uint32_t word;
+      if (lr_enc_lane_step(op, &state, &cur, &word) && slot < mw)
+        out[slot] = (int32_t)word;
+    }
+    for (int c = cur < mw ? cur : mw; c < mw; ++c) out[c] = 0;
+    lens[lane] = cur;
+    states[lane] = (int64_t)state;
+  }
+}
+
+// q[i] = x[i] / d[i] and r[i] = x[i] % d[i] by K1's exact division, from
+// the words ml[i], mh[i] of d's magic (ops/lane_rans.py div_magic).
+extern "C" void lr_divmod_host(const uint32_t* d, const uint32_t* ml,
+                               const uint32_t* mh, const uint32_t* x,
+                               int64_t n, uint32_t* q, uint32_t* r) {
+  for (int64_t i = 0; i < n; ++i) {
+    q[i] = lr_div_exact(x[i], ml[i], mh[i]);
+    r[i] = x[i] - q[i] * d[i];
+  }
 }
 
 // K2, one lane after another, on the compact table `dtab` (nr rows of

@@ -20,6 +20,14 @@
 // Row ids at or above the table's row count (other than the sentinel) are
 // clamped to its last row, so a bad operand cannot read outside the table.
 //
+// Encode reads the rows of ops/lane_rans.py prepare_encode_table:
+// LR_ENC_ROW_WORDS u32 words a row, for each symbol the 16-byte entry
+// {c16, ml, mh, start}: c16 = (2^16 - freq) << 16, ml and mh the low and
+// high words of the magic M = ceil(2^48 / freq) of an exact division by
+// freq (lr_div_exact), start = cum[s].  The all-zero entry stands for a
+// skip slot: 2^16 - freq = 0 and start = 0 make the step an identity (see
+// lr_enc_lane_step), so a skip needs neither a branch nor a select.
+//
 // Decode reads the compact rows of ops/lane_rans.py prepare_decode_table:
 // LR_DEC_ROW_BYTES a row, u16 bins[s] = cum[s] - 1 mod 2^16 for s in [0,
 // 256) (bins[0] = 0xFFFF for cum[0] = 0 pads the 255 inner bins), 16 bytes
@@ -35,19 +43,91 @@
 #define LR_ENC_ROW_MASK 511
 #define LR_ENC_SKIP 511  // 9-bit: combined encode tables reach 256 rows
 #define LR_DEC_SKIP 255  // decode tables stay below 255 rows
-#define LR_BINS 257
+#define LR_ENC_ENTRY_WORDS 4
+#define LR_ENC_ROW_WORDS 1024  // 256 entries
 #define LR_DEC_ROW_BYTES 784
 #define LR_DEC_BUCKET_OFF 528
 #define LR_DEC_SCAN 5  // bucket ranges up to this many symbols: one read
 
-// One encode step.  *emit is set when the low 16 bits of the incoming
-// state leave the lane (the caller stores them before the call).
-__host__ __device__ inline uint32_t lr_enc_step(uint32_t state,
-                                                uint32_t start,
-                                                uint32_t freq, int* emit) {
-  *emit = state >= (freq << 16);
-  if (*emit) state >>= 16;
-  return ((state / freq) << 16) + state % freq + start;
+__host__ __device__ inline uint32_t lr_umulhi(uint32_t a, uint32_t b) {
+#ifdef __CUDA_ARCH__
+  return __umulhi(a, b);
+#else
+  return (uint32_t)(((uint64_t)a * b) >> 32);
+#endif
+}
+
+// floor(x / d) for every u32 x and d in [1, 2^16], from d's magic M =
+// ceil(2^48 / d) = mh 2^32 + ml (mh <= 2^16), with no divide instruction.
+// Exact: M d = 2^48 + e with 0 <= e < d.  For x = q d + r, 0 <= r < d:
+// x M / 2^48 = x / d + x e / (d 2^48), where 0 <= x e / (d 2^48) <
+// 2^32 d / (d 2^48) = 2^-16 <= 1 / d, so q <= x / d <= x M / 2^48 <
+// q + (r + 1) / d <= q + 1, and the floor of x M / 2^48 is q.  It is
+// computed as floor(x M / 2^32) >> 16, where floor(x M / 2^32) = x mh +
+// umulhi(x, ml) (x mh is an integer) lies below 2^49.  The magic of
+// ops/lane_rans.py div_magic; the CPU tests check q at every quotient
+// boundary of a sample of d.
+__host__ __device__ inline uint32_t lr_div_exact(uint32_t x, uint32_t ml,
+                                                 uint32_t mh) {
+  return (uint32_t)(((uint64_t)x * mh + lr_umulhi(x, ml)) >> 16);
+}
+
+// What the encode chain needs of one slot, unpacked from its prepared
+// entry before the state reaches it.
+struct LrEncOp {
+  uint32_t emit_above;  // freq * 2^16 - 1: a state above it emits a word
+  uint32_t ml, mh;      // the magic of freq
+  uint32_t comp;        // 2^16 - freq
+  uint32_t start;
+};
+
+__host__ __device__ inline LrEncOp lr_enc_op(uint32_t c16, uint32_t ml,
+                                             uint32_t mh, uint32_t start) {
+  LrEncOp op;
+  op.emit_above = ~c16;  // 2^32 - 1 - (2^16 - freq) 2^16
+  op.ml = ml;
+  op.mh = mh;
+  op.comp = c16 >> 16;
+  op.start = start;
+  return op;
+}
+
+__host__ __device__ inline bool lr_enc_is_skip(int32_t pk) {
+  return ((uint32_t)pk & LR_ENC_ROW_MASK) == LR_ENC_SKIP;
+}
+
+// Word offset of the prepared entry of packed operand pk in a table whose
+// last row is `last` (a row id past it, the skip row's included, clamps
+// to it): always inside the table.
+__host__ __device__ inline uint32_t lr_enc_entry_at(int32_t pk,
+                                                    uint32_t last) {
+  const uint32_t row = (uint32_t)pk & LR_ENC_ROW_MASK;
+  const uint32_t sym = ((uint32_t)pk >> LR_ENC_ROW_BITS) & 255u;
+  return (row < last ? row : last) * LR_ENC_ROW_WORDS +
+         sym * LR_ENC_ENTRY_WORDS;
+}
+
+// One encode step of one lane: if the state is at least freq << 16, its
+// low 16 bits leave as *word at slot *cur (returns true, *cur advances)
+// and it shifts right by 16; then state = (x / freq) << 16 + x % freq +
+// start, computed as x + q (2^16 - freq) + start with q = x / freq from
+// the magic: the same value, since x = q freq + x % freq, and below 2^32
+// (q < 2^16 because x < freq << 16, and x % freq + start < 2^16).  On the
+// all-zero skip entry nothing is emitted (no u32 is above 2^32 - 1) and
+// the state stays: its 2^16 - freq and start are 0.  The state chain is a
+// compare, a select, the division's high multiply, wide multiply-add and
+// shift, and one multiply-add; everything of `op` is ready before it.
+__host__ __device__ inline bool lr_enc_lane_step(const LrEncOp& op,
+                                                 uint32_t* state,
+                                                 int32_t* cur,
+                                                 uint32_t* word) {
+  const uint32_t s = *state;
+  const bool emit = s > op.emit_above;
+  *word = s & 0xFFFFu;
+  const uint32_t x = emit ? s >> 16 : s;
+  *state = lr_div_exact(x, op.ml, op.mh) * op.comp + (x + op.start);
+  *cur += emit;
+  return emit;
 }
 
 // The bin s in [lo, lo + LR_DEC_SCAN) with cum[s] <= f < cum[s + 1] on a
@@ -147,38 +227,4 @@ __host__ __device__ inline int lr_dec_lane_step(const uint8_t* tab, int nr,
   if (!skip) *state = refill ? (decoded << 16) | word : decoded;
   *ptr += refill;
   return skip ? 0 : s - 128;
-}
-
-// Encode lane `lane` over all K steps from a fresh carry (state 2^16,
-// cursor 0).  packed (K, L): (sym + 128) << 9 | row, step-major;
-// table (nr, 257); staging (L, mw) receives the words in emit order and
-// zeros past the lane's last word; lens (L,); states (L,) as int64.
-__host__ __device__ inline void lr_encode_lane(
-    int lane, int K, int L, int nr, int mw, const int32_t* packed,
-    const int32_t* table, int32_t* staging, int32_t* lens,
-    int64_t* states) {
-  uint32_t state = 1u << 16;
-  int32_t cur = 0;
-  int32_t* out = staging + (int64_t)lane * mw;
-  for (int k = 0; k < K; ++k) {
-    int32_t pk = packed[(int64_t)k * L + lane];
-    int row = pk & LR_ENC_ROW_MASK;
-    if (row == LR_ENC_SKIP) continue;
-    if (row >= nr) row = nr - 1;
-    int sym = (pk >> LR_ENC_ROW_BITS) & 255;
-    const int32_t* cum = table + (int64_t)row * LR_BINS;
-    uint32_t start = (uint32_t)cum[sym];
-    uint32_t freq = (uint32_t)(cum[sym + 1] - cum[sym]);
-    if (freq < 1u) freq = 1u;
-    uint32_t word = state & 0xFFFFu;
-    int emit;
-    state = lr_enc_step(state, start, freq, &emit);
-    if (emit) {
-      if (cur < mw) out[cur] = (int32_t)word;
-      ++cur;
-    }
-  }
-  for (int c = cur; c < mw; ++c) out[c] = 0;
-  lens[lane] = cur;
-  states[lane] = (int64_t)state;
 }

@@ -138,6 +138,13 @@ def effective_lanes(max_lanes, n_symbols, min_lanes=256, min_steps=64):
     return max(lanes, min_lanes)
 
 
+def staging_width(k_total, bps):
+    """Staging words a lane (mw) of a K1 launch over k_total steps at `bps`
+    bytes per symbol: the staging ladder's rungs run from bps 0.5 to 3.0,
+    the top, where a lane has room for a word every step."""
+    return max(8, int(k_total * bps / 2)) + 4
+
+
 def settle_staging(arr, lanes, n_total, k_total, plan, bps, base_bps,
                    rerun):
     """Overflow-check a fetched compact staging and serialize it.

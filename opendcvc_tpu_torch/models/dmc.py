@@ -28,13 +28,13 @@ import torch
 from ..entropy.device_rans import (SKIP_ROW, _undensify_device,
                                    densify_segment, effective_lanes,
                                    full_range_cdf_rows, parse_frame,
-                                   settle_staging)
+                                   settle_staging, staging_width)
 from ..entropy.models import (BitEstimator, GaussianEncoder,
                               bit_estimator_init)
 from ..layers import blocks as L
 from ..ops import fused as F
 from ..ops.lane_rans import (ENC_SKIP, decode_scan, encode_scan, pack_operand,
-                              prepare_decode_table)
+                              prepare_decode_table, prepare_encode_table)
 from ..utils.params import to_device
 from . import common as C
 
@@ -346,12 +346,13 @@ def _dec_y_plane(data, idx, keep, dec_table, carry, lanes, fz):
     return _dec_plane(data, rows, dec_table, carry, lanes)
 
 
-def _encode_staging(packed, table, n_y_rows, qp, c_z, mw, cap):
+def _encode_staging(packed, enc_table, n_y_rows, qp, c_z, mw, cap):
     """K1 over a frame's operand against its combined [y rows | qp's z
-    rows] table, compacted on the device and fetched: the host staging
-    (numpy u16) the ladder checks."""
+    rows] slice of the prepared encode table, compacted on the device and
+    fetched: the host staging (numpy u16) the ladder checks."""
     z_base = n_y_rows + qp * c_z
-    comb = torch.cat([table[:n_y_rows], table[z_base:z_base + c_z]])
+    comb = torch.cat([enc_table[:n_y_rows],
+                      enc_table[z_base:z_base + c_z]])
     staging = densify_segment(*encode_scan(packed, comb, mw), cap)
     return staging.cpu().numpy().astype(np.uint16)
 
@@ -454,7 +455,7 @@ class DMC:
         self.bit_estimator_z = BitEstimator(C.QP_NUM + EXTRA_QP, G_CH_Z)
         self.gaussian_encoder = GaussianEncoder()
         self.force_zero_thres = None
-        self.table = None
+        self.enc_table = None
         self.dec_table = None
         self.n_y_rows = 0
 
@@ -478,16 +479,17 @@ class DMC:
 
     def update(self, force_zero_thres=None):
         """Build the CDF tables: rows [0, n_y) are the gaussian scale rows,
-        rows n_y + qp * 128 + channel the z rows; K1 reads `table`, K2
-        slices of its prepared form `dec_table`."""
+        rows n_y + qp * 128 + channel the z rows.  K1 and K2 read slices of
+        their prepared forms, `enc_table` and `dec_table`."""
         self.force_zero_thres = force_zero_thres
         y_rows = full_range_cdf_rows(*self.gaussian_encoder.update())
         z_rows = full_range_cdf_rows(
             *self.bit_estimator_z.update(self.params["bit_estimator_z"]))
         self.n_y_rows = y_rows.shape[0]
-        self.table = torch.from_numpy(
+        table = torch.from_numpy(
             np.concatenate([y_rows, z_rows])).to(self.device)
-        self.dec_table = prepare_decode_table(self.table)
+        self.enc_table = prepare_encode_table(table)
+        self.dec_table = prepare_decode_table(table)
 
     # -- DPB management ------------------------------------------------------
 
@@ -548,7 +550,7 @@ class DMC:
         rectangle (the strided layout keeps the longest lane near the
         mean); at the top rung (bps 3.0) it is the whole rectangle, where
         everything fits, since a symbol emits at most one word."""
-        mw = max(8, int(k_total * bps / 2)) + 4
+        mw = staging_width(k_total, bps)
         if bps >= 3.0:
             return mw, lanes * mw
         return mw, max(4096, int(lanes * mw * self.cap_frac) // 8 * 8)
@@ -569,8 +571,8 @@ class DMC:
             self.n_y_rows, self.force_zero_thres)
 
         def run(mw, cap):
-            return _encode_staging(packed, self.table, self.n_y_rows, qp,
-                                   G_CH_Z, mw, cap)
+            return _encode_staging(packed, self.enc_table, self.n_y_rows,
+                                   qp, G_CH_Z, mw, cap)
 
         staging = run(*self._rung(lanes, k_total, bps))
         self.add_ref_frame(feature_out, None)

@@ -18,12 +18,13 @@ import torch
 
 from ..entropy.device_rans import (_undensify_device, effective_lanes,
                                    full_range_cdf_rows, parse_frame,
-                                   settle_staging)
+                                   settle_staging, staging_width)
 from ..entropy.models import (BitEstimator, GaussianEncoder,
                               bit_estimator_init)
 from ..layers import blocks as L
 from ..ops import fused as F
-from ..ops.lane_rans import prepare_decode_table
+from ..ops.lane_rans import (prepare_decode_table,
+                              prepare_encode_table)
 from ..utils.params import to_device
 from . import common as C
 from .dmc import (_cm_unflat, _dcb_seq, _dec_plane, _dec_y_plane,
@@ -242,7 +243,7 @@ class DMCI:
         self.bit_estimator_z = BitEstimator(C.QP_NUM, z_channel)
         self.gaussian_encoder = GaussianEncoder()
         self.force_zero_thres = None
-        self.table = None
+        self.enc_table = None
         self.dec_table = None
         self.n_y_rows = 0
         # learned launch staging rate per (H, W) (see DMC._ec_learned)
@@ -263,15 +264,17 @@ class DMCI:
 
     def update(self, force_zero_thres=None):
         """Build the CDF tables (y scale rows, then z rows by qp, channel):
-        K1 reads `table`, K2 slices of its prepared form `dec_table`."""
+        K1 and K2 read slices of their prepared forms, `enc_table` and
+        `dec_table`."""
         self.force_zero_thres = force_zero_thres
         y_rows = full_range_cdf_rows(*self.gaussian_encoder.update())
         z_rows = full_range_cdf_rows(
             *self.bit_estimator_z.update(self.params["bit_estimator_z"]))
         self.n_y_rows = y_rows.shape[0]
-        self.table = torch.from_numpy(
+        table = torch.from_numpy(
             np.concatenate([y_rows, z_rows])).to(self.device)
-        self.dec_table = prepare_decode_table(self.table)
+        self.enc_table = prepare_encode_table(table)
+        self.dec_table = prepare_decode_table(table)
 
     # -- compress ------------------------------------------------------------
 
@@ -290,7 +293,7 @@ class DMCI:
     def _rung(lanes, k_total, bps):
         """(mw, cap) of the staging ladder at `bps` bytes per symbol; the
         top rung (bps 3.0) takes the whole rectangle."""
-        mw = max(8, int(k_total * bps / 2)) + 4
+        mw = staging_width(k_total, bps)
         return mw, lanes * mw if bps >= 3.0 else max(4096, lanes * mw // 2)
 
     def compress(self, x, qp):
@@ -306,8 +309,8 @@ class DMCI:
                                           self.force_zero_thres)
 
         def run(mw, cap):
-            return _encode_staging(packed, self.table, self.n_y_rows, qp,
-                                   self.z_channel, mw, cap)
+            return _encode_staging(packed, self.enc_table, self.n_y_rows,
+                                   qp, self.z_channel, mw, cap)
 
         stream, g_bps, reruns = settle_staging(
             run(*plan(bps)), lanes, n_total, k_total, plan, bps,

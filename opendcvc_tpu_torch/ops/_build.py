@@ -34,7 +34,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "lane_rans": {
-        # packed, table, staging, lens, states, K, L, nr, mw, stream
+        # packed, enc_table, staging, lens, states, K, L, nr, mw, stream
         "lr_encode_launch": [_P] * 5 + [_I] * 4 + [_P],
         # data, rows, table, state_in, ptr_in, syms, state_out, ptr_out,
         # K, L, nr, mw, stream
@@ -124,6 +124,9 @@ def load_host_shim():
     lib = ctypes.CDLL(out)
     lib.lr_encode_host.argtypes = [_P] * 5 + [_I] * 4
     lib.lr_encode_host.restype = None
+    # d, ml, mh, x, n, q, r
+    lib.lr_divmod_host.argtypes = [_P] * 4 + [ctypes.c_int64] + [_P] * 2
+    lib.lr_divmod_host.restype = None
     lib.lr_decode_host.argtypes = [_P] * 8 + [_I] * 4
     lib.lr_decode_host.restype = None
     # dtab, nr, sym, start, next

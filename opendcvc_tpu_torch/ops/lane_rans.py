@@ -7,8 +7,10 @@ K1 replaces the JAX package's `ops/pallas_rans.py::_enc_kernel`
 package (`entropy/device_rans.py` `_encode_scan_carry`,
 `_decode_scan_carry`); the CUDA sources are `csrc/lane_rans.cu` with the
 per-lane arithmetic in `csrc/lane_rans_step.cuh`, whose notes say what
-bounds them and how they are laid out.  K1 reads (nr, 257) int32
-cumulative rows; K2 reads the compact rows of `prepare_decode_table`.
+bounds them and how they are laid out.  Each reads a prepared form of the
+(nr, 257) int32 cumulative rows, built once per model table: K1 the
+entries of `prepare_encode_table`, K2 the compact rows of
+`prepare_decode_table`.
 
 A wrapper runs the plain version for tensors on the CPU and launches its
 kernel for tensors on a CUDA device (raising if the launch fails); each
@@ -45,11 +47,18 @@ def _check(name, t, dtype, ndim, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_table(table, device, max_rows):
-    _check("table", table, torch.int32, 2, device)
-    if table.shape[1] != 257 or not 0 < table.shape[0] <= max_rows:
-        raise ValueError(f"table must be (1..{max_rows}, 257), got "
-                         f"{tuple(table.shape)}")
+def _cdf_rows(table, what):
+    """(nr, 257) int64 of valid cumulative rows; raises ValueError on a
+    row without cum[0] = 0, cum[256] = 65536 and every frequency >= 1
+    (`full_range_cdf_rows`)."""
+    if table.dim() != 2 or table.shape[1] != 257:
+        raise ValueError(f"table must be (nr, 257), got {tuple(table.shape)}")
+    cum = table.to(torch.int64)
+    if bool((cum[:, 0] != 0).any()) or bool((cum[:, 256] != 65536).any()) \
+            or bool((cum[:, 1:] <= cum[:, :-1]).any()):
+        raise ValueError(f"every {what} row needs cum[0] = 0, cum[256] = "
+                         "65536 and every frequency >= 1")
+    return cum
 
 
 def _lib():
@@ -61,31 +70,80 @@ def _lib():
 # K1: encode
 # ---------------------------------------------------------------------------
 
-def encode_scan(packed, table, mw):
+#: int32 words of a prepared encode entry and row (256 entries)
+ENC_ENTRY_WORDS = 4
+ENC_ROW_WORDS = 256 * ENC_ENTRY_WORDS
+
+
+def div_magic(freq):
+    """Magic M = ceil(2^48 / freq) of K1's exact division by freq in
+    [1, 65536] (int64 in and out).  `csrc/lane_rans_step.cuh::
+    lr_div_exact` turns its low and high 32-bit words into x // freq for
+    every u32 x, and proves that exact."""
+    return ((1 << 48) + freq - 1) // freq
+
+
+def prepare_encode_table(table):
+    """K1's table of (nr, 257) int32 cumulative rows.
+
+    Every row must hold cum[0] = 0, cum[256] = 65536 and every frequency
+    >= 1; a row that does not raises ValueError.  Returns (nr,
+    ENC_ROW_WORDS) int32 on the table's device: for symbol s of a row the
+    u32 words (65536 - freq) << 16, the low and the high word of
+    div_magic(freq), and start (start = cum[s], freq = cum[s + 1] -
+    cum[s]), 4 KB a row, so one 16-byte read gives K1 all it needs of a
+    slot.  Built once per model table; the encode calls slice it by
+    row."""
+    cum = _cdf_rows(table, "encode")
+    start = cum[:, :256]
+    freq = cum[:, 1:] - start
+    magic = div_magic(freq)
+    entry = torch.stack([(65536 - freq) << 16, magic & 0xFFFFFFFF,
+                         magic >> 32, start], dim=2)
+    entry = entry - ((entry >> 31) << 32)            # u32 bit patterns
+    return entry.to(torch.int32).reshape(cum.shape[0], ENC_ROW_WORDS)
+
+
+def encode_table_entries(enc_table):
+    """(start, freq, magic) (nr, 256) int64 of a prepared encode table."""
+    e = (enc_table.to(torch.int64) & 0xFFFFFFFF).reshape(
+        enc_table.shape[0], 256, ENC_ENTRY_WORDS)
+    return e[..., 3], 65536 - (e[..., 0] >> 16), (e[..., 2] << 32) | e[..., 1]
+
+
+def encode_scan(packed, enc_table, mw):
     """Encode L lanes over K steps from a fresh carry.
 
     packed: (K, L) int32 step-major, (sym + 128) << 9 | row, encode order
     (each lane's last symbol first); row == ENC_SKIP is a zero-rate
-    passthrough.  table: (nr, 257) int32 cumulative rows, nr <= 511.
-    mw: staging width.  Returns (staging (L, mw) int32 u16 words in emit
+    passthrough, a row id >= nr reads row nr - 1.  enc_table: (nr,
+    ENC_ROW_WORDS) int32 rows of prepare_encode_table, nr <= 511.  mw:
+    staging width.  Returns (staging (L, mw) int32 u16 words in emit
     order, zero past each lane's last word; lens (L,) int32, counting
     words past mw too; states (L,) int64 u32 values)."""
     dev = packed.device
     _check("packed", packed, torch.int32, 2, dev)
-    _check_table(table, dev, ENC_SKIP)
+    _check("enc_table", enc_table, torch.int32, 2, dev)
+    if enc_table.shape[1] != ENC_ROW_WORDS or \
+            not 0 < enc_table.shape[0] <= ENC_SKIP:
+        raise ValueError(f"enc_table must be (1..{ENC_SKIP}, "
+                         f"{ENC_ROW_WORDS}), got {tuple(enc_table.shape)}")
     if mw < 1:
         raise ValueError("mw must be positive")
     if dev.type == "cpu":
-        return encode_scan_plain(packed, table, mw)
+        return encode_scan_plain(packed, enc_table, mw)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    if enc_table.data_ptr() % 16:
+        raise ValueError("enc_table must start 16-byte aligned (a row "
+                         "slice of an aligned table does)")
     K, L = packed.shape
     staging = torch.empty((L, mw), dtype=torch.int32, device=dev)
     lens = torch.empty((L,), dtype=torch.int32, device=dev)
     states = torch.empty((L,), dtype=torch.int64, device=dev)
     err = _lib().lr_encode_launch(
-        packed.data_ptr(), table.data_ptr(), staging.data_ptr(),
-        lens.data_ptr(), states.data_ptr(), K, L, table.shape[0], mw,
+        packed.data_ptr(), enc_table.data_ptr(), staging.data_ptr(),
+        lens.data_ptr(), states.data_ptr(), K, L, enc_table.shape[0], mw,
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"lane rANS encode launch failed: cudaError {err}")
@@ -96,13 +154,14 @@ def encode_scan(packed, table, mw):
 encode_scan.launches = 0
 
 
-def encode_scan_plain(packed, table, mw):
-    """Plain PyTorch version of encode_scan (same contract)."""
+def encode_scan_plain(packed, enc_table, mw):
+    """Plain PyTorch version of encode_scan (same contract), on the start
+    and freq of the prepared entries, dividing in int64."""
     from ..entropy.device_rans import encode_carry_init
     K, L = packed.shape
     dev = packed.device
-    tab = table.to(torch.int64)
-    nr = tab.shape[0]
+    start_t, freq_t, _ = encode_table_entries(enc_table)
+    nr = start_t.shape[0]
     state, cur, buf = encode_carry_init(L, mw, dev)
     lane = torch.arange(L, device=dev)
     for k in range(K):
@@ -111,8 +170,8 @@ def encode_scan_plain(packed, table, mw):
         skip = row == ENC_SKIP
         row = row.clamp(max=nr - 1)
         sym = (pk >> ENC_ROW_BITS) & 255
-        start = tab[row, sym]
-        freq = (tab[row, sym + 1] - start).clamp(min=1)
+        start = start_t[row, sym]
+        freq = freq_t[row, sym]
         emit = (state >= (freq << 16)) & ~skip
         word = (state & 0xFFFF).to(torch.int32)
         # words past mw are dropped; the cursor still counts them
@@ -150,13 +209,7 @@ def prepare_decode_table(table):
     bucket[(f >> 8) + 1]].  With the offset, cum[s] <= f is bins[s] < f,
     and no bin past 255 is below f.  Built once per model table; the
     decode calls slice it by row."""
-    if table.dim() != 2 or table.shape[1] != 257:
-        raise ValueError(f"table must be (nr, 257), got {tuple(table.shape)}")
-    cum = table.to(torch.int64)
-    if bool((cum[:, 0] != 0).any()) or bool((cum[:, 256] != 65536).any()) \
-            or bool((cum[:, 1:] <= cum[:, :-1]).any()):
-        raise ValueError("every decode row needs cum[0] = 0, cum[256] = "
-                         "65536 and every frequency >= 1")
+    cum = _cdf_rows(table, "decode")
     bins = (cum[:, :256] - 1) & 0xFFFF
     bins = (bins - ((bins >> 15) << 16)).to(torch.int16)    # u16 bit pattern
     edges = (torch.arange(256, device=cum.device) << 8).expand(

@@ -111,17 +111,21 @@ def _jax_encode(pl):
     return buf, cursors, state
 
 
+def _enc_table(pl):
+    return LR.prepare_encode_table(torch.from_numpy(pl["combined"]))
+
+
 def _port_encode(pl):
     buf, lens, states = LR.encode_scan(torch.from_numpy(pl["packed"]),
-                                       torch.from_numpy(pl["combined"]),
-                                       pl["mw"])
+                                       _enc_table(pl), pl["mw"])
     return buf.numpy(), lens.numpy(), states.numpy()
 
 
 def _host_encode(pl):
-    """The kernels' own per-lane code (csrc/lane_rans_step.cuh), g++."""
+    """The kernel's own per-lane code (csrc/lane_rans_step.cuh), g++, on
+    the prepared table."""
     lib = _build.load_host_shim()
-    packed, table = pl["packed"], pl["combined"]
+    packed, table = pl["packed"], _enc_table(pl).numpy()
     buf = np.full((L, pl["mw"]), -1, np.int32)
     lens = np.zeros(L, np.int32)
     states = np.zeros(L, np.int64)
@@ -322,12 +326,16 @@ def test_container_rejects_unknown_magic():
 
 
 def test_wrappers_reject_bad_operands():
-    table = torch.from_numpy(_tables(np.random.default_rng(0), 4))
+    cum = torch.from_numpy(_tables(np.random.default_rng(0), 4))
+    table = LR.prepare_encode_table(cum)
     packed = torch.zeros((K, L), dtype=torch.int32)
+    LR.encode_scan(packed, table, 8)
     with pytest.raises(ValueError):
         LR.encode_scan(packed.to(torch.int64), table, 8)
     with pytest.raises(ValueError):
         LR.encode_scan(packed.t(), table, 8)      # not contiguous
+    with pytest.raises(ValueError):
+        LR.encode_scan(packed, cum, 8)            # rows not prepared
     with pytest.raises(ValueError):
         LR.decode_scan(torch.zeros((L, 8), dtype=torch.int32), packed,
                        torch.zeros((300, LR.DEC_ROW_WORDS),
