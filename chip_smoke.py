@@ -26,20 +26,33 @@ Phases (any failure exits nonzero and prints no result):
      (`device_ms`); K2's per-frame totals are the sums of the timed
      launches of each frame;
   3. DMCI at 1080p full width (N = 256, z 128), f32, force_zero_thres
-     0.12, flat q banks: one I-frame compress + decompress, the decoded
-     frame equal to the encoder's;
-  4. DMC at 1080p full width seeded from phase 3's frame: four P-frames
-     compress, then decompress, the decoder's feature equal to the
-     encoder's after every frame;
+     0.12, flat q banks, device EC: one I-frame compress + decompress, the
+     decoded frame equal to the encoder's;
+  4. DMC at 1080p full width, device EC, seeded from phase 3's frame:
+     four P-frames compress, then decompress, the decoder's feature equal
+     to the encoder's after every frame;
   5. a 64x64 I-frame coded on the GPU and on the CPU with the same
-     weights: the two decoders agree (the CPU path is the one the test
-     suite holds against the JAX package).
+     weights, through device EC and through host EC: the CPU decodes the
+     GPU's stream and the two agree (the CPU path is the one the test
+     suite holds against the JAX package);
+  6. the host-EC sequence at 1080p: phases 3-4's weights, frames, qp and
+     force_zero_thres, the C++ rANS coder on the host with two coders (as
+     the harness above 1280x720); the I-frame and 4 P-frames encoded and
+     written as one NAL stream (SPS, then I/P records) into memory, parsed
+     back and decoded from those bytes.  The encoder's x_hat and features
+     must equal phases 3-4's bit for bit, the decoded I-frame the
+     encoder's, the decoder's feature the encoder's after every P-frame
+     and each decoded P-frame phase 4's; K1 and K2 must not launch.
+     Prints per frame the enc/dec ms, the host coder's ms within them,
+     the device->host waits and uploads, and the bpp beside phase 3-4's.
 The kernel launch counters are zeroed before phase 3 and read after
-phase 4, so the counts are the main path's.  Then it prints the card's
-name and power limit, one JSON line describing each kernel, and, last,
-{"ok": true, "device": {...}}.
+phase 4, so the counts are the main path's (the device-EC path); they are
+zeroed again before phase 6 and must read 0 after it.  Then it prints the
+card's name and power limit, one JSON line describing each kernel, and,
+last, {"ok": true, "device": {...}}.
 """
 
+import io
 import json
 import subprocess
 import sys
@@ -428,7 +441,7 @@ def _timed(fn, dev):
 
 def phase_intra(dev, frame, qp, fz):
     from opendcvc_tpu_torch.models.dmci import DMCI
-    net = DMCI(device=dev)
+    net = DMCI(device=dev, device_ec=True)
     net.init_params(seed=0)
     # flat banks (bench.py's surrogate for trained rate statistics)
     net.params["q_scale_enc"] = torch.ones_like(
@@ -453,19 +466,19 @@ def phase_intra(dev, frame, qp, fz):
     _log(f"phase 3: DMCI {frame.shape[1]}x{frame.shape[2]} enc "
          f"{enc_ms:.1f} ms dec {dec_ms:.1f} ms (second pass), bpp "
          f"{bpp:.4f}, reruns {net._ec_rerun_count}; decoded frame exact")
-    return x_hat, net
+    return {"params": net.params, "x_hat": x_hat, "bpp": bpp}
 
 
 def phase_p(dev, x_ref, frames, qp, fz):
     from opendcvc_tpu_torch.models.dmc import DMC
-    enc_net = DMC(device=dev)
+    enc_net = DMC(device=dev, device_ec=True)
     enc_net.init_params(seed=1)
     enc_net.params["q_encoder"] = torch.ones_like(
         enc_net.params["q_encoder"]) * 0.25
     enc_net.params["q_decoder"] = torch.ones_like(
         enc_net.params["q_decoder"])
     enc_net.update(force_zero_thres=fz)
-    dec_net = DMC(device=dev)
+    dec_net = DMC(device=dev, device_ec=True)
     dec_net.load_params(enc_net.params)
     dec_net.update(force_zero_thres=fz)
     for net in (enc_net, dec_net):
@@ -477,10 +490,11 @@ def phase_p(dev, x_ref, frames, qp, fz):
         streams.append(s)
         enc_ms.append(ms)
         feats.append(enc_net.dpb[0].feature.clone())
-    dec_ms = []
+    dec_ms, dec_x = [], []
     for i, s in enumerate(streams):
         out, ms = _timed(lambda: dec_net.decompress(s, sps, qp), dev)
         dec_ms.append(ms)
+        dec_x.append(out["x_hat"])
         if not torch.equal(dec_net.dpb[0].feature, feats[i]):
             _fail(f"DMC enc/dec feature chain diverged at P-frame {i}")
         if not bool(torch.isfinite(out["x_hat"]).all()):
@@ -491,33 +505,220 @@ def phase_p(dev, x_ref, frames, qp, fz):
          + " | dec ms " + " ".join(f"{t:.1f}" for t in dec_ms)
          + " | bpp " + " ".join(f"{b:.4f}" for b in bpp)
          + f" | reruns {enc_net._ec_rerun_count}; feature chain exact")
+    return {"params": enc_net.params, "feats": feats, "dec_x": dec_x,
+            "bpp": bpp}
 
 
 def phase_reference(dev, qp, fz):
-    """The same 64x64 I-frame through the GPU and the CPU port."""
+    """The same 64x64 I-frame through the GPU and the CPU port, device EC
+    and host EC."""
     from opendcvc_tpu_torch.models.dmci import DMCI
-    nets = {}
-    for d in (dev, torch.device("cpu")):
-        nets[d.type] = DMCI(device=d)
-    nets["cpu"].init_params(seed=3)
-    nets[dev.type].load_params(nets["cpu"].params)
-    for net in nets.values():
-        net.update(force_zero_thres=fz)
     x = np.random.default_rng(3).random((1, 64, 64, 3), dtype=np.float32)
-    sps = {"height": 64, "width": 64}
-    enc = {k: n.compress(x, qp) for k, n in nets.items()}
-    x_dev = enc[dev.type]["x_hat"].cpu()
-    x_cpu = enc["cpu"]["x_hat"]
-    cross = nets["cpu"].decompress(enc[dev.type]["bit_stream"], sps,
-                                   qp)["x_hat"]
-    err = max(float((x_dev - x_cpu).abs().max()),
-              float((cross - x_dev).abs().max()))
-    same = enc[dev.type]["bit_stream"] == enc["cpu"]["bit_stream"]
-    if err > 1e-3:
-        _fail(f"GPU and CPU ports disagree on a 64x64 I-frame ({err:g})")
-    _log(f"phase 5: 64x64 I-frame GPU vs CPU port: max |x_hat diff| "
-         f"{err:.3g}, CPU decodes the GPU stream, streams identical: "
-         f"{same}")
+    sps = {"height": 64, "width": 64, "ec_part": 0}
+    params = None
+    for device_ec, mode in ((True, "device EC"), (False, "host EC")):
+        nets = {d.type: DMCI(device=d, device_ec=device_ec)
+                for d in (dev, torch.device("cpu"))}
+        if params is None:
+            params = nets["cpu"].init_params(seed=3)
+        for net in nets.values():
+            net.load_params(params)
+            net.update(force_zero_thres=fz)
+        enc = {k: n.compress(x, qp) for k, n in nets.items()}
+        x_dev = enc[dev.type]["x_hat"].cpu()
+        x_cpu = enc["cpu"]["x_hat"]
+        cross = nets["cpu"].decompress(enc[dev.type]["bit_stream"], sps,
+                                       qp)["x_hat"]
+        err = max(float((x_dev - x_cpu).abs().max()),
+                  float((cross - x_dev).abs().max()))
+        same = enc[dev.type]["bit_stream"] == enc["cpu"]["bit_stream"]
+        if err > 1e-3:
+            _fail(f"GPU and CPU ports disagree on a 64x64 I-frame, {mode} "
+                  f"({err:g})")
+        _log(f"phase 5: 64x64 I-frame GPU vs CPU port, {mode}: max |x_hat "
+             f"diff| {err:.3g}, CPU decodes the GPU stream, streams "
+             f"identical: {same}")
+
+
+CODER_CALLS = ("reset", "encode_y", "encode_z", "flush",
+               "get_encoded_stream", "set_stream", "decode_y", "decode_z",
+               "get_decoded_tensor")
+
+
+def _clock_coder(coder):
+    """Wrap the host coder's calls so each adds its host time to the
+    returned one-element list (ms)."""
+    spent = [0.0]
+    for name in CODER_CALLS:
+        def timed(*args, _fn=getattr(coder, name), **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                spent[0] += (time.perf_counter() - t0) * 1e3
+        setattr(coder, name, timed)
+    return spent
+
+
+def _clock_transfers(common):
+    """Wrap the codecs' host transfers (models/common.py) so the host's
+    waits for device->host copies and its upload calls add their host
+    time (ms) to the returned dict; returns (dict, undo)."""
+    spent = {"wait_ms": 0.0, "upload_ms": 0.0}
+    fetch_async, upload = common.fetch_async, common.upload
+
+    def timed_fetch_async(t):
+        wait = fetch_async(t)
+
+        def timed_wait():
+            t0 = time.perf_counter()
+            try:
+                return wait()
+            finally:
+                spent["wait_ms"] += (time.perf_counter() - t0) * 1e3
+        return timed_wait
+
+    def timed_upload(a, device):
+        t0 = time.perf_counter()
+        try:
+            return upload(a, device)
+        finally:
+            spent["upload_ms"] += (time.perf_counter() - t0) * 1e3
+
+    common.fetch_async, common.upload = timed_fetch_async, timed_upload
+
+    def undo():
+        common.fetch_async, common.upload = fetch_async, upload
+    return spent, undo
+
+
+def _frame_record(net, spent, moves, fn, dev):
+    """Run one frame's call, synchronized; returns (its result, {ms, the
+    host coder's ms, device->host waits and their ms, uploads and their
+    ms})."""
+    before = (spent[0], dict(net.transfers), dict(moves))
+    out, ms = _timed(fn, dev)
+    rec = {"ms": ms, "coder_ms": spent[0] - before[0]}
+    rec.update({k: net.transfers[k] - before[1][k] for k in net.transfers})
+    rec.update({k: moves[k] - before[2][k] for k in moves})
+    return out, rec
+
+
+def phase_host(dev, frames, qp, fz, intra, p_run):
+    """Phase 6: the host-EC sequence at 1080p, written to and decoded
+    from one NAL stream; held bit for bit against phases 3-4."""
+    from opendcvc_tpu_torch.models import common
+    from opendcvc_tpu_torch.models.dmc import DMC
+    from opendcvc_tpu_torch.models.dmci import DMCI
+    from opendcvc_tpu_torch.utils import stream_helper as S
+    i_net = DMCI(device=dev)
+    i_net.load_params(intra["params"])
+    p_net = DMC(device=dev)
+    p_net.load_params(p_run["params"])
+    use_two = H * W > 1280 * 720      # the harness's rule, source size
+    clocks = {}
+    for name, net in (("I", i_net), ("P", p_net)):
+        net.update(force_zero_thres=fz)
+        net.set_use_two_entropy_coders(use_two)
+        clocks[name] = _clock_coder(net.entropy_coder)
+    sps = {"sps_id": -1, "height": H, "width": W,
+           "ec_part": int(use_two), "use_ada_i": 0}
+
+    # the first pass warms the host path; the sequence is the second
+    warm = i_net.compress(frames[0], qp)
+    i_net.decompress(warm["bit_stream"], dict(sps), qp)
+    moves, undo = _clock_transfers(common)
+    try:
+        return _host_sequence(dev, frames, qp, intra, p_run, i_net, p_net,
+                              clocks, moves, sps, S)
+    finally:
+        undo()
+
+
+def _host_sequence(dev, frames, qp, intra, p_run, i_net, p_net, clocks,
+                   moves, sps, S):
+    """Encode the sequence into one NAL stream, then decode it from the
+    bytes; fails on any difference from phases 3-4."""
+    use_two = bool(sps["ec_part"])
+    n_px = frames[0].shape[1] * frames[0].shape[2]
+    buf, helper = io.BytesIO(), S.SPSHelper()
+    enc_recs, streams, feats, sps_bytes = [], [], [], 0
+    for t, x in enumerate(frames):
+        if t == 0:
+            enc, rec = _frame_record(i_net, clocks["I"], moves,
+                                     lambda: i_net.compress(x, qp), dev)
+            if not torch.equal(enc["x_hat"], intra["x_hat"]):
+                _fail("host-EC I-frame x_hat differs from phase 3's")
+            p_net.clear_dpb()
+            p_net.add_ref_frame(None, enc["x_hat"])
+            x_i, stream = enc["x_hat"], enc["bit_stream"]
+        else:
+            stream, rec = _frame_record(
+                p_net, clocks["P"], moves,
+                lambda: p_net.compress(x, qp)["bit_stream"], dev)
+            feats.append(p_net.dpb[0].feature.clone())
+            if not torch.equal(feats[-1], p_run["feats"][t - 1]):
+                _fail(f"host-EC P-frame {t - 1} feature differs from "
+                      f"phase 4's")
+        sps_id, new = helper.get_sps_id(dict(sps))
+        if new:
+            sps_bytes += S.write_sps(buf, dict(sps, sps_id=sps_id))
+        S.write_ip(buf, t == 0, sps_id, qp, stream)
+        rec["bpp"] = len(stream) * 8 / n_px
+        enc_recs.append(rec)
+        streams.append(stream)
+    data = buf.getvalue()
+
+    # decode from the bytes, as the harness does
+    rd, helper, dec_recs = io.BytesIO(data), S.SPSHelper(), []
+    for t in range(len(frames)):
+        header = S.read_header(rd)
+        while header["nal_type"] == S.NalType.NAL_SPS:
+            helper.add_sps_by_id(S.read_sps_remaining(rd, header["sps_id"]))
+            header = S.read_header(rd)
+        f_sps = helper.get_sps_by_id(header["sps_id"])
+        f_qp, stream = S.read_ip_remaining(rd)
+        if stream != streams[t] or f_qp != qp or f_sps["ec_part"] != \
+                int(use_two):
+            _fail(f"frame {t} does not read back from the NAL stream")
+        if header["nal_type"] == S.NalType.NAL_I:
+            dec, rec = _frame_record(
+                i_net, clocks["I"], moves,
+                lambda: i_net.decompress(stream, f_sps, f_qp), dev)
+            if not torch.equal(dec["x_hat"], x_i):
+                _fail("host-EC decoded I-frame differs from the encoder's")
+            p_net.clear_dpb()
+            p_net.add_ref_frame(None, dec["x_hat"])
+        else:
+            dec, rec = _frame_record(
+                p_net, clocks["P"], moves,
+                lambda: p_net.decompress(stream, f_sps, f_qp), dev)
+            if not torch.equal(p_net.dpb[0].feature, feats[t - 1]):
+                _fail(f"host-EC enc/dec feature chain diverged at P-frame "
+                      f"{t - 1}")
+            if not torch.equal(dec["x_hat"], p_run["dec_x"][t - 1]):
+                _fail(f"host-EC decoded P-frame {t - 1} differs from "
+                      f"phase 4's")
+        dec_recs.append(rec)
+    if rd.read() != b"":
+        _fail("bytes left after the last frame of the NAL stream")
+
+    dev_bpp = [intra["bpp"]] + p_run["bpp"]
+
+    def side(r):
+        return (f"{r['ms']:.1f} ms (host coder {r['coder_ms']:.1f} ms; "
+                f"{r['d2h']} device->host waits, {r['wait_ms']:.1f} ms; "
+                f"{r['h2d']} uploads, {r['upload_ms']:.2f} ms)")
+
+    for t, (e, d) in enumerate(zip(enc_recs, dec_recs)):
+        _log(f"phase 6: {'I' if t == 0 else 'P'}-frame {t}: enc {side(e)} "
+             f"| dec {side(d)} | bpp {e['bpp']:.4f} (device EC "
+             f"{dev_bpp[t]:.4f})")
+    _log(f"phase 6: NAL stream {len(data)} bytes for {len(frames)} frames "
+         f"({sps_bytes} bytes of SPS, two coders: {use_two}); encoder "
+         f"outputs equal phases 3-4's, decoded from the bytes: I-frame "
+         f"exact, feature chain exact, P-frames equal phase 4's")
+    return {"enc": enc_recs, "dec": dec_recs, "stream_bytes": len(data)}
 
 
 def main():
@@ -546,8 +747,8 @@ def main():
     frames = synthetic_frames(H, W, 5)
     LR.encode_scan.launches = 0
     LR.decode_scan.launches = 0
-    x_ref, _ = phase_intra(dev, frames[0], QP, FZ)
-    phase_p(dev, x_ref, frames[1:], QP, FZ)
+    intra = phase_intra(dev, frames[0], QP, FZ)
+    p_run = phase_p(dev, intra["x_hat"], frames[1:], QP, FZ)
     launches = [LR.encode_scan.launches, LR.decode_scan.launches]
     _log(f"main path launches: K1 {launches[0]}, K2 {launches[1]}")
     if min(launches) == 0:
@@ -556,6 +757,15 @@ def main():
         k["launches"] = n
 
     phase_reference(dev, QP, FZ)
+
+    LR.encode_scan.launches = 0
+    LR.decode_scan.launches = 0
+    phase_host(dev, frames, QP, FZ, intra, p_run)
+    host_launches = [LR.encode_scan.launches, LR.decode_scan.launches]
+    _log(f"host-EC path launches: K1 {host_launches[0]}, K2 "
+         f"{host_launches[1]}")
+    if max(host_launches):
+        _fail("the host-EC path launched a lane rANS kernel")
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -4,8 +4,10 @@ builders of the quantized CDF tables (`cdf_info`).
 Counterpart of the JAX package's `entropy/models.py`.  Tables are sampled
 on the host in float64 numpy (deterministic across machines: encoder and
 decoder must derive identical tables) and are equal to the JAX package's
-for the same parameters.  The host coder binding (`add_cdf`) is not part
-of the device-EC path and is not ported.
+for the same parameters.  `update()` returns the tables; given an
+`EntropyCoder` it also registers them with the host coder, and the
+`encode_*` / `decode_*` / `get_*` methods code through it (the host-EC
+path).  The host coder takes planes flattened NHWC.
 """
 
 import math
@@ -57,11 +59,15 @@ class BitEstimator:
         self.channel = channel
         self.support = support
         self.cdf_info = None
+        self.entropy_coder = None
+        self.cdf_group_index = None
 
-    def update(self, params):
+    def update(self, params, entropy_coder=None):
         """Sample the learned CDF and quantize it: scan the support,
         evaluate the pmf at half-integer offsets.  params: the
-        `bit_estimator_z` dict of tensors."""
+        `bit_estimator_z` dict of tensors.  Returns `cdf_info`; with an
+        entropy coder, also registers the rows (no decoder lookup
+        table)."""
         p = {name: {k: v.detach().to("cpu", torch.float32).numpy()
                     .astype(np.float64) for k, v in layer.items()}
              for name, layer in params.items()}
@@ -103,7 +109,27 @@ class BitEstimator:
         cdf_length = pmf_length + 2
         self.cdf_info = (quantized_cdf, cdf_length.astype(np.int32),
                          offset.astype(np.int32))
+        if entropy_coder is not None:
+            self.entropy_coder = entropy_coder
+            self.cdf_group_index = entropy_coder.add_cdf(*self.cdf_info,
+                                                         build_lut=False)
         return self.cdf_info
+
+    def encode_z(self, z_int8_flat, qp):
+        """z: int8 numpy, flattened NHWC."""
+        self.entropy_coder.encode_z(z_int8_flat, self.cdf_group_index,
+                                    qp * self.channel, self.channel)
+
+    def decode_z(self, size, qp):
+        """Queues the decode of a (size[0], size[1]) z plane."""
+        total = self.channel * size[0] * size[1]
+        self.entropy_coder.decode_z(total, self.cdf_group_index,
+                                    qp * self.channel, self.channel)
+
+    def get_z(self, size, dtype=np.float32):
+        """Waits for decode_z; returns the (1, H, W, C) NHWC plane."""
+        val = self.entropy_coder.get_decoded_tensor()
+        return val.reshape(1, size[0], size[1], self.channel).astype(dtype)
 
 
 def _normal_cdf(x):
@@ -124,8 +150,14 @@ class GaussianEncoder:
             math.log(self.SCALE_MIN), math.log(self.SCALE_MAX),
             self.SCALE_LEVELS))
         self.cdf_info = None
+        self.entropy_coder = None
+        self.cdf_group_index = None
+        self.force_zero_thres = None
 
-    def update(self):
+    def update(self, entropy_coder=None, force_zero_thres=None):
+        """Returns `cdf_info`; with an entropy coder, also registers the
+        rows (with the decoder's lookup table)."""
+        self.force_zero_thres = force_zero_thres
         S = self.support
         scales = self.scale_table.astype(np.float64)
         pmf_center = np.full(self.SCALE_LEVELS, S, dtype=np.int64)
@@ -146,4 +178,34 @@ class GaussianEncoder:
         self.cdf_info = (quantized_cdf,
                          (pmf_length + 2).astype(np.int32),
                          (-pmf_center).astype(np.int32))
+        if entropy_coder is not None:
+            self.entropy_coder = entropy_coder
+            self.cdf_group_index = entropy_coder.add_cdf(*self.cdf_info,
+                                                         build_lut=True)
         return self.cdf_info
+
+    def encode_y_packed(self, packed, skip_cond=None):
+        """packed: int16 numpy flattened NHWC; skip_cond (same order)
+        keeps the coded positions."""
+        packed = np.asarray(packed, dtype=np.int16).reshape(-1)
+        if skip_cond is not None:
+            packed = packed[np.asarray(skip_cond, dtype=bool).reshape(-1)]
+        self.entropy_coder.encode_y(packed, self.cdf_group_index)
+
+    def decode_y(self, indexes, skip_cond=None):
+        """Queues the decode of the kept positions' symbols."""
+        indexes = np.asarray(indexes, dtype=np.uint8).reshape(-1)
+        if skip_cond is not None:
+            indexes = indexes[np.asarray(skip_cond, dtype=bool).reshape(-1)]
+        self.entropy_coder.decode_y(indexes, self.cdf_group_index)
+
+    def get_y(self, shape, skip_cond=None, dtype=np.float32):
+        """Waits for decode_y; scatters the symbols back into a dense
+        plane of `shape`, zeros where skipped."""
+        val = self.entropy_coder.get_decoded_tensor().astype(dtype)
+        if skip_cond is None:
+            return val.reshape(shape)
+        keep = np.asarray(skip_cond, dtype=bool).reshape(-1)
+        out = np.zeros(keep.shape[0], dtype=dtype)
+        out[keep] = val
+        return out.reshape(shape)

@@ -7,6 +7,7 @@ Counterpart of the JAX package's `models/common.py`.  Prior separation:
          channels [2:] -> (scales, means).
 """
 
+import numpy as np
 import torch
 
 from ..ops.fused import replicate_pad
@@ -33,6 +34,33 @@ def frame_to_nchw(x, device):
 
 def frame_to_nhwc(x):
     return x.permute(0, 2, 3, 1).contiguous()
+
+
+def fetch_async(t):
+    """Start copying a tensor to the host; returns a callable that waits
+    for the copy and returns it as numpy.  A CUDA copy lands in pinned
+    memory behind an event, so the device queue runs on meanwhile."""
+    if t.device.type != "cuda":
+        return t.numpy
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+
+    def wait():
+        done.synchronize()
+        return host.numpy()
+
+    return wait
+
+
+def upload(a, device):
+    """numpy -> tensor on `device`; a CUDA upload goes through pinned
+    memory and does not wait for the device."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def get_padding_size(height, width, p=64):

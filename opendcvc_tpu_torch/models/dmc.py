@@ -1,4 +1,4 @@
-"""DMC — the DCVC-RT P-frame codec, device-EC path (NCHW).
+"""DMC — the DCVC-RT P-frame codec (NCHW).
 
 Counterpart of the JAX package's `models/dmc.py`.  A propagated decoder-side
 feature (256 channels at 1/8 resolution) carries temporal context; a
@@ -11,12 +11,19 @@ evaluate is one shared function called on identically shaped tensors, and
 the package pins cuDNN to deterministic full-float32 algorithms, so the
 temporal feature chain cannot drift between the two sides.
 
-Entropy coding runs on the device: the three symbol planes of a frame
-(z, y0, y1) are coded back to back per lane by kernel K1 from one packed
-operand against a combined per-frame table (the y rows, then the frame
-QP's z rows), and decoded by three K2 launches that carry one rANS state
-per lane.  The container is the JAX package's "tpu-lane" v6, byte for
-byte.
+Entropy coding has two modes, as in the JAX package (`device_ec`):
+  * host EC (the default): the frame's symbol planes (z, y0, y1) cross to
+    the host in one copy, flattened NHWC, and the C++ rANS coder codes
+    them in the DCVC family's stream format (`entropy/coder.py`).  The
+    decoder decodes z on the host while the device runs the feature
+    extractor, then fetches each y pass's CDF indexes and uploads its
+    decoded symbols;
+  * device EC: the three planes are coded back to back per lane by kernel
+    K1 from one packed operand against a combined per-frame table (the y
+    rows, then the frame QP's z rows), and decoded by three K2 launches
+    that carry one rANS state per lane.  The container is the JAX
+    package's "tpu-lane" v6.
+Both write the JAX package's bytes.
 """
 
 import functools
@@ -29,6 +36,7 @@ from ..entropy.device_rans import (SKIP_ROW, _undensify_device,
                                    densify_segment, effective_lanes,
                                    full_range_cdf_rows, parse_frame,
                                    settle_staging, staging_width)
+from ..entropy.coder import EntropyCoder
 from ..entropy.models import (BitEstimator, GaussianEncoder,
                               bit_estimator_init)
 from ..layers import blocks as L
@@ -358,13 +366,94 @@ def _encode_staging(packed, enc_table, n_y_rows, qp, c_z, mw, cap):
 
 
 # ---------------------------------------------------------------------------
+# host-EC layout: the host coder takes planes flattened NHWC
+# ---------------------------------------------------------------------------
+
+def _nhwc_flat(plane):
+    """Flatten a (1, C, H, W) plane in NHWC order."""
+    return plane.permute(0, 2, 3, 1).reshape(-1)
+
+
+def _pack_host(z_int8, planes, fz):
+    """One int16 buffer of a frame's symbols for the host coder, each
+    plane flattened NHWC: z, then each y plane packed (symbol << 8) + CDF
+    index, then, with force_zero_thres, each y plane's keep mask."""
+    parts = [_nhwc_flat(z_int8).to(torch.int16)]
+    parts += [_nhwc_flat(sym * 256 + idx.to(torch.int32)).to(torch.int16)
+              for sym, idx, _ in planes]
+    if fz is not None:
+        parts += [_nhwc_flat(keep).to(torch.int16) for _, _, keep in planes]
+    return torch.cat(parts)
+
+
+def _unpack_host(buf, n_z, n_y, n_planes, fz):
+    """Inverse of _pack_host on the host: (z int8, packed planes, keep
+    masks or Nones)."""
+    ys = [buf[n_z + i * n_y:n_z + (i + 1) * n_y] for i in range(n_planes)]
+    if fz is None:
+        keeps = [None] * n_planes
+    else:
+        at = n_z + n_planes * n_y
+        keeps = [buf[at + i * n_y:at + (i + 1) * n_y].astype(bool)
+                 for i in range(n_planes)]
+    return buf[:n_z].astype(np.int8), ys, keeps
+
+
+def _code_host(coder, bit_estimator, gaussian, buf, n_z, n_y, n_planes, qp,
+               fz):
+    """Host-code a frame's fetched symbols: z, then the y planes in pass
+    order; returns the stream."""
+    z, ys, keeps = _unpack_host(buf, n_z, n_y, n_planes, fz)
+    coder.reset()
+    bit_estimator.encode_z(z, qp)
+    for packed, keep in zip(ys, keeps):
+        gaussian.encode_y_packed(packed, keep)
+    coder.flush()
+    return coder.get_encoded_stream()
+
+
+def _index_buf(idx, keep):
+    """A y pass's CDF indexes (and keep mask), flattened NHWC, as one
+    uint8 buffer for the host decoder."""
+    parts = [_nhwc_flat(idx)]
+    if keep is not None:
+        parts.append(_nhwc_flat(keep).to(torch.uint8))
+    return torch.cat(parts)
+
+
+def _from_host_nhwc(a, device, dtype):
+    """(1, H, W, C) numpy from the host coder -> (1, C, H, W) `dtype`
+    tensor on `device` with default strides: the layout the encoder's
+    stages saw, so convolutions take the same algorithms on both sides.
+    (`.contiguous()` keeps a permuted 1x1 plane's channels-last strides,
+    and a convolution then runs channels-last.)"""
+    nchw = C.upload(a, device).permute(0, 3, 1, 2)
+    return torch.empty(nchw.shape, dtype=dtype, device=device).copy_(nchw)
+
+
+def _decode_y_host(net, fetch, shape, dtype):
+    """Host-decode one y pass of a DMC or DMCI codec `net`: wait for its
+    _index_buf (`fetch`, from C.fetch_async), decode, upload.  Returns the
+    dense (1, C, H, W) symbols as `dtype` on the device, zeros where
+    skipped."""
+    buf = fetch()
+    net.transfers["d2h"] += 1
+    n = buf.shape[0] if net.force_zero_thres is None else buf.shape[0] // 2
+    keep = None if net.force_zero_thres is None else buf[n:].astype(bool)
+    net.gaussian_encoder.decode_y(buf[:n], keep)
+    b, c, h, w = shape
+    y = net.gaussian_encoder.get_y((b, h, w, c), keep, dtype=np.int8)
+    net.transfers["h2d"] += 1
+    return _from_host_nhwc(y, net.device, dtype)
+
+
+# ---------------------------------------------------------------------------
 # per-frame encoder and decoder
 # ---------------------------------------------------------------------------
 
-def _compress_frame_core(p, x, feature, qp, lanes, n_y_rows, fz=None):
+def _encode_stages(p, x, feature, qp, fz=None):
     """Encoder body on an adapted feature: frame -> (next reference
-    feature, K1 operand).  Encode order per lane is reversed(y1),
-    reversed(y0), reversed(z); the decoder consumes z, y0, y1."""
+    feature, z int8, [(symbols, indexes, keep) of y0, of y1])."""
     x1, ctx_t = _stage_fe_part1(p, feature, qp)
     ctx = _stage_fe_part2(p, x1)
     y, z_hat, z_int8 = _stage_encode_y(p, x, ctx, qp)
@@ -376,9 +465,16 @@ def _compress_frame_core(p, x, feature, qp, lanes, n_y_rows, fz=None):
                                                   fz)
     feature_out = _stage_feature_out(p, y_hat_0, y_hat_1, params_prior,
                                      ctx, qp)
-    packed = _pack_frame([(sym1, idx1, keep1), (sym0, idx0, keep0)],
-                         z_int8, lanes, n_y_rows, fz)
-    return feature_out, packed
+    return feature_out, z_int8, [(sym0, idx0, keep0), (sym1, idx1, keep1)]
+
+
+def _compress_frame_core(p, x, feature, qp, lanes, n_y_rows, fz=None):
+    """Device-EC encoder body: frame -> (next reference feature, K1
+    operand).  Encode order per lane is reversed(y1), reversed(y0),
+    reversed(z); the decoder consumes z, y0, y1."""
+    feature_out, z_int8, planes = _encode_stages(p, x, feature, qp, fz)
+    return feature_out, _pack_frame(planes[::-1], z_int8, lanes, n_y_rows,
+                                    fz)
 
 
 def _decompress_frame_core(p, staging, feature, qp, dec_table, n_y_rows,
@@ -439,14 +535,20 @@ class RefFrame:
 # ---------------------------------------------------------------------------
 
 class DMC:
-    """DCVC-RT P-frame codec with device-side entropy coding.
+    """DCVC-RT P-frame codec.
 
-    lanes, bytes_per_symbol and cap_frac size the lane rANS staging (the
-    JAX package's OPENDCVC_TPU_EC_LANES / _EC_BPS / _EC_CAP_FRAC)."""
+    device_ec: code the symbols on the device (K1/K2, the "tpu-lane"
+    container) instead of with the host coder (the default, as in the JAX
+    package without OPENDCVC_TPU_DEVICE_EC).  lanes, bytes_per_symbol and
+    cap_frac size the device-EC lane rANS staging (the JAX package's
+    OPENDCVC_TPU_EC_LANES / _EC_BPS / _EC_CAP_FRAC).  `transfers` counts
+    the host-EC path's copies: "d2h" the fetches the host waits for,
+    "h2d" the uploads (which do not wait)."""
 
-    def __init__(self, device="cuda", lanes=4096, bytes_per_symbol=0.5,
-                 cap_frac=0.5):
+    def __init__(self, device="cuda", device_ec=False, lanes=4096,
+                 bytes_per_symbol=0.5, cap_frac=0.5):
         self.device = C.resolve_device(device)
+        self.device_ec = device_ec
         self.lanes = lanes
         self.bytes_per_symbol = bytes_per_symbol
         self.cap_frac = cap_frac
@@ -455,6 +557,8 @@ class DMC:
         self.bit_estimator_z = BitEstimator(C.QP_NUM + EXTRA_QP, G_CH_Z)
         self.gaussian_encoder = GaussianEncoder()
         self.force_zero_thres = None
+        self.entropy_coder = None
+        self.transfers = {"d2h": 0, "h2d": 0}
         self.enc_table = None
         self.dec_table = None
         self.n_y_rows = 0
@@ -478,10 +582,19 @@ class DMC:
         self.params = to_device(params, self.device)
 
     def update(self, force_zero_thres=None):
-        """Build the CDF tables: rows [0, n_y) are the gaussian scale rows,
-        rows n_y + qp * 128 + channel the z rows.  K1 and K2 read slices of
+        """Build the CDF tables.  Host EC: register them with a new host
+        coder (group 0 the gaussian scale rows, group 1 the z rows by qp,
+        channel).  Device EC: rows [0, n_y) are the gaussian scale rows,
+        rows n_y + qp * 128 + channel the z rows; K1 and K2 read slices of
         their prepared forms, `enc_table` and `dec_table`."""
         self.force_zero_thres = force_zero_thres
+        if not self.device_ec:
+            self.entropy_coder = EntropyCoder()
+            self.gaussian_encoder.update(self.entropy_coder,
+                                         force_zero_thres)
+            self.bit_estimator_z.update(self.params["bit_estimator_z"],
+                                        self.entropy_coder)
+            return
         y_rows = full_range_cdf_rows(*self.gaussian_encoder.update())
         z_rows = full_range_cdf_rows(
             *self.bit_estimator_z.update(self.params["bit_estimator_z"]))
@@ -490,6 +603,12 @@ class DMC:
             np.concatenate([y_rows, z_rows])).to(self.device)
         self.enc_table = prepare_encode_table(table)
         self.dec_table = prepare_decode_table(table)
+
+    def set_use_two_entropy_coders(self, b):
+        """Split each plane between two host coders (the harness's choice
+        above 1280x720); no effect with device EC."""
+        if self.entropy_coder is not None:
+            self.entropy_coder.set_use_two_entropy_coders(b)
 
     # -- DPB management ------------------------------------------------------
 
@@ -558,11 +677,15 @@ class DMC:
     # -- compress ------------------------------------------------------------
 
     def compress_async(self, x, qp):
-        """Encode one P-frame (NHWC (1, H, W, 3)) against the DPB: runs the
-        stages and the K1 launch, advances the DPB, and returns a
-        zero-argument callable that settles the staging ladder and
-        returns the bit stream."""
+        """Encode one P-frame (NHWC (1, H, W, 3)) against the DPB: queues
+        the stages and starts the symbols' way to the coder, advances the
+        DPB, and returns a zero-argument callable that returns the bit
+        stream.  Host EC: one copy of every plane (and the skip masks) to
+        the host, coded in the callable.  Device EC: the K1 launch; the
+        callable settles the staging ladder."""
         x = C.frame_to_nchw(x, self.device)
+        if not self.device_ec:
+            return self._compress_async_host(x, qp)
         H, W = x.shape[2], x.shape[3]
         lanes, n_total, k_total = self._plan_device_ec(H, W)
         bps = max(self.bytes_per_symbol, self._ec_learned.get((H, W), 0.0))
@@ -589,21 +712,80 @@ class DMC:
 
         return finish
 
+    def _compress_async_host(self, x, qp):
+        fz = self.force_zero_thres
+        feature_out, z_int8, planes = _encode_stages(
+            self.params, x, self.apply_feature_adaptor(), qp, fz)
+        n_z, n_y = z_int8.numel(), planes[0][0].numel()
+        fetch = C.fetch_async(_pack_host(z_int8, planes, fz))
+        self.add_ref_frame(feature_out, None)
+
+        def finish():
+            buf = fetch()
+            self.transfers["d2h"] += 1
+            return _code_host(self.entropy_coder, self.bit_estimator_z,
+                              self.gaussian_encoder, buf, n_z, n_y,
+                              len(planes), qp, fz)
+
+        return finish
+
     def compress(self, x, qp):
         return {"bit_stream": self.compress_async(x, qp)()}
 
     # -- decompress ----------------------------------------------------------
 
-    def decompress(self, bit_stream, sps, qp):
-        """Decode one P-frame; returns {"x_hat": NHWC (1, H, W, 3)}."""
+    def _decompress_device(self, bit_stream, sps, qp):
         meta, staging, _ = parse_frame(bit_stream)
         staging = torch.from_numpy(staging.astype(np.int32)).to(self.device)
         zh, zw = C.get_downsampled_shape(sps["height"], sps["width"], 64)
         feature = self.apply_feature_adaptor()
-        feature_out, x_hat = _decompress_frame_core(
+        return _decompress_frame_core(
             self.params, staging, feature, qp, self.dec_table, self.n_y_rows,
             zh, zw, meta["L"], meta["cap"], meta["MW"],
             self.force_zero_thres)
+
+    def _decompress_host(self, bit_stream, sps, qp):
+        """Host-EC decode: the host decodes z on the coder's worker thread
+        while the device runs the feature extractor's first part; each y
+        pass's indexes are fetched (the host waits) and its symbols
+        uploaded.  Returns (next reference feature, x_hat NCHW)."""
+        p, fz, coder = self.params, self.force_zero_thres, self.entropy_coder
+        zh, zw = C.get_downsampled_shape(sps["height"], sps["width"], 64)
+        coder.set_use_two_entropy_coders(sps["ec_part"] == 1)
+        coder.set_stream(bit_stream)
+        self.bit_estimator_z.decode_z((zh, zw), qp)
+        x1, ctx_t = _stage_fe_part1(p, self.apply_feature_adaptor(), qp)
+        z_hat = _from_host_nhwc(self.bit_estimator_z.get_z((zh, zw), np.int8),
+                                self.device, x1.dtype)
+        self.transfers["h2d"] += 1
+        params_prior = _stage_prior(p, z_hat, ctx_t)
+
+        idx0, keep0 = _stage_dec_index0(params_prior, fz)
+        fetch0 = C.fetch_async(_index_buf(idx0, keep0))
+        # the device runs the feature extractor's second part while the
+        # host waits for the indexes and decodes y0
+        ctx = _stage_fe_part2(p, x1)
+        means0 = C.separate_prior_video_decoding(params_prior)[2]
+        y_hat_0 = _stage_dec_restore_2x(
+            _decode_y_host(self, fetch0, idx0.shape, x1.dtype), means0, 0)
+
+        scales1, means1 = _stage_spatial(p, y_hat_0, params_prior)
+        idx1, keep1 = _stage_fold_index_2x(scales1, 1, fz)
+        y_hat_1 = _stage_dec_restore_2x(
+            _decode_y_host(self, C.fetch_async(_index_buf(idx1, keep1)),
+                           idx1.shape, x1.dtype), means1, 1)
+
+        feature_out = _stage_feature_out(p, y_hat_0, y_hat_1, params_prior,
+                                         ctx, qp)
+        return feature_out, _stage_recon_x(p, feature_out, qp)
+
+    def decompress(self, bit_stream, sps, qp):
+        """Decode one P-frame; returns {"x_hat": NHWC (1, H, W, 3)}.  Host
+        EC reads the coder split from sps["ec_part"]."""
+        if self.device_ec:
+            feature_out, x_hat = self._decompress_device(bit_stream, sps, qp)
+        else:
+            feature_out, x_hat = self._decompress_host(bit_stream, sps, qp)
         x_hat = C.frame_to_nhwc(x_hat)
         self.add_ref_frame(feature_out, x_hat)
         return {"x_hat": x_hat}

@@ -1,13 +1,17 @@
-"""DMCI — the DCVC-RT intra codec, device-EC path (NCHW).
+"""DMCI — the DCVC-RT intra codec (NCHW).
 
 Counterpart of the JAX package's `models/dmci.py`: pixel-unshuffle 8, enc/dec
 width 368, y N = 256 at 1/16, z 128 at 1/64, a four-pass quadtree
-checkerboard prior.  The five symbol planes (z and four passes) are coded
-back to back per lane by one K1 launch against the combined [y rows | z
-subtable] table and decoded by five K2 launches (z, y0..y3) that carry
-one rANS state per lane; the container is the JAX package's v6 byte for
-byte.  Stages both sides evaluate are shared functions (see models/dmc.py
-for the bit-exactness contract).
+checkerboard prior.  Host EC (the default): z and the four passes' packed
+planes cross to the host in one copy and the C++ rANS coder codes them;
+the decoder decodes z on the host, then for each pass fetches its CDF
+indexes and uploads its decoded symbols.  Device EC: the five symbol
+planes are coded back to back per lane by one K1 launch against the
+combined [y rows | z subtable] table and decoded by five K2 launches (z,
+y0..y3) that carry one rANS state per lane; the container is the JAX
+package's v6.  Both write the JAX package's bytes.  Stages both sides
+evaluate are shared functions (see models/dmc.py for the bit-exactness
+contract).
 """
 
 import functools
@@ -19,6 +23,7 @@ import torch
 from ..entropy.device_rans import (_undensify_device, effective_lanes,
                                    full_range_cdf_rows, parse_frame,
                                    settle_staging, staging_width)
+from ..entropy.coder import EntropyCoder
 from ..entropy.models import (BitEstimator, GaussianEncoder,
                               bit_estimator_init)
 from ..layers import blocks as L
@@ -27,8 +32,9 @@ from ..ops.lane_rans import (prepare_decode_table,
                               prepare_encode_table)
 from ..utils.params import to_device
 from . import common as C
-from .dmc import (_cm_unflat, _dcb_seq, _dec_plane, _dec_y_plane,
-                  _encode_staging, _indexes_of, _pack_frame, _q_vec,
+from .dmc import (_cm_unflat, _code_host, _dcb_seq, _dec_plane, _dec_y_plane,
+                  _decode_y_host, _encode_staging, _from_host_nhwc,
+                  _index_buf, _indexes_of, _pack_frame, _pack_host, _q_vec,
                   _z_rows)
 
 G_CH_SRC = 3 * 8 * 8
@@ -175,8 +181,9 @@ def _stage_recon(p, y_hat_so_far, q_dec_prior, qp):
 # per-frame encoder and decoder
 # ---------------------------------------------------------------------------
 
-def _compress_frame_i(p, x, qp, lanes, n_y_rows, fz=None):
-    """Frame -> (x_hat NCHW, K1 operand over y3..y0 then z)."""
+def _encode_stages_i(p, x, qp, fz=None):
+    """Frame -> (x_hat NCHW, z int8, [(symbols, indexes, keep) of the
+    passes y0..y3])."""
     y, z_hat, z_int8 = _stage_enc_front(p, x, qp)
     q_enc, q_dec_prior, scales, means, reduced = _stage_prior(
         p, z_hat, y.shape[2], y.shape[3])
@@ -188,7 +195,12 @@ def _compress_frame_i(p, x, qp, lanes, n_y_rows, fz=None):
         sym, idx, keep, so_far = _stage_enc_pass(y_s, scales, means,
                                                  so_far, k, fz)
         planes.append((sym, idx, keep))
-    x_hat = _stage_recon(p, so_far, q_dec_prior, qp)
+    return _stage_recon(p, so_far, q_dec_prior, qp), z_int8, planes
+
+
+def _compress_frame_i(p, x, qp, lanes, n_y_rows, fz=None):
+    """Device EC: frame -> (x_hat NCHW, K1 operand over y3..y0 then z)."""
+    x_hat, z_int8, planes = _encode_stages_i(p, x, qp, fz)
     return x_hat, _pack_frame(planes[::-1], z_int8, lanes, n_y_rows, fz)
 
 
@@ -226,14 +238,18 @@ def _decompress_frame_i(p, staging, qp, dec_table, n_y_rows, zh, zw, y_h,
 # ---------------------------------------------------------------------------
 
 class DMCI:
-    """DCVC-RT intra codec with device-side entropy coding.
+    """DCVC-RT intra codec.
 
-    lanes and bytes_per_symbol size the lane rANS staging (the JAX
-    package's OPENDCVC_TPU_EC_LANES / _EC_BPS)."""
+    device_ec: code the symbols on the device (K1/K2) instead of with the
+    host coder (the default), as DMC.  lanes and bytes_per_symbol size the
+    device-EC lane rANS staging (the JAX package's OPENDCVC_TPU_EC_LANES /
+    _EC_BPS).  `transfers` counts the host-EC copies, as DMC's."""
 
     def __init__(self, N=256, z_channel=128, enc_dec_ch=G_CH_ENC_DEC,
-                 device="cuda", lanes=4096, bytes_per_symbol=0.5):
+                 device="cuda", device_ec=False, lanes=4096,
+                 bytes_per_symbol=0.5):
         self.device = C.resolve_device(device)
+        self.device_ec = device_ec
         self.N = N
         self.z_channel = z_channel
         self.enc_dec_ch = enc_dec_ch
@@ -243,6 +259,8 @@ class DMCI:
         self.bit_estimator_z = BitEstimator(C.QP_NUM, z_channel)
         self.gaussian_encoder = GaussianEncoder()
         self.force_zero_thres = None
+        self.entropy_coder = None
+        self.transfers = {"d2h": 0, "h2d": 0}
         self.enc_table = None
         self.dec_table = None
         self.n_y_rows = 0
@@ -263,10 +281,18 @@ class DMCI:
         self.params = to_device(params, self.device)
 
     def update(self, force_zero_thres=None):
-        """Build the CDF tables (y scale rows, then z rows by qp, channel):
-        K1 and K2 read slices of their prepared forms, `enc_table` and
-        `dec_table`."""
+        """Build the CDF tables (y scale rows, then z rows by qp, channel).
+        Host EC: register them with a new host coder (groups 0 and 1).
+        Device EC: K1 and K2 read slices of their prepared forms,
+        `enc_table` and `dec_table`."""
         self.force_zero_thres = force_zero_thres
+        if not self.device_ec:
+            self.entropy_coder = EntropyCoder()
+            self.gaussian_encoder.update(self.entropy_coder,
+                                         force_zero_thres)
+            self.bit_estimator_z.update(self.params["bit_estimator_z"],
+                                        self.entropy_coder)
+            return
         y_rows = full_range_cdf_rows(*self.gaussian_encoder.update())
         z_rows = full_range_cdf_rows(
             *self.bit_estimator_z.update(self.params["bit_estimator_z"]))
@@ -275,6 +301,12 @@ class DMCI:
             np.concatenate([y_rows, z_rows])).to(self.device)
         self.enc_table = prepare_encode_table(table)
         self.dec_table = prepare_decode_table(table)
+
+    def set_use_two_entropy_coders(self, b):
+        """Split each plane between two host coders (the harness's choice
+        above 1280x720); no effect with device EC."""
+        if self.entropy_coder is not None:
+            self.entropy_coder.set_use_two_entropy_coders(b)
 
     # -- compress ------------------------------------------------------------
 
@@ -300,6 +332,8 @@ class DMCI:
         """x: (1, H, W, 3) NHWC in [0, 1], H and W multiples of 16.
         Returns {"bit_stream": bytes, "x_hat": NHWC tensor}."""
         x = C.frame_to_nchw(x, self.device)
+        if not self.device_ec:
+            return self._compress_host(x, qp)
         H, W = x.shape[2], x.shape[3]
         bps = max(self.bytes_per_symbol, self._ec_learned.get((H, W), 0.0))
         lanes, n_total, k_total = self._plan(H, W)
@@ -320,10 +354,50 @@ class DMCI:
             self._ec_learned[(H, W)] = g_bps
         return {"bit_stream": stream, "x_hat": C.frame_to_nhwc(x_hat)}
 
+    def _compress_host(self, x, qp):
+        """Host EC: one copy of z, the four packed planes and (with
+        force_zero_thres) their skip masks, then the host coder."""
+        fz = self.force_zero_thres
+        x_hat, z_int8, planes = _encode_stages_i(self.params, x, qp, fz)
+        buf = C.fetch_async(_pack_host(z_int8, planes, fz))()
+        self.transfers["d2h"] += 1
+        stream = _code_host(self.entropy_coder, self.bit_estimator_z,
+                            self.gaussian_encoder, buf, z_int8.numel(),
+                            planes[0][0].numel(), len(planes), qp, fz)
+        return {"bit_stream": stream, "x_hat": C.frame_to_nhwc(x_hat)}
+
     # -- decompress ----------------------------------------------------------
 
+    def _decompress_host(self, bit_stream, sps, qp):
+        """Host EC: z decoded on the host, then for each pass its indexes
+        fetched (the host waits), decoded and the symbols uploaded."""
+        p, fz, coder = self.params, self.force_zero_thres, self.entropy_coder
+        zh, zw = C.get_downsampled_shape(sps["height"], sps["width"], 64)
+        y_h, y_w = C.get_downsampled_shape(sps["height"], sps["width"], 16)
+        coder.set_use_two_entropy_coders(sps["ec_part"] == 1)
+        coder.set_stream(bit_stream)
+        self.bit_estimator_z.decode_z((zh, zw), qp)
+        z_hat = _from_host_nhwc(self.bit_estimator_z.get_z((zh, zw), np.int8),
+                                self.device, torch.float32)
+        self.transfers["h2d"] += 1
+        _, q_dec_prior, scales, means, reduced = _stage_prior(p, z_hat, y_h,
+                                                              y_w)
+        so_far = None
+        for k in range(4):
+            if k > 0:
+                scales, means = _stage_spatial(p, k, so_far, reduced)
+            idx, keep = _stage_fold_index(scales, k, fz)
+            y_q_r = _decode_y_host(self, C.fetch_async(_index_buf(idx, keep)),
+                                   idx.shape, means.dtype)
+            so_far = _stage_dec_restore(y_q_r, means, so_far, k)
+        return _stage_recon(p, so_far, q_dec_prior, qp)
+
     def decompress(self, bit_stream, sps, qp):
-        """Returns {"x_hat": NHWC (1, H, W, 3)}."""
+        """Returns {"x_hat": NHWC (1, H, W, 3)}.  Host EC reads the coder
+        split from sps["ec_part"]."""
+        if not self.device_ec:
+            return {"x_hat": C.frame_to_nhwc(
+                self._decompress_host(bit_stream, sps, qp))}
         meta, staging, _ = parse_frame(bit_stream)
         staging = torch.from_numpy(staging.astype(np.int32)).to(self.device)
         zh, zw = C.get_downsampled_shape(sps["height"], sps["width"], 64)

@@ -8,6 +8,8 @@ failure raises: there is no fallback.
 
 `load_host_shim` compiles `csrc/lane_rans_host.cpp` (the kernels' per-lane
 arithmetic from `lane_rans_step.cuh`) with g++ for the CPU tests.
+`load_host_rans` compiles `csrc/rans.cpp`, the host entropy coder of the
+host-EC path, with g++ the same way; it too raises on failure.
 """
 
 import ctypes
@@ -23,9 +25,12 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+#: the host C++ compiler of the two g++ builds
+CXX = "g++"
 
 _LOCK = threading.Lock()
 _LIBS = {}
+_HOST_RANS = {}
 #: compiler output of the last kernel build (ptxas register and shared
 #: memory report per kernel), by source name
 BUILD_LOG = {}
@@ -107,20 +112,80 @@ def load_kernels():
         return dict(_LIBS)
 
 
+def _gxx_build(name, srcs, flags):
+    """Compile `srcs` with CXX into BUILD_DIR/lib<name>_<hash>.so unless it
+    is there; each process writes its own temporary name and renames it,
+    so concurrent builds never share a file.  Returns the path."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = os.path.join(BUILD_DIR, f"lib{name}_{_tag(srcs)}.so")
+    if not os.path.exists(out):
+        tmp = f"{out[:-3]}.{os.getpid()}.tmp.so"
+        cmd = [CXX] + flags + [srcs[0], "-o", tmp]
+        try:
+            res = subprocess.run(cmd, capture_output=True, text=True)
+        except OSError as e:
+            raise RuntimeError(f"{name} build failed: {e}") from e
+        if res.returncode != 0:
+            raise RuntimeError(f"{name} build failed:\n{res.stderr}")
+        os.replace(tmp, out)
+    return out
+
+
+def load_host_rans():
+    """g++ build (once) of csrc/rans.cpp, the host rANS coder; returns the
+    loaded CDLL with its C API's signatures set.  Raises on failure."""
+    with _LOCK:
+        if not _HOST_RANS:
+            path = _gxx_build("rans_host",
+                              [os.path.join(CSRC, "rans.cpp")],
+                              ["-O3", "-std=c++17", "-shared", "-fPIC",
+                               "-pthread"])
+            lib = ctypes.CDLL(path)
+            for fn, (restype, argtypes) in _HOST_RANS_SIGNATURES.items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = argtypes
+            _HOST_RANS["lib"] = lib
+        return _HOST_RANS["lib"]
+
+
+_I32P = ctypes.POINTER(ctypes.c_int32)
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+_HOST_RANS_SIGNATURES = {
+    "rve_enc_new": (_P, [_I]),
+    "rve_enc_free": (None, [_P]),
+    # handle, cdfs, n_cdf, row_len, sizes, offsets, build_lut
+    "rve_enc_add_cdf": (_I, [_P, _I32P, _I, _I, _I32P, _I32P, _I]),
+    "rve_enc_set_two": (None, [_P, _I]),
+    "rve_enc_reset": (None, [_P]),
+    # handle, packed symbols, n, group
+    "rve_enc_y": (None, [_P, ctypes.POINTER(ctypes.c_int16), _I, _I]),
+    # handle, symbols, n, group, start_offset, per_channel, interleaved,
+    # idx_base
+    "rve_enc_z": (None, [_P, ctypes.POINTER(ctypes.c_int8)] + [_I] * 6),
+    "rve_enc_flush": (None, [_P]),
+    "rve_enc_stream_size": (_I, [_P]),
+    "rve_enc_get_stream": (None, [_P, _U8P]),
+    "rve_dec_new": (_P, [_I]),
+    "rve_dec_free": (None, [_P]),
+    "rve_dec_add_cdf": (_I, [_P, _I32P, _I, _I, _I32P, _I32P, _I]),
+    "rve_dec_set_two": (None, [_P, _I]),
+    "rve_dec_set_stream": (None, [_P, _U8P, _I]),
+    # handle, indexes, n, group
+    "rve_dec_y": (None, [_P, _U8P, _I, _I]),
+    # handle, total, group, start_offset, per_channel, interleaved,
+    # idx_base
+    "rve_dec_z": (None, [_P] + [_I] * 6),
+    "rve_dec_size": (_I, [_P]),
+    "rve_dec_get": (None, [_P, ctypes.POINTER(ctypes.c_int8)]),
+}
+
+
 def load_host_shim():
     """g++ build of csrc/lane_rans_host.cpp; returns the loaded CDLL."""
     src = os.path.join(CSRC, "lane_rans_host.cpp")
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    out = os.path.join(BUILD_DIR,
-                       f"liblane_rans_host_{_tag([src] + _headers())}.so")
-    if not os.path.exists(out):
-        tmp = f"{out[:-3]}.{os.getpid()}.tmp.so"
-        cmd = ["g++", "-O2", "-std=c++17", "-fno-strict-aliasing", "-shared",
-               "-fPIC", "-I", CSRC, src, "-o", tmp]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"host shim build failed:\n{res.stderr}")
-        os.replace(tmp, out)
+    out = _gxx_build("lane_rans_host", [src] + _headers(),
+                     ["-O2", "-std=c++17", "-fno-strict-aliasing", "-shared",
+                      "-fPIC", "-I", CSRC])
     lib = ctypes.CDLL(out)
     lib.lr_encode_host.argtypes = [_P] * 5 + [_I] * 4
     lib.lr_encode_host.restype = None

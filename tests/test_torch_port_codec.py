@@ -82,7 +82,7 @@ def _jax_codec(cls, params, fz):
 
 
 def _port_codec(cls, params, fz):
-    net = cls(device="cpu")
+    net = cls(device="cpu", device_ec=True)
     net.load_params(from_jax(params))
     net.update(force_zero_thres=fz)
     return net
@@ -273,7 +273,7 @@ def test_dmci_staging_ladder_matches_jax(jax_params, monkeypatch):
     launch at the learned rate writes the same stream without a rerun."""
     monkeypatch.setenv("OPENDCVC_TPU_EC_BPS", "0.05")
     ji = _jax_codec(JDMCI.DMCI, jax_params["i"], None)
-    pi = PDMCI.DMCI(device="cpu", bytes_per_symbol=0.05)
+    pi = PDMCI.DMCI(device="cpu", device_ec=True, bytes_per_symbol=0.05)
     pi.load_params(from_jax(jax_params["i"]))
     pi.update()
     x0, _ = _frames()

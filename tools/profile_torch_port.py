@@ -3,8 +3,9 @@
 
     python3 tools/profile_torch_port.py [--frames 2] [--trace PATH]
 
-Codes 1080p P-frames with DMC at full width (random weights from seed 1,
-flat q banks, force_zero_thres 0.12, as chip_smoke.py does), warms up
+Codes 1080p P-frames with DMC at full width on the device-EC path (random
+weights from seed 1, flat q banks, force_zero_thres 0.12, as chip_smoke.py's
+phase 4 does), warms up
 with one frame, then profiles `--frames` encodes and their decodes with
 torch.profiler.  Prints the per-frame host-clock times, the device time by
 kernel (top 15) and by class (convolution, lane rANS, other), and the
@@ -48,7 +49,7 @@ def main():
     dev = torch.device("cuda", 0)
     nets = []
     for _ in range(2):
-        net = DMC(device=dev)
+        net = DMC(device=dev, device_ec=True)
         if nets:
             net.load_params(nets[0].params)
         else:
