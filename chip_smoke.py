@@ -34,7 +34,11 @@ Phases (any failure exits nonzero and prints no result):
   5. a 64x64 I-frame coded on the GPU and on the CPU with the same
      weights, through device EC and through host EC: the CPU decodes the
      GPU's stream and the two agree (the CPU path is the one the test
-     suite holds against the JAX package);
+     suite holds against the JAX package); then a host-EC chain, a 64x64
+     I-frame and 3 P-frames coded on the GPU and decoded by the CPU port,
+     logging per frame the max |x_hat diff|, the feature diff and whether
+     the GPU's and the CPU's streams are identical (fails on a decode
+     error or a diff over 1e-3);
   6. the host-EC sequence at 1080p: phases 3-4's weights, frames, qp and
      force_zero_thres, the C++ rANS coder on the host with two coders (as
      the harness above 1280x720); the I-frame and 4 P-frames encoded and
@@ -45,15 +49,32 @@ Phases (any failure exits nonzero and prints no result):
      and each decoded P-frame phase 4's; K1 and K2 must not launch.
      Prints per frame the enc/dec ms, the host coder's ms within them,
      the device->host waits and uploads, and the bpp beside phase 3-4's.
+  7. the RD harness, `opendcvc_tpu_torch.eval.harness.main`, in process,
+     as a user runs it: a 1920x1080 8-bit YUV420 sequence of 16 textured
+     frames and its dataset config (src_type yuv420, intra_period 32)
+     written to a temporary directory, coded at qp 21, force_zero_thres
+     0.12, reset_interval 8 (a periodic refresh at frames 1 and 9) with
+     random full-width weights (--seed 0) into a NAL .bin, decoded from
+     the file, the recon .yuv and the RD JSON written; run (a) with host
+     EC (the default), run (b) with OPENDCVC_TPU_DEVICE_EC=1.  Fails
+     unless, in both runs, every decoded frame equals the encoder's bit
+     for bit (the codecs that build_nets returns are wrapped to record
+     them), the JSON's bits are 8 x the .bin's size, the recon file has
+     16 frames and its PSNR lies within 0.5 dB of the JSON's; K1 and K2
+     launch in (b) and not in (a); per-frame PSNR is equal in (a) and
+     (b).  Prints per run the harness's average frame times (frames
+     10-15), bpp, PSNR, test_time and the time outside the codec calls.
 The kernel launch counters are zeroed before phase 3 and read after
 phase 4, so the counts are the main path's (the device-EC path); they are
-zeroed again before phase 6 and must read 0 after it.  Then it prints the
-card's name and power limit, one JSON line describing each kernel, and,
-last, {"ok": true, "device": {...}}.
+zeroed again before phase 6 and must read 0 after it, and again before
+each run of phase 7; `launches` adds phase 7 (b)'s counts to phases
+3-4's.  Then it prints the card's name and power limit, one JSON line
+describing each kernel, and, last, {"ok": true, "device": {...}}.
 """
 
 import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -538,6 +559,88 @@ def phase_reference(dev, qp, fz):
         _log(f"phase 5: 64x64 I-frame GPU vs CPU port, {mode}: max |x_hat "
              f"diff| {err:.3g}, CPU decodes the GPU stream, streams "
              f"identical: {same}")
+    _reference_chain(dev, qp, fz)
+
+
+def textured_frames(h, w, n, seed, shift=3):
+    """n (h, w, 3) uint8 frames: a smooth gradient, a blocky texture that
+    moves `shift` px a frame, and mild noise (so motion and residuals are
+    not pure noise)."""
+    rng = np.random.default_rng(seed)
+    yy = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None, None]
+    xx = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :, None]
+    grad = 48 + 96 * xx * np.float32([1.0, 0.3, 0.6]) \
+        + 80 * yy * np.float32([0.2, 1.0, 0.5])
+    wide = w + shift * n
+    tex = rng.integers(0, 40, (-(-h // 4), -(-wide // 4), 3))
+    tex = tex.repeat(4, 0).repeat(4, 1)[:h, :wide].astype(np.float32)
+    return [np.clip(grad + tex[:, shift * t:shift * t + w]
+                    + rng.normal(0, 1.5, (h, w, 3)).astype(np.float32),
+                    0, 255).astype(np.uint8) for t in range(n)]
+
+
+def _reference_chain(dev, qp, fz):
+    """Phase 5's chain: a 64x64 I-frame and 3 P-frames coded on the GPU
+    through host EC and decoded by the CPU port; the same frames are also
+    coded on the CPU, to say whether the two devices write the same
+    streams.  Fails on a decode error or a diff over 1e-3."""
+    from opendcvc_tpu_torch.models.dmc import DMC
+    from opendcvc_tpu_torch.models.dmci import DMCI
+    cpu = torch.device("cpu")
+    frames = [f[None].astype(np.float32) / 255.0
+              for f in textured_frames(64, 64, 4, seed=5)]
+    sps = {"height": 64, "width": 64, "ec_part": 0}
+    params = {"I": DMCI(device=cpu).init_params(seed=3),
+              "P": DMC(device=cpu).init_params(seed=4)}
+
+    def codec(cls, d):
+        net = cls(device=d)
+        net.load_params(params["I" if cls is DMCI else "P"])
+        net.update(force_zero_thres=fz)
+        return net
+
+    enc = {d.type: (codec(DMCI, d), codec(DMC, d)) for d in (dev, cpu)}
+    dec_cpu = (codec(DMCI, cpu), codec(DMC, cpu))
+    dec_gpu = codec(DMC, dev)
+    streams = {}
+    for t, x in enumerate(frames):
+        if t == 0:
+            out = {k: n[0].compress(x, qp) for k, n in enc.items()}
+            streams = {k: o["bit_stream"] for k, o in out.items()}
+            try:
+                x_cpu = dec_cpu[0].decompress(streams[dev.type], sps,
+                                              qp)["x_hat"]
+            except ValueError as e:
+                _fail(f"phase 5 chain: the CPU cannot decode the GPU's "
+                      f"I-frame: {e}")
+            x_gpu = out[dev.type]["x_hat"]
+            for k, n in enc.items():
+                n[1].add_ref_frame(None, out[k]["x_hat"])
+            dec_cpu[1].add_ref_frame(None, x_cpu)
+            dec_gpu.add_ref_frame(None, x_gpu)
+            feat_err = 0.0
+        else:
+            streams = {k: n[1].compress(x, qp)["bit_stream"]
+                       for k, n in enc.items()}
+            try:
+                x_cpu = dec_cpu[1].decompress(streams[dev.type], sps,
+                                              qp)["x_hat"]
+            except ValueError as e:
+                _fail(f"phase 5 chain: the CPU cannot decode the GPU's "
+                      f"P-frame {t}: {e}")
+            x_gpu = dec_gpu.decompress(streams[dev.type], sps, qp)["x_hat"]
+            f_gpu = enc[dev.type][1].dpb[0].feature.cpu()
+            feat_err = float((dec_cpu[1].dpb[0].feature - f_gpu).abs()
+                             .max()) / max(1.0, float(f_gpu.abs().max()))
+        x_err = float((x_cpu - x_gpu.cpu()).abs().max())
+        same = streams[dev.type] == streams["cpu"]
+        _log(f"phase 5: host-EC chain, {'I' if t == 0 else 'P'}-frame {t} "
+             f"coded on the GPU, decoded by the CPU: max |x_hat diff| "
+             f"{x_err:.3g}, max |feature diff| / max(1, max|feature|) "
+             f"{feat_err:.3g}; GPU and CPU streams identical: {same}")
+        if max(x_err, feat_err) > 1e-3:
+            _fail(f"phase 5 chain: GPU and CPU disagree at frame {t} "
+                  f"(x_hat {x_err:g}, feature {feat_err:g})")
 
 
 CODER_CALLS = ("reset", "encode_y", "encode_z", "flush",
@@ -721,6 +824,251 @@ def _host_sequence(dev, frames, qp, intra, p_run, i_net, p_net, clocks,
     return {"enc": enc_recs, "dec": dec_recs, "stream_bytes": len(data)}
 
 
+N_HARNESS = 16          # phase 7's frames (configs' UVG shape, cut)
+
+
+def _write_sequence(root, h, w, n):
+    """Phase 7's input in `root`: a raw 8-bit YUV420 sequence (textured
+    frames, the chroma subsampled by taking every other sample) and its
+    dataset config; returns the config's path and the sequence's."""
+    os.makedirs(os.path.join(root, "data"))
+    seq = os.path.join(root, "data", "seq1080.yuv")
+    with open(seq, "wb") as f:
+        for img in textured_frames(h, w, n, seed=7):
+            f.write(img[:, :, 0].tobytes())
+            f.write(np.ascontiguousarray(
+                img[::2, ::2, 1:].transpose(2, 0, 1)).tobytes())
+    cfg = os.path.join(root, "config.json")
+    with open(cfg, "w") as f:
+        json.dump({"root_path": root, "test_classes": {"synthetic": {
+            "test": 1, "base_path": "data", "src_type": "yuv420",
+            "sequences": {"seq1080": {"width": w, "height": h, "frames": n,
+                                      "intra_period": 32}}}}}, f)
+    return cfg, seq
+
+
+def _record_codecs(harness, log):
+    """Wrap the codecs that the harness's build_nets returns: each
+    compress / decompress call logs its result and adds its host time,
+    synchronized, to log["codec_s"].  Returns the undo."""
+    build = harness.build_nets
+
+    def recording(args):
+        i_net, p_net = build(args)
+        log["p_params"] = p_net.params
+        for kind, net in (("I", i_net), ("P", p_net)):
+            _wrap_codec(net, kind, log)
+        return i_net, p_net
+
+    harness.build_nets = recording
+    return lambda: setattr(harness, "build_nets", build)
+
+
+def _wrap_codec(net, kind, log):
+    compress, decompress = net.compress, net.decompress
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        _sync(net.device)
+        log["codec_s"] += time.perf_counter() - t0
+        return out
+
+    def enc(x, qp):
+        out = timed(compress, x, qp)
+        log["enc"].append((kind, out["x_hat"] if kind == "I"
+                           else net.dpb[0].feature, qp))
+        return out
+
+    def dec(bit_stream, sps, qp):
+        out = timed(decompress, bit_stream, sps, qp)
+        log["dec"].append((kind, out["x_hat"],
+                           net.dpb[0].feature if kind == "P" else None))
+        return out
+
+    net.compress, net.decompress = enc, dec
+
+
+def _check_decoder_exact(log, mode):
+    """Every decoded frame equals the encoder's, bit for bit: the I-frame's
+    x_hat, and for a P-frame the feature and the frame the encoder's
+    feature reconstructs."""
+    from opendcvc_tpu_torch.models import common as C
+    from opendcvc_tpu_torch.models.dmc import _stage_recon_x
+    if not len(log["enc"]) == len(log["dec"]) == N_HARNESS:
+        _fail(f"phase 7 {mode}: {len(log['enc'])} frames encoded, "
+              f"{len(log['dec'])} decoded")
+    for t, ((kind, e, qp), (_, x_dec, f_dec)) in enumerate(
+            zip(log["enc"], log["dec"])):
+        if kind == "I":
+            same = torch.equal(e, x_dec)
+        else:
+            x_enc = C.frame_to_nhwc(_stage_recon_x(log["p_params"], e, qp))
+            same = torch.equal(e, f_dec) and torch.equal(x_enc, x_dec)
+        if not same:
+            _fail(f"phase 7 {mode}: decoded frame {t} ({kind}) differs from "
+                  f"the encoder's")
+
+
+def _refresh_frames(bin_path):
+    """The frames whose SPS in a NAL .bin sets use_ada_i (the refresh)."""
+    from opendcvc_tpu_torch.utils import stream_helper as S
+    with open(bin_path, "rb") as f:
+        rd = io.BytesIO(f.read())
+    helper, out, t = S.SPSHelper(), [], 0
+    while rd.tell() < len(rd.getbuffer()):
+        header = S.read_header(rd)
+        while header["nal_type"] == S.NalType.NAL_SPS:
+            helper.add_sps_by_id(S.read_sps_remaining(rd, header["sps_id"]))
+            header = S.read_header(rd)
+        if helper.get_sps_by_id(header["sps_id"])["use_ada_i"]:
+            out.append(t)
+        S.read_ip_remaining(rd)
+        t += 1
+    return out
+
+
+def _recon_psnr(src_path, rec_path, h, w, n):
+    """Mean over frames of (6 PSNR_Y + PSNR_U + PSNR_V) / 8, from the
+    files."""
+    fsz, ysz = h * w * 3 // 2, h * w
+    src, rec = (np.fromfile(p, np.uint8).reshape(n, fsz).astype(np.float64)
+                for p in (src_path, rec_path))
+    out = []
+    for s, r in zip(src, rec):
+        planes = (slice(0, ysz), slice(ysz, ysz + ysz // 4),
+                  slice(ysz + ysz // 4, fsz))
+        p = [min(99.9, 10 * np.log10(255.0 ** 2 / max(
+            np.mean((s[sl] - r[sl]) ** 2), 1e-10))) for sl in planes]
+        out.append((6 * p[0] + p[1] + p[2]) / 8)
+    return float(np.mean(out))
+
+
+HARNESS_STEPS = {"_read_src_frame": "file reads",
+                 "ycbcr420_to_444_np": "chroma upsampling",
+                 "get_src_frame": "codec input (read, upsample, upload, pad)",
+                 "_postprocess": "recon crop/convert/clip + fetch",
+                 "_distortion": "metrics",
+                 "_write_recon": "recon writes"}
+
+
+def _clock_harness(harness):
+    """Wrap the harness's host steps (module functions, which call each
+    other through the module, so get_src_frame's time includes its read
+    and upsampling); each adds its host time (s) to the returned dict.
+    Returns (dict, undo)."""
+    spent = dict.fromkeys(HARNESS_STEPS, 0.0)
+    saved = {name: getattr(harness, name) for name in HARNESS_STEPS}
+    for name, fn in saved.items():
+        def timed(*args, _fn=fn, _name=name):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args)
+            finally:
+                spent[_name] += time.perf_counter() - t0
+        setattr(harness, name, timed)
+
+    def undo():
+        for name, fn in saved.items():
+            setattr(harness, name, fn)
+    return spent, undo
+
+
+def _harness_run(harness, LR, root, cfg, seq, device_ec):
+    """One harness run, in process, through the port's CLI entry point;
+    returns its per-job log, .bin size, kernel launches and codec time."""
+    tag = "device_ec" if device_ec else "host_ec"
+    log = {"enc": [], "dec": [], "codec_s": 0.0}
+    saved = os.environ.pop("OPENDCVC_TPU_DEVICE_EC", None)
+    if device_ec:
+        os.environ["OPENDCVC_TPU_DEVICE_EC"] = "1"
+    undo = _record_codecs(harness, log)
+    steps, undo_steps = _clock_harness(harness)
+    LR.encode_scan.launches = 0
+    LR.decode_scan.launches = 0
+    try:
+        harness.main([
+            "--test_config", cfg,
+            "--output_path", os.path.join(root, f"{tag}.json"),
+            "--stream_path", os.path.join(root, tag), "--rate_num", "1",
+            "--qp_i", str(QP), "--qp_p", str(QP),
+            "--force_zero_thres", str(FZ), "--reset_interval", "8",
+            "--verbose", "1", "--verbose_json", "1",
+            "--save_decoded_frame", "1", "--seed", "0", "--device", "cuda"])
+    finally:
+        undo_steps()
+        undo()
+        os.environ.pop("OPENDCVC_TPU_DEVICE_EC", None)
+        if saved is not None:
+            os.environ["OPENDCVC_TPU_DEVICE_EC"] = saved
+    launches = [LR.encode_scan.launches, LR.decode_scan.launches]
+    out_dir = os.path.join(root, tag, "synthetic")
+    with open(os.path.join(out_dir, f"seq1080_q{QP}.json")) as f:
+        job = json.load(f)
+    mode = "device EC" if device_ec else "host EC"
+    _check_decoder_exact(log, mode)
+    n_bytes = os.path.getsize(os.path.join(out_dir, f"seq1080_q{QP}.bin"))
+    if round(sum(job["frame_bpp"]) * job["frame_pixel_num"]) != 8 * n_bytes:
+        _fail(f"phase 7 {mode}: the log's bits differ from 8 x the .bin's "
+              f"{n_bytes} bytes")
+    if (job["i_frame_num"], job["p_frame_num"]) != (1, N_HARNESS - 1):
+        _fail(f"phase 7 {mode}: frame counts {job['i_frame_num']} I, "
+              f"{job['p_frame_num']} P")
+    refresh = _refresh_frames(os.path.join(out_dir, f"seq1080_q{QP}.bin"))
+    if refresh != [1, 9]:
+        _fail(f"phase 7 {mode}: periodic refresh at frames {refresh}, not "
+              f"1 and 9")
+    (rec,) = [p for p in os.listdir(out_dir) if p.endswith("kbps.yuv")]
+    rec = os.path.join(out_dir, rec)
+    if os.path.getsize(rec) != N_HARNESS * H * W * 3 // 2:
+        _fail(f"phase 7 {mode}: recon file of {os.path.getsize(rec)} bytes")
+    psnr_files = _recon_psnr(seq, rec, H, W, N_HARNESS)
+    if not abs(psnr_files - job["ave_all_frame_psnr"]) <= 0.5:
+        _fail(f"phase 7 {mode}: PSNR from the files {psnr_files:.4f} dB, "
+              f"the log's {job['ave_all_frame_psnr']:.4f} dB")
+    outside = job["test_time"] - log["codec_s"]
+    _log(f"phase 7: harness, {mode}: avg_frame_encoding_time "
+         f"{job['avg_frame_encoding_time'] * 1e3:.2f} ms, "
+         f"avg_frame_decoding_time {job['avg_frame_decoding_time'] * 1e3:.2f}"
+         f" ms (frames 10-15), bpp {job['ave_all_frame_bpp']:.4f}, PSNR "
+         f"{job['ave_all_frame_psnr']:.4f} dB (from the files "
+         f"{psnr_files:.4f}), test_time {job['test_time']:.2f} s, codec "
+         f"calls {log['codec_s']:.2f} s, outside the codecs {outside:.2f} s; "
+         f".bin {n_bytes} B; K1 {launches[0]}, K2 {launches[1]} launches; "
+         f"decoder exact on all {N_HARNESS} frames")
+    _log(f"phase 7: harness, {mode}, host steps (s, {N_HARNESS} frames): "
+         + ", ".join(f"{HARNESS_STEPS[k]} {v:.3f}" for k, v in steps.items()))
+    return {"job": job, "launches": launches}
+
+
+def phase_harness():
+    """Phase 7: the RD harness (`eval.harness.main`) on a 1080p YUV420
+    sequence from a dataset config, host EC then device EC; returns the
+    device-EC run's K1 and K2 launches."""
+    import tempfile
+    from opendcvc_tpu_torch.eval import harness
+    from opendcvc_tpu_torch.ops import lane_rans as LR
+    pil_before = "PIL" in sys.modules
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        t0 = time.perf_counter()
+        cfg, seq = _write_sequence(root, H, W, N_HARNESS)
+        _log(f"phase 7: {N_HARNESS} frames of {W}x{H} YUV420 written in "
+             f"{time.perf_counter() - t0:.1f} s")
+        host = _harness_run(harness, LR, root, cfg, seq, device_ec=False)
+        dev = _harness_run(harness, LR, root, cfg, seq, device_ec=True)
+    if max(host["launches"]):
+        _fail("phase 7: the host-EC harness run launched a lane rANS kernel")
+    if min(dev["launches"]) == 0:
+        _fail("phase 7: the device-EC harness run did not launch K1 and K2")
+    if host["job"]["frame_psnr"] != dev["job"]["frame_psnr"]:
+        _fail("phase 7: per-frame PSNR differs between host and device EC")
+    if not pil_before and "PIL" in sys.modules:
+        _fail("phase 7 imported PIL")
+    _log("phase 7: per-frame PSNR equal in host and device EC; bits equal "
+         "8 x each .bin; periodic refresh at frames 1 and 9 in both")
+    return dev["launches"]
+
+
 def main():
     if not torch.cuda.is_available():
         _fail("CUDA is not available")
@@ -766,6 +1114,12 @@ def main():
          f"{host_launches[1]}")
     if max(host_launches):
         _fail("the host-EC path launched a lane rANS kernel")
+
+    harness_launches = phase_harness()
+    for k, n in zip(kernels, harness_launches):
+        k["launches_by_run"] = {"phases 3-4": k["launches"],
+                                "phase 7 device EC": n}
+        k["launches"] += n
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

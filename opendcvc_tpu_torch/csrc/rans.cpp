@@ -1,5 +1,7 @@
 // opendcvc_tpu native entropy-coding runtime (the host coder of the
-// PyTorch port: the JAX package's native/rans.cpp, the code unchanged).
+// PyTorch port: the JAX package's native/rans.cpp, with the decoder bounded
+// by the stream's end and a whole-stream check, rve_dec_check_end; the
+// bytes it writes are unchanged).
 //
 // A fresh C++ implementation of byte-aligned rANS coding with the stream
 // format used by the DCVC family of codecs (see reference semantics in
@@ -38,6 +40,12 @@ constexpr int kEncRenormShift = kShiftBits - kScaleBits + 8;
 constexpr uint32_t kDecMask = (1u << kScaleBits) - 1;
 constexpr uint32_t kBypassBits = 2;
 constexpr uint32_t kMaxBypassVal = (1u << kBypassBits) - 1;
+// an int8 symbol's escape takes at most 5 two-bit groups; more than 15
+// (30 bits) only a corrupt stream holds, and the cap keeps the escape's
+// value arithmetic inside int32
+constexpr int32_t kMaxBypassCount = 15;
+// two coders' streams share at most this many identical tail bytes
+constexpr int kMaxSharedTail = 8;
 
 using RansState = uint32_t;
 
@@ -74,22 +82,43 @@ inline void enc_flush_state(const RansState& s, uint8_t*& p) {
   p[3] = static_cast<uint8_t>(s >> 24);
 }
 
-inline void dec_init(RansState& s, const uint8_t*& p) {
+// Decoder reads stop at the stream's end.  A read past it reads nothing:
+// it flags the stream (`past_end`) and lifts the state to the lower bound,
+// so no renormalization loop can spin on it.
+inline void dec_refill(RansState& s, const uint8_t*& p, const uint8_t* end,
+                       bool& past_end) {
+  if (p == end) {
+    past_end = true;
+    s = kLowBound;
+    return;
+  }
+  s = (s << 8) | *p++;
+}
+
+inline void dec_init(RansState& s, const uint8_t*& p, const uint8_t* end,
+                     bool& past_end) {
+  if (end - p < 4) {
+    past_end = true;
+    s = kLowBound;
+    p = end;
+    return;
+  }
   s = static_cast<uint32_t>(p[0]) | (static_cast<uint32_t>(p[1]) << 8) |
       (static_cast<uint32_t>(p[2]) << 16) | (static_cast<uint32_t>(p[3]) << 24);
   p += 4;
 }
 
-inline void dec_advance(RansState& s, const uint8_t*& p, uint32_t start,
-                        uint32_t freq) {
+inline void dec_advance(RansState& s, const uint8_t*& p, const uint8_t* end,
+                        bool& past_end, uint32_t start, uint32_t freq) {
   s = freq * (s >> kScaleBits) + (s & kDecMask) - start;
-  while (s < kLowBound) s = (s << 8) | *p++;
+  while (s < kLowBound) dec_refill(s, p, end, past_end);
 }
 
-inline uint32_t dec_get_bits(RansState& s, const uint8_t*& p) {
+inline uint32_t dec_get_bits(RansState& s, const uint8_t*& p,
+                             const uint8_t* end, bool& past_end) {
   uint32_t val = s & kMaxBypassVal;
   s >>= kBypassBits;
-  if (s < kLowBound) s = (s << 8) | *p++;
+  if (s < kLowBound) dec_refill(s, p, end, past_end);
   return val;
 }
 
@@ -365,8 +394,17 @@ class DecoderCore {
   void set_stream(std::vector<uint8_t>&& s) {
     stream_ = std::move(s);
     ptr_ = stream_.data();
-    dec_init(rans_, ptr_);
+    end_ = ptr_ + stream_.size();
+    broken_ = false;
+    dec_init(rans_, ptr_, end_, broken_);
   }
+
+  // What check_end needs once every symbol is decoded: a whole stream
+  // leaves the state where the encoder began it, and no read passed the
+  // end.
+  bool broken() const { return broken_; }
+  bool state_at_start() const { return rans_ == kLowBound; }
+  int64_t consumed() const { return ptr_ - stream_.data(); }
 
   inline int8_t decode_one(const CdfGroup& g, int cdf_idx) {
     const auto& cdf = g.cdfs[cdf_idx];
@@ -381,21 +419,26 @@ class DecoderCore {
       while (static_cast<uint32_t>(cdf[s]) <= f) ++s;
       s -= 1;  // largest s with cdf[s] <= f
     }
-    dec_advance(rans_, ptr_, cdf[s], cdf[s + 1] - cdf[s]);
+    dec_advance(rans_, ptr_, end_, broken_, cdf[s], cdf[s + 1] - cdf[s]);
     int32_t value = s;
     if (value == max_value) {
-      int32_t val = static_cast<int32_t>(dec_get_bits(rans_, ptr_));
+      int32_t val =
+          static_cast<int32_t>(dec_get_bits(rans_, ptr_, end_, broken_));
       int32_t n_bypass = val;
       while (val == static_cast<int32_t>(kMaxBypassVal)) {
-        val = static_cast<int32_t>(dec_get_bits(rans_, ptr_));
+        val = static_cast<int32_t>(dec_get_bits(rans_, ptr_, end_, broken_));
         n_bypass += val;
       }
-      int32_t raw_val = 0;
-      for (int32_t j = 0; j < n_bypass; ++j) {
-        val = static_cast<int32_t>(dec_get_bits(rans_, ptr_));
-        raw_val |= val << (j * kBypassBits);
+      if (n_bypass > kMaxBypassCount) {
+        broken_ = true;
+        n_bypass = kMaxBypassCount;
       }
-      value = raw_val >> 1;
+      uint32_t raw_val = 0;
+      for (int32_t j = 0; j < n_bypass; ++j) {
+        raw_val |= dec_get_bits(rans_, ptr_, end_, broken_)
+                   << (j * kBypassBits);
+      }
+      value = static_cast<int32_t>(raw_val >> 1);
       if (raw_val & 1) {
         value = -value - 1;
       } else {
@@ -431,6 +474,8 @@ class DecoderCore {
   std::vector<CdfGroup> groups_;
   std::vector<uint8_t> stream_;
   const uint8_t* ptr_ = nullptr;
+  const uint8_t* end_ = nullptr;
+  bool broken_ = false;
   RansState rans_ = 0;
 };
 
@@ -481,6 +526,12 @@ class ThreadedDecoder {
     cv_done_.wait(lk, [this] { return (ready_ && pending_.empty()) || finish_; });
     return core_.decoded_;
   }
+  // Waits for the queued decodes, as get_decoded does; the core is idle
+  // after.
+  const DecoderCore& idle_core() {
+    get_decoded();
+    return core_;
+  }
 
  private:
   void exec(const Task& t) {
@@ -512,7 +563,8 @@ class ThreadedDecoder {
   DecoderCore core_;
   bool threaded_;
   bool finish_ = false;
-  bool ready_ = false;
+  // true until a task is queued, so a wait with nothing queued returns
+  bool ready_ = true;
   std::thread worker_;
   std::mutex mu_;
   std::condition_variable cv_, cv_done_;
@@ -537,6 +589,7 @@ struct DecoderPair {
       : d0(threaded), d1(threaded) {}
   ThreadedDecoder d0, d1;
   bool use_two = false;
+  int64_t n_stream = 0;
   std::vector<int8_t> merged;
 };
 
@@ -647,7 +700,7 @@ int rve_enc_stream_size(void* h) {
   // can share them when packed head-to-head (reference trick,
   // py_rans.cpp:117-131).
   int identical = 0;
-  int check = std::min(std::min(n0, n1), 8);
+  int check = std::min(std::min(n0, n1), kMaxSharedTail);
   for (int i = 0; i < check; ++i) {
     if (s0[n0 - 1 - i] != 0 || s1[n1 - 1 - i] != 0) break;
     ++identical;
@@ -691,8 +744,11 @@ void rve_dec_set_two(void* h, int two) {
   static_cast<DecoderPair*>(h)->use_two = (two != 0);
 }
 
+// Each decoder reads within the n bytes: the first from the head, the
+// second (two coders) from the tail; each needs its 4-byte state there.
 void rve_dec_set_stream(void* h, const uint8_t* data, int n) {
   auto* d = static_cast<DecoderPair*>(h);
+  d->n_stream = n;
   d->d0.set_stream(std::vector<uint8_t>(data, data + n));
   if (d->use_two) {
     std::vector<uint8_t> rev(n);
@@ -747,10 +803,16 @@ void rve_dec_z(void* h, int total, int group, int start_offset,
   }
 }
 
-// Blocks until decode finishes; returns size and caches merged output.
+// Blocks until decode finishes; returns size and caches merged output,
+// or -1 when a decoder read past the stream's end or met an impossible
+// escape.
 int rve_dec_size(void* h) {
   auto* d = static_cast<DecoderPair*>(h);
   const auto& r0 = d->d0.get_decoded();
+  if (d->d0.idle_core().broken() ||
+      (d->use_two && d->d1.idle_core().broken())) {
+    return -1;
+  }
   if (!d->use_two) {
     d->merged = r0;
     return static_cast<int>(d->merged.size());
@@ -765,6 +827,26 @@ int rve_dec_size(void* h) {
 void rve_dec_get(void* h, int8_t* out) {
   auto* d = static_cast<DecoderPair*>(h);
   std::memcpy(out, d->merged.data(), d->merged.size());
+}
+
+// After a stream's last symbol (blocks until it is decoded): 0 when the
+// stream decoded whole, -1 when a read passed its end or met an impossible
+// escape, -2 when the decoders did not read every byte exactly once (two
+// coders may share at most the encoder's trimmed tail), -3 when a
+// decoder's final state is not the state its encoder started from.
+int rve_dec_check_end(void* h) {
+  auto* d = static_cast<DecoderPair*>(h);
+  const DecoderCore& c0 = d->d0.idle_core();
+  if (!d->use_two) {
+    if (c0.broken()) return -1;
+    if (c0.consumed() != d->n_stream) return -2;
+    return c0.state_at_start() ? 0 : -3;
+  }
+  const DecoderCore& c1 = d->d1.idle_core();
+  if (c0.broken() || c1.broken()) return -1;
+  const int64_t both = c0.consumed() + c1.consumed();
+  if (both < d->n_stream || both > d->n_stream + kMaxSharedTail) return -2;
+  return (c0.state_at_start() && c1.state_at_start()) ? 0 : -3;
 }
 
 }  // extern "C"

@@ -71,3 +71,6 @@ class EntropyCoder:
 
     def get_decoded_tensor(self):
         return self.decoder.get_decoded_tensor()
+
+    def check_stream_end(self):
+        self.decoder.check_stream_end()

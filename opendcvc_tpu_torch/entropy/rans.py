@@ -6,7 +6,9 @@ NHWC z planes and a `build_lut` flag for O(1) symbol lookup in the
 decoder.  Native only: a failed build or load raises (there is no quiet
 fallback to the plain Python coder, `rans_py.py`, which only the tests
 use).  Every CDF row a call names is checked against the registered
-group before a pointer crosses to C++, which does not check.
+group before a pointer crosses to C++, which does not check.  The decoder
+never reads past the stream's end: a truncated or corrupt stream raises
+ValueError, at the latest from `check_stream_end` after its last symbol.
 """
 
 import ctypes
@@ -173,9 +175,32 @@ class RansDecoder(_Coder):
                             1 if interleaved else 0, idx_base)
 
     def get_decoded_tensor(self):
-        """Waits for the queued decodes; returns the int8 symbols."""
+        """Waits for the queued decodes; returns the int8 symbols.  Raises
+        ValueError when a decoder read past the stream's end or met an
+        escape no int8 symbol makes (a truncated or corrupt stream)."""
         n = self._lib.rve_dec_size(self._h)
+        if n < 0:
+            raise ValueError("the rANS stream ended before its symbols did, "
+                             "or is corrupt")
         out = np.zeros(n, dtype=np.int8)
         if n:
             self._lib.rve_dec_get(self._h, _ptr(out, ctypes.c_int8))
         return out
+
+    def check_stream_end(self):
+        """After a stream's last symbol: raises ValueError unless the
+        decoders read every byte of it exactly once (two coders may share
+        the encoder's trimmed tail) and each ended in the state its encoder
+        started from.  A truncated, padded or corrupt stream fails."""
+        rc = self._lib.rve_dec_check_end(self._h)
+        if rc:
+            raise ValueError(_END_ERRORS.get(rc, f"rANS stream check {rc}"))
+
+
+_END_ERRORS = {
+    -1: "the rANS stream ended before its symbols did, or is corrupt",
+    -2: "the rANS stream's length does not match the bytes its symbols "
+        "took",
+    -3: "the rANS stream did not decode back to its initial state: it is "
+        "corrupt",
+}

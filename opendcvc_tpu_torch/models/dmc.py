@@ -748,7 +748,8 @@ class DMC:
         """Host-EC decode: the host decodes z on the coder's worker thread
         while the device runs the feature extractor's first part; each y
         pass's indexes are fetched (the host waits) and its symbols
-        uploaded.  Returns (next reference feature, x_hat NCHW)."""
+        uploaded.  A stream that is not exactly the frame's symbols raises
+        ValueError.  Returns (next reference feature, x_hat NCHW)."""
         p, fz, coder = self.params, self.force_zero_thres, self.entropy_coder
         zh, zw = C.get_downsampled_shape(sps["height"], sps["width"], 64)
         coder.set_use_two_entropy_coders(sps["ec_part"] == 1)
@@ -774,6 +775,7 @@ class DMC:
         y_hat_1 = _stage_dec_restore_2x(
             _decode_y_host(self, C.fetch_async(_index_buf(idx1, keep1)),
                            idx1.shape, x1.dtype), means1, 1)
+        coder.check_stream_end()
 
         feature_out = _stage_feature_out(p, y_hat_0, y_hat_1, params_prior,
                                          ctx, qp)

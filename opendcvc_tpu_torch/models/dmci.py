@@ -370,7 +370,8 @@ class DMCI:
 
     def _decompress_host(self, bit_stream, sps, qp):
         """Host EC: z decoded on the host, then for each pass its indexes
-        fetched (the host waits), decoded and the symbols uploaded."""
+        fetched (the host waits), decoded and the symbols uploaded.  A
+        stream that is not exactly the frame's symbols raises ValueError."""
         p, fz, coder = self.params, self.force_zero_thres, self.entropy_coder
         zh, zw = C.get_downsampled_shape(sps["height"], sps["width"], 64)
         y_h, y_w = C.get_downsampled_shape(sps["height"], sps["width"], 16)
@@ -390,6 +391,7 @@ class DMCI:
             y_q_r = _decode_y_host(self, C.fetch_async(_index_buf(idx, keep)),
                                    idx.shape, means.dtype)
             so_far = _stage_dec_restore(y_q_r, means, so_far, k)
+        coder.check_stream_end()
         return _stage_recon(p, so_far, q_dec_prior, qp)
 
     def decompress(self, bit_stream, sps, qp):

@@ -177,6 +177,7 @@ _HOST_RANS_SIGNATURES = {
     "rve_dec_z": (None, [_P] + [_I] * 6),
     "rve_dec_size": (_I, [_P]),
     "rve_dec_get": (None, [_P, ctypes.POINTER(ctypes.c_int8)]),
+    "rve_dec_check_end": (_I, [_P]),
 }
 
 
