@@ -64,12 +64,27 @@ Phases (any failure exits nonzero and prints no result):
      launch in (b) and not in (a); per-frame PSNR is equal in (a) and
      (b).  Prints per run the harness's average frame times (frames
      10-15), bpp, PSNR, test_time and the time outside the codec calls.
+  8. the port's benchmark, `opendcvc_tpu_torch.bench`, in process at
+     bench.py's defaults: 1080p, 32 P-frames in GOP chunks of 8 (encode
+     pipelined over two pool threads, chunk k + 1 uploaded before chunk
+     k's decode), a batch of 8 intra frames, force_zero_thres 0.12, qp 21,
+     device EC (4096 lanes, 0.4 bytes a symbol, P cap fraction 0.375).
+     Fails unless K1 launched once a coded frame plus once a rerun and K2
+     3 times a decoded P-frame and 5 an I-frame; the first chunk's GOP
+     streams equal the same frames coded one by one through
+     compress_async; decompress_gop and the last uploaded chunk equal the
+     per-frame decode, whose final feature is the GOP decoder's and the
+     encoder's; the batch's streams, x_hats and batched decode equal
+     DMCI.compress and decompress frame by frame.  Prints the bench's
+     JSON line, its ms a chunk and a batch, and a chunk's staging bytes
+     with the time of one pinned copy of them each way.
 The kernel launch counters are zeroed before phase 3 and read after
 phase 4, so the counts are the main path's (the device-EC path); they are
-zeroed again before phase 6 and must read 0 after it, and again before
-each run of phase 7; `launches` adds phase 7 (b)'s counts to phases
-3-4's.  Then it prints the card's name and power limit, one JSON line
-describing each kernel, and, last, {"ok": true, "device": {...}}.
+zeroed again before phase 6 and must read 0 after it, again before each
+run of phase 7, and before phase 8; `launches` adds phase 7 (b)'s and
+phase 8's counts to phases 3-4's.  Then it prints the card's name and
+power limit, one JSON line describing each kernel, and, last, {"ok":
+true, "device": {...}}.
 """
 
 import io
@@ -1069,6 +1084,156 @@ def phase_harness():
     return dev["launches"]
 
 
+def _card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if card.returncode != 0:
+        _fail(f"nvidia-smi failed: {card.stderr.strip()}")
+    return card.stdout.strip().splitlines()[0]
+
+
+def _copy_ms(shape, dev):
+    """Median ms of one int16 copy of `shape` device->host (into pinned
+    memory) and host->device (from it), with CUDA events around each."""
+    src = torch.zeros(shape, dtype=torch.int16, device=dev)
+    host = torch.empty(shape, dtype=torch.int16, pin_memory=True)
+    d2h = median_ms(lambda: host.copy_(src, non_blocking=True), dev)
+    h2d = median_ms(lambda: src.copy_(host, non_blocking=True), dev)
+    return d2h, h2d
+
+
+def _bench_checks(st, dev):
+    """Phase 8's holds: the first GOP chunk's streams against the same
+    frames coded one by one, the GOP decode against the per-frame decode
+    (x_hats and features), the batched intra streams, x_hats and decode
+    against the single-frame calls."""
+    from opendcvc_tpu_torch.models.dmc import DMC
+    p_net, d_net, qp, qps = st["p_net"], st["d_net"], st["qp"], st["qps"]
+
+    def p_codec():
+        net = DMC(device=dev, device_ec=True, lanes=p_net.lanes,
+                  bytes_per_symbol=p_net.bytes_per_symbol,
+                  cap_frac=p_net.cap_frac)
+        net.load_params(p_net.params)
+        net.update(force_zero_thres=st["fz"])
+        net.add_ref_frame(None, st["enc0"]["x_hat"])
+        return net
+
+    one = p_codec()
+    for x in st["seed_frames"]:
+        one.compress_async(x, qp)()
+    for t, x in enumerate(st["chunks"][0]):
+        if one.compress_async(x, qps[t])() != st["chunk_streams"][0][t]:
+            _fail(f"phase 8: GOP stream of chunk 0 frame {t} differs from "
+                  f"the frame coded alone through compress_async")
+
+    per, gop = p_codec(), p_codec()
+    for net in (per, gop):
+        for s in st["seed_streams"]:
+            net.decompress(s, st["sps"], qp)
+    per_x = [per.decompress(s, st["sps"], q)["x_hat"]
+             for streams in st["chunk_streams"] for s, q in zip(streams, qps)]
+    x_gop = gop.decompress_gop(st["chunk_streams"][0], st["sps"],
+                               qps)["x_hat"]
+    n = st["gop_n"]
+    if not all(torch.equal(x_gop[t], per_x[t]) for t in range(n)):
+        _fail("phase 8: decompress_gop differs from the per-frame decode")
+    if not all(torch.equal(st["dec_out"]["x_hat"][t], per_x[t - n])
+               for t in range(n)):
+        _fail("phase 8: the last uploaded chunk's decode differs from the "
+              "per-frame decode")
+    for what, f in (("GOP decoder", d_net.dpb[0].feature),
+                    ("encoder", p_net.dpb[0].feature)):
+        if not torch.equal(per.dpb[0].feature, f):
+            _fail(f"phase 8: the per-frame decoder's final feature differs "
+                  f"from the {what}'s")
+    if not all(bool(torch.isfinite(x).all()) for x in per_x):
+        _fail("phase 8: a decoded P-frame is not finite")
+
+    i_net, i_dec = st["i_net"], st["i_dec"]
+    for t, x in enumerate(st["i_frames"]):
+        enc = i_net.compress(x, qp)
+        if enc["bit_stream"] != st["i_streams"][t] or \
+                not torch.equal(enc["x_hat"], st["i_x_hats"][t]):
+            _fail(f"phase 8: compress_batch frame {t} differs from "
+                  f"DMCI.compress")
+        dec = i_dec.decompress(enc["bit_stream"], st["i_sps"], qp)["x_hat"]
+        if not torch.equal(dec, st["i_dec_out"][t]) or \
+                not torch.equal(dec, enc["x_hat"]):
+            _fail(f"phase 8: decompress_batch frame {t} differs from "
+                  f"decompress or from the encoder's x_hat")
+    return len(per_x) + n
+
+
+def phase_bench(dev, LR):
+    """Phase 8: `opendcvc_tpu_torch.bench` in process at bench.py's
+    defaults (BENCH_* and OPENDCVC_TPU_EC_* unset), then its holds;
+    returns its K1 and K2 launches, which must match the frames it
+    coded and decoded."""
+    from opendcvc_tpu_torch import bench
+    saved = {k: os.environ.pop(k) for k in list(os.environ)
+             if k.startswith(("BENCH_", "OPENDCVC_TPU_EC_"))}
+    LR.encode_scan.launches = 0
+    LR.decode_scan.launches = 0
+    t0 = time.perf_counter()
+    try:
+        st = bench.run()
+    finally:
+        os.environ.update(saved)
+    launches = [LR.encode_scan.launches, LR.decode_scan.launches]
+    bench_s = time.perf_counter() - t0
+    coded, decoded, n, gop_n = (st["coded"], st["decoded"], st["n_frames"],
+                                st["gop_n"])
+    want_p = 2 * len(st["seed_frames"]) + gop_n + n
+    if coded["P"] != want_p or decoded["P"] != want_p or \
+            decoded["I"] != 3 * len(st["i_frames"]):
+        _fail(f"phase 8: frames coded {coded}, decoded {decoded}")
+    want = [coded["I"] + coded["P"] + st["reruns"],
+            5 * decoded["I"] + 3 * decoded["P"]]
+    if launches != want:
+        _fail(f"phase 8: K1/K2 launched {launches} times, the frames coded "
+              f"and decoded need {want}")
+    line = st["result"]
+    _log(f"phase 8: {_card()}")
+    _log("phase 8: bench line " + json.dumps(line))
+    _log("phase 8: " + st["verbose"])
+    _log(f"phase 8: {n} P-frames in chunks of {gop_n}; encode ms a chunk "
+         + " ".join(f"{t:.1f}" for t in st["enc_chunk_ms"])
+         + " | decode ms a chunk " + " ".join(f"{t:.1f}" for t in
+                                                st["dec_chunk_ms"])
+         + f" | intra batch of {len(st['i_frames'])}: encode ms "
+         + " ".join(f"{t:.1f}" for t in st["intra_enc_ms"]) + ", decode ms "
+         + " ".join(f"{t:.1f}" for t in st["intra_dec_ms"])
+         + f" | reruns {st['reruns']}; bench {bench_s:.1f} s")
+
+    p_net, (h, w) = st["p_net"], st["size"]
+    lanes, _, k_total = p_net._plan_device_ec(-(-h // 16) * 16,
+                                              -(-w // 16) * 16)
+    mw, cap = p_net._rung(lanes, k_total, max(
+        p_net.bytes_per_symbol, max(p_net._ec_learned.values(), default=0)))
+    shape = (gop_n, cap + 3 * lanes)
+    d2h, h2d = _copy_ms(shape, dev)
+    payload = sum(len(s) for s in st["chunk_streams"][0])
+    _log(f"phase 8: a chunk's stagings {shape[0]} x {shape[1]} u16 = "
+         f"{2 * shape[0] * shape[1]} B (streams {payload} B; lanes {lanes}, "
+         f"mw {mw}, cap {cap}); one copy of them: device->host "
+         f"{d2h:.4f} ms, host->device {h2d:.4f} ms (pinned, median of "
+         f"{REPS})")
+
+    checked = _bench_checks(st, dev)
+    _log(f"phase 8: K1 {launches[0]} launches ({coded['I']} I + "
+         f"{coded['P']} P coded + {st['reruns']} reruns), K2 {launches[1]} "
+         f"({decoded['I']} I x 5 + {decoded['P']} P x 3); GOP chunk 0 == "
+         f"compress_async frame by frame; decompress_gop and the uploaded "
+         f"chunks == {checked} per-frame decodes, final features equal, "
+         f"enc/dec chain exact; compress_batch / decompress_batch == "
+         f"compress / decompress on {len(st['i_frames'])} frames")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         _fail("CUDA is not available")
@@ -1116,19 +1281,15 @@ def main():
         _fail("the host-EC path launched a lane rANS kernel")
 
     harness_launches = phase_harness()
-    for k, n in zip(kernels, harness_launches):
+    bench_launches = phase_bench(dev, LR)
+    for k, n7, n8 in zip(kernels, harness_launches, bench_launches):
         k["launches_by_run"] = {"phases 3-4": k["launches"],
-                                "phase 7 device EC": n}
-        k["launches"] += n
+                                "phase 7 device EC": n7, "phase 8": n8}
+        k["launches"] += n7 + n8
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    if card.returncode != 0:
-        _fail(f"nvidia-smi failed: {card.stderr.strip()}")
+    card = _card()
     _log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(card.stdout.strip().splitlines()[0])   # name, power limit
+    print(card)   # name, power limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

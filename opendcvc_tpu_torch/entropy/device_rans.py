@@ -251,3 +251,25 @@ def parse_frame(stream, offset=0):
     meta, dense, lens, states, off = parse_frame_parts(stream, offset)
     staging = staging_from_parts(dense, lens, states, meta["cap"])
     return meta, staging, off
+
+
+def upload_stagings(bit_streams, device):
+    """Parse a chunk's containers and upload their compact decode
+    stagings to `device`.
+
+    Returns (metas, stagings): stagings is one (N, cap + 3L) int32 tensor
+    of u16 values, or None when the containers disagree on (L, MW, cap,
+    kyc), a chunk of mixed ladder rungs that the caller decodes frame by
+    frame.  The u16 words cross in one copy (pinned and non-blocking on a
+    CUDA device) and are widened on the device.  No transfer slimming: the
+    dense part always spans cap, as the JAX package's with
+    OPENDCVC_TPU_EC_SLIM=0."""
+    parsed = [parse_frame(s) for s in bit_streams]
+    metas = [meta for meta, _, _ in parsed]
+    if len({(m["L"], m["MW"], m["cap"], m["kyc"]) for m in metas}) != 1:
+        return metas, None
+    host = torch.from_numpy(np.stack([st for _, st, _ in parsed])
+                            .view(np.int16))
+    if device.type == "cuda":
+        host = host.pin_memory()
+    return metas, host.to(device, non_blocking=True).to(torch.int32) & 0xFFFF

@@ -11,8 +11,10 @@ back from the file and writes the RD JSON (bpp, PSNR, MS-SSIM, frame
 times).  The codecs run on `--device` (default cuda; without CUDA that
 raises, and the harness runs on the CPU only when `--device cpu` asks for
 it).  They code with the host rANS coder, or with the lane rANS kernels
-K1/K2 when OPENDCVC_TPU_DEVICE_EC is set.  Jobs run one after another, or
-over `--worker N` threads with one codec pair each.
+K1/K2 when OPENDCVC_TPU_DEVICE_EC is set, their staging sized by
+OPENDCVC_TPU_EC_LANES / _EC_BPS / _EC_CAP_FRAC, which the codecs read.
+Jobs run one after another, or over `--worker N` threads with one codec
+pair each.
 
 Weights: `--model_path_i/_p` read the JAX package's checkpoints (no JAX
 needed).  Without them the codecs take the port's own random init from

@@ -7,12 +7,23 @@ Counterpart of the JAX package's `models/common.py`.  Prior separation:
          channels [2:] -> (scales, means).
 """
 
+import os
+
 import numpy as np
 import torch
 
 from ..ops.fused import replicate_pad
 
 QP_NUM = 64
+
+
+def ec_setting(value, name, default):
+    """A device-EC staging setting: `value` when the caller gives one,
+    else the environment variable `name` (the JAX package's
+    OPENDCVC_TPU_EC_* knob), else `default`, cast to default's type."""
+    if value is not None:
+        return value
+    return type(default)(os.environ.get(name, default))
 
 
 def resolve_device(device):
@@ -39,7 +50,9 @@ def frame_to_nhwc(x):
 def fetch_async(t):
     """Start copying a tensor to the host; returns a callable that waits
     for the copy and returns it as numpy.  A CUDA copy lands in pinned
-    memory behind an event, so the device queue runs on meanwhile."""
+    memory behind an event, so the device queue runs on meanwhile; the
+    callable holds the pinned buffer, and the caching host allocator
+    keeps it from reuse until the copy's event has passed."""
     if t.device.type != "cuda":
         return t.numpy
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)

@@ -22,20 +22,24 @@ Entropy coding has two modes, as in the JAX package (`device_ec`):
     K1 from one packed operand against a combined per-frame table (the y
     rows, then the frame QP's z rows), and decoded by three K2 launches
     that carry one rANS state per lane.  The container is the JAX
-    package's "tpu-lane" v6.
+    package's "tpu-lane" v6.  The K1 launch returns at once; the staging's
+    copy to the host completes in the callable that compress_async
+    returns.  GOP coding (device EC) runs N frames through the same
+    stages with one copy or one upload for the chunk.
 Both write the JAX package's bytes.
 """
 
 import functools
 import math
+import threading
 
 import numpy as np
 import torch
 
 from ..entropy.device_rans import (SKIP_ROW, _undensify_device,
                                    densify_segment, effective_lanes,
-                                   full_range_cdf_rows, parse_frame,
-                                   settle_staging, staging_width)
+                                   full_range_cdf_rows, settle_staging,
+                                   staging_width, upload_stagings)
 from ..entropy.coder import EntropyCoder
 from ..entropy.models import (BitEstimator, GaussianEncoder,
                               bit_estimator_init)
@@ -354,15 +358,42 @@ def _dec_y_plane(data, idx, keep, dec_table, carry, lanes, fz):
     return _dec_plane(data, rows, dec_table, carry, lanes)
 
 
-def _encode_staging(packed, enc_table, n_y_rows, qp, c_z, mw, cap):
+def _launch_staging(packed, enc_table, n_y_rows, qp, c_z, mw, cap):
     """K1 over a frame's operand against its combined [y rows | qp's z
-    rows] slice of the prepared encode table, compacted on the device and
-    fetched: the host staging (numpy u16) the ladder checks."""
+    rows] slice of the prepared encode table, compacted on the device:
+    the (cap + 3L) int32 staging of u16 values (densify_segment).  Returns
+    without waiting for the device."""
     z_base = n_y_rows + qp * c_z
     comb = torch.cat([enc_table[:n_y_rows],
                       enc_table[z_base:z_base + c_z]])
-    staging = densify_segment(*encode_scan(packed, comb, mw), cap)
-    return staging.cpu().numpy().astype(np.uint16)
+    return densify_segment(*encode_scan(packed, comb, mw), cap)
+
+
+def _fetch_stagings(staging):
+    """Start the copy of a staging, or of a stack of them, to the host as
+    u16 words (half the bytes of the int32 on the device); returns a
+    callable that waits for the copy and gives the numpy u16 array that
+    the ladder checks."""
+    wait = C.fetch_async(staging.to(torch.int16))
+    return lambda: wait().view(np.uint16)
+
+
+def _settle(net, arr, key, lanes, n_total, k_total, bps, rerun):
+    """settle_staging for a DMC or DMCI codec `net`: serialize a fetched
+    staging launched at `bps` bytes per symbol (`rerun(mw, cap)` re-runs
+    the frame at a grown rung and returns its host staging), count the
+    reruns in net._ec_rerun_count and learn the settled rate for the frame
+    size `key` in net._ec_learned.  Takes net._ec_lock for the bookkeeping,
+    so chunks may settle on several threads."""
+    stream, g_bps, reruns = settle_staging(
+        arr, lanes, n_total, k_total, functools.partial(net._rung, lanes,
+                                                        k_total),
+        bps, net.bytes_per_symbol, rerun)
+    with net._ec_lock:
+        net._ec_rerun_count += reruns
+        if g_bps > max(bps, net._ec_learned.get(key, 0.0)):
+            net._ec_learned[key] = g_bps
+    return stream
 
 
 # ---------------------------------------------------------------------------
@@ -477,6 +508,29 @@ def _compress_frame_core(p, x, feature, qp, lanes, n_y_rows, fz=None):
                                     fz)
 
 
+def _compress_gop(p, xs, feature_in, qps, lanes, n_y_rows, enc_table, mw,
+                  cap, fz=None):
+    """GOP encoder: N consecutive P-frames with the propagated feature
+    carried from frame to frame (the JAX package's `_compress_gop` scan).
+    Each frame runs the single-frame path's B=1 stages
+    (`_stage_adaptor_p`, then `_compress_frame_core`) and one K1 launch at
+    the rung (mw, cap): no NN stage sees a batch dimension, so every
+    frame's floats, and so its symbols, are the single-frame path's.
+    xs: N NCHW frames; qps: N ints.
+
+    Returns (feature_last, stagings (N, cap + 3L) int32 u16 values,
+    feats_in: frame i's carry-in feature, from which an overflowing frame
+    re-runs alone)."""
+    feat, segs, feats_in = feature_in, [], []
+    for x, qp in zip(xs, qps):
+        feats_in.append(feat)
+        feat, packed = _compress_frame_core(p, x, _stage_adaptor_p(p, feat),
+                                            qp, lanes, n_y_rows, fz)
+        segs.append(_launch_staging(packed, enc_table, n_y_rows, qp, G_CH_Z,
+                                    mw, cap))
+    return feat, torch.stack(segs), feats_in
+
+
 def _decompress_frame_core(p, staging, feature, qp, dec_table, n_y_rows,
                            zh, zw, lanes, cap, mw, fz=None):
     """Decoder body on an adapted feature: compact staging -> (next
@@ -540,18 +594,27 @@ class DMC:
     device_ec: code the symbols on the device (K1/K2, the "tpu-lane"
     container) instead of with the host coder (the default, as in the JAX
     package without OPENDCVC_TPU_DEVICE_EC).  lanes, bytes_per_symbol and
-    cap_frac size the device-EC lane rANS staging (the JAX package's
-    OPENDCVC_TPU_EC_LANES / _EC_BPS / _EC_CAP_FRAC).  `transfers` counts
+    cap_frac size the device-EC lane rANS staging; each one not given is
+    read, as the JAX package reads it, from OPENDCVC_TPU_EC_LANES /
+    _EC_BPS / _EC_CAP_FRAC (defaults 4096, 0.5, 0.5).  `transfers` counts
     the host-EC path's copies: "d2h" the fetches the host waits for,
-    "h2d" the uploads (which do not wait)."""
+    "h2d" the uploads (which do not wait).
 
-    def __init__(self, device="cuda", device_ec=False, lanes=4096,
-                 bytes_per_symbol=0.5, cap_frac=0.5):
+    Device EC also codes GOPs: `compress_gop(_async)` and
+    `decompress_gop` / `upload_gop` + `decompress_gop_uploaded` run N
+    consecutive P-frames through the single-frame path's stages with one
+    device->host copy (encode) or one upload (decode) for the chunk, and
+    write and read the single-frame path's streams."""
+
+    def __init__(self, device="cuda", device_ec=False, lanes=None,
+                 bytes_per_symbol=None, cap_frac=None):
         self.device = C.resolve_device(device)
         self.device_ec = device_ec
-        self.lanes = lanes
-        self.bytes_per_symbol = bytes_per_symbol
-        self.cap_frac = cap_frac
+        self.lanes = C.ec_setting(lanes, "OPENDCVC_TPU_EC_LANES", 4096)
+        self.bytes_per_symbol = C.ec_setting(
+            bytes_per_symbol, "OPENDCVC_TPU_EC_BPS", 0.5)
+        self.cap_frac = C.ec_setting(cap_frac, "OPENDCVC_TPU_EC_CAP_FRAC",
+                                     0.5)
         self.qp_shift = QP_SHIFT
         self.params = None
         self.bit_estimator_z = BitEstimator(C.QP_NUM + EXTRA_QP, G_CH_Z)
@@ -570,6 +633,7 @@ class DMC:
         # hotter than the first-rung guess pays the regrow ladder once
         self._ec_learned = {}
         self._ec_rerun_count = 0
+        self._ec_lock = threading.Lock()
 
     # -- setup ---------------------------------------------------------------
 
@@ -681,8 +745,9 @@ class DMC:
         the stages and starts the symbols' way to the coder, advances the
         DPB, and returns a zero-argument callable that returns the bit
         stream.  Host EC: one copy of every plane (and the skip masks) to
-        the host, coded in the callable.  Device EC: the K1 launch; the
-        callable settles the staging ladder."""
+        the host, coded in the callable.  Device EC: the K1 launch and the
+        start of its staging's copy, neither waited on; the callable waits
+        for the copy and settles the staging ladder."""
         x = C.frame_to_nchw(x, self.device)
         if not self.device_ec:
             return self._compress_async_host(x, qp)
@@ -692,23 +757,15 @@ class DMC:
         feature_out, packed = _compress_frame_core(
             self.params, x, self.apply_feature_adaptor(), qp, lanes,
             self.n_y_rows, self.force_zero_thres)
-
-        def run(mw, cap):
-            return _encode_staging(packed, self.enc_table, self.n_y_rows,
-                                   qp, G_CH_Z, mw, cap)
-
-        staging = run(*self._rung(lanes, k_total, bps))
+        launch = functools.partial(_launch_staging, packed, self.enc_table,
+                                   self.n_y_rows, qp, G_CH_Z)
+        fetch = _fetch_stagings(launch(*self._rung(lanes, k_total, bps)))
         self.add_ref_frame(feature_out, None)
 
         def finish():
-            stream, g_bps, reruns = settle_staging(
-                staging, lanes, n_total, k_total,
-                functools.partial(self._rung, lanes, k_total), bps,
-                self.bytes_per_symbol, run)
-            self._ec_rerun_count += reruns
-            if g_bps > bps:
-                self._ec_learned[(H, W)] = g_bps
-            return stream
+            return _settle(self, fetch(), (H, W), lanes, n_total, k_total,
+                           bps, lambda mw, cap: _fetch_stagings(
+                               launch(mw, cap))())
 
         return finish
 
@@ -732,17 +789,113 @@ class DMC:
     def compress(self, x, qp):
         return {"bit_stream": self.compress_async(x, qp)()}
 
+    def _check_gop(self, what):
+        if not self.device_ec:
+            raise ValueError(f"{what} requires device-EC mode")
+        if not self.dpb or self.dpb[0].feature is None:
+            raise ValueError(f"{what} needs a feature reference (code the "
+                             "first P-frame after an I-frame alone)")
+
+    def compress_gop_async(self, frames, qps):
+        """GOP encode (device EC): N consecutive P-frames (each NHWC (1, H,
+        W, 3)) at `qps` (N ints) against the DPB's feature.  Queues every
+        frame's stages and K1 launch, starts ONE device->host copy of the
+        N stagings, advances the DPB past the chunk, and returns a
+        zero-argument callable that returns the N bit streams, each the
+        stream compress() writes for that frame.  The callable may run on
+        another thread while the caller queues the next chunk: a frame
+        whose staging overflowed re-runs alone from its carry-in feature,
+        leaving the DPB as it is."""
+        self._check_gop("compress_gop_async")
+        p, fz = self.params, self.force_zero_thres
+        qps = [int(q) for q in qps]
+        xs = [C.frame_to_nchw(x, self.device) for x in frames]
+        H, W = xs[0].shape[2], xs[0].shape[3]
+        lanes, n_total, k_total = self._plan_device_ec(H, W)
+        bps = max(self.bytes_per_symbol, self._ec_learned.get((H, W), 0.0))
+        feat_last, stagings, feats_in = _compress_gop(
+            p, xs, self.dpb[0].feature, qps, lanes, self.n_y_rows,
+            self.enc_table, *self._rung(lanes, k_total, bps), fz)
+        fetch = _fetch_stagings(stagings)
+        self.add_ref_frame(feat_last, None, increase_poc=False)
+        self.curr_poc += len(xs)
+
+        def rerun(i, mw, cap):
+            _, packed = _compress_frame_core(
+                p, xs[i], _stage_adaptor_p(p, feats_in[i]), qps[i], lanes,
+                self.n_y_rows, fz)
+            return _fetch_stagings(_launch_staging(
+                packed, self.enc_table, self.n_y_rows, qps[i], G_CH_Z, mw,
+                cap))()
+
+        def finish():
+            arr = fetch()
+            return [_settle(self, arr[i], (H, W), lanes, n_total, k_total,
+                            bps, functools.partial(rerun, i))
+                    for i in range(len(xs))]
+
+        return finish
+
+    def compress_gop(self, frames, qps):
+        return {"bit_streams": self.compress_gop_async(frames, qps)()}
+
     # -- decompress ----------------------------------------------------------
 
-    def _decompress_device(self, bit_stream, sps, qp):
-        meta, staging, _ = parse_frame(bit_stream)
-        staging = torch.from_numpy(staging.astype(np.int32)).to(self.device)
+    def _decode_staged(self, meta, staging, feature, sps, qp):
+        """Device-EC decoder body on an adapted feature and an uploaded
+        staging; returns (next reference feature, x_hat NCHW)."""
         zh, zw = C.get_downsampled_shape(sps["height"], sps["width"], 64)
-        feature = self.apply_feature_adaptor()
         return _decompress_frame_core(
             self.params, staging, feature, qp, self.dec_table, self.n_y_rows,
             zh, zw, meta["L"], meta["cap"], meta["MW"],
             self.force_zero_thres)
+
+    def _decompress_device(self, bit_stream, sps, qp):
+        metas, stagings = upload_stagings([bit_stream], self.device)
+        return self._decode_staged(metas[0], stagings[0],
+                                   self.apply_feature_adaptor(), sps, qp)
+
+    def upload_gop(self, bit_streams, sps):
+        """Parse a chunk's device-EC streams and start their upload (one
+        pinned, non-blocking copy), so a decoder can upload chunk k + 1
+        while the device decodes chunk k.  Returns a handle for
+        decompress_gop_uploaded, or None when the chunk mixes ladder rungs
+        and takes the per-frame fallback."""
+        metas, stagings = upload_stagings(bit_streams, self.device)
+        if stagings is None:
+            return None
+        return metas[0], stagings, len(bit_streams)
+
+    def decompress_gop_uploaded(self, uploaded, sps, qps):
+        """Decode an upload_gop chunk at `qps` against the DPB's feature:
+        each frame runs the single-frame decoder's stages.  Returns
+        {"x_hat": (N, 1, H, W, 3)} NHWC; the DPB ends at the last frame's
+        (feature, x_hat)."""
+        self._check_gop("decompress_gop_uploaded")
+        meta, stagings, n = uploaded
+        if len(qps) != n:
+            raise ValueError(f"{len(qps)} qps for a chunk of {n} frames")
+        feat, x_hats = self.dpb[0].feature, []
+        for staging, qp in zip(stagings, qps):
+            feat, x_hat = self._decode_staged(
+                meta, staging, _stage_adaptor_p(self.params, feat), sps,
+                int(qp))
+            x_hats.append(C.frame_to_nhwc(x_hat))
+        self.add_ref_frame(feat, x_hats[-1], increase_poc=False)
+        self.curr_poc += n
+        return {"x_hat": torch.stack(x_hats)}
+
+    def decompress_gop(self, bit_streams, sps, qps):
+        """GOP decode (device EC) of N streams at `qps`; a chunk of mixed
+        ladder rungs decodes frame by frame.  Returns {"x_hat": (N, 1, H,
+        W, 3)} NHWC, the DPB advanced past the chunk."""
+        self._check_gop("decompress_gop")
+        uploaded = self.upload_gop(bit_streams, sps)
+        if uploaded is None:
+            return {"x_hat": torch.stack(
+                [self.decompress(s, sps, q)["x_hat"]
+                 for s, q in zip(bit_streams, qps)])}
+        return self.decompress_gop_uploaded(uploaded, sps, qps)
 
     def _decompress_host(self, bit_stream, sps, qp):
         """Host-EC decode: the host decodes z on the coder's worker thread

@@ -16,13 +16,14 @@ contract).
 
 import functools
 import math
+import threading
 
 import numpy as np
 import torch
 
 from ..entropy.device_rans import (_undensify_device, effective_lanes,
-                                   full_range_cdf_rows, parse_frame,
-                                   settle_staging, staging_width)
+                                   full_range_cdf_rows, staging_width,
+                                   upload_stagings)
 from ..entropy.coder import EntropyCoder
 from ..entropy.models import (BitEstimator, GaussianEncoder,
                               bit_estimator_init)
@@ -33,9 +34,9 @@ from ..ops.lane_rans import (prepare_decode_table,
 from ..utils.params import to_device
 from . import common as C
 from .dmc import (_cm_unflat, _code_host, _dcb_seq, _dec_plane, _dec_y_plane,
-                  _decode_y_host, _encode_staging, _from_host_nhwc,
-                  _index_buf, _indexes_of, _pack_frame, _pack_host, _q_vec,
-                  _z_rows)
+                  _decode_y_host, _fetch_stagings, _from_host_nhwc,
+                  _index_buf, _indexes_of, _launch_staging, _pack_frame,
+                  _pack_host, _q_vec, _settle, _z_rows)
 
 G_CH_SRC = 3 * 8 * 8
 G_CH_ENC_DEC = 368
@@ -242,19 +243,28 @@ class DMCI:
 
     device_ec: code the symbols on the device (K1/K2) instead of with the
     host coder (the default), as DMC.  lanes and bytes_per_symbol size the
-    device-EC lane rANS staging (the JAX package's OPENDCVC_TPU_EC_LANES /
-    _EC_BPS).  `transfers` counts the host-EC copies, as DMC's."""
+    device-EC lane rANS staging; each one not given is read from
+    OPENDCVC_TPU_EC_LANES / _EC_BPS (defaults 4096, 0.5), as the JAX
+    package reads them.  The cap fraction stays 0.5: the JAX package's DMCI
+    does not read OPENDCVC_TPU_EC_CAP_FRAC.  `transfers` counts the
+    host-EC copies, as DMC's.
+
+    Device EC also codes batches of independent frames:
+    `compress_batch(_async)` and `decompress_batch` run each frame through
+    the single-frame path's stages with one device->host copy or one
+    upload for the batch, and write and read compress()'s streams."""
 
     def __init__(self, N=256, z_channel=128, enc_dec_ch=G_CH_ENC_DEC,
-                 device="cuda", device_ec=False, lanes=4096,
-                 bytes_per_symbol=0.5):
+                 device="cuda", device_ec=False, lanes=None,
+                 bytes_per_symbol=None):
         self.device = C.resolve_device(device)
         self.device_ec = device_ec
         self.N = N
         self.z_channel = z_channel
         self.enc_dec_ch = enc_dec_ch
-        self.lanes = lanes
-        self.bytes_per_symbol = bytes_per_symbol
+        self.lanes = C.ec_setting(lanes, "OPENDCVC_TPU_EC_LANES", 4096)
+        self.bytes_per_symbol = C.ec_setting(
+            bytes_per_symbol, "OPENDCVC_TPU_EC_BPS", 0.5)
         self.params = None
         self.bit_estimator_z = BitEstimator(C.QP_NUM, z_channel)
         self.gaussian_encoder = GaussianEncoder()
@@ -267,6 +277,7 @@ class DMCI:
         # learned launch staging rate per (H, W) (see DMC._ec_learned)
         self._ec_learned = {}
         self._ec_rerun_count = 0
+        self._ec_lock = threading.Lock()
 
     # -- setup ---------------------------------------------------------------
 
@@ -328,31 +339,76 @@ class DMCI:
         mw = staging_width(k_total, bps)
         return mw, lanes * mw if bps >= 3.0 else max(4096, lanes * mw // 2)
 
-    def compress(self, x, qp):
-        """x: (1, H, W, 3) NHWC in [0, 1], H and W multiples of 16.
-        Returns {"bit_stream": bytes, "x_hat": NHWC tensor}."""
-        x = C.frame_to_nchw(x, self.device)
-        if not self.device_ec:
-            return self._compress_host(x, qp)
+    def _launch_i(self, x, qp):
+        """Device EC: queue a frame's (NCHW) stages and its K1 launch.
+        Returns (x_hat NHWC, the staging on the device, settle), where
+        settle(host staging) serializes the frame's stream, re-running its
+        K1 alone at a grown rung when the staging overflowed."""
         H, W = x.shape[2], x.shape[3]
         bps = max(self.bytes_per_symbol, self._ec_learned.get((H, W), 0.0))
         lanes, n_total, k_total = self._plan(H, W)
-        plan = functools.partial(self._rung, lanes, k_total)
         x_hat, packed = _compress_frame_i(self.params, x, qp, lanes,
                                           self.n_y_rows,
                                           self.force_zero_thres)
+        launch = functools.partial(_launch_staging, packed, self.enc_table,
+                                   self.n_y_rows, qp, self.z_channel)
 
-        def run(mw, cap):
-            return _encode_staging(packed, self.enc_table, self.n_y_rows,
-                                   qp, self.z_channel, mw, cap)
+        def settle(arr):
+            return _settle(self, arr, (H, W), lanes, n_total, k_total, bps,
+                           lambda mw, cap: _fetch_stagings(
+                               launch(mw, cap))())
 
-        stream, g_bps, reruns = settle_staging(
-            run(*plan(bps)), lanes, n_total, k_total, plan, bps,
-            self.bytes_per_symbol, run)
-        self._ec_rerun_count += reruns
-        if g_bps > bps:
-            self._ec_learned[(H, W)] = g_bps
-        return {"bit_stream": stream, "x_hat": C.frame_to_nhwc(x_hat)}
+        return (C.frame_to_nhwc(x_hat),
+                launch(*self._rung(lanes, k_total, bps)), settle)
+
+    def compress_async(self, x, qp):
+        """Device-EC encode of one frame (as compress): queues its stages
+        and its K1 launch and starts the staging's copy to the host.
+        Returns (x_hat NHWC, finish) without waiting for the copy;
+        finish() returns the bit stream."""
+        if not self.device_ec:
+            raise ValueError("compress_async requires device-EC mode")
+        x_hat, staging, settle = self._launch_i(
+            C.frame_to_nchw(x, self.device), int(qp))
+        fetch = _fetch_stagings(staging)
+        return x_hat, lambda: settle(fetch())
+
+    def compress_batch_async(self, xs, qps):
+        """Batched device-EC encode of B independent frames: xs a list of
+        (1, H, W, 3) frames or a stacked (B, 1, H, W, 3) array, qps an int
+        or B ints.  Each frame runs the single-frame path's stages and K1
+        launch, and ONE copy brings the B stagings to the host.  Returns
+        (x_hats (B, 1, H, W, 3), finish), finish() the B bit streams that
+        compress() writes; a frame that overflowed re-runs alone."""
+        if not self.device_ec:
+            raise ValueError("compress_batch_async requires device-EC mode")
+        frames = list(xs)
+        qps = [int(qps)] * len(frames) if np.isscalar(qps) \
+            else [int(q) for q in qps]
+        if len(qps) != len(frames):
+            raise ValueError(f"{len(qps)} qps for {len(frames)} frames")
+        launched = [self._launch_i(C.frame_to_nchw(x, self.device), qp)
+                    for x, qp in zip(frames, qps)]
+        fetch = _fetch_stagings(torch.stack([s for _, s, _ in launched]))
+
+        def finish():
+            arr = fetch()
+            return [settle(arr[i]) for i, (_, _, settle) in
+                    enumerate(launched)]
+
+        return torch.stack([x_hat for x_hat, _, _ in launched]), finish
+
+    def compress_batch(self, xs, qps):
+        x_hats, finish = self.compress_batch_async(xs, qps)
+        return {"bit_streams": finish(), "x_hat": x_hats}
+
+    def compress(self, x, qp):
+        """x: (1, H, W, 3) NHWC in [0, 1], H and W multiples of 16.
+        Returns {"bit_stream": bytes, "x_hat": NHWC tensor}."""
+        if not self.device_ec:
+            return self._compress_host(C.frame_to_nchw(x, self.device), qp)
+        x_hat, finish = self.compress_async(x, qp)
+        return {"bit_stream": finish(), "x_hat": x_hat}
 
     def _compress_host(self, x, qp):
         """Host EC: one copy of z, the four packed planes and (with
@@ -400,12 +456,34 @@ class DMCI:
         if not self.device_ec:
             return {"x_hat": C.frame_to_nhwc(
                 self._decompress_host(bit_stream, sps, qp))}
-        meta, staging, _ = parse_frame(bit_stream)
-        staging = torch.from_numpy(staging.astype(np.int32)).to(self.device)
+        metas, stagings = upload_stagings([bit_stream], self.device)
+        return {"x_hat": self._decode_staged(metas[0], stagings[0], sps, qp)}
+
+    def _decode_staged(self, meta, staging, sps, qp):
+        """Device-EC decoder on an uploaded staging; returns x_hat NHWC."""
         zh, zw = C.get_downsampled_shape(sps["height"], sps["width"], 64)
         y_h, y_w = C.get_downsampled_shape(sps["height"], sps["width"], 16)
-        x_hat = _decompress_frame_i(
+        return C.frame_to_nhwc(_decompress_frame_i(
             self.params, staging, qp, self.dec_table, self.n_y_rows, zh, zw,
             y_h, y_w, self.z_channel, meta["L"], meta["cap"], meta["MW"],
-            self.force_zero_thres)
-        return {"x_hat": C.frame_to_nhwc(x_hat)}
+            self.force_zero_thres))
+
+    def decompress_batch(self, bit_streams, sps, qps):
+        """Batched device-EC decode of B independent streams at `qps` (an
+        int or B ints): one upload for the batch, then each frame through
+        the single-frame decoder's stages; a batch of mixed ladder rungs
+        decodes frame by frame.  Returns {"x_hat": (B, 1, H, W, 3)}."""
+        if not self.device_ec:
+            raise ValueError("decompress_batch requires device-EC mode")
+        qps = [int(qps)] * len(bit_streams) if np.isscalar(qps) \
+            else [int(q) for q in qps]
+        if len(qps) != len(bit_streams):
+            raise ValueError(f"{len(qps)} qps for {len(bit_streams)} streams")
+        metas, stagings = upload_stagings(bit_streams, self.device)
+        if stagings is None:
+            return {"x_hat": torch.stack(
+                [self.decompress(s, sps, q)["x_hat"]
+                 for s, q in zip(bit_streams, qps)])}
+        return {"x_hat": torch.stack(
+            [self._decode_staged(metas[0], st, sps, q)
+             for st, q in zip(stagings, qps)])}

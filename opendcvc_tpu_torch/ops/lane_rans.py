@@ -14,14 +14,19 @@ entries of `prepare_encode_table`, K2 the compact rows of
 
 A wrapper runs the plain version for tensors on the CPU and launches its
 kernel for tensors on a CUDA device (raising if the launch fails); each
-wrapper counts its kernel launches in its `launches` attribute.  The plain
+wrapper counts its kernel launches in its `launches` attribute (under a
+lock: a codec may launch from several threads).  The plain
 versions loop over steps with vectorised lane ops in int64, because
 PyTorch's uint32 lacks most arithmetic.
 """
 
+import threading
+
 import torch
 
 from ..entropy.device_rans import SKIP_ROW
+
+_LAUNCHES_LOCK = threading.Lock()
 
 #: the packed encode operand is (sym + 128) << ENC_ROW_BITS | row; rows
 #: take 9 bits because a combined per-frame table reaches 256 rows, where
@@ -147,7 +152,8 @@ def encode_scan(packed, enc_table, mw):
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"lane rANS encode launch failed: cudaError {err}")
-    encode_scan.launches += 1
+    with _LAUNCHES_LOCK:
+        encode_scan.launches += 1
     return staging, lens, states
 
 
@@ -269,7 +275,8 @@ def decode_scan(data, rows, dec_table, state, ptr):
         MW, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"lane rANS decode launch failed: cudaError {err}")
-    decode_scan.launches += 1
+    with _LAUNCHES_LOCK:
+        decode_scan.launches += 1
     return syms, state_out, ptr_out
 
 

@@ -19,6 +19,7 @@ from opendcvc_tpu_torch.layers import blocks as PB
 from opendcvc_tpu_torch.models import common as PC
 from opendcvc_tpu_torch.ops import fused as PF
 from opendcvc_tpu_torch.utils.params import from_jax
+from test_torch_port_lane_rans import _one_thread  # noqa: F401  (fixture)
 
 
 def _nchw(a):

@@ -40,6 +40,7 @@ from opendcvc_tpu.utils import checkpoint as JCK
 from opendcvc_tpu_torch.eval import harness as PH
 from opendcvc_tpu_torch.utils import stream_helper as S
 from opendcvc_tpu_torch.utils.common import dump_json
+from test_torch_port_lane_rans import _one_thread  # noqa: F401  (fixture)
 
 H, W, N = 48, 64, 4
 QP = 21

@@ -18,6 +18,7 @@ from opendcvc_tpu.models import dmc as JDMC
 from opendcvc_tpu.models import dmci as JDMCI
 from opendcvc_tpu.utils import checkpoint as JCK
 from opendcvc_tpu_torch.eval import harness as PH
+from test_torch_port_lane_rans import _one_thread  # noqa: F401  (fixture)
 
 H, W, N = 88, 96, 2
 QP = 30

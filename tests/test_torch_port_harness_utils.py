@@ -37,6 +37,7 @@ from opendcvc_tpu_torch.utils import io as PIO
 from opendcvc_tpu_torch.utils import metrics as PM
 from opendcvc_tpu_torch.utils import transforms as PT
 from opendcvc_tpu_torch.utils.params import from_jax
+from test_torch_port_lane_rans import _one_thread  # noqa: F401  (fixture)
 
 TINY_CKPT = os.path.join(os.path.dirname(__file__), os.pardir, "docs",
                          "dmci_tiny_rd.msgpack")

@@ -37,6 +37,7 @@ from opendcvc_tpu_torch.models import dmc as PDMC
 from opendcvc_tpu_torch.models import dmci as PDMCI
 from opendcvc_tpu_torch.ops import _build
 from opendcvc_tpu_torch.utils.params import from_jax
+from test_torch_port_lane_rans import _one_thread  # noqa: F401  (fixture)
 
 H = W = 64
 QP = 21

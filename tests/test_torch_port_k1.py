@@ -15,7 +15,7 @@ from opendcvc_tpu_torch.ops import _build
 from opendcvc_tpu_torch.ops import lane_rans as LR
 
 from test_torch_port_k2 import _broken, table  # noqa: F401  (fixture)
-from test_torch_port_lane_rans import _tables
+from test_torch_port_lane_rans import _one_thread, _tables  # noqa: F401
 
 
 def _divmod_host(d, m, x):

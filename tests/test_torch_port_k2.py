@@ -18,6 +18,7 @@ from opendcvc_tpu_torch.ops import _build
 from opendcvc_tpu_torch.ops import lane_rans as LR
 
 from test_torch_port_lane_rans import _tables
+from test_torch_port_lane_rans import _one_thread  # noqa: F401  (fixture)
 
 
 def _rows_of(freqs):

@@ -21,6 +21,18 @@ from opendcvc_tpu_torch.ops import _build
 from opendcvc_tpu_torch.ops import lane_rans as LR
 from opendcvc_tpu_torch.utils.params import from_jax
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs in parallel worker processes,
+    and workers that each take a thread per core slow one another down
+    many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 L, K = 128, 40
 
 

@@ -18,6 +18,7 @@ from opendcvc_tpu_torch.entropy import models as PM
 from opendcvc_tpu_torch.entropy.coder import EntropyCoder
 from opendcvc_tpu_torch.models import dmc as PDMC
 from opendcvc_tpu_torch.models import dmci as PDMCI
+from test_torch_port_lane_rans import _one_thread  # noqa: F401  (fixture)
 
 TWOS = [False, True]
 TWO_IDS = ["one_coder", "two_coders"]

@@ -28,6 +28,7 @@ from opendcvc_tpu_torch.models import dmci as PDMCI
 from opendcvc_tpu_torch.ops import fused as F
 from opendcvc_tpu_torch.utils import checkpoint as PCK
 from opendcvc_tpu_torch.utils.params import from_jax
+from test_torch_port_lane_rans import _one_thread  # noqa: F401  (fixture)
 
 TINY_CKPT = os.path.join(os.path.dirname(__file__), os.pardir, "docs",
                          "dmci_tiny_rd.msgpack")
