@@ -38,7 +38,10 @@ Phases (any failure exits nonzero and prints no result):
      I-frame and 3 P-frames coded on the GPU and decoded by the CPU port,
      logging per frame the max |x_hat diff|, the feature diff and whether
      the GPU's and the CPU's streams are identical (fails on a decode
-     error or a diff over 1e-3);
+     error or a diff over 1e-3); then a bfloat16 row, reported and never
+     failed: the 64x64 I-frame's encoder on the GPU and the CPU (the share
+     of equal symbols per plane, the max |x_hat diff|) and whether the CPU
+     decodes the GPU's bfloat16 host-EC stream;
   6. the host-EC sequence at 1080p: phases 3-4's weights, frames, qp and
      force_zero_thres, the C++ rANS coder on the host with two coders (as
      the harness above 1280x720); the I-frame and 4 P-frames encoded and
@@ -78,11 +81,22 @@ Phases (any failure exits nonzero and prints no result):
      DMCI.compress and decompress frame by frame.  Prints the bench's
      JSON line, its ms a chunk and a batch, and a chunk's staging bytes
      with the time of one pinned copy of them each way.
+  9. DCVC-RT in bfloat16 (`dtype=torch.bfloat16`), phases 3-8's
+     configuration: (a) phases 3-4 (device EC), then phase 6 (host EC,
+     two coders, one NAL stream) in bfloat16: each decoded I-frame equal
+     to the encoder's, the decoder's feature the encoder's after every
+     P-frame, host EC equal to device EC in encoder x_hat, features and
+     decoded frames; K1 and K2 launch in the device-EC run only; the frame
+     times and bpp printed beside phases 3-4's float32 ones; (b) the
+     bench with BENCH_DTYPE=bfloat16 under phase 8's checks; (c) the
+     harness with --dtype bfloat16 and device EC on the first 8 frames of
+     phase 7's sequence under phase 7's checks.
 The kernel launch counters are zeroed before phase 3 and read after
 phase 4, so the counts are the main path's (the device-EC path); they are
 zeroed again before phase 6 and must read 0 after it, again before each
-run of phase 7, and before phase 8; `launches` adds phase 7 (b)'s and
-phase 8's counts to phases 3-4's.  Then it prints the card's name and
+run of phases 7 and 9, and before phase 8; `launches` adds the device-EC
+runs of phases 7 (b), 8 and 9 to phases 3-4's, and `launches_by_run`
+splits it.  Then it prints the card's name and
 power limit, one JSON line describing each kernel, and, last, {"ok":
 true, "device": {...}}.
 """
@@ -92,6 +106,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -475,10 +490,10 @@ def _timed(fn, dev):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def phase_intra(dev, frame, qp, fz):
+def phase_intra(dev, frame, qp, fz, dtype=torch.float32, label="phase 3"):
     from opendcvc_tpu_torch.models.dmci import DMCI
-    net = DMCI(device=dev, device_ec=True)
-    net.init_params(seed=0)
+    net = DMCI(device=dev, device_ec=True, dtype=dtype)
+    net.init_params(seed=0)     # cast to dtype; the banks set after it
     # flat banks (bench.py's surrogate for trained rate statistics)
     net.params["q_scale_enc"] = torch.ones_like(
         net.params["q_scale_enc"]) * 0.2
@@ -499,22 +514,24 @@ def phase_intra(dev, frame, qp, fz):
             not bool(torch.isfinite(x_hat).all()):
         _fail("DMCI x_hat has the wrong shape or is not finite")
     bpp = len(enc["bit_stream"]) * 8 / (frame.shape[1] * frame.shape[2])
-    _log(f"phase 3: DMCI {frame.shape[1]}x{frame.shape[2]} enc "
+    _log(f"{label}: DMCI {frame.shape[1]}x{frame.shape[2]} enc "
          f"{enc_ms:.1f} ms dec {dec_ms:.1f} ms (second pass), bpp "
          f"{bpp:.4f}, reruns {net._ec_rerun_count}; decoded frame exact")
-    return {"params": net.params, "x_hat": x_hat, "bpp": bpp}
+    return {"params": net.params, "x_hat": x_hat, "bpp": bpp,
+            "enc_ms": enc_ms, "dec_ms": dec_ms}
 
 
-def phase_p(dev, x_ref, frames, qp, fz):
+def phase_p(dev, x_ref, frames, qp, fz, dtype=torch.float32,
+            label="phase 4"):
     from opendcvc_tpu_torch.models.dmc import DMC
-    enc_net = DMC(device=dev, device_ec=True)
+    enc_net = DMC(device=dev, device_ec=True, dtype=dtype)
     enc_net.init_params(seed=1)
     enc_net.params["q_encoder"] = torch.ones_like(
         enc_net.params["q_encoder"]) * 0.25
     enc_net.params["q_decoder"] = torch.ones_like(
         enc_net.params["q_decoder"])
     enc_net.update(force_zero_thres=fz)
-    dec_net = DMC(device=dev, device_ec=True)
+    dec_net = DMC(device=dev, device_ec=True, dtype=dtype)
     dec_net.load_params(enc_net.params)
     dec_net.update(force_zero_thres=fz)
     for net in (enc_net, dec_net):
@@ -536,13 +553,13 @@ def phase_p(dev, x_ref, frames, qp, fz):
         if not bool(torch.isfinite(out["x_hat"]).all()):
             _fail("DMC x_hat is not finite")
     bpp = [len(s) * 8 / (sps["height"] * sps["width"]) for s in streams]
-    _log("phase 4: DMC P-frames enc ms " + " ".join(f"{t:.1f}" for t in
+    _log(f"{label}: DMC P-frames enc ms " + " ".join(f"{t:.1f}" for t in
                                                      enc_ms)
          + " | dec ms " + " ".join(f"{t:.1f}" for t in dec_ms)
          + " | bpp " + " ".join(f"{b:.4f}" for b in bpp)
          + f" | reruns {enc_net._ec_rerun_count}; feature chain exact")
     return {"params": enc_net.params, "feats": feats, "dec_x": dec_x,
-            "bpp": bpp}
+            "bpp": bpp, "enc_ms": enc_ms, "dec_ms": dec_ms}
 
 
 def phase_reference(dev, qp, fz):
@@ -575,6 +592,48 @@ def phase_reference(dev, qp, fz):
              f"diff| {err:.3g}, CPU decodes the GPU stream, streams "
              f"identical: {same}")
     _reference_chain(dev, qp, fz)
+    _reference_bf16(dev, qp, fz)
+
+
+def _reference_bf16(dev, qp, fz):
+    """Phase 5's bfloat16 row, reported and never failed (except on a
+    crash): the 64x64 I-frame's encoder on the GPU and on the CPU, the
+    share of equal symbols per plane and the max |x_hat diff|, and
+    whether the CPU decodes the GPU's host-EC stream to the GPU's x_hat.
+    cuDNN's and oneDNN's bfloat16 sums differ, so a symbol near a
+    rounding boundary may round apart: a property of bfloat16, not a
+    fault."""
+    from opendcvc_tpu_torch.models import common as C
+    from opendcvc_tpu_torch.models import dmci as I
+    from opendcvc_tpu_torch.utils.params import to_device
+    cpu, bf16 = torch.device("cpu"), torch.bfloat16
+    x = np.random.default_rng(3).random((1, 64, 64, 3), dtype=np.float32)
+    params = I.DMCI(device=cpu, dtype=bf16).init_params(seed=3)
+    enc = {}
+    for d in (dev, cpu):
+        x_hat, z, planes = I._encode_stages_i(
+            to_device(params, d), C.frame_to_nchw(x, d, bf16), qp, fz)
+        enc[d.type] = [x_hat.cpu(), z.cpu()] + [pl[0].cpu() for pl in planes]
+    shares = [float((a == b).float().mean())
+              for a, b in zip(enc[dev.type][1:], enc["cpu"][1:])]
+    x_err = float((enc[dev.type][0] - enc["cpu"][0]).abs().max())
+    nets = {}
+    for d in (dev, cpu):
+        nets[d.type] = I.DMCI(device=d, dtype=bf16)
+        nets[d.type].load_params(params)
+        nets[d.type].update(force_zero_thres=fz)
+    gpu = nets[dev.type].compress(x, qp)
+    try:
+        cross = nets["cpu"].decompress(gpu["bit_stream"], {
+            "height": 64, "width": 64, "ec_part": 0}, qp)["x_hat"]
+        decoded = (f"CPU decodes the GPU's stream, max |x_hat diff| "
+                   f"{float((cross - gpu['x_hat'].cpu()).abs().max()):.3g}")
+    except ValueError as e:
+        decoded = f"the CPU cannot decode the GPU's stream ({e})"
+    _log(f"phase 5: 64x64 I-frame GPU vs CPU port, bfloat16 (reported): "
+         f"equal symbols z / y0..y3 "
+         + " / ".join(f"{100 * v:.2f} %" for v in shares)
+         + f", max |x_hat diff| {x_err:.3g}; host EC: {decoded}")
 
 
 def textured_frames(h, w, n, seed, shift=3):
@@ -722,16 +781,18 @@ def _frame_record(net, spent, moves, fn, dev):
     return out, rec
 
 
-def phase_host(dev, frames, qp, fz, intra, p_run):
-    """Phase 6: the host-EC sequence at 1080p, written to and decoded
-    from one NAL stream; held bit for bit against phases 3-4."""
+def phase_host(dev, frames, qp, fz, intra, p_run, dtype=torch.float32,
+               label="phase 6"):
+    """Phase 6 (and 9 (a) in bfloat16): the host-EC sequence at 1080p,
+    written to and decoded from one NAL stream; held bit for bit against
+    the device-EC run (phases 3-4)."""
     from opendcvc_tpu_torch.models import common
     from opendcvc_tpu_torch.models.dmc import DMC
     from opendcvc_tpu_torch.models.dmci import DMCI
     from opendcvc_tpu_torch.utils import stream_helper as S
-    i_net = DMCI(device=dev)
+    i_net = DMCI(device=dev, dtype=dtype)
     i_net.load_params(intra["params"])
-    p_net = DMC(device=dev)
+    p_net = DMC(device=dev, dtype=dtype)
     p_net.load_params(p_run["params"])
     use_two = H * W > 1280 * 720      # the harness's rule, source size
     clocks = {}
@@ -748,15 +809,15 @@ def phase_host(dev, frames, qp, fz, intra, p_run):
     moves, undo = _clock_transfers(common)
     try:
         return _host_sequence(dev, frames, qp, intra, p_run, i_net, p_net,
-                              clocks, moves, sps, S)
+                              clocks, moves, sps, S, label)
     finally:
         undo()
 
 
 def _host_sequence(dev, frames, qp, intra, p_run, i_net, p_net, clocks,
-                   moves, sps, S):
+                   moves, sps, S, label):
     """Encode the sequence into one NAL stream, then decode it from the
-    bytes; fails on any difference from phases 3-4."""
+    bytes; fails on any difference from the device-EC run."""
     use_two = bool(sps["ec_part"])
     n_px = frames[0].shape[1] * frames[0].shape[2]
     buf, helper = io.BytesIO(), S.SPSHelper()
@@ -766,7 +827,8 @@ def _host_sequence(dev, frames, qp, intra, p_run, i_net, p_net, clocks,
             enc, rec = _frame_record(i_net, clocks["I"], moves,
                                      lambda: i_net.compress(x, qp), dev)
             if not torch.equal(enc["x_hat"], intra["x_hat"]):
-                _fail("host-EC I-frame x_hat differs from phase 3's")
+                _fail(f"{label}: host-EC I-frame x_hat differs from the "
+                      f"device-EC run's")
             p_net.clear_dpb()
             p_net.add_ref_frame(None, enc["x_hat"])
             x_i, stream = enc["x_hat"], enc["bit_stream"]
@@ -776,8 +838,8 @@ def _host_sequence(dev, frames, qp, intra, p_run, i_net, p_net, clocks,
                 lambda: p_net.compress(x, qp)["bit_stream"], dev)
             feats.append(p_net.dpb[0].feature.clone())
             if not torch.equal(feats[-1], p_run["feats"][t - 1]):
-                _fail(f"host-EC P-frame {t - 1} feature differs from "
-                      f"phase 4's")
+                _fail(f"{label}: host-EC P-frame {t - 1} feature differs "
+                      f"from the device-EC run's")
         sps_id, new = helper.get_sps_id(dict(sps))
         if new:
             sps_bytes += S.write_sps(buf, dict(sps, sps_id=sps_id))
@@ -798,13 +860,15 @@ def _host_sequence(dev, frames, qp, intra, p_run, i_net, p_net, clocks,
         f_qp, stream = S.read_ip_remaining(rd)
         if stream != streams[t] or f_qp != qp or f_sps["ec_part"] != \
                 int(use_two):
-            _fail(f"frame {t} does not read back from the NAL stream")
+            _fail(f"{label}: frame {t} does not read back from the NAL "
+                  f"stream")
         if header["nal_type"] == S.NalType.NAL_I:
             dec, rec = _frame_record(
                 i_net, clocks["I"], moves,
                 lambda: i_net.decompress(stream, f_sps, f_qp), dev)
             if not torch.equal(dec["x_hat"], x_i):
-                _fail("host-EC decoded I-frame differs from the encoder's")
+                _fail(f"{label}: host-EC decoded I-frame differs from the "
+                      f"encoder's")
             p_net.clear_dpb()
             p_net.add_ref_frame(None, dec["x_hat"])
         else:
@@ -812,14 +876,15 @@ def _host_sequence(dev, frames, qp, intra, p_run, i_net, p_net, clocks,
                 p_net, clocks["P"], moves,
                 lambda: p_net.decompress(stream, f_sps, f_qp), dev)
             if not torch.equal(p_net.dpb[0].feature, feats[t - 1]):
-                _fail(f"host-EC enc/dec feature chain diverged at P-frame "
-                      f"{t - 1}")
+                _fail(f"{label}: host-EC enc/dec feature chain diverged "
+                      f"at P-frame {t - 1}")
             if not torch.equal(dec["x_hat"], p_run["dec_x"][t - 1]):
-                _fail(f"host-EC decoded P-frame {t - 1} differs from "
-                      f"phase 4's")
+                _fail(f"{label}: host-EC decoded P-frame {t - 1} differs "
+                      f"from the device-EC run's")
         dec_recs.append(rec)
     if rd.read() != b"":
-        _fail("bytes left after the last frame of the NAL stream")
+        _fail(f"{label}: bytes left after the last frame of the NAL "
+              f"stream")
 
     dev_bpp = [intra["bpp"]] + p_run["bpp"]
 
@@ -829,13 +894,14 @@ def _host_sequence(dev, frames, qp, intra, p_run, i_net, p_net, clocks,
                 f"{r['h2d']} uploads, {r['upload_ms']:.2f} ms)")
 
     for t, (e, d) in enumerate(zip(enc_recs, dec_recs)):
-        _log(f"phase 6: {'I' if t == 0 else 'P'}-frame {t}: enc {side(e)} "
+        _log(f"{label}: {'I' if t == 0 else 'P'}-frame {t}: enc {side(e)} "
              f"| dec {side(d)} | bpp {e['bpp']:.4f} (device EC "
              f"{dev_bpp[t]:.4f})")
-    _log(f"phase 6: NAL stream {len(data)} bytes for {len(frames)} frames "
+    _log(f"{label}: NAL stream {len(data)} bytes for {len(frames)} frames "
          f"({sps_bytes} bytes of SPS, two coders: {use_two}); encoder "
-         f"outputs equal phases 3-4's, decoded from the bytes: I-frame "
-         f"exact, feature chain exact, P-frames equal phase 4's")
+         f"outputs equal the device-EC run's, decoded from the bytes: "
+         f"I-frame exact, feature chain exact, P-frames equal the "
+         f"device-EC run's")
     return {"enc": enc_recs, "dec": dec_recs, "stream_bytes": len(data)}
 
 
@@ -843,9 +909,9 @@ N_HARNESS = 16          # phase 7's frames (configs' UVG shape, cut)
 
 
 def _write_sequence(root, h, w, n):
-    """Phase 7's input in `root`: a raw 8-bit YUV420 sequence (textured
-    frames, the chroma subsampled by taking every other sample) and its
-    dataset config; returns the config's path and the sequence's."""
+    """Phase 7's input in `root`: a raw 8-bit YUV420 sequence of n
+    textured frames (the chroma subsampled by taking every other sample);
+    returns its path."""
     os.makedirs(os.path.join(root, "data"))
     seq = os.path.join(root, "data", "seq1080.yuv")
     with open(seq, "wb") as f:
@@ -853,13 +919,19 @@ def _write_sequence(root, h, w, n):
             f.write(img[:, :, 0].tobytes())
             f.write(np.ascontiguousarray(
                 img[::2, ::2, 1:].transpose(2, 0, 1)).tobytes())
-    cfg = os.path.join(root, "config.json")
+    return seq
+
+
+def _write_config(root, h, w, n):
+    """A dataset config that codes the first n frames of the sequence;
+    returns its path."""
+    cfg = os.path.join(root, f"config_{n}.json")
     with open(cfg, "w") as f:
         json.dump({"root_path": root, "test_classes": {"synthetic": {
             "test": 1, "base_path": "data", "src_type": "yuv420",
             "sequences": {"seq1080": {"width": w, "height": h, "frames": n,
                                       "intra_period": 32}}}}}, f)
-    return cfg, seq
+    return cfg
 
 
 def _record_codecs(harness, log):
@@ -886,7 +958,9 @@ def _wrap_codec(net, kind, log):
         t0 = time.perf_counter()
         out = fn(*args)
         _sync(net.device)
-        log["codec_s"] += time.perf_counter() - t0
+        spent = time.perf_counter() - t0
+        log["codec_s"] += spent
+        log["calls"].append((kind, fn is compress, spent * 1e3))
         return out
 
     def enc(x, qp):
@@ -904,14 +978,14 @@ def _wrap_codec(net, kind, log):
     net.compress, net.decompress = enc, dec
 
 
-def _check_decoder_exact(log, mode):
+def _check_decoder_exact(log, mode, n):
     """Every decoded frame equals the encoder's, bit for bit: the I-frame's
     x_hat, and for a P-frame the feature and the frame the encoder's
     feature reconstructs."""
     from opendcvc_tpu_torch.models import common as C
     from opendcvc_tpu_torch.models.dmc import _stage_recon_x
-    if not len(log["enc"]) == len(log["dec"]) == N_HARNESS:
-        _fail(f"phase 7 {mode}: {len(log['enc'])} frames encoded, "
+    if not len(log["enc"]) == len(log["dec"]) == n:
+        _fail(f"{mode}: {len(log['enc'])} frames encoded, "
               f"{len(log['dec'])} decoded")
     for t, ((kind, e, qp), (_, x_dec, f_dec)) in enumerate(
             zip(log["enc"], log["dec"])):
@@ -921,8 +995,8 @@ def _check_decoder_exact(log, mode):
             x_enc = C.frame_to_nhwc(_stage_recon_x(log["p_params"], e, qp))
             same = torch.equal(e, f_dec) and torch.equal(x_enc, x_dec)
         if not same:
-            _fail(f"phase 7 {mode}: decoded frame {t} ({kind}) differs from "
-                  f"the encoder's")
+            _fail(f"{mode}: decoded frame {t} ({kind}) differs from the "
+                  f"encoder's")
 
 
 def _refresh_frames(bin_path):
@@ -944,11 +1018,11 @@ def _refresh_frames(bin_path):
 
 
 def _recon_psnr(src_path, rec_path, h, w, n):
-    """Mean over frames of (6 PSNR_Y + PSNR_U + PSNR_V) / 8, from the
-    files."""
+    """Mean over the first n frames of (6 PSNR_Y + PSNR_U + PSNR_V) / 8,
+    from the files."""
     fsz, ysz = h * w * 3 // 2, h * w
-    src, rec = (np.fromfile(p, np.uint8).reshape(n, fsz).astype(np.float64)
-                for p in (src_path, rec_path))
+    src, rec = (np.fromfile(p, np.uint8, count=n * fsz).reshape(n, fsz)
+                .astype(np.float64) for p in (src_path, rec_path))
     out = []
     for s, r in zip(src, rec):
         planes = (slice(0, ysz), slice(ysz, ysz + ysz // 4),
@@ -989,11 +1063,17 @@ def _clock_harness(harness):
     return spent, undo
 
 
-def _harness_run(harness, LR, root, cfg, seq, device_ec):
-    """One harness run, in process, through the port's CLI entry point;
-    returns its per-job log, .bin size, kernel launches and codec time."""
-    tag = "device_ec" if device_ec else "host_ec"
-    log = {"enc": [], "dec": [], "codec_s": 0.0}
+def _harness_run(harness, LR, root, seq, device_ec, n=N_HARNESS,
+                 dtype="float32", phase="phase 7"):
+    """One harness run on the first n frames of the sequence, in process,
+    through the port's CLI entry point; returns its per-job log, .bin
+    size, kernel launches and codec time."""
+    tag = ("device_ec" if device_ec else "host_ec") + \
+        ("" if dtype == "float32" else f"_{dtype}")
+    mode = f"{phase} {'device EC' if device_ec else 'host EC'}" + \
+        ("" if dtype == "float32" else f" {dtype}")
+    cfg = _write_config(root, H, W, n)
+    log = {"enc": [], "dec": [], "codec_s": 0.0, "calls": []}
     saved = os.environ.pop("OPENDCVC_TPU_DEVICE_EC", None)
     if device_ec:
         os.environ["OPENDCVC_TPU_DEVICE_EC"] = "1"
@@ -1009,7 +1089,8 @@ def _harness_run(harness, LR, root, cfg, seq, device_ec):
             "--qp_i", str(QP), "--qp_p", str(QP),
             "--force_zero_thres", str(FZ), "--reset_interval", "8",
             "--verbose", "1", "--verbose_json", "1",
-            "--save_decoded_frame", "1", "--seed", "0", "--device", "cuda"])
+            "--save_decoded_frame", "1", "--seed", "0", "--device", "cuda",
+            "--dtype", dtype])
     finally:
         undo_steps()
         undo()
@@ -1020,57 +1101,55 @@ def _harness_run(harness, LR, root, cfg, seq, device_ec):
     out_dir = os.path.join(root, tag, "synthetic")
     with open(os.path.join(out_dir, f"seq1080_q{QP}.json")) as f:
         job = json.load(f)
-    mode = "device EC" if device_ec else "host EC"
-    _check_decoder_exact(log, mode)
+    _check_decoder_exact(log, mode, n)
     n_bytes = os.path.getsize(os.path.join(out_dir, f"seq1080_q{QP}.bin"))
     if round(sum(job["frame_bpp"]) * job["frame_pixel_num"]) != 8 * n_bytes:
-        _fail(f"phase 7 {mode}: the log's bits differ from 8 x the .bin's "
+        _fail(f"{mode}: the log's bits differ from 8 x the .bin's "
               f"{n_bytes} bytes")
-    if (job["i_frame_num"], job["p_frame_num"]) != (1, N_HARNESS - 1):
-        _fail(f"phase 7 {mode}: frame counts {job['i_frame_num']} I, "
+    if (job["i_frame_num"], job["p_frame_num"]) != (1, n - 1):
+        _fail(f"{mode}: frame counts {job['i_frame_num']} I, "
               f"{job['p_frame_num']} P")
     refresh = _refresh_frames(os.path.join(out_dir, f"seq1080_q{QP}.bin"))
-    if refresh != [1, 9]:
-        _fail(f"phase 7 {mode}: periodic refresh at frames {refresh}, not "
-              f"1 and 9")
+    if refresh != list(range(1, n, 8)):
+        _fail(f"{mode}: periodic refresh at frames {refresh}, not every "
+              f"8 from frame 1")
     (rec,) = [p for p in os.listdir(out_dir) if p.endswith("kbps.yuv")]
     rec = os.path.join(out_dir, rec)
-    if os.path.getsize(rec) != N_HARNESS * H * W * 3 // 2:
-        _fail(f"phase 7 {mode}: recon file of {os.path.getsize(rec)} bytes")
-    psnr_files = _recon_psnr(seq, rec, H, W, N_HARNESS)
+    if os.path.getsize(rec) != n * H * W * 3 // 2:
+        _fail(f"{mode}: recon file of {os.path.getsize(rec)} bytes")
+    psnr_files = _recon_psnr(seq, rec, H, W, n)
     if not abs(psnr_files - job["ave_all_frame_psnr"]) <= 0.5:
-        _fail(f"phase 7 {mode}: PSNR from the files {psnr_files:.4f} dB, "
-              f"the log's {job['ave_all_frame_psnr']:.4f} dB")
+        _fail(f"{mode}: PSNR from the files {psnr_files:.4f} dB, the "
+              f"log's {job['ave_all_frame_psnr']:.4f} dB")
     outside = job["test_time"] - log["codec_s"]
-    _log(f"phase 7: harness, {mode}: avg_frame_encoding_time "
-         f"{job['avg_frame_encoding_time'] * 1e3:.2f} ms, "
-         f"avg_frame_decoding_time {job['avg_frame_decoding_time'] * 1e3:.2f}"
-         f" ms (frames 10-15), bpp {job['ave_all_frame_bpp']:.4f}, PSNR "
+    p_ms = [float(np.median([ms for kind, enc, ms in log["calls"][2:]
+                             if kind == "P" and enc == side]))
+            for side in (True, False)]
+    avg = " ".join(f"{k} {job[k] * 1e3:.2f} ms" for k in
+                   ("avg_frame_encoding_time", "avg_frame_decoding_time")
+                   if job.get(k) is not None)
+    _log(f"{mode}: harness {avg or 'avg frame times n/a'} (frames 10 on), "
+         f"P-frame codec calls enc {p_ms[0]:.2f} / dec {p_ms[1]:.2f} ms "
+         f"(median, synchronized), bpp {job['ave_all_frame_bpp']:.4f}, PSNR "
          f"{job['ave_all_frame_psnr']:.4f} dB (from the files "
          f"{psnr_files:.4f}), test_time {job['test_time']:.2f} s, codec "
          f"calls {log['codec_s']:.2f} s, outside the codecs {outside:.2f} s; "
          f".bin {n_bytes} B; K1 {launches[0]}, K2 {launches[1]} launches; "
-         f"decoder exact on all {N_HARNESS} frames")
-    _log(f"phase 7: harness, {mode}, host steps (s, {N_HARNESS} frames): "
+         f"decoder exact on all {n} frames")
+    _log(f"{mode}: harness host steps (s, {n} frames): "
          + ", ".join(f"{HARNESS_STEPS[k]} {v:.3f}" for k, v in steps.items()))
     return {"job": job, "launches": launches}
 
 
-def phase_harness():
+def phase_harness(root, seq):
     """Phase 7: the RD harness (`eval.harness.main`) on a 1080p YUV420
     sequence from a dataset config, host EC then device EC; returns the
     device-EC run's K1 and K2 launches."""
-    import tempfile
     from opendcvc_tpu_torch.eval import harness
     from opendcvc_tpu_torch.ops import lane_rans as LR
     pil_before = "PIL" in sys.modules
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
-        t0 = time.perf_counter()
-        cfg, seq = _write_sequence(root, H, W, N_HARNESS)
-        _log(f"phase 7: {N_HARNESS} frames of {W}x{H} YUV420 written in "
-             f"{time.perf_counter() - t0:.1f} s")
-        host = _harness_run(harness, LR, root, cfg, seq, device_ec=False)
-        dev = _harness_run(harness, LR, root, cfg, seq, device_ec=True)
+    host = _harness_run(harness, LR, root, seq, device_ec=False)
+    dev = _harness_run(harness, LR, root, seq, device_ec=True)
     if max(host["launches"]):
         _fail("phase 7: the host-EC harness run launched a lane rANS kernel")
     if min(dev["launches"]) == 0:
@@ -1105,7 +1184,7 @@ def _copy_ms(shape, dev):
     return d2h, h2d
 
 
-def _bench_checks(st, dev):
+def _bench_checks(st, dev, label):
     """Phase 8's holds: the first GOP chunk's streams against the same
     frames coded one by one, the GOP decode against the per-frame decode
     (x_hats and features), the batched intra streams, x_hats and decode
@@ -1116,7 +1195,7 @@ def _bench_checks(st, dev):
     def p_codec():
         net = DMC(device=dev, device_ec=True, lanes=p_net.lanes,
                   bytes_per_symbol=p_net.bytes_per_symbol,
-                  cap_frac=p_net.cap_frac)
+                  cap_frac=p_net.cap_frac, dtype=p_net.dtype)
         net.load_params(p_net.params)
         net.update(force_zero_thres=st["fz"])
         net.add_ref_frame(None, st["enc0"]["x_hat"])
@@ -1127,7 +1206,7 @@ def _bench_checks(st, dev):
         one.compress_async(x, qp)()
     for t, x in enumerate(st["chunks"][0]):
         if one.compress_async(x, qps[t])() != st["chunk_streams"][0][t]:
-            _fail(f"phase 8: GOP stream of chunk 0 frame {t} differs from "
+            _fail(f"{label}: GOP stream of chunk 0 frame {t} differs from "
                   f"the frame coded alone through compress_async")
 
     per, gop = p_codec(), p_codec()
@@ -1140,48 +1219,52 @@ def _bench_checks(st, dev):
                                qps)["x_hat"]
     n = st["gop_n"]
     if not all(torch.equal(x_gop[t], per_x[t]) for t in range(n)):
-        _fail("phase 8: decompress_gop differs from the per-frame decode")
+        _fail(f"{label}: decompress_gop differs from the per-frame decode")
     if not all(torch.equal(st["dec_out"]["x_hat"][t], per_x[t - n])
                for t in range(n)):
-        _fail("phase 8: the last uploaded chunk's decode differs from the "
+        _fail(f"{label}: the last uploaded chunk's decode differs from the "
               "per-frame decode")
     for what, f in (("GOP decoder", d_net.dpb[0].feature),
                     ("encoder", p_net.dpb[0].feature)):
         if not torch.equal(per.dpb[0].feature, f):
-            _fail(f"phase 8: the per-frame decoder's final feature differs "
+            _fail(f"{label}: the per-frame decoder's final feature differs "
                   f"from the {what}'s")
     if not all(bool(torch.isfinite(x).all()) for x in per_x):
-        _fail("phase 8: a decoded P-frame is not finite")
+        _fail(f"{label}: a decoded P-frame is not finite")
 
     i_net, i_dec = st["i_net"], st["i_dec"]
     for t, x in enumerate(st["i_frames"]):
         enc = i_net.compress(x, qp)
         if enc["bit_stream"] != st["i_streams"][t] or \
                 not torch.equal(enc["x_hat"], st["i_x_hats"][t]):
-            _fail(f"phase 8: compress_batch frame {t} differs from "
+            _fail(f"{label}: compress_batch frame {t} differs from "
                   f"DMCI.compress")
         dec = i_dec.decompress(enc["bit_stream"], st["i_sps"], qp)["x_hat"]
         if not torch.equal(dec, st["i_dec_out"][t]) or \
                 not torch.equal(dec, enc["x_hat"]):
-            _fail(f"phase 8: decompress_batch frame {t} differs from "
+            _fail(f"{label}: decompress_batch frame {t} differs from "
                   f"decompress or from the encoder's x_hat")
     return len(per_x) + n
 
 
-def phase_bench(dev, LR):
-    """Phase 8: `opendcvc_tpu_torch.bench` in process at bench.py's
-    defaults (BENCH_* and OPENDCVC_TPU_EC_* unset), then its holds;
-    returns its K1 and K2 launches, which must match the frames it
-    coded and decoded."""
+def phase_bench(dev, LR, label="phase 8", env=None):
+    """Phase 8 (and 9 (b) with env BENCH_DTYPE=bfloat16):
+    `opendcvc_tpu_torch.bench` in process at bench.py's defaults (BENCH_*
+    and OPENDCVC_TPU_EC_* unset but for `env`), then its holds; returns
+    its K1 and K2 launches, which must match the frames it coded and
+    decoded."""
     from opendcvc_tpu_torch import bench
     saved = {k: os.environ.pop(k) for k in list(os.environ)
              if k.startswith(("BENCH_", "OPENDCVC_TPU_EC_"))}
+    os.environ.update(env or {})
     LR.encode_scan.launches = 0
     LR.decode_scan.launches = 0
     t0 = time.perf_counter()
     try:
         st = bench.run()
     finally:
+        for k in env or {}:
+            os.environ.pop(k)
         os.environ.update(saved)
     launches = [LR.encode_scan.launches, LR.decode_scan.launches]
     bench_s = time.perf_counter() - t0
@@ -1190,17 +1273,17 @@ def phase_bench(dev, LR):
     want_p = 2 * len(st["seed_frames"]) + gop_n + n
     if coded["P"] != want_p or decoded["P"] != want_p or \
             decoded["I"] != 3 * len(st["i_frames"]):
-        _fail(f"phase 8: frames coded {coded}, decoded {decoded}")
+        _fail(f"{label}: frames coded {coded}, decoded {decoded}")
     want = [coded["I"] + coded["P"] + st["reruns"],
             5 * decoded["I"] + 3 * decoded["P"]]
     if launches != want:
-        _fail(f"phase 8: K1/K2 launched {launches} times, the frames coded "
+        _fail(f"{label}: K1/K2 launched {launches} times, the frames coded "
               f"and decoded need {want}")
     line = st["result"]
-    _log(f"phase 8: {_card()}")
-    _log("phase 8: bench line " + json.dumps(line))
-    _log("phase 8: " + st["verbose"])
-    _log(f"phase 8: {n} P-frames in chunks of {gop_n}; encode ms a chunk "
+    _log(f"{label}: {_card()}")
+    _log(f"{label}: bench line " + json.dumps(line))
+    _log(f"{label}: " + st["verbose"])
+    _log(f"{label}: {n} P-frames in chunks of {gop_n}; encode ms a chunk "
          + " ".join(f"{t:.1f}" for t in st["enc_chunk_ms"])
          + " | decode ms a chunk " + " ".join(f"{t:.1f}" for t in
                                                 st["dec_chunk_ms"])
@@ -1217,14 +1300,14 @@ def phase_bench(dev, LR):
     shape = (gop_n, cap + 3 * lanes)
     d2h, h2d = _copy_ms(shape, dev)
     payload = sum(len(s) for s in st["chunk_streams"][0])
-    _log(f"phase 8: a chunk's stagings {shape[0]} x {shape[1]} u16 = "
+    _log(f"{label}: a chunk's stagings {shape[0]} x {shape[1]} u16 = "
          f"{2 * shape[0] * shape[1]} B (streams {payload} B; lanes {lanes}, "
          f"mw {mw}, cap {cap}); one copy of them: device->host "
          f"{d2h:.4f} ms, host->device {h2d:.4f} ms (pinned, median of "
          f"{REPS})")
 
-    checked = _bench_checks(st, dev)
-    _log(f"phase 8: K1 {launches[0]} launches ({coded['I']} I + "
+    checked = _bench_checks(st, dev, label)
+    _log(f"{label}: K1 {launches[0]} launches ({coded['I']} I + "
          f"{coded['P']} P coded + {st['reruns']} reruns), K2 {launches[1]} "
          f"({decoded['I']} I x 5 + {decoded['P']} P x 3); GOP chunk 0 == "
          f"compress_async frame by frame; decompress_gop and the uploaded "
@@ -1232,6 +1315,68 @@ def phase_bench(dev, LR):
          f"enc/dec chain exact; compress_batch / decompress_batch == "
          f"compress / decompress on {len(st['i_frames'])} frames")
     return launches
+
+
+N_BF16_HARNESS = 8      # phase 9 (c)'s frames, the first of phase 7's
+
+
+def _times(intra, p_run):
+    """The frame times (ms) and bpp of a device-EC I-frame and P-frame
+    run (phase_intra, phase_p)."""
+    return {"i_enc": intra["enc_ms"], "i_dec": intra["dec_ms"],
+            "i_bpp": intra["bpp"], "enc_ms": p_run["enc_ms"],
+            "dec_ms": p_run["dec_ms"], "bpp": p_run["bpp"]}
+
+
+def phase_bf16(dev, LR, frames, f32, root, seq):
+    """Phase 9: DCVC-RT in bfloat16 at 1080p full width, phases 3-8's
+    configuration.  (a) DMCI + 4 DMC P-frames through device EC, then
+    through host EC (two coders, one NAL stream), each exact within
+    itself and the two equal; (b) the bench with BENCH_DTYPE=bfloat16;
+    (c) the harness with --dtype bfloat16 and device EC on the first
+    N_BF16_HARNESS frames of phase 7's sequence.  f32: phases 3-4's
+    results, printed beside (a)'s.  Returns the K1 and K2 launches of
+    each device-EC run."""
+    from opendcvc_tpu_torch.eval import harness
+    bf16 = torch.bfloat16
+    runs = {}
+
+    LR.encode_scan.launches = 0
+    LR.decode_scan.launches = 0
+    intra = phase_intra(dev, frames[0], QP, FZ, bf16, "phase 9 (a)")
+    p_run = phase_p(dev, intra["x_hat"], frames[1:], QP, FZ, bf16,
+                    "phase 9 (a)")
+    runs["phase 9 (a) device EC"] = [LR.encode_scan.launches,
+                                     LR.decode_scan.launches]
+    if min(runs["phase 9 (a) device EC"]) == 0:
+        _fail("phase 9 (a): the device-EC run did not launch K1 and K2")
+    if intra["x_hat"].dtype != bf16 or p_run["feats"][0].dtype != bf16:
+        _fail("phase 9 (a): the codecs did not run in bfloat16")
+    LR.encode_scan.launches = 0
+    LR.decode_scan.launches = 0
+    phase_host(dev, frames, QP, FZ, intra, p_run, bf16,
+               "phase 9 (a) host EC")
+    if max(LR.encode_scan.launches, LR.decode_scan.launches):
+        _fail("phase 9 (a): the host-EC run launched a lane rANS kernel")
+    for name, r in (("float32 (phases 3-4)", f32),
+                    ("bfloat16 (phase 9 a)", _times(intra, p_run))):
+        _log(f"phase 9 (a): device EC, {name}: I-frame enc "
+             f"{r['i_enc']:.1f} / dec {r['i_dec']:.1f} ms, bpp "
+             f"{r['i_bpp']:.4f}; P-frames enc ms "
+             + " ".join(f"{t:.1f}" for t in r["enc_ms"]) + " | dec ms "
+             + " ".join(f"{t:.1f}" for t in r["dec_ms"]) + " | bpp "
+             + " ".join(f"{b:.4f}" for b in r["bpp"]))
+
+    runs["phase 9 (b)"] = phase_bench(dev, LR, "phase 9 (b)",
+                                      {"BENCH_DTYPE": "bfloat16"})
+    run_c = _harness_run(harness, LR, root, seq, device_ec=True,
+                         n=N_BF16_HARNESS, dtype="bfloat16",
+                         phase="phase 9 (c)")
+    runs["phase 9 (c)"] = run_c["launches"]
+    if min(run_c["launches"]) == 0:
+        _fail("phase 9 (c): the device-EC harness run did not launch K1 "
+              "and K2")
+    return runs
 
 
 def main():
@@ -1262,6 +1407,7 @@ def main():
     LR.decode_scan.launches = 0
     intra = phase_intra(dev, frames[0], QP, FZ)
     p_run = phase_p(dev, intra["x_hat"], frames[1:], QP, FZ)
+    f32 = _times(intra, p_run)
     launches = [LR.encode_scan.launches, LR.decode_scan.launches]
     _log(f"main path launches: K1 {launches[0]}, K2 {launches[1]}")
     if min(launches) == 0:
@@ -1280,12 +1426,19 @@ def main():
     if max(host_launches):
         _fail("the host-EC path launched a lane rANS kernel")
 
-    harness_launches = phase_harness()
-    bench_launches = phase_bench(dev, LR)
-    for k, n7, n8 in zip(kernels, harness_launches, bench_launches):
-        k["launches_by_run"] = {"phases 3-4": k["launches"],
-                                "phase 7 device EC": n7, "phase 8": n8}
-        k["launches"] += n7 + n8
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        t0 = time.perf_counter()
+        seq = _write_sequence(root, H, W, N_HARNESS)
+        _log(f"phase 7: {N_HARNESS} frames of {W}x{H} YUV420 written in "
+             f"{time.perf_counter() - t0:.1f} s")
+        runs = {"phase 7 device EC": phase_harness(root, seq),
+                "phase 8": phase_bench(dev, LR)}
+        runs.update(phase_bf16(dev, LR, frames, f32, root, seq))
+    for i, k in enumerate(kernels):
+        k["launches_by_run"] = {"phases 3-4": k["launches"]}
+        for name, n in runs.items():
+            k["launches_by_run"][name] = n[i]
+            k["launches"] += n[i]
 
     card = _card()
     _log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -24,7 +24,9 @@ figures (125.2 enc / 112.8 dec fps).
 
 Env knobs, with bench.py's defaults: BENCH_FRAMES (32; rounded to a GOP
 multiple), BENCH_GOP_N (8), BENCH_HEIGHT / BENCH_WIDTH (1080 / 1920),
-BENCH_DTYPE (float32), BENCH_Q_SCALE (0.25, the P-frame banks),
+BENCH_DTYPE (float32, bench.py's default off a TPU; bfloat16 codes in
+bfloat16, the frames cast before their padding and the flat banks set
+after the init's cast, as bench.py does), BENCH_Q_SCALE (0.25, the P-frame banks),
 BENCH_Q_SCALE_I (0.2, the intra banks), BENCH_FZ (force_zero_thres 0.12;
 negative disables), BENCH_DECODE=0 skips the decode half, BENCH_INTRA=0
 the intra half, BENCH_INTRA_FRAMES (8), BENCH_CKPT_I (a full-size DMCI
@@ -40,8 +42,6 @@ Differences from bench.py:
     without CUDA it prints bench.py's infra_error line and exits with 3.
   * No `last_good` in that line: the BENCH_r*.json files it reads hold
     TPU numbers.  No subprocess preflight.
-  * BENCH_DTYPE=bfloat16 raises NotImplementedError: the port is float32
-    only.  The default is float32, bench.py's default off a TPU.
   * The enc/dec feature-chain gate raises RuntimeError instead of an
     assert.
   * The weights are the port's torch.Generator init (seeds 0 and 1), not
@@ -97,23 +97,26 @@ def _device():
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def _intra_net(dev, fz, lanes, bps):
-    """The intra codec: a JAX package checkpoint under BENCH_CKPT_I, else
-    the port's init (seed 0) with flat q banks."""
+def _intra_net(dev, dtype, fz, lanes, bps):
+    """The intra codec: a JAX package checkpoint under BENCH_CKPT_I (its
+    float32 leaves cast to `dtype`, as bench.py casts them), else the
+    port's init (seed 0) with flat q banks."""
     from .utils import checkpoint as ckpt
-    from .utils.params import from_jax
+    from .utils.params import cast_floating, from_jax
     ckpt_i = os.environ.get("BENCH_CKPT_I")
     if ckpt_i:
         # trained statistics need a larger first staging rung
         bps = float(os.environ.get("BENCH_CKPT_EC_BPS", 0.9))
-    net = DMCI(device=dev, device_ec=True, lanes=lanes, bytes_per_symbol=bps)
+    net = DMCI(device=dev, device_ec=True, lanes=lanes, bytes_per_symbol=bps,
+               dtype=dtype)
     if ckpt_i:
         payload = ckpt.load_checkpoint(ckpt_i)
         kw = (payload.get("extra") or {}).get("model_kwargs", {})
         if kw:
             raise ValueError(f"BENCH_CKPT_I must be a full-size DMCI "
                              f"checkpoint (got model_kwargs={kw})")
-        net.load_params(from_jax(payload["params"], dev))
+        net.load_params(cast_floating(from_jax(payload["params"], dev),
+                                      dtype))
     else:
         net.init_params(seed=0)
         # flat unit banks: random weights with the init's log-spaced rate
@@ -157,9 +160,7 @@ def run():
     per-call times, and the frames each half coded and decoded."""
     dev = _device()
     dtype_name = os.environ.get("BENCH_DTYPE", "float32")
-    if dtype_name == "bfloat16":
-        raise NotImplementedError("BENCH_DTYPE=bfloat16: the port is "
-                                  "float32 only")
+    dtype = C.DTYPES[dtype_name]
     gop_n = int(os.environ.get("BENCH_GOP_N", 8))
     n_frames = int(os.environ.get("BENCH_FRAMES", 32))
     n_frames = max(gop_n, n_frames // gop_n * gop_n)
@@ -175,11 +176,11 @@ def run():
     coded = {"I": 0, "P": 0}
     decoded = {"I": 0, "P": 0}
 
-    i_net, ckpt_i = _intra_net(dev, fz, lanes, bps)
+    i_net, ckpt_i = _intra_net(dev, dtype, fz, lanes, bps)
 
     def p_codec():
         return DMC(device=dev, device_ec=True, lanes=lanes,
-                   bytes_per_symbol=bps, cap_frac=cap_frac)
+                   bytes_per_symbol=bps, cap_frac=cap_frac, dtype=dtype)
 
     p_net = p_codec()
     p_net.init_params(seed=1)
@@ -201,7 +202,7 @@ def run():
                                                dtype=np.float32)
 
     def frame(t):
-        x = torch.from_numpy(np.roll(base, 4 * t, axis=2)).to(dev)
+        x = torch.from_numpy(np.roll(base, 4 * t, axis=2)).to(dtype).to(dev)
         return replicate_pad(x.permute(0, 3, 1, 2), pb, pr) \
             .permute(0, 2, 3, 1).contiguous()
 
@@ -331,7 +332,7 @@ def run():
         intra_enc_fps = n_intra / min(enc_times)
 
         i_dec = DMCI(device=dev, device_ec=True, lanes=lanes,
-                     bytes_per_symbol=bps)
+                     bytes_per_symbol=bps, dtype=dtype)
         i_dec.load_params(i_net.params)
         i_dec.update(force_zero_thres=fz)
         i_sps = {"sps_id": 0, "height": height, "width": width,

@@ -19,10 +19,13 @@ pair each.
 Weights: `--model_path_i/_p` read the JAX package's checkpoints (no JAX
 needed).  Without them the codecs take the port's own random init from
 `--seed`, drawn by torch.Generator: not the JAX package's weights for the
-same seed.
+same seed.  `--dtype bfloat16` codes in bfloat16, as the JAX harness
+does: `--seed` weights are cast to it, checkpoint weights are kept as
+loaded (each convolution casts them), and the recon's crop, colour
+conversion and clip run in bfloat16 before the metrics read float32.
 
 Not ported yet, and refused with an error: `--write_stream 0` (estimate
-mode) and `--dtype bfloat16`.
+mode).
 """
 
 import argparse
@@ -56,8 +59,6 @@ NOT_PORTED = {
     "write_stream": "--write_stream 0 (estimate mode) is not ported: it "
                     "needs the training forward pass, which the port does "
                     "not have yet",
-    "dtype": "--dtype bfloat16 is not ported: the port codes in float32 "
-             "only",
 }
 
 
@@ -89,8 +90,8 @@ def parse_args(argv=None):
     parser.add_argument('--verbose_json', type=str2bool, default=False)
     parser.add_argument('--verbose', type=int, default=0)
     parser.add_argument('--dtype', type=str, default='float32',
-                        choices=['float32', 'bfloat16'],
-                        help='float32 only: bfloat16 is not ported')
+                        choices=list(CM.DTYPES),
+                        help='the codecs\' activation dtype')
     parser.add_argument('--seed', type=int, default=0,
                         help='random-init seed when no checkpoint is given '
                              '(the intra codec takes seed, the P codec '
@@ -104,11 +105,9 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def _check_ported(write_stream, dtype='float32'):
+def _check_ported(write_stream):
     if not write_stream:
         raise NotImplementedError(NOT_PORTED["write_stream"])
-    if dtype != 'float32':
-        raise NotImplementedError(NOT_PORTED["dtype"])
 
 
 def np_image_to_tensor(img):
@@ -192,13 +191,15 @@ def get_src_frame(args, src_reader, padding=(0, 0)):
 
 def _postprocess(args, x_hat):
     """The decoded frame cropped, color-converted and clipped on the
-    device; only the result is fetched.  Returns float32 host arrays: (y
-    (H, W), uv (H/2, W/2, 2)) for YUV420, (3, H, W) RGB for PNG."""
+    device in x_hat's dtype, as the JAX harness's jitted post-processing;
+    only the result is fetched.  Returns float32 host arrays: (y (H, W),
+    uv (H/2, W/2, 2)) for YUV420, (3, H, W) RGB for PNG."""
     h, w = args['src_height'], args['src_width']
     if args['src_type'] == 'yuv420':
         y_rec, uv_rec = _post_yuv(x_hat, h, w)
-        return y_rec[0, :, :, 0].cpu().numpy(), uv_rec[0].cpu().numpy()
-    return _post_png(x_hat, h, w)[0].permute(2, 0, 1).cpu().numpy()
+        return (y_rec[0, :, :, 0].float().cpu().numpy(),
+                uv_rec[0].float().cpu().numpy())
+    return _post_png(x_hat, h, w)[0].permute(2, 0, 1).float().cpu().numpy()
 
 
 def _distortion(args, rec, y, u, v, rgb):
@@ -409,6 +410,8 @@ def run_one_point_with_stream(p_frame_net, i_frame_net, args):
 
 
 def _load(net, path, seed):
+    """Checkpoint weights as loaded (a float32 file in a bfloat16 codec
+    stays float32), else the init cast to the codec's dtype."""
     if path:
         net.load_params(from_jax(ckpt.load_params(path)))
     else:
@@ -416,18 +419,21 @@ def _load(net, path, seed):
 
 
 def build_nets(args):
-    """(DMCI, DMC or None with --force_intra) on args.device: weights from
-    --model_path_i/_p, else the port's random init from --seed (intra) and
-    --seed + 1 (P); device EC when OPENDCVC_TPU_DEVICE_EC is set."""
-    _check_ported(args.write_stream, args.dtype)
+    """(DMCI, DMC or None with --force_intra) on args.device in
+    args.dtype: weights from --model_path_i/_p, else the port's random
+    init from --seed (intra) and --seed + 1 (P); device EC when
+    OPENDCVC_TPU_DEVICE_EC is set."""
+    _check_ported(args.write_stream)
     device_ec = env_flag("OPENDCVC_TPU_DEVICE_EC")
-    i_frame_net = DMCI(device=args.device, device_ec=device_ec)
+    dtype = CM.DTYPES[args.dtype]
+    i_frame_net = DMCI(device=args.device, device_ec=device_ec, dtype=dtype)
     _load(i_frame_net, args.model_path_i, args.seed)
     i_frame_net.update(args.force_zero_thres)
 
     p_frame_net = None
     if not args.force_intra:
-        p_frame_net = DMC(device=args.device, device_ec=device_ec)
+        p_frame_net = DMC(device=args.device, device_ec=device_ec,
+                          dtype=dtype)
         _load(p_frame_net, args.model_path_p, args.seed + 1)
         p_frame_net.update(args.force_zero_thres)
     return i_frame_net, p_frame_net
@@ -492,7 +498,7 @@ def _qps(args):
 def main(argv=None):
     begin_time = time.time()
     args = parse_args(argv)
-    _check_ported(args.write_stream, args.dtype)
+    _check_ported(args.write_stream)
     CM.resolve_device(args.device)      # no CUDA: raises before any work
     if args.force_zero_thres is not None and args.force_zero_thres < 0:
         args.force_zero_thres = None

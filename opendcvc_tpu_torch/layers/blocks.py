@@ -30,8 +30,13 @@ def conv_init(gen, in_ch, out_ch, ksize=1, groups=1):
 
 
 def conv_apply(p, x, stride=1, padding=0, groups=1):
-    return F.conv2d(x, p["w"], p["b"], stride=stride, padding=padding,
-                    groups=groups)
+    """The JAX package's `conv_apply`: the weights cast to x's dtype, the
+    convolution rounded to that dtype, then the bias added and rounded
+    again.  A bias fused into the convolution (oneDNN, ATen's depthwise
+    CUDA kernel) rounds once and differs in bfloat16."""
+    out = F.conv2d(x, p["w"].to(x.dtype), None, stride=stride,
+                   padding=padding, groups=groups)
+    return out.add_(p["b"].to(x.dtype)[:, None, None])
 
 
 def wsilu(x):

@@ -15,6 +15,8 @@ import torch
 from ..ops.fused import replicate_pad
 
 QP_NUM = 64
+#: the codecs' activation dtypes, by the name the harness and bench take
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def ec_setting(value, name, default):
@@ -36,11 +38,14 @@ def resolve_device(device):
     return dev
 
 
-def frame_to_nchw(x, device):
-    """(1, H, W, 3) NHWC frame (numpy or tensor) -> float32 NCHW."""
+def frame_to_nchw(x, device, dtype=torch.float32):
+    """(1, H, W, 3) NHWC frame (numpy or tensor) -> NCHW `dtype` on
+    `device`, cast once with round-to-nearest-even (`jnp.asarray(x,
+    dtype)`'s rounding).  A host frame is cast on the host, so a bfloat16
+    upload moves half the bytes; a frame already on the device is cast
+    there."""
     x = torch.as_tensor(x)
-    return x.to(device=device, dtype=torch.float32).permute(0, 3, 1, 2) \
-        .contiguous()
+    return x.to(dtype).to(device).permute(0, 3, 1, 2).contiguous()
 
 
 def frame_to_nhwc(x):

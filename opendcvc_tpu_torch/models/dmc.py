@@ -8,8 +8,9 @@ modulate the stages.
 
 Bit-exactness contract: every stage both the encoder and the decoder
 evaluate is one shared function called on identically shaped tensors, and
-the package pins cuDNN to deterministic full-float32 algorithms, so the
-temporal feature chain cannot drift between the two sides.
+the package pins cuDNN to deterministic algorithms (full float32, no
+TF32), so the temporal feature chain cannot drift between the two sides,
+in float32 or in bfloat16 (`dtype=`).
 
 Entropy coding has two modes, as in the JAX package (`device_ec`):
   * host EC (the default): the frame's symbol planes (z, y0, y1) cross to
@@ -47,7 +48,7 @@ from ..layers import blocks as L
 from ..ops import fused as F
 from ..ops.lane_rans import (ENC_SKIP, decode_scan, encode_scan, pack_operand,
                               prepare_decode_table, prepare_encode_table)
-from ..utils.params import to_device
+from ..utils.params import cast_floating, to_device
 from . import common as C
 
 QP_SHIFT = [0, 8, 4]
@@ -118,8 +119,12 @@ def _dcb_seq(params_list, x):
     return x
 
 
-def _q_vec(bank, qp):
-    return bank[qp][None, :, None, None]
+def _q_vec(bank, qp, dtype=None):
+    """A qp's row of a bank as a (1, C, 1, 1) multiplier in `dtype`, the
+    activation's (default: the bank's own): a float32 bank (a checkpoint
+    loaded into a bfloat16 codec) must not promote the activation to
+    float32."""
+    return bank[qp][None, :, None, None].to(dtype or bank.dtype)
 
 
 def hyper_encoder(p, y_pad):
@@ -154,7 +159,7 @@ def _stage_adaptor_p(p, feature):
 def _stage_fe_part1(p, feature, qp):
     """Shared: first 2 blocks + temporal context."""
     x1 = _dcb_seq(p["fe_conv1"], feature)
-    return x1, x1 * _q_vec(p["q_feature"], qp)
+    return x1, x1 * _q_vec(p["q_feature"], qp, x1.dtype)
 
 
 def _stage_fe_part2(p, x1):
@@ -168,12 +173,13 @@ def _stage_encode_y(p, x, ctx, qp):
     feat = L.depth_conv_block_apply(p["enc_conv2"][0],
                                     torch.cat((feat, ctx), dim=1))
     feat = L.depth_conv_block_apply(p["enc_conv2"][1], feat)
-    feat = L.depth_conv_block_apply(p["enc_conv3"], feat,
-                                    quant_step=_q_vec(p["q_encoder"], qp))
+    feat = L.depth_conv_block_apply(
+        p["enc_conv3"], feat, quant_step=_q_vec(p["q_encoder"], qp,
+                                                feat.dtype))
     y = L.conv_apply(p["enc_down"], feat, stride=2, padding=1)
     z = hyper_encoder(p, C.pad_for_y(y))
     z_hat, z_int8 = F.round_and_to_int8(z)
-    return y, z_hat, z_int8
+    return y, z_hat.to(x.dtype), z_int8
 
 
 def _stage_prior(p, z_hat, ctx_t):
@@ -268,14 +274,15 @@ def _stage_feature(p, y_hat, ctx, qp):
     for bp in p["dec_conv1"]:
         feat = L.depth_conv_block_apply(bp, feat)
     feat = L.conv_apply(p["dec_conv2"], feat)
-    return feat * _q_vec(p["q_decoder"], qp)
+    return feat * _q_vec(p["q_decoder"], qp, feat.dtype)
 
 
 def _stage_recon_x(p, feature, qp):
     """Shared: feature -> frame (NCHW)."""
     out = _dcb_seq(p["recon_conv"][:3], feature)
     out = L.depth_conv_block_apply(p["recon_conv"][3], out,
-                                   quant_step=_q_vec(p["q_recon"], qp))
+                                   quant_step=_q_vec(p["q_recon"], qp,
+                                                     out.dtype))
     return F.pixel_shuffle_clamp(L.conv_apply(p["recon_head"], out), 8)
 
 
@@ -604,12 +611,19 @@ class DMC:
     `decompress_gop` / `upload_gop` + `decompress_gop_uploaded` run N
     consecutive P-frames through the single-frame path's stages with one
     device->host copy (encode) or one upload (decode) for the chunk, and
-    write and read the single-frame path's streams."""
+    write and read the single-frame path's streams.
+
+    dtype: the activations' dtype (float32 or torch.bfloat16), as the JAX
+    package's `DMC(dtype=)`.  Input frames are cast to it; init_params
+    casts the float32 init to it; load_params keeps the loaded dtypes and
+    each convolution and qp bank is cast to the activations' dtype where
+    it is used.  The DPB holds frames and features in it."""
 
     def __init__(self, device="cuda", device_ec=False, lanes=None,
-                 bytes_per_symbol=None, cap_frac=None):
+                 bytes_per_symbol=None, cap_frac=None, dtype=torch.float32):
         self.device = C.resolve_device(device)
         self.device_ec = device_ec
+        self.dtype = dtype
         self.lanes = C.ec_setting(lanes, "OPENDCVC_TPU_EC_LANES", 4096)
         self.bytes_per_symbol = C.ec_setting(
             bytes_per_symbol, "OPENDCVC_TPU_EC_BPS", 0.5)
@@ -638,8 +652,11 @@ class DMC:
     # -- setup ---------------------------------------------------------------
 
     def init_params(self, seed=0):
+        """Draw in float32, then cast the float32 leaves to the codec's
+        dtype."""
         gen = torch.Generator().manual_seed(seed)
-        self.params = to_device(dmc_init(gen), self.device)
+        self.params = to_device(cast_floating(dmc_init(gen), self.dtype),
+                                self.device)
         return self.params
 
     def load_params(self, params):
@@ -701,7 +718,8 @@ class DMC:
     def apply_feature_adaptor(self):
         if self.dpb[0].feature is None:
             return _stage_adaptor_i(
-                self.params, C.frame_to_nchw(self.dpb[0].frame, self.device))
+                self.params, C.frame_to_nchw(self.dpb[0].frame, self.device,
+                                             self.dtype))
         return _stage_adaptor_p(self.params, self.dpb[0].feature)
 
     def prepare_feature_adaptor_i(self, last_qp):
@@ -748,7 +766,7 @@ class DMC:
         the host, coded in the callable.  Device EC: the K1 launch and the
         start of its staging's copy, neither waited on; the callable waits
         for the copy and settles the staging ladder."""
-        x = C.frame_to_nchw(x, self.device)
+        x = C.frame_to_nchw(x, self.device, self.dtype)
         if not self.device_ec:
             return self._compress_async_host(x, qp)
         H, W = x.shape[2], x.shape[3]
@@ -809,7 +827,7 @@ class DMC:
         self._check_gop("compress_gop_async")
         p, fz = self.params, self.force_zero_thres
         qps = [int(q) for q in qps]
-        xs = [C.frame_to_nchw(x, self.device) for x in frames]
+        xs = [C.frame_to_nchw(x, self.device, self.dtype) for x in frames]
         H, W = xs[0].shape[2], xs[0].shape[3]
         lanes, n_total, k_total = self._plan_device_ec(H, W)
         bps = max(self.bytes_per_symbol, self._ec_learned.get((H, W), 0.0))

@@ -31,7 +31,7 @@ from ..layers import blocks as L
 from ..ops import fused as F
 from ..ops.lane_rans import (prepare_decode_table,
                               prepare_encode_table)
-from ..utils.params import to_device
+from ..utils.params import cast_floating, to_device
 from . import common as C
 from .dmc import (_cm_unflat, _code_host, _dcb_seq, _dec_plane, _dec_y_plane,
                   _decode_y_host, _fetch_stagings, _from_host_nhwc,
@@ -119,10 +119,10 @@ def spatial_prior(p, adaptor_p, x):
 
 def _stage_enc_front(p, x, qp):
     """Encoder-only: frame -> y, rounded z."""
-    y = intra_encoder(p, x, _q_vec(p["q_scale_enc"], qp))
+    y = intra_encoder(p, x, _q_vec(p["q_scale_enc"], qp, x.dtype))
     z = hyper_encoder(p, C.pad_for_y(y))
     z_hat, z_int8 = F.round_and_to_int8(z)
-    return y, z_hat, z_int8
+    return y, z_hat.to(x.dtype), z_int8
 
 
 def _stage_prior(p, z_hat, y_h, y_w):
@@ -173,8 +173,9 @@ def _stage_dec_restore(y_q_r, means, y_hat_so_far, k):
 
 def _stage_recon(p, y_hat_so_far, q_dec_prior, qp):
     """Shared: final dequant + intra decoder + clamp."""
-    x_hat = intra_decoder(p, y_hat_so_far * q_dec_prior,
-                          _q_vec(p["q_scale_dec"], qp))
+    y_hat = y_hat_so_far * q_dec_prior
+    x_hat = intra_decoder(p, y_hat, _q_vec(p["q_scale_dec"], qp,
+                                           y_hat.dtype))
     return torch.clamp(x_hat, 0.0, 1.0)
 
 
@@ -206,9 +207,9 @@ def _compress_frame_i(p, x, qp, lanes, n_y_rows, fz=None):
 
 
 def _decompress_frame_i(p, staging, qp, dec_table, n_y_rows, zh, zw, y_h,
-                        y_w, z_channel, lanes, cap, mw, fz=None):
-    """Compact staging -> x_hat (NCHW); the K2 launches read row slices of
-    the prepared decode table."""
+                        y_w, z_channel, lanes, cap, mw, dtype, fz=None):
+    """Compact staging -> x_hat (NCHW, `dtype`); the K2 launches read row
+    slices of the prepared decode table."""
     data, states = _undensify_device(staging, cap, lanes, mw)
     carry = (states, torch.zeros((lanes,), dtype=torch.int32,
                                  device=data.device))
@@ -218,7 +219,7 @@ def _decompress_frame_i(p, staging, qp, dec_table, n_y_rows, zh, zw, y_h,
                                        data.device),
                                dec_table[z_base:z_base + z_channel], carry,
                                lanes)
-    z_hat = _cm_unflat(z_flat, (1, z_channel, zh, zw)).to(torch.float32)
+    z_hat = _cm_unflat(z_flat, (1, z_channel, zh, zw)).to(dtype)
     _, q_dec_prior, scales, means, reduced = _stage_prior(p, z_hat, y_h,
                                                           y_w)
     dec_y = dec_table[:n_y_rows]
@@ -252,13 +253,18 @@ class DMCI:
     Device EC also codes batches of independent frames:
     `compress_batch(_async)` and `decompress_batch` run each frame through
     the single-frame path's stages with one device->host copy or one
-    upload for the batch, and write and read compress()'s streams."""
+    upload for the batch, and write and read compress()'s streams.
+
+    dtype: the activations' dtype (float32 or torch.bfloat16), as the JAX
+    package's `DMCI(dtype=)`: frames are cast to it, init_params casts the
+    float32 init to it, load_params keeps the loaded dtypes."""
 
     def __init__(self, N=256, z_channel=128, enc_dec_ch=G_CH_ENC_DEC,
                  device="cuda", device_ec=False, lanes=None,
-                 bytes_per_symbol=None):
+                 bytes_per_symbol=None, dtype=torch.float32):
         self.device = C.resolve_device(device)
         self.device_ec = device_ec
+        self.dtype = dtype
         self.N = N
         self.z_channel = z_channel
         self.enc_dec_ch = enc_dec_ch
@@ -282,10 +288,12 @@ class DMCI:
     # -- setup ---------------------------------------------------------------
 
     def init_params(self, seed=0):
+        """Draw in float32, then cast the float32 leaves to the codec's
+        dtype."""
         gen = torch.Generator().manual_seed(seed)
-        self.params = to_device(
+        self.params = to_device(cast_floating(
             dmci_init(gen, self.N, self.z_channel,
-                      enc_dec_ch=self.enc_dec_ch), self.device)
+                      enc_dec_ch=self.enc_dec_ch), self.dtype), self.device)
         return self.params
 
     def load_params(self, params):
@@ -369,7 +377,7 @@ class DMCI:
         if not self.device_ec:
             raise ValueError("compress_async requires device-EC mode")
         x_hat, staging, settle = self._launch_i(
-            C.frame_to_nchw(x, self.device), int(qp))
+            C.frame_to_nchw(x, self.device, self.dtype), int(qp))
         fetch = _fetch_stagings(staging)
         return x_hat, lambda: settle(fetch())
 
@@ -387,7 +395,8 @@ class DMCI:
             else [int(q) for q in qps]
         if len(qps) != len(frames):
             raise ValueError(f"{len(qps)} qps for {len(frames)} frames")
-        launched = [self._launch_i(C.frame_to_nchw(x, self.device), qp)
+        launched = [self._launch_i(C.frame_to_nchw(x, self.device,
+                                                   self.dtype), qp)
                     for x, qp in zip(frames, qps)]
         fetch = _fetch_stagings(torch.stack([s for _, s, _ in launched]))
 
@@ -406,7 +415,8 @@ class DMCI:
         """x: (1, H, W, 3) NHWC in [0, 1], H and W multiples of 16.
         Returns {"bit_stream": bytes, "x_hat": NHWC tensor}."""
         if not self.device_ec:
-            return self._compress_host(C.frame_to_nchw(x, self.device), qp)
+            return self._compress_host(
+                C.frame_to_nchw(x, self.device, self.dtype), qp)
         x_hat, finish = self.compress_async(x, qp)
         return {"bit_stream": finish(), "x_hat": x_hat}
 
@@ -435,7 +445,7 @@ class DMCI:
         coder.set_stream(bit_stream)
         self.bit_estimator_z.decode_z((zh, zw), qp)
         z_hat = _from_host_nhwc(self.bit_estimator_z.get_z((zh, zw), np.int8),
-                                self.device, torch.float32)
+                                self.device, self.dtype)
         self.transfers["h2d"] += 1
         _, q_dec_prior, scales, means, reduced = _stage_prior(p, z_hat, y_h,
                                                               y_w)
@@ -466,7 +476,7 @@ class DMCI:
         return C.frame_to_nhwc(_decompress_frame_i(
             self.params, staging, qp, self.dec_table, self.n_y_rows, zh, zw,
             y_h, y_w, self.z_channel, meta["L"], meta["cap"], meta["MW"],
-            self.force_zero_thres))
+            self.dtype, self.force_zero_thres))
 
     def decompress_batch(self, bit_streams, sps, qps):
         """Batched device-EC decode of B independent streams at `qps` (an

@@ -37,7 +37,8 @@ def process_with_mask(y, scales, means, mask, force_zero_thres=None):
     y_res = (y - means_hat) * mask
     y_q = torch.round(y_res.float())
     if force_zero_thres is not None:
-        y_q = y_q * (scales_hat.float() > force_zero_thres)
+        # a forced zero is +0, as XLA writes the JAX package's product
+        y_q = torch.where(scales_hat.float() > force_zero_thres, y_q, 0.0)
     y_q = torch.clamp(y_q, -128.0, 127.0).to(y.dtype)
     y_hat = y_q + means_hat
     return y_res, y_q, y_hat, scales_hat

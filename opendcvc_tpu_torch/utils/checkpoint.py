@@ -13,13 +13,16 @@ A leaf larger than flax's chunk size (2^30 bytes) arrives as a chunked map
 
 The reader carries its own decoder for the msgpack types flax writes
 (maps, arrays, str, bin, ext, ints, floats, nil, bools) and returns the
-tree with numpy leaves; `utils/params.py::from_jax` turns a params tree
-into the port's tensors.  Malformed input raises ValueError.
+tree with numpy leaves, except that a bfloat16 leaf, which numpy has no
+type for without ml_dtypes, comes back as a torch.bfloat16 tensor read
+bit for bit from its raw bytes; `utils/params.py::from_jax` turns a
+params tree into the port's tensors.  Malformed input raises ValueError.
 """
 
 import struct
 
 import numpy as np
+import torch
 
 _CHUNKED = "__msgpack_chunked_array__"
 
@@ -127,14 +130,18 @@ def _ndarray(data):
         raise ValueError("an ndarray leaf is not (shape, dtype, bytes)")
     shape, name, raw = parts
     name = name if isinstance(name, str) else bytes(name).decode()
+    bf16 = name == "bfloat16"
     try:
-        dtype = np.dtype(name)
+        dtype = np.dtype(np.uint16 if bf16 else name)
     except TypeError as e:
         raise ValueError(f"leaf dtype {name!r} has no numpy type") from e
     if dtype.hasobject or int(np.prod(shape)) * dtype.itemsize != len(raw):
         raise ValueError(f"ndarray leaf of shape {shape} {name} holds "
                          f"{len(raw)} bytes")
-    return np.frombuffer(raw, dtype=dtype).reshape(shape, order="C")
+    a = np.frombuffer(raw, dtype=dtype).reshape(shape, order="C")
+    if bf16:
+        return torch.from_numpy(a.copy()).view(torch.bfloat16)
+    return a
 
 
 def _ext(code, data):
@@ -158,11 +165,15 @@ def _unchunk(node):
         pieces = [chunks[str(i)] for i in range(len(chunks))]
     except KeyError as e:
         raise ValueError(f"a chunked leaf is missing entry {e}") from e
-    if not all(isinstance(p, np.ndarray) and p.ndim == 1 for p in pieces):
+    if not all(isinstance(p, (np.ndarray, torch.Tensor)) and p.ndim == 1
+               for p in pieces):
         raise ValueError("a chunked leaf's chunks are not flat arrays")
-    flat = np.concatenate(pieces)
-    if flat.size != int(np.prod(shape)):
-        raise ValueError(f"chunks of {flat.size} elements do not fill "
+    tensors = [isinstance(p, torch.Tensor) for p in pieces]
+    if any(tensors) and not all(tensors):
+        raise ValueError("a chunked leaf's chunks differ in dtype")
+    flat = torch.cat(pieces) if all(tensors) else np.concatenate(pieces)
+    if flat.shape[0] != int(np.prod(shape)):
+        raise ValueError(f"chunks of {flat.shape[0]} elements do not fill "
                          f"shape {shape}")
     return flat.reshape(shape)
 

@@ -4,7 +4,10 @@ Counterpart of the JAX package's `utils/transforms.py`: a numpy function
 for the host IO path and torch functions on NHWC tensors for the device.
 BT.709 weights.  The torch functions keep the JAX package's order of
 operations, so their float32 results match XLA's as closely as the two
-backends' rounding allows.
+backends' rounding allows.  In bfloat16 (a bfloat16 codec's recon) JAX
+rounds each Python constant to bfloat16 before it applies it, while
+torch applies it at float32 precision: `ycbcr2rgb` rounds its constants
+to the input's dtype first.
 """
 
 import numpy as np
@@ -31,13 +34,20 @@ def rgb2ycbcr(rgb):
     return torch.clamp(torch.cat((y, cb, cr), dim=-1), 0.0, 1.0)
 
 
+def _weak(c, dtype):
+    """A Python constant as JAX applies it to an array of `dtype`:
+    rounded to that dtype (exact for float32 and wider)."""
+    return float(torch.tensor(c, dtype=dtype))
+
+
 def ycbcr2rgb(ycbcr, clamp=True):
     """NHWC YCbCr -> RGB."""
     y, cb, cr = ycbcr[..., 0:1], ycbcr[..., 1:2], ycbcr[..., 2:3]
     Kr, Kg, Kb = YCBCR_WEIGHTS["ITU-R_BT.709"]
-    r = y + (2 - 2 * Kr) * (cr - 0.5)
-    b = y + (2 - 2 * Kb) * (cb - 0.5)
-    g = (y - Kr * r - Kb * b) / Kg
+    dt = ycbcr.dtype
+    r = y + _weak(2 - 2 * Kr, dt) * (cr - 0.5)
+    b = y + _weak(2 - 2 * Kb, dt) * (cb - 0.5)
+    g = (y - _weak(Kr, dt) * r - _weak(Kb, dt) * b) / _weak(Kg, dt)
     rgb = torch.cat((r, g, b), dim=-1)
     if clamp:
         rgb = torch.clamp(rgb, 0.0, 1.0)

@@ -1,5 +1,5 @@
-"""`python -m opendcvc_tpu_torch.bench` on the CPU, its line against
-bench.py's, and the device-EC settings the port's codecs read from the
+"""`python -m opendcvc_tpu_torch.bench` on the CPU (float32 and
+BENCH_DTYPE=bfloat16), its line against bench.py's, and the device-EC settings the port's codecs read from the
 environment (OPENDCVC_TPU_EC_LANES / _EC_BPS / _EC_CAP_FRAC, as the JAX
 package's codecs read them)."""
 
@@ -88,10 +88,28 @@ def test_bench_without_cuda_prints_infra_error(monkeypatch, capsys):
         == {k: ref[k] for k in ("metric", "value", "unit", "vs_baseline")}
 
 
-def test_bench_bfloat16_is_not_ported(small_env, monkeypatch):
+def test_bench_bfloat16_prints_line(small_env, monkeypatch, capsys):
+    """BENCH_DTYPE=bfloat16: bench.py's line from bfloat16 codecs, the
+    flat banks set after the init's cast (bfloat16 0.2 and 0.25), the
+    frames cast before their padding, the feature chain exact (run()
+    raises otherwise)."""
     monkeypatch.setenv("BENCH_DTYPE", "bfloat16")
-    with pytest.raises(NotImplementedError, match="float32"):
-        bench.run()
+    monkeypatch.setenv("BENCH_VERBOSE", "1")
+    bench.main()
+    line, out = _line(capsys)
+    assert set(line) - {"ec_reruns"} == LINE_KEYS
+    for k in ("enc_fps", "dec_fps", "intra_enc_fps", "intra_dec_fps",
+              "bpp"):
+        assert line[k] > 0
+    assert len(out) == 2 and "dtype=bfloat16" in out[1]
+    state = bench.run()
+    for net in (state["i_net"], state["p_net"], state["d_net"],
+                state["i_dec"]):
+        assert net.dtype == torch.bfloat16
+    assert state["chunks"][0][0].dtype == torch.bfloat16
+    assert float(state["i_net"].params["q_scale_enc"][0, 0]) == 0.2001953125
+    assert float(state["p_net"].params["q_encoder"][0, 0]) == 0.25
+    assert state["dec_out"]["x_hat"].dtype == torch.bfloat16
 
 
 def test_synthetic_images_match_jax():

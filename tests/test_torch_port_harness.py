@@ -18,8 +18,8 @@ host-EC periodic refresh at frame 3, mid-chain.  Held:
     the bound from the colour transforms' agreement);
   * the recon files agree within one code value.
 Also: --worker 2 equals serial, --check_existing returns the stored log,
-the unported modes raise, and the default --device cuda raises without
-CUDA.
+the unported mode (estimate) raises, --dtype bfloat16 codes, and the
+default --device cuda raises without CUDA.
 """
 
 import io
@@ -305,9 +305,8 @@ def test_check_existing_returns_the_stored_log(tmp_path):
     assert {k: got[k] for k in log} == json.loads(stored.getvalue())
 
 
-@pytest.mark.parametrize("flag", [("--write_stream", "0"),
-                                  ("--dtype", "bfloat16")],
-                         ids=["estimate_mode", "bfloat16"])
+@pytest.mark.parametrize("flag", [("--write_stream", "0")],
+                         ids=["estimate_mode"])
 def test_unported_modes_raise(tmp_path, flag):
     cfg = _dataset(tmp_path, "yuv420", n=1)
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -315,6 +314,25 @@ def test_unported_modes_raise(tmp_path, flag):
                     "--output_path", str(tmp_path / "o.json"),
                     "--stream_path", str(tmp_path / "bins"), *flag])
     assert not (tmp_path / "bins").exists()
+
+
+def test_bfloat16_mode_codes(tmp_path):
+    """--dtype bfloat16 codes and decodes (the port's --seed weights cast
+    to bfloat16): one rate of 2 frames, a .bin and a finite PSNR.  The
+    bfloat16 harness against the JAX harness's is
+    test_torch_port_bf16_harness.py."""
+    cfg = _dataset(tmp_path, "yuv420", n=2)
+    _port_main(["--test_config", cfg, "--device", "cpu", "--dtype",
+                "bfloat16", "--output_path", str(tmp_path / "o.json"),
+                "--stream_path", str(tmp_path / "bins"), "--rate_num", "1",
+                "--qp_i", str(QP), "--qp_p", str(QP), "--verbose_json", "1"])
+    log = json.loads((tmp_path / "bins" / "tiny" /
+                      f"seq_q{QP}.json").read_text())
+    assert (log["i_frame_num"], log["p_frame_num"]) == (1, 1)
+    assert np.isfinite(log["frame_psnr"]).all()
+    bits = sum(log["frame_bpp"]) * log["frame_pixel_num"]
+    assert round(bits) == 8 * (tmp_path / "bins" / "tiny" /
+                               f"seq_q{QP}.bin").stat().st_size
 
 
 def test_default_device_cuda_raises_without_cuda(tmp_path):
