@@ -10,14 +10,17 @@ Phases (any failure exits nonzero and prints no result):
      256-row combined random table, ~30 % skip slots, then at the main
      path's own frames, one launch each over the port's combined y + z
      table (symbols drawn from each row, ~30 % skips): a DMC frame (16 z
-     + 2 x 128 y steps) and a DMCI frame (16 + 4 x 128), each at the
-     staging ladder's first and top rung, and at the contract's edges (a
+     + 2 x 128 y steps), a DMCI frame (16 + 4 x 128) and a DMC frame
+     under skip compaction at phase 10 (a)'s first rung (16 + 2 x 64),
+     each at the staging ladder's first and top rung, and at the
+     contract's edges (a
      partial warp, row ids past the table, odd staging widths that some
      lanes overflow); K2 on one 272-step launch over
      a 128-row table, then at the main path's own launch shapes, decoding
      those two frames: a DMC frame's z (16 steps, the port's 128-row z
-     table), y0 and y1 (128 steps, its 128-row y table) and a DMCI
-     frame's z and four y quarters, with the (state, ptr) carry handed
+     table), y0 and y1 (128 steps, its 128-row y table), a DMCI
+     frame's z and four y quarters and the compacted DMC frame's z, y0
+     and y1 (64 steps), with the (state, ptr) carry handed
      from launch to launch, and on arbitrary words at the contract's
      edges (a partial warp, clamped rows, pointers past either end).
      Every launch is timed as the median of 20 launches with CUDA events
@@ -91,14 +94,34 @@ Phases (any failure exits nonzero and prints no result):
      bench with BENCH_DTYPE=bfloat16 under phase 8's checks; (c) the
      harness with --dtype bfloat16 and device EC on the first 8 frames of
      phase 7's sequence under phase 7's checks.
+ 10. the training slice: (a) phases 3-4 with skip compaction
+     (OPENDCVC_TPU_EC_SKIP_COMPACT=1, first rung at the default survivor
+     share), then a P-frame and a GOP chunk of 8 P-frames: decoder exact
+     on every frame, the chunk's streams equal to the frames coded one by
+     one, K1 and K2 launched once a coded frame or rerun and 5 / 3 times a
+     decoded I / P-frame, every K1 launch at k_z + 2 kyc (DMC) or k_z + 4
+     kyc (DMCI) steps and each stream's K that of its kyc; prints each
+     frame's kyc, the reruns, frame times and bpp beside phases 3-4's and
+     a chunk's staging bytes; (b) `python -m opendcvc_tpu_torch.train_video`
+     in process at its defaults (synthetic data, batch 8, crop 256, 7
+     steps) with --model dmci and --model dmc --frames 3: finite losses,
+     float32 parameters and Adam state; the loss on one fixed batch falls
+     over 5 steps at lr 1e-4 without warmup; the saved checkpoints load in
+     DMCI and DMC, which code a 1080p I-frame and P-frame with the decoder
+     exact; prints the median ms a step after 2 warm-up steps, samples/s
+     and the peak of torch.cuda.max_memory_allocated; (c) the same runs
+     with --amp 1; (d) the harness with --write_stream 0 on the first 8
+     frames of phase 7's sequence: the JSON written, every bpp and PSNR
+     finite, no stream; prints them beside phase 7's and the seconds a
+     frame.
 The kernel launch counters are zeroed before phase 3 and read after
 phase 4, so the counts are the main path's (the device-EC path); they are
 zeroed again before phase 6 and must read 0 after it, again before each
-run of phases 7 and 9, and before phase 8; `launches` adds the device-EC
-runs of phases 7 (b), 8 and 9 to phases 3-4's, and `launches_by_run`
-splits it.  Then it prints the card's name and
-power limit, one JSON line describing each kernel, and, last, {"ok":
-true, "device": {...}}.
+run of phases 7, 9 and 10, and before phase 8; `launches` adds the
+device-EC runs of phases 7 (b), 8, 9 and 10 (a, and the checkpoints'
+coding in b) to phases 3-4's, and `launches_by_run` splits it.  Then it
+prints the card's name and power limit, one JSON line describing each
+kernel, and, last, {"ok": true, "device": {...}}.
 """
 
 import io
@@ -393,17 +416,20 @@ def phase_k2(dev, LR, rng, table, n_y_rows, sym, skip, L, K, k1_shapes):
     got = check(args, torch.from_numpy(sym).to(dev), f"K={K}")
     head = timed(args, got, "one launch")
 
-    # a frame: z (16 steps, never skipped), then n_y launches of 128 y
-    # steps (DMC: two halves, DMCI: four quarters), coded by one K1 launch
-    # against the combined [y | z] table and decoded with the carry
-    k_z, k_y = 16, 128
+    # a frame: z (16 steps, never skipped), then n_y launches of k_y y
+    # steps (DMC: two halves, DMCI: four quarters, 128 steps each; with
+    # skip compaction at phase 10 (a)'s first rung, DMC's halves take 64),
+    # coded by one K1 launch against the combined [y | z] table and
+    # decoded with the carry
+    k_z = 16
     cum_y, cum_z = _model_tables()
     t_frame = torch.from_numpy(np.concatenate([cum_y, cum_z])).to(dev)
     e_frame = LR.prepare_encode_table(t_frame)
     d_fy, d_fz = (LR.prepare_decode_table(t_frame[a:a + len(cum_y)])
                   for a in (0, len(cum_y)))
     frame = {}
-    for codec, n_y in (("DMC", 2), ("DMCI", 4)):
+    for codec, n_y, k_y in (("DMC", 2, 128), ("DMCI", 4, 128),
+                            ("DMC kyc 64", 2, 64)):
         ids = rng.integers(0, len(cum_y), (k_z + n_y * k_y, L))
         skip_f = rng.random(ids.shape) < 0.3
         skip_f[:k_z] = False
@@ -518,7 +544,9 @@ def phase_intra(dev, frame, qp, fz, dtype=torch.float32, label="phase 3"):
          f"{enc_ms:.1f} ms dec {dec_ms:.1f} ms (second pass), bpp "
          f"{bpp:.4f}, reruns {net._ec_rerun_count}; decoded frame exact")
     return {"params": net.params, "x_hat": x_hat, "bpp": bpp,
-            "enc_ms": enc_ms, "dec_ms": dec_ms}
+            "enc_ms": enc_ms, "dec_ms": dec_ms,
+            "streams": [r[0]["bit_stream"] for r in results],
+            "reruns": net._ec_rerun_count}
 
 
 def phase_p(dev, x_ref, frames, qp, fz, dtype=torch.float32,
@@ -559,7 +587,8 @@ def phase_p(dev, x_ref, frames, qp, fz, dtype=torch.float32,
          + " | bpp " + " ".join(f"{b:.4f}" for b in bpp)
          + f" | reruns {enc_net._ec_rerun_count}; feature chain exact")
     return {"params": enc_net.params, "feats": feats, "dec_x": dec_x,
-            "bpp": bpp, "enc_ms": enc_ms, "dec_ms": dec_ms}
+            "bpp": bpp, "enc_ms": enc_ms, "dec_ms": dec_ms,
+            "streams": streams, "reruns": enc_net._ec_rerun_count}
 
 
 def phase_reference(dev, qp, fz):
@@ -1160,7 +1189,7 @@ def phase_harness(root, seq):
         _fail("phase 7 imported PIL")
     _log("phase 7: per-frame PSNR equal in host and device EC; bits equal "
          "8 x each .bin; periodic refresh at frames 1 and 9 in both")
-    return dev["launches"]
+    return dev
 
 
 def _card():
@@ -1293,9 +1322,9 @@ def phase_bench(dev, LR, label="phase 8", env=None):
          + f" | reruns {st['reruns']}; bench {bench_s:.1f} s")
 
     p_net, (h, w) = st["p_net"], st["size"]
-    lanes, _, k_total = p_net._plan_device_ec(-(-h // 16) * 16,
-                                              -(-w // 16) * 16)
-    mw, cap = p_net._rung(lanes, k_total, max(
+    plan = p_net._plan_device_ec(-(-h // 16) * 16, -(-w // 16) * 16)
+    lanes = plan.lanes
+    mw, cap = p_net._rung(lanes, plan.steps(), max(
         p_net.bytes_per_symbol, max(p_net._ec_learned.values(), default=0)))
     shape = (gop_n, cap + 3 * lanes)
     d2h, h2d = _copy_ms(shape, dev)
@@ -1379,6 +1408,331 @@ def phase_bf16(dev, LR, frames, f32, root, seq):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 10: skip compaction, training, estimate mode
+# ---------------------------------------------------------------------------
+
+N_SKIP_GOP = 8          # phase 10 (a)'s GOP chunk
+N_TRAIN = 7             # steps a training run: 2 warm-up, 5 timed
+N_DESCENT = 5           # steps on one fixed batch
+N_ESTIMATE = 8          # phase 10 (d)'s frames, the first of phase 7's
+STAGING_PHASE8_B = 1_622_016    # a phase 8 chunk's stagings (PR 7 run)
+
+
+def _record_k1_steps():
+    """Wrap the K1 wrapper that the codecs call (models/dmc.py's
+    encode_scan, which DMCI's launches go through too): each launch's
+    step count K is appended to the returned list.  Returns (list,
+    undo)."""
+    from opendcvc_tpu_torch.models import dmc as M
+    steps, encode = [], M.encode_scan
+
+    def recording(packed, table, mw):
+        steps.append(int(packed.shape[0]))
+        return encode(packed, table, mw)
+
+    M.encode_scan = recording
+    return steps, lambda: setattr(M, "encode_scan", encode)
+
+
+def _skip_gop(dev, params, x_ref, xs, qp, fz):
+    """A P-frame alone, then a GOP chunk of len(xs) - 1, under skip
+    compaction: the chunk's streams must equal the same frames coded one
+    by one, and decompress_gop must give each frame the encoder's feature
+    reconstructs and end at the encoder's feature.  Returns the streams,
+    the reruns, the chunk's encode and decode ms and its staging shape."""
+    from opendcvc_tpu_torch.models import common as C
+    from opendcvc_tpu_torch.models.dmc import DMC, _stage_recon_x
+    nets = []
+    for _ in range(3):
+        net = DMC(device=dev, device_ec=True)
+        net.load_params(params)
+        net.update(force_zero_thres=fz)
+        net.add_ref_frame(None, x_ref)
+        nets.append(net)
+    one, gop, dec = nets
+    per, feats = [], []
+    for x in xs:
+        per.append(one.compress(x, qp)["bit_stream"])
+        feats.append(one.dpb[0].feature.clone())
+    first = gop.compress(xs[0], qp)["bit_stream"]
+    n = len(xs) - 1
+    out, enc_ms = _timed(lambda: gop.compress_gop(xs[1:], [qp] * n), dev)
+    streams = [first] + out["bit_streams"]
+    if streams != per:
+        _fail("phase 10 (a): GOP streams differ from the per-frame streams")
+    if not torch.equal(gop.dpb[0].feature, one.dpb[0].feature):
+        _fail("phase 10 (a): the GOP encoder's final feature differs")
+    sps = {"height": xs[0].shape[1], "width": xs[0].shape[2]}
+    dec.decompress(first, sps, qp)
+    if not torch.equal(dec.dpb[0].feature, feats[0]):
+        _fail("phase 10 (a): decoded P-frame 0 differs from the encoder's")
+    x_gop, dec_ms = _timed(
+        lambda: dec.decompress_gop(streams[1:], sps, [qp] * n)["x_hat"], dev)
+    for t in range(n):
+        want = C.frame_to_nhwc(_stage_recon_x(params, feats[t + 1], qp))
+        if not torch.equal(x_gop[t], want):
+            _fail(f"phase 10 (a): GOP-decoded frame {t + 1} differs from "
+                  f"the encoder's")
+    if not torch.equal(dec.dpb[0].feature, feats[-1]):
+        _fail("phase 10 (a): the GOP decoder's final feature differs from "
+              "the encoder's")
+    plan = gop._plan_device_ec(xs[0].shape[1], xs[0].shape[2])
+    mw, cap = gop._rung(plan.lanes, plan.steps(), gop.bytes_per_symbol)
+    mw0, cap0 = gop._rung(plan.lanes, plan.steps(0), gop.bytes_per_symbol)
+    return {"streams": streams, "reruns": one._ec_rerun_count
+            + gop._ec_rerun_count, "enc_ms": enc_ms, "dec_ms": dec_ms,
+            "plan": plan, "staging": (n, cap + 3 * plan.lanes + 2),
+            "staging_kyc0": (n, cap0 + 3 * plan.lanes)}
+
+
+def phase_skip(dev, LR, f32):
+    """Phase 10 (a): phases 3-4 with OPENDCVC_TPU_EC_SKIP_COMPACT=1 (first
+    rung at the default survivor share 0.5), then a GOP chunk of
+    N_SKIP_GOP P-frames; returns the K1 and K2 launches."""
+    from opendcvc_tpu_torch.entropy import device_rans as D
+    from opendcvc_tpu_torch.models.dmci import DMCI
+    label = "phase 10 (a)"
+    frames = synthetic_frames(H, W, N_SKIP_GOP + 6)
+    saved = {k: os.environ.pop(k) for k in list(os.environ)
+             if k.startswith("OPENDCVC_TPU_EC_")}
+    os.environ["OPENDCVC_TPU_EC_SKIP_COMPACT"] = "1"
+    steps, undo = _record_k1_steps()
+    LR.encode_scan.launches = 0
+    LR.decode_scan.launches = 0
+    try:
+        intra = phase_intra(dev, frames[0], QP, FZ, label=label)
+        p_run = phase_p(dev, intra["x_hat"], frames[1:5], QP, FZ,
+                        label=label)
+        g = _skip_gop(dev, p_run["params"], intra["x_hat"],
+                      frames[5:], QP, FZ)
+        probe = DMCI(device=dev, device_ec=True)
+        probe.force_zero_thres = FZ
+        i_plan = probe._plan(frames[0].shape[1], frames[0].shape[2])
+    finally:
+        undo()
+        os.environ.pop("OPENDCVC_TPU_EC_SKIP_COMPACT")
+        os.environ.update(saved)
+    launches = [LR.encode_scan.launches, LR.decode_scan.launches]
+    p_plan = g["plan"]
+    coded = [("I", s) for s in intra["streams"]] + \
+        [("P", s) for s in p_run["streams"] + g["streams"] + g["streams"]]
+    reruns = intra["reruns"] + p_run["reruns"] + g["reruns"]
+    want = [len(coded) + reruns,
+            5 * len(intra["streams"]) + 3 * (len(p_run["streams"])
+                                             + len(g["streams"]))]
+    if launches != want:
+        _fail(f"{label}: K1/K2 launched {launches} times, the frames coded "
+              f"and decoded need {want}")
+    if not 0 < i_plan.kyc < i_plan.k_y or not 0 < p_plan.kyc < p_plan.k_y:
+        _fail(f"{label}: first compaction rungs {i_plan.kyc} / "
+              f"{p_plan.kyc} of {i_plan.k_y} / {p_plan.k_y} steps")
+    kycs = {"I": [], "P": []}
+    for kind, s in coded:
+        meta = D.parse_frame(s)[0]
+        plan = i_plan if kind == "I" else p_plan
+        if meta["K"] != plan.steps(meta["kyc"]) or not \
+                0 < meta["kyc"] <= plan.k_y or meta["K"] not in steps:
+            _fail(f"{label}: a {kind}-frame stream records K {meta['K']} "
+                  f"at kyc {meta['kyc']}, launches ran {sorted(set(steps))}")
+        kycs[kind].append(meta["kyc"])
+    allowed = {pl.steps(k) for pl in (i_plan, p_plan)
+               for k in range(pl.kyc, pl.k_y + 8, 8) if k <= pl.k_y} \
+        | {i_plan.steps(i_plan.k_y), p_plan.steps(p_plan.k_y)}
+    if not set(steps) <= allowed:
+        _fail(f"{label}: K1 ran {sorted(set(steps))} steps, not k_z + "
+              f"n x kyc {sorted(allowed)}")
+    n_b = 2 * g["staging"][0] * g["staging"][1]
+    n_b0 = 2 * g["staging_kyc0"][0] * g["staging_kyc0"][1]
+    _log(f"{label}: first rungs kyc {i_plan.kyc} (DMCI, k_y {i_plan.k_y}, "
+         f"k_z {i_plan.k_z}) / {p_plan.kyc} (DMC, k_y {p_plan.k_y}); "
+         f"streams' kyc I {kycs['I']} P {kycs['P'][:4]} GOP "
+         f"{kycs['P'][4:4 + N_SKIP_GOP + 1]}; reruns {reruns}; K1 steps a "
+         f"launch {sorted(set(steps))}")
+    for name, r in (("phases 3-4, no compaction", f32),
+                    ("skip compaction", _times(intra, p_run))):
+        _log(f"{label}: {name}: I-frame enc {r['i_enc']:.1f} / dec "
+             f"{r['i_dec']:.1f} ms, bpp {r['i_bpp']:.4f}; P-frames enc ms "
+             + " ".join(f"{t:.1f}" for t in r["enc_ms"]) + " | dec ms "
+             + " ".join(f"{t:.1f}" for t in r["dec_ms"]) + " | bpp "
+             + " ".join(f"{b:.4f}" for b in r["bpp"]))
+    _log(f"{label}: GOP chunk of {N_SKIP_GOP}: encode {g['enc_ms']:.1f} ms, "
+         f"decode {g['dec_ms']:.1f} ms (host clock, synchronized); stagings "
+         f"{g['staging'][0]} x {g['staging'][1]} u16 = {n_b} B at the first "
+         f"rung (without compaction at these settings {n_b0} B; phase 8's "
+         f"chunk at bench.py's {STAGING_PHASE8_B} B); GOP streams == per "
+         f"frame, decoder exact on every frame; K1 {launches[0]}, K2 "
+         f"{launches[1]} launches")
+    return launches
+
+
+def _float32_tree(leaves, what, label):
+    for t in leaves:
+        if t.dtype != torch.float32:
+            _fail(f"{label}: {what} holds a {t.dtype} tensor")
+
+
+def _train_run(dev, model, amp, save_dir):
+    """train_video's main in process at its defaults (synthetic data,
+    batch 8, crop 256; dmc with --frames 3) for N_TRAIN steps."""
+    from opendcvc_tpu_torch import train_video
+    from opendcvc_tpu_torch.training.train import tree_leaves
+    label = f"phase 10 ({'c' if amp else 'b'}) {model}"
+    argv = ["--model", model, "--steps", str(N_TRAIN), "--save_dir",
+            save_dir, "--log_every", str(N_TRAIN), "--amp",
+            "1" if amp else "0"] + (["--frames", "3"] if model == "dmc"
+                                    else [])
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = train_video.main(argv)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [m["loss"] for m in out["metrics"]]
+    if len(losses) != N_TRAIN or not all(np.isfinite(losses)):
+        _fail(f"{label}: losses {losses}")
+    _float32_tree(tree_leaves(out["params"]), "the parameters", label)
+    _float32_tree(out["opt_state"]["mu"] + out["opt_state"]["nu"],
+                  "Adam's state", label)
+    ms = float(np.median(out["step_ms"][2:]))
+    _log(f"{label}: {'bfloat16 AMP' if amp else 'float32'}, batch 8, crop "
+         f"256: {ms:.1f} ms a step (CUDA events, steps queued; median of "
+         f"steps 3-{N_TRAIN}; all "
+         + " ".join(f"{t:.1f}" for t in out["step_ms"]) + f"), "
+         f"{8e3 / ms:.1f} samples/s, peak memory "
+         f"{peak / 2 ** 30:.2f} GiB ({peak} B); losses "
+         + " ".join(f"{v:.3f}" for v in losses) + f"; run {run_s:.1f} s")
+    return {"ms": ms, "peak": peak}
+
+
+def _descent(dev, model):
+    """The loss on one fixed batch (the defaults' shape) over N_DESCENT
+    steps at lr 1e-4, no warmup, must fall, as the JAX package's
+    tests/test_training.py holds its train step."""
+    from opendcvc_tpu_torch.models import common as C
+    from opendcvc_tpu_torch.models.dmc import dmc_init
+    from opendcvc_tpu_torch.models.dmci import dmci_init
+    from opendcvc_tpu_torch.training import train as T
+    from opendcvc_tpu_torch.training.data import SyntheticVideoDataset
+    from opendcvc_tpu_torch.utils.params import to_device
+    gen = torch.Generator().manual_seed(0)
+    if model == "dmci":
+        params = dmci_init(gen)
+        loss_img = T.make_dmci_loss(256.0)
+
+        def loss_fn(p, frames, qp, rng):
+            return loss_img(p, frames[:, 0], qp, rng)
+    else:
+        params, loss_fn = dmc_init(gen), T.make_dmc_loss(256.0)
+    params = to_device(params, dev)
+    tx = T.make_optimizer(1e-4)
+    step = T.make_train_step(loss_fn, tx)
+    state = tx.init(T.tree_leaves(params))
+    frames = 2 if model == "dmci" else 3
+    batch = C.upload(next(SyntheticVideoDataset(frames, 256, seed=0)
+                          .batches(8, 1)), dev)
+    losses = []
+    for _ in range(N_DESCENT):
+        params, state, metrics = step(params, state, batch, 32, None)
+        losses.append(float(metrics["loss"]))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        _fail(f"phase 10 (b) {model}: the loss on one batch did not fall "
+              f"over {N_DESCENT} steps: {losses}")
+    _log(f"phase 10 (b) {model}: one fixed batch, {N_DESCENT} steps at lr "
+         f"1e-4: loss " + " ".join(f"{v:.3f}" for v in losses))
+
+
+def _code_checkpoints(dev, LR, save_dir):
+    """The saved dmci_latest / dmc_latest checkpoints load in the port's
+    DMCI and DMC, which code a 1080p I-frame and a P-frame with device EC,
+    the decoder exact.  Returns the K1 and K2 launches."""
+    from opendcvc_tpu_torch.models.dmc import DMC
+    from opendcvc_tpu_torch.models.dmci import DMCI
+    from opendcvc_tpu_torch.utils import checkpoint as ckpt
+    from opendcvc_tpu_torch.utils.params import from_jax
+    x0, x1 = synthetic_frames(H, W, 2)
+    sps = {"height": x0.shape[1], "width": x0.shape[2]}
+    LR.encode_scan.launches = 0
+    LR.decode_scan.launches = 0
+    nets = {}
+    for name, make in (("dmci", DMCI), ("dmc", DMC)):
+        for role in ("enc", "dec"):
+            net = make(device=dev, device_ec=True)
+            net.load_params(from_jax(ckpt.load_params(
+                os.path.join(save_dir, f"{name}_latest.msgpack"))))
+            net.update(force_zero_thres=FZ)
+            nets[name, role] = net
+    enc = nets["dmci", "enc"].compress(x0, QP)
+    dec = nets["dmci", "dec"].decompress(enc["bit_stream"], sps, QP)
+    if not torch.equal(enc["x_hat"], dec["x_hat"]):
+        _fail("phase 10 (b): the trained DMCI's decoded frame differs")
+    for role in ("enc", "dec"):
+        nets["dmc", role].add_ref_frame(None, enc["x_hat"])
+    s = nets["dmc", "enc"].compress(x1, QP)["bit_stream"]
+    out = nets["dmc", "dec"].decompress(s, sps, QP)
+    if not torch.equal(nets["dmc", "dec"].dpb[0].feature,
+                       nets["dmc", "enc"].dpb[0].feature) or \
+            not bool(torch.isfinite(out["x_hat"]).all()):
+        _fail("phase 10 (b): the trained DMC's decoder feature differs")
+    bpp = [len(b) * 8 / (H * W) for b in (enc["bit_stream"], s)]
+    launches = [LR.encode_scan.launches, LR.decode_scan.launches]
+    _log(f"phase 10 (b): the saved checkpoints load in DMCI and DMC and "
+         f"code a {W}x{H} I-frame and P-frame (bpp {bpp[0]:.4f} / "
+         f"{bpp[1]:.4f}), decoder exact; K1 {launches[0]}, K2 "
+         f"{launches[1]} launches")
+    return launches
+
+
+def phase_estimate(root, stream_job):
+    """Phase 10 (d): the harness with --write_stream 0 on the first
+    N_ESTIMATE frames of phase 7's sequence at phase 7's settings."""
+    from opendcvc_tpu_torch.eval import harness
+    label = "phase 10 (d)"
+    cfg = _write_config(root, H, W, N_ESTIMATE)
+    harness.main(["--test_config", cfg, "--output_path",
+                  os.path.join(root, "estimate.json"), "--stream_path",
+                  os.path.join(root, "estimate"), "--rate_num", "1",
+                  "--qp_i", str(QP), "--qp_p", str(QP), "--force_zero_thres",
+                  str(FZ), "--reset_interval", "8", "--verbose_json", "1",
+                  "--seed", "0", "--device", "cuda", "--write_stream", "0"])
+    out_dir = os.path.join(root, "estimate", "synthetic")
+    with open(os.path.join(out_dir, f"seq1080_q{QP}.json")) as f:
+        job = json.load(f)
+    bpp, psnr = job["frame_bpp"], job["frame_psnr"]
+    if len(bpp) != N_ESTIMATE or not all(np.isfinite(bpp + psnr)):
+        _fail(f"{label}: estimate JSON bpp {bpp}, PSNR {psnr}")
+    if any(p.endswith(".bin") for p in os.listdir(out_dir)):
+        _fail(f"{label}: estimate mode wrote a stream")
+    n = N_ESTIMATE
+    _log(f"{label}: estimate mode, {n} frames: bpp " + " ".join(
+        f"{b:.4f}" for b in bpp) + " | PSNR " + " ".join(
+        f"{p:.3f}" for p in psnr) + f"; {job['test_time'] / n:.3f} s a "
+         f"frame (test_time {job['test_time']:.2f} s)")
+    _log(f"{label}: stream mode (phase 7, device EC), same frames: bpp "
+         + " ".join(f"{b:.4f}" for b in stream_job["frame_bpp"][:n])
+         + " | PSNR " + " ".join(f"{p:.3f}" for p in
+                                 stream_job["frame_psnr"][:n])
+         + " (estimate mode runs every P-frame at qp_p with no refresh; "
+         "stream mode shifts qp by the frame's index and refreshes)")
+
+
+def phase_training_slice(dev, LR, f32, root, stream_job):
+    """Phase 10: (a) skip compaction; (b) training in float32 and (c) with
+    --amp, each of dmci and dmc --frames 3; (d) estimate mode.  Returns
+    the K1 and K2 launches of its device-EC runs."""
+    runs = {"phase 10 (a)": phase_skip(dev, LR, f32)}
+    save_dir = os.path.join(root, "ckpt")
+    for amp in (False, True):
+        for model in ("dmci", "dmc"):
+            _train_run(dev, model, amp, save_dir)
+            if not amp:
+                _descent(dev, model)
+        if not amp:
+            runs["phase 10 (b) codecs"] = _code_checkpoints(dev, LR,
+                                                            save_dir)
+    phase_estimate(root, stream_job)
+    return runs
+
+
 def main():
     if not torch.cuda.is_available():
         _fail("CUDA is not available")
@@ -1431,9 +1785,12 @@ def main():
         seq = _write_sequence(root, H, W, N_HARNESS)
         _log(f"phase 7: {N_HARNESS} frames of {W}x{H} YUV420 written in "
              f"{time.perf_counter() - t0:.1f} s")
-        runs = {"phase 7 device EC": phase_harness(root, seq),
+        stream7 = phase_harness(root, seq)
+        runs = {"phase 7 device EC": stream7["launches"],
                 "phase 8": phase_bench(dev, LR)}
         runs.update(phase_bf16(dev, LR, frames, f32, root, seq))
+        runs.update(phase_training_slice(dev, LR, f32, root,
+                                         stream7["job"]))
     for i, k in enumerate(kernels):
         k["launches_by_run"] = {"phases 3-4": k["launches"]}
         for name, n in runs.items():

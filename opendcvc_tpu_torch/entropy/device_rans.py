@@ -10,9 +10,15 @@ rows; the container bytes do not depend on how a device looks them up.
 Container (v6, byte-identical to the JAX package's):
   u8 FRAME_MAGIC | u32 n | u16 L | u16 K | u16 MW | u32 cap | u16 kyc |
   u32 data_len | lens u16*L | states u32*L | dense u16*total
-with each lane's words in decode order, lanes back to back.  The port
-writes kyc = 0 (no skip compaction).
+with each lane's words in decode order, lanes back to back.  `kyc` is
+the skip-compaction rung: with force_zero_thres and kyc > 0 each y plane's
+surviving symbols are compacted into a lanes * kyc prefix
+(`compact_skip_enc`), so each y plane is coded in kyc steps a lane in place
+of its full K_y; kyc = 0 codes the full planes, skipped positions at zero
+rate.
 """
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -69,13 +75,15 @@ def encode_carry_init(lanes, max_words, device="cpu"):
                         device=device))
 
 
-def densify_segment(buf, lens, states, cap):
+def densify_segment(buf, lens, states, cap, survivors=None):
     """Compact the encode staging on the device: each lane's emitted words,
     reversed into decode order, back to back lane-major (the container's
     data layout), so only ~true-bpp bytes cross to the host.
 
     Returns ONE int32 vector of u16 values: [dense words (cap) | lens (L)
-    | state hi (L) | state lo (L)].  Overflow (sum(lens) > cap) leaves the
+    | state hi (L) | state lo (L)], and with skip compaction (`survivors`,
+    the frame's largest per-plane survivor count, a 0-d tensor) two more
+    words, its high and low halves.  Overflow (sum(lens) > cap) leaves the
     tail truncated; the host detects it from the lens and re-runs at the
     next ladder step."""
     L, MW = buf.shape
@@ -89,9 +97,13 @@ def densify_segment(buf, lens, states, cap):
     dense = torch.zeros((cap + 1,), dtype=torch.int32, device=dev)
     dense.scatter_(0, dst.reshape(-1), buf.reshape(-1))
     states = states.to(torch.int64)
-    return torch.cat([dense[:cap], lens.to(torch.int32) & 0xFFFF,
-                      (states >> 16).to(torch.int32),
-                      (states & 0xFFFF).to(torch.int32)])
+    parts = [dense[:cap], lens.to(torch.int32) & 0xFFFF,
+             (states >> 16).to(torch.int32),
+             (states & 0xFFFF).to(torch.int32)]
+    if survivors is not None:
+        m = survivors.to(torch.int32).reshape(1)
+        parts += [m >> 16, m & 0xFFFF]
+    return torch.cat(parts)
 
 
 def undensify_packed(packed, cap, L):
@@ -145,39 +157,75 @@ def staging_width(k_total, bps):
     return max(8, int(k_total * bps / 2)) + 4
 
 
-def settle_staging(arr, lanes, n_total, k_total, plan, bps, base_bps,
-                   rerun):
+class StagingPlan(NamedTuple):
+    """A frame's lane plan: `lanes` lanes code z in k_z steps and each of
+    `n_planes` y planes in k_y steps, or in kyc steps when skip compaction
+    is on (kyc > 0)."""
+    lanes: int
+    k_z: int
+    k_y: int
+    n_planes: int
+    kyc: int = 0
+
+    def steps(self, kyc=None):
+        """K1's steps a lane at the compaction rung `kyc` (default the
+        plan's own)."""
+        kyc = self.kyc if kyc is None else kyc
+        return self.k_z + self.n_planes * (kyc if kyc > 0 else self.k_y)
+
+
+def survivor_count(arr, cap, lanes):
+    """The skip-compaction survivor count (the largest over the frame's y
+    planes) that rides a compacted staging's tail, after [dense | lens |
+    st_hi | st_lo], as two u16 words."""
+    at = cap + 3 * lanes
+    return (int(arr[at]) << 16) | int(arr[at + 1])
+
+
+def settle_staging(arr, plan, rung, bps, base_bps, rerun):
     """Overflow-check a fetched compact staging and serialize it.
 
-    `arr` was launched at the rung `plan(bps)` -> (mw, cap).  While a lane
+    `arr` was launched at `rung(plan.steps(), bps)` -> (mw, cap).  Two
+    overflow axes, as the JAX package's `_finish_one_device`: while a lane
     reached mw - 2 words or the payload exceeds cap (lane cursors count
     every emission, so overflow always shows), double bps (at most 3.0,
-    the top rung, where cap is the whole rectangle and everything fits)
-    and re-encode with `rerun(mw, cap)`.  The container then records the
-    rung a ladder started at `base_bps` settles at, computed from the
-    payload alone, so a stream does not depend on the rung it was
+    the top rung, where cap is the whole rectangle and everything fits);
+    while a compacted y plane has more survivors m than its lanes * kyc
+    slots, grow kyc to min(k_y, ceil8(max(ceil(m / lanes), 2 * kyc))).
+    Either way re-encode with `rerun(mw, cap, kyc)`.  The container then
+    records the rung a ladder started at `base_bps` settles at, computed
+    from the payload alone, so a stream does not depend on the rung it was
     launched at.  Returns (stream, settled bps, reruns)."""
-    g_bps = bps
-    mw, cap = plan(g_bps)
+    lanes, g_bps, g_kyc = plan.lanes, bps, plan.kyc
+    mw, cap = rung(plan.steps(g_kyc), g_bps)
     reruns = 0
     for _ in range(8):
         dense, ln, st = undensify_packed(arr, cap, lanes)
-        if int(ln.max(initial=0)) < mw - 2 and int(ln.sum()) <= cap:
+        m = survivor_count(arr, cap, lanes) if g_kyc > 0 else 0
+        comp_over = g_kyc < plan.k_y and m > lanes * g_kyc
+        stage_over = int(ln.max(initial=0)) >= mw - 2 or int(ln.sum()) > cap
+        if not comp_over and not stage_over:
             break
-        g_bps = min(g_bps * 2, 3.0)
-        mw, cap = plan(g_bps)
+        if comp_over:
+            need = -(-m // lanes)
+            g_kyc = min(plan.k_y, -(-max(need, 2 * g_kyc) // 8) * 8)
+        if stage_over:
+            g_bps = min(g_bps * 2, 3.0)
+        mw, cap = rung(plan.steps(g_kyc), g_bps)
         reruns += 1
-        arr = rerun(mw, cap)
+        arr = rerun(mw, cap, g_kyc)
     else:
         raise OverflowError(
             "device rANS staging overflowed at the top ladder rung")
+    k_total = plan.steps(g_kyc)
     ln_max, ln_sum = int(ln.max(initial=0)), int(ln.sum())
     s_bps = base_bps
     for _ in range(8):
-        s_mw, s_cap = plan(s_bps)
+        s_mw, s_cap = rung(k_total, s_bps)
         if ln_max < s_mw - 2 and ln_sum <= s_cap:
-            return (serialize_frame_dense(dense, ln, st, n_total, k_total,
-                                          s_mw, s_cap), g_bps, reruns)
+            return (serialize_frame_dense(dense, ln, st, lanes * k_total,
+                                          k_total, s_mw, s_cap, g_kyc),
+                    g_bps, reruns)
         s_bps = min(s_bps * 2, 3.0)
     raise OverflowError(
         "device rANS staging overflowed at the top ladder rung")
@@ -273,3 +321,60 @@ def upload_stagings(bit_streams, device):
     if device.type == "cuda":
         host = host.pin_memory()
     return metas, host.to(device, non_blocking=True).to(torch.int32) & 0xFFFF
+
+
+# ---------------------------------------------------------------------------
+# skip compaction (force_zero_thres with kyc > 0)
+#
+# A y plane's surviving (kept) symbols move into a lanes * kyc slot prefix,
+# in order, so its scans run kyc steps a lane in place of the plane's K_y.
+# Encoder and decoder derive the same mapping from the shared keep mask;
+# only the rung kyc crosses, in the container.  Each survivor's slot is its
+# exclusive prefix count among the kept positions, so no two survivors
+# share a slot; every skipped position writes one parking slot past both
+# the prefix and the plane, which is dropped, as are the survivors past
+# the prefix (overflow, which the ladder regrows from the count).
+# ---------------------------------------------------------------------------
+
+def _survivor_slots(keep, n_c):
+    """(slot of each position: its exclusive prefix count among the kept
+    positions, or the dropped slot max(n_c, n) where skipped; survivor
+    count m as a 0-d tensor; the scatter's length max(n_c, n) + 1)."""
+    keep = keep.reshape(-1)
+    k = keep.to(torch.int64)
+    park = max(n_c, k.shape[0])
+    idx = torch.cumsum(k, 0) - k
+    return torch.where(keep, idx, park), k.sum(), park + 1
+
+
+def compact_skip_enc(sym, rows, keep, n_c):
+    """Compact a flat plane's survivors into n_c slots: (sym_c (n_c,),
+    rows_c (n_c,), m).  Survivors keep their order; the tail slots ride
+    SKIP_ROW at zero rate with symbol 0; m counts every survivor, also
+    those past n_c, which are dropped (the caller re-runs at a larger
+    rung when m > n_c).  The JAX package's `compact_skip_enc`."""
+    dst, m, n_buf = _survivor_slots(keep, n_c)
+    sym_c = sym.new_zeros((n_buf,)).scatter_(0, dst, sym.reshape(-1))
+    rows_c = rows.new_full((n_buf,), SKIP_ROW).scatter_(
+        0, dst, rows.reshape(-1))
+    return sym_c[:n_c], rows_c[:n_c], m
+
+
+def compact_skip_dec(rows, keep, n_c):
+    """The decoder's side of compact_skip_enc: (rows_c (n_c,), orig (n_c,)
+    int64, each slot's position in the plane, n for a tail slot)."""
+    dst, _, n_buf = _survivor_slots(keep, n_c)
+    n = rows.numel()
+    rows_c = rows.new_full((n_buf,), SKIP_ROW).scatter_(
+        0, dst, rows.reshape(-1))
+    orig = torch.full((n_buf,), n, dtype=torch.int64, device=rows.device)
+    orig.scatter_(0, dst, torch.arange(n, device=rows.device))
+    return rows_c[:n_c], orig[:n_c]
+
+
+def expand_compact_syms(sym_c, orig, n):
+    """Decoded compact symbols back to their plane positions (n,); skipped
+    positions decode as 0.  Tail slots (orig == n) land in a dropped
+    slot."""
+    out = sym_c.new_zeros((n + 1,))
+    return out.scatter_(0, orig, sym_c)[:n]

@@ -1,4 +1,4 @@
-"""RD evaluation harness, stream mode.
+"""RD evaluation harness.
 
     python -m opendcvc_tpu_torch.eval.harness --test_config CONFIG.json \\
         --output_path OUT.json [--device cuda|cpu] [...]
@@ -24,8 +24,10 @@ does: `--seed` weights are cast to it, checkpoint weights are kept as
 loaded (each convolution casts them), and the recon's crop, colour
 conversion and clip run in bfloat16 before the metrics read float32.
 
-Not ported yet, and refused with an error: `--write_stream 0` (estimate
-mode).
+`--write_stream 0` is the estimate mode: no stream is written; the
+training forwards (`training/forward.py`, straight-through rounding) run
+on the codecs' weights under torch.inference_mode and the JSON takes
+their rate estimates, as the JAX harness's `run_one_point_estimation`.
 """
 
 import argparse
@@ -43,6 +45,7 @@ from ..models import common as CM
 from ..models.dmc import DMC
 from ..models.dmci import DMCI
 from ..ops.fused import replicate_pad
+from ..training.forward import dmc_forward_one_frame, dmci_forward
 from ..utils import checkpoint as ckpt
 from ..utils.common import (create_folder, dump_json, env_flag,
                             generate_log_json, str2bool)
@@ -55,16 +58,9 @@ from ..utils.stream_helper import (NalType, SPSHelper, read_header,
 from ..utils.transforms import (rgb2ycbcr, ycbcr2rgb, ycbcr420_to_444_np,
                                 yuv_444_to_420)
 
-NOT_PORTED = {
-    "write_stream": "--write_stream 0 (estimate mode) is not ported: it "
-                    "needs the training forward pass, which the port does "
-                    "not have yet",
-}
-
-
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(
-        description="opendcvc_tpu_torch RD evaluation (stream mode)")
+        description="opendcvc_tpu_torch RD evaluation")
     parser.add_argument('--force_zero_thres', type=float, default=None)
     parser.add_argument('--model_path_i', type=str, default=None,
                         help='a JAX package checkpoint of the intra codec')
@@ -82,7 +78,8 @@ def parse_args(argv=None):
     parser.add_argument("--worker", "-w", type=int, default=1)
     parser.add_argument('--calc_ssim', type=str2bool, default=False)
     parser.add_argument('--write_stream', type=str2bool, default=True,
-                        help='1 only: estimate mode (0) is not ported')
+                        help='0: estimate mode (rate estimates of the '
+                             'training forwards, no stream)')
     parser.add_argument('--check_existing', type=str2bool, default=False)
     parser.add_argument('--stream_path', type=str, default="out_bin")
     parser.add_argument('--save_decoded_frame', type=str2bool, default=False)
@@ -103,11 +100,6 @@ def parse_args(argv=None):
                         help='torch device of the codecs (default cuda; '
                              'cpu runs the CPU path)')
     return parser.parse_args(argv)
-
-
-def _check_ported(write_stream):
-    if not write_stream:
-        raise NotImplementedError(NOT_PORTED["write_stream"])
 
 
 def np_image_to_tensor(img):
@@ -238,8 +230,54 @@ def _write_recon(args, writer, rec):
         writer.write_one_frame(np.round(rec).astype(np.uint8))
 
 
+def run_one_point_estimation(p_frame_net, i_frame_net, args):
+    """--write_stream 0: the training forwards' rate estimates in place of
+    streams (the reference test_video.py's estimate mode), under
+    torch.inference_mode on the codecs' weights.  I-frames at qp_i,
+    P-frames at qp_p (no hierarchical shift and no refresh, as the JAX
+    harness's estimate mode); the JSON's bits are bpp x the padded
+    frame's pixels."""
+    frame_num = args['frame_num']
+    intra_period = args['intra_period']
+    pic_h, pic_w = args['src_height'], args['src_width']
+    padding_r, padding_b = CM.get_padding_size(pic_h, pic_w, 16)
+    src_reader = get_src_reader(args)
+
+    frame_types, psnrs, msssims, bits = [], [], [], []
+    start_time = time.time()
+    feature = ref_frame = None
+    with torch.inference_mode():
+        for frame_idx in range(frame_num):
+            x, y, u, v, rgb = get_src_frame(args, src_reader,
+                                            (padding_b, padding_r))
+            if frame_idx == 0 or (intra_period > 0
+                                  and frame_idx % intra_period == 0):
+                out = dmci_forward(i_frame_net.params, x, args['qp_i'])
+                feature = None
+                frame_types.append(0)
+            else:
+                out = dmc_forward_one_frame(p_frame_net.params, x, ref_frame,
+                                            feature, args['qp_p'])
+                feature = out['feature']
+                frame_types.append(1)
+            ref_frame = out['x_hat']
+            bits.append(float(out['bpp']) * x.shape[1] * x.shape[2])
+            cp, cs = get_distortion(args, out['x_hat'], y, u, v, rgb)
+            psnrs.append(cp)
+            msssims.append(cs)
+    src_reader.close()
+    log_result = generate_log_json(frame_num, pic_h * pic_w,
+                                   time.time() - start_time, frame_types,
+                                   bits, psnrs, msssims,
+                                   verbose=args['verbose_json'])
+    with open(args['curr_json_path'], 'w') as fp:
+        json.dump(log_result, fp, indent=2)
+    return log_result
+
+
 def run_one_point_with_stream(p_frame_net, i_frame_net, args):
-    _check_ported(args.get('write_stream', True))
+    if not args.get('write_stream', True):
+        return run_one_point_estimation(p_frame_net, i_frame_net, args)
     if args['check_existing'] and os.path.exists(args['curr_json_path']) \
             and os.path.exists(args['curr_bin_path']):
         with open(args['curr_json_path']) as f:
@@ -423,7 +461,6 @@ def build_nets(args):
     args.dtype: weights from --model_path_i/_p, else the port's random
     init from --seed (intra) and --seed + 1 (P); device EC when
     OPENDCVC_TPU_DEVICE_EC is set."""
-    _check_ported(args.write_stream)
     device_ec = env_flag("OPENDCVC_TPU_DEVICE_EC")
     dtype = CM.DTYPES[args.dtype]
     i_frame_net = DMCI(device=args.device, device_ec=device_ec, dtype=dtype)
@@ -498,7 +535,6 @@ def _qps(args):
 def main(argv=None):
     begin_time = time.time()
     args = parse_args(argv)
-    _check_ported(args.write_stream)
     CM.resolve_device(args.device)      # no CUDA: raises before any work
     if args.force_zero_thres is not None and args.force_zero_thres < 0:
         args.force_zero_thres = None

@@ -22,10 +22,13 @@ Entropy coding has two modes, as in the JAX package (`device_ec`):
   * device EC: the three planes are coded back to back per lane by kernel
     K1 from one packed operand against a combined per-frame table (the y
     rows, then the frame QP's z rows), and decoded by three K2 launches
-    that carry one rANS state per lane.  The container is the JAX
-    package's "tpu-lane" v6.  The K1 launch returns at once; the staging's
-    copy to the host completes in the callable that compress_async
-    returns.  GOP coding (device EC) runs N frames through the same
+    that carry one rANS state per lane.  With force_zero_thres and skip
+    compaction (OPENDCVC_TPU_EC_SKIP_COMPACT, off by default) each y
+    plane's kept symbols are compacted into lanes * kyc slots first, so
+    its launches run kyc steps in place of the plane's K_y.  The
+    container is the JAX package's "tpu-lane" v6.  The K1 launch returns
+    at once; the staging's copy to the host completes in the callable
+    that compress_async returns.  GOP coding (device EC) runs N frames through the same
     stages with one copy or one upload for the chunk.
 Both write the JAX package's bytes.
 """
@@ -37,10 +40,12 @@ import threading
 import numpy as np
 import torch
 
-from ..entropy.device_rans import (SKIP_ROW, _undensify_device,
+from ..entropy.device_rans import (SKIP_ROW, StagingPlan, _undensify_device,
+                                   compact_skip_dec, compact_skip_enc,
                                    densify_segment, effective_lanes,
-                                   full_range_cdf_rows, settle_staging,
-                                   staging_width, upload_stagings)
+                                   expand_compact_syms, full_range_cdf_rows,
+                                   settle_staging, staging_width,
+                                   upload_stagings)
 from ..entropy.coder import EntropyCoder
 from ..entropy.models import (BitEstimator, GaussianEncoder,
                               bit_estimator_init)
@@ -48,6 +53,7 @@ from ..layers import blocks as L
 from ..ops import fused as F
 from ..ops.lane_rans import (ENC_SKIP, decode_scan, encode_scan, pack_operand,
                               prepare_decode_table, prepare_encode_table)
+from ..utils.common import env_flag
 from ..utils.params import cast_floating, to_device
 from . import common as C
 
@@ -325,15 +331,37 @@ def _z_rows(nz, c, device):
     return torch.arange(nz, dtype=torch.int32, device=device) // (nz // c)
 
 
-def _pack_frame(y_planes, z_int8, lanes, n_y_rows, fz):
+def _kyc_for(k_y, fz, skip_compact, skip_frac):
+    """First-rung skip-compaction steps a lane of a y plane of k_y steps (0
+    = off): a `skip_frac` share of k_y rounded up to a multiple of 8, at
+    least min(k_y, 8) and at most k_y.  Only with force_zero_thres.  The
+    JAX package's `DMC._kyc_for`, which measured compaction slower than
+    the zero-rate skip slots on its chip, so it is opt-in there and
+    here."""
+    if fz is None or not skip_compact:
+        return 0
+    kyc = min(k_y, -(-int(np.ceil(k_y * skip_frac)) // 8) * 8)
+    return max(kyc, min(k_y, 8))
+
+
+def _pack_frame(y_planes, z_int8, lanes, n_y_rows, fz, kyc=0):
     """K1 operand of one frame: y planes (encode order) then z, each
     laid out step-major and reversed, packed (sym + 128) << 9 | row
     against the combined [y rows | z subtable] table.  With
-    force_zero_thres, skipped y positions ride ENC_SKIP at zero rate."""
-    pieces = []
+    force_zero_thres, skipped y positions ride ENC_SKIP at zero rate, or,
+    at a compaction rung kyc > 0, each y plane's survivors fill a lanes *
+    kyc prefix whose tail rides ENC_SKIP.  Returns (operand, the largest
+    survivor count of the y planes as a 0-d tensor, or None when kyc =
+    0)."""
+    pieces, m_max = [], None
     for sym, idx, keep in y_planes:
         sym, row = _cm_flat(sym), _cm_flat(idx).to(torch.int32)
-        if fz is not None:
+        if fz is not None and kyc > 0:
+            sym, row, m = compact_skip_enc(sym, row, _cm_flat(keep),
+                                           lanes * kyc)
+            row = torch.where(row == SKIP_ROW, ENC_SKIP, row)
+            m_max = m if m_max is None else torch.maximum(m_max, m)
+        elif fz is not None:
             kf = _cm_flat(keep)
             row = torch.where(kf, row, ENC_SKIP)
             sym = torch.where(kf, sym, 0)
@@ -345,7 +373,7 @@ def _pack_frame(y_planes, z_int8, lanes, n_y_rows, fz):
     # subtable's row 0 as in the JAX package's per-plane padding
     pieces.append((_lane_layout_t(z_sym, lanes, True),
                    _lane_layout_t(z_rows, lanes, True) + n_y_rows))
-    return torch.cat([pack_operand(s, r) for s, r in pieces])
+    return torch.cat([pack_operand(s, r) for s, r in pieces]), m_max
 
 
 def _dec_plane(data, rows_flat, dec_table, carry, lanes):
@@ -358,22 +386,43 @@ def _dec_plane(data, rows_flat, dec_table, carry, lanes):
     return _lane_unlayout_t(syms, n), (state, ptr)
 
 
-def _dec_y_plane(data, idx, keep, dec_table, carry, lanes, fz):
+def _dec_y_plane(data, idx, keep, dec_table, carry, lanes, fz, kyc=0):
+    """Decode one y plane: its survivors compacted into lanes * kyc slots
+    (kyc > 0, with force_zero_thres) and expanded back, or the full plane,
+    skipped positions at SKIP_ROW; the mapping comes from the shared keep
+    mask, as on the encoder."""
     rows = _cm_flat(idx).to(torch.int32)
+    if fz is not None and kyc > 0:
+        rows_c, orig = compact_skip_dec(rows, _cm_flat(keep), lanes * kyc)
+        syms_c, carry = _dec_plane(data, rows_c, dec_table, carry, lanes)
+        return expand_compact_syms(syms_c, orig, rows.shape[0]), carry
     if fz is not None:
         rows = torch.where(_cm_flat(keep), rows, SKIP_ROW)
     return _dec_plane(data, rows, dec_table, carry, lanes)
 
 
-def _launch_staging(packed, enc_table, n_y_rows, qp, c_z, mw, cap):
+def _launch_staging(packed, enc_table, n_y_rows, qp, c_z, mw, cap,
+                    survivors=None):
     """K1 over a frame's operand against its combined [y rows | qp's z
     rows] slice of the prepared encode table, compacted on the device:
-    the (cap + 3L) int32 staging of u16 values (densify_segment).  Returns
+    the (cap + 3L) int32 staging of u16 values (densify_segment), with the
+    survivor count's two words after it under skip compaction.  Returns
     without waiting for the device."""
     z_base = n_y_rows + qp * c_z
     comb = torch.cat([enc_table[:n_y_rows],
                       enc_table[z_base:z_base + c_z]])
-    return densify_segment(*encode_scan(packed, comb, mw), cap)
+    return densify_segment(*encode_scan(packed, comb, mw), cap, survivors)
+
+
+def _launcher(operand, enc_table, n_y_rows, qp, c_z):
+    """launch(mw, cap, kyc): K1 over a frame's operand (`operand(kyc)` ->
+    (packed, survivors), a partial of _pack_frame) at the rung (mw, cap)
+    and compaction rung kyc; returns the staging on the device."""
+    def launch(mw, cap, kyc):
+        packed, survivors = operand(kyc)
+        return _launch_staging(packed, enc_table, n_y_rows, qp, c_z, mw,
+                               cap, survivors)
+    return launch
 
 
 def _fetch_stagings(staging):
@@ -385,17 +434,17 @@ def _fetch_stagings(staging):
     return lambda: wait().view(np.uint16)
 
 
-def _settle(net, arr, key, lanes, n_total, k_total, bps, rerun):
+def _settle(net, arr, key, plan, bps, rerun):
     """settle_staging for a DMC or DMCI codec `net`: serialize a fetched
-    staging launched at `bps` bytes per symbol (`rerun(mw, cap)` re-runs
-    the frame at a grown rung and returns its host staging), count the
-    reruns in net._ec_rerun_count and learn the settled rate for the frame
-    size `key` in net._ec_learned.  Takes net._ec_lock for the bookkeeping,
-    so chunks may settle on several threads."""
+    staging launched by the StagingPlan `plan` at `bps` bytes per symbol
+    (`rerun(mw, cap, kyc)` re-runs the frame at a grown rung and returns
+    its host staging), count the reruns in net._ec_rerun_count and learn
+    the settled rate for the frame size `key` in net._ec_learned.  Takes
+    net._ec_lock for the bookkeeping, so chunks may settle on several
+    threads."""
     stream, g_bps, reruns = settle_staging(
-        arr, lanes, n_total, k_total, functools.partial(net._rung, lanes,
-                                                        k_total),
-        bps, net.bytes_per_symbol, rerun)
+        arr, plan, functools.partial(net._rung, plan.lanes), bps,
+        net.bytes_per_symbol, rerun)
     with net._ec_lock:
         net._ec_rerun_count += reruns
         if g_bps > max(bps, net._ec_learned.get(key, 0.0)):
@@ -506,40 +555,52 @@ def _encode_stages(p, x, feature, qp, fz=None):
     return feature_out, z_int8, [(sym0, idx0, keep0), (sym1, idx1, keep1)]
 
 
-def _compress_frame_core(p, x, feature, qp, lanes, n_y_rows, fz=None):
-    """Device-EC encoder body: frame -> (next reference feature, K1
-    operand).  Encode order per lane is reversed(y1), reversed(y0),
-    reversed(z); the decoder consumes z, y0, y1."""
+def _operand(planes, z_int8, lanes, n_y_rows, fz, kyc):
+    """A frame's K1 operand as a callable of the compaction rung:
+    operand(k) -> (packed, survivors), packed at once at the first rung
+    kyc and again only when a rerun changes the rung."""
+    first = _pack_frame(planes, z_int8, lanes, n_y_rows, fz, kyc)
+    return lambda k: first if k == kyc else _pack_frame(
+        planes, z_int8, lanes, n_y_rows, fz, k)
+
+
+def _compress_frame_core(p, x, feature, qp, lanes, n_y_rows, fz=None,
+                         kyc=0):
+    """Device-EC encoder body: frame -> (next reference feature, the K1
+    operand, `_operand`'s callable of the compaction rung, first kyc).
+    Encode order per lane is reversed(y1), reversed(y0), reversed(z); the
+    decoder consumes z, y0, y1."""
     feature_out, z_int8, planes = _encode_stages(p, x, feature, qp, fz)
-    return feature_out, _pack_frame(planes[::-1], z_int8, lanes, n_y_rows,
-                                    fz)
+    return feature_out, _operand(planes[::-1], z_int8, lanes, n_y_rows, fz,
+                                 kyc)
 
 
 def _compress_gop(p, xs, feature_in, qps, lanes, n_y_rows, enc_table, mw,
-                  cap, fz=None):
+                  cap, fz=None, kyc=0):
     """GOP encoder: N consecutive P-frames with the propagated feature
     carried from frame to frame (the JAX package's `_compress_gop` scan).
     Each frame runs the single-frame path's B=1 stages
     (`_stage_adaptor_p`, then `_compress_frame_core`) and one K1 launch at
-    the rung (mw, cap): no NN stage sees a batch dimension, so every
+    the rung (mw, cap, kyc): no NN stage sees a batch dimension, so every
     frame's floats, and so its symbols, are the single-frame path's.
     xs: N NCHW frames; qps: N ints.
 
-    Returns (feature_last, stagings (N, cap + 3L) int32 u16 values,
+    Returns (feature_last, stagings (N, cap + 3L, + 2 with kyc > 0) int32
+    u16 values,
     feats_in: frame i's carry-in feature, from which an overflowing frame
     re-runs alone)."""
     feat, segs, feats_in = feature_in, [], []
     for x, qp in zip(xs, qps):
         feats_in.append(feat)
-        feat, packed = _compress_frame_core(p, x, _stage_adaptor_p(p, feat),
-                                            qp, lanes, n_y_rows, fz)
-        segs.append(_launch_staging(packed, enc_table, n_y_rows, qp, G_CH_Z,
-                                    mw, cap))
+        feat, operand = _compress_frame_core(
+            p, x, _stage_adaptor_p(p, feat), qp, lanes, n_y_rows, fz, kyc)
+        segs.append(_launcher(operand, enc_table, n_y_rows, qp, G_CH_Z)(
+            mw, cap, kyc))
     return feat, torch.stack(segs), feats_in
 
 
 def _decompress_frame_core(p, staging, feature, qp, dec_table, n_y_rows,
-                           zh, zw, lanes, cap, mw, fz=None):
+                           zh, zw, lanes, cap, mw, fz=None, kyc=0):
     """Decoder body on an adapted feature: compact staging -> (next
     reference feature, x_hat NCHW).  The three K2 launches share one rANS
     state/pointer carry and read row slices of the prepared decode table;
@@ -560,7 +621,7 @@ def _decompress_frame_core(p, staging, feature, qp, dec_table, n_y_rows,
     idx0, keep0 = _stage_dec_index0(params_prior, fz)
     ctx = _stage_fe_part2(p, x1)
     y0_syms, carry = _dec_y_plane(data, idx0, keep0, dec_y, carry, lanes,
-                                  fz)
+                                  fz, kyc)
     means0 = C.separate_prior_video_decoding(params_prior)[2]
     y_hat_0 = _stage_dec_restore_2x(
         _cm_unflat(y0_syms, idx0.shape).to(x1.dtype), means0, 0)
@@ -568,7 +629,7 @@ def _decompress_frame_core(p, staging, feature, qp, dec_table, n_y_rows,
     scales1, means1 = _stage_spatial(p, y_hat_0, params_prior)
     idx1, keep1 = _stage_fold_index_2x(scales1, 1, fz)
     y1_syms, carry = _dec_y_plane(data, idx1, keep1, dec_y, carry, lanes,
-                                  fz)
+                                  fz, kyc)
     y_hat_1 = _stage_dec_restore_2x(
         _cm_unflat(y1_syms, idx1.shape).to(x1.dtype), means1, 1)
 
@@ -603,7 +664,10 @@ class DMC:
     package without OPENDCVC_TPU_DEVICE_EC).  lanes, bytes_per_symbol and
     cap_frac size the device-EC lane rANS staging; each one not given is
     read, as the JAX package reads it, from OPENDCVC_TPU_EC_LANES /
-    _EC_BPS / _EC_CAP_FRAC (defaults 4096, 0.5, 0.5).  `transfers` counts
+    _EC_BPS / _EC_CAP_FRAC (defaults 4096, 0.5, 0.5).  Skip compaction
+    under force_zero_thres is on when OPENDCVC_TPU_EC_SKIP_COMPACT is set,
+    its first rung's survivor share OPENDCVC_TPU_EC_SKIP_FRAC (default
+    0.5; `_kyc_for`), the JAX package's knobs.  `transfers` counts
     the host-EC path's copies: "d2h" the fetches the host waits for,
     "h2d" the uploads (which do not wait).
 
@@ -629,6 +693,8 @@ class DMC:
             bytes_per_symbol, "OPENDCVC_TPU_EC_BPS", 0.5)
         self.cap_frac = C.ec_setting(cap_frac, "OPENDCVC_TPU_EC_CAP_FRAC",
                                      0.5)
+        self.skip_compact = env_flag("OPENDCVC_TPU_EC_SKIP_COMPACT")
+        self.skip_frac = C.ec_setting(None, "OPENDCVC_TPU_EC_SKIP_FRAC", 0.5)
         self.qp_shift = QP_SHIFT
         self.params = None
         self.bit_estimator_z = BitEstimator(C.QP_NUM + EXTRA_QP, G_CH_Z)
@@ -736,14 +802,17 @@ class DMC:
     # -- device-EC planning ------------------------------------------------
 
     def _plan_device_ec(self, H, W):
-        """Lane count (scaled to the symbol count), symbol slots and steps
-        per lane for a frame size."""
+        """The StagingPlan of a frame size: lane count (scaled to the
+        symbol count), steps a lane of z and of each y plane, and the
+        first skip-compaction rung."""
         n_y = (H // 16) * (W // 16) * G_CH_Y // 2
         zh, zw = C.get_downsampled_shape(H, W, 64)
         n_z = zh * zw * G_CH_Z
         lanes = effective_lanes(self.lanes, 2 * n_y + n_z)
-        k_total = 2 * -(-n_y // lanes) + -(-n_z // lanes)
-        return lanes, lanes * k_total, k_total
+        k_y = -(-n_y // lanes)
+        return StagingPlan(lanes, -(-n_z // lanes), k_y, 2,
+                           _kyc_for(k_y, self.force_zero_thres,
+                                    self.skip_compact, self.skip_frac))
 
     def _rung(self, lanes, k_total, bps):
         """(mw, cap) of the staging ladder at `bps` bytes per symbol.  The
@@ -770,20 +839,21 @@ class DMC:
         if not self.device_ec:
             return self._compress_async_host(x, qp)
         H, W = x.shape[2], x.shape[3]
-        lanes, n_total, k_total = self._plan_device_ec(H, W)
+        plan = self._plan_device_ec(H, W)
         bps = max(self.bytes_per_symbol, self._ec_learned.get((H, W), 0.0))
-        feature_out, packed = _compress_frame_core(
-            self.params, x, self.apply_feature_adaptor(), qp, lanes,
-            self.n_y_rows, self.force_zero_thres)
-        launch = functools.partial(_launch_staging, packed, self.enc_table,
-                                   self.n_y_rows, qp, G_CH_Z)
-        fetch = _fetch_stagings(launch(*self._rung(lanes, k_total, bps)))
+        feature_out, operand = _compress_frame_core(
+            self.params, x, self.apply_feature_adaptor(), qp, plan.lanes,
+            self.n_y_rows, self.force_zero_thres, plan.kyc)
+        launch = _launcher(operand, self.enc_table, self.n_y_rows, qp,
+                           G_CH_Z)
+        fetch = _fetch_stagings(launch(
+            *self._rung(plan.lanes, plan.steps(), bps), plan.kyc))
         self.add_ref_frame(feature_out, None)
 
         def finish():
-            return _settle(self, fetch(), (H, W), lanes, n_total, k_total,
-                           bps, lambda mw, cap: _fetch_stagings(
-                               launch(mw, cap))())
+            return _settle(self, fetch(), (H, W), plan, bps,
+                           lambda mw, cap, kyc: _fetch_stagings(
+                               launch(mw, cap, kyc))())
 
         return finish
 
@@ -829,27 +899,28 @@ class DMC:
         qps = [int(q) for q in qps]
         xs = [C.frame_to_nchw(x, self.device, self.dtype) for x in frames]
         H, W = xs[0].shape[2], xs[0].shape[3]
-        lanes, n_total, k_total = self._plan_device_ec(H, W)
+        plan = self._plan_device_ec(H, W)
         bps = max(self.bytes_per_symbol, self._ec_learned.get((H, W), 0.0))
         feat_last, stagings, feats_in = _compress_gop(
-            p, xs, self.dpb[0].feature, qps, lanes, self.n_y_rows,
-            self.enc_table, *self._rung(lanes, k_total, bps), fz)
+            p, xs, self.dpb[0].feature, qps, plan.lanes, self.n_y_rows,
+            self.enc_table, *self._rung(plan.lanes, plan.steps(), bps), fz,
+            plan.kyc)
         fetch = _fetch_stagings(stagings)
         self.add_ref_frame(feat_last, None, increase_poc=False)
         self.curr_poc += len(xs)
 
-        def rerun(i, mw, cap):
-            _, packed = _compress_frame_core(
-                p, xs[i], _stage_adaptor_p(p, feats_in[i]), qps[i], lanes,
-                self.n_y_rows, fz)
-            return _fetch_stagings(_launch_staging(
-                packed, self.enc_table, self.n_y_rows, qps[i], G_CH_Z, mw,
-                cap))()
+        def rerun(i, mw, cap, kyc):
+            _, operand = _compress_frame_core(
+                p, xs[i], _stage_adaptor_p(p, feats_in[i]), qps[i],
+                plan.lanes, self.n_y_rows, fz, kyc)
+            return _fetch_stagings(_launcher(
+                operand, self.enc_table, self.n_y_rows, qps[i], G_CH_Z)(
+                    mw, cap, kyc))()
 
         def finish():
             arr = fetch()
-            return [_settle(self, arr[i], (H, W), lanes, n_total, k_total,
-                            bps, functools.partial(rerun, i))
+            return [_settle(self, arr[i], (H, W), plan, bps,
+                            functools.partial(rerun, i))
                     for i in range(len(xs))]
 
         return finish
@@ -866,7 +937,7 @@ class DMC:
         return _decompress_frame_core(
             self.params, staging, feature, qp, self.dec_table, self.n_y_rows,
             zh, zw, meta["L"], meta["cap"], meta["MW"],
-            self.force_zero_thres)
+            self.force_zero_thres, meta["kyc"])
 
     def _decompress_device(self, bit_stream, sps, qp):
         metas, stagings = upload_stagings([bit_stream], self.device)

@@ -9,21 +9,21 @@ indexes and uploads its decoded symbols.  Device EC: the five symbol
 planes are coded back to back per lane by one K1 launch against the
 combined [y rows | z subtable] table and decoded by five K2 launches (z,
 y0..y3) that carry one rANS state per lane; the container is the JAX
-package's v6.  Both write the JAX package's bytes.  Stages both sides
-evaluate are shared functions (see models/dmc.py for the bit-exactness
-contract).
+package's v6.  Skip compaction (opt-in, as DMC's) codes each quarter's
+kept symbols in kyc steps a lane.  Both write the JAX package's bytes.
+Stages both sides evaluate are shared functions (see models/dmc.py for
+the bit-exactness contract).
 """
 
-import functools
 import math
 import threading
 
 import numpy as np
 import torch
 
-from ..entropy.device_rans import (_undensify_device, effective_lanes,
-                                   full_range_cdf_rows, staging_width,
-                                   upload_stagings)
+from ..entropy.device_rans import (StagingPlan, _undensify_device,
+                                   effective_lanes, full_range_cdf_rows,
+                                   staging_width, upload_stagings)
 from ..entropy.coder import EntropyCoder
 from ..entropy.models import (BitEstimator, GaussianEncoder,
                               bit_estimator_init)
@@ -31,11 +31,12 @@ from ..layers import blocks as L
 from ..ops import fused as F
 from ..ops.lane_rans import (prepare_decode_table,
                               prepare_encode_table)
+from ..utils.common import env_flag
 from ..utils.params import cast_floating, to_device
 from . import common as C
 from .dmc import (_cm_unflat, _code_host, _dcb_seq, _dec_plane, _dec_y_plane,
                   _decode_y_host, _fetch_stagings, _from_host_nhwc,
-                  _index_buf, _indexes_of, _launch_staging, _pack_frame,
+                  _index_buf, _indexes_of, _kyc_for, _launcher, _operand,
                   _pack_host, _q_vec, _settle, _z_rows)
 
 G_CH_SRC = 3 * 8 * 8
@@ -200,14 +201,16 @@ def _encode_stages_i(p, x, qp, fz=None):
     return _stage_recon(p, so_far, q_dec_prior, qp), z_int8, planes
 
 
-def _compress_frame_i(p, x, qp, lanes, n_y_rows, fz=None):
-    """Device EC: frame -> (x_hat NCHW, K1 operand over y3..y0 then z)."""
+def _compress_frame_i(p, x, qp, lanes, n_y_rows, fz=None, kyc=0):
+    """Device EC: frame -> (x_hat NCHW, the K1 operand over y3..y0 then z,
+    `_operand`'s callable of the compaction rung, first kyc)."""
     x_hat, z_int8, planes = _encode_stages_i(p, x, qp, fz)
-    return x_hat, _pack_frame(planes[::-1], z_int8, lanes, n_y_rows, fz)
+    return x_hat, _operand(planes[::-1], z_int8, lanes, n_y_rows, fz, kyc)
 
 
 def _decompress_frame_i(p, staging, qp, dec_table, n_y_rows, zh, zw, y_h,
-                        y_w, z_channel, lanes, cap, mw, dtype, fz=None):
+                        y_w, z_channel, lanes, cap, mw, dtype, fz=None,
+                        kyc=0):
     """Compact staging -> x_hat (NCHW, `dtype`); the K2 launches read row
     slices of the prepared decode table."""
     data, states = _undensify_device(staging, cap, lanes, mw)
@@ -229,7 +232,7 @@ def _decompress_frame_i(p, staging, qp, dec_table, n_y_rows, zh, zw, y_h,
             scales, means = _stage_spatial(p, k, so_far, reduced)
         idx, keep = _stage_fold_index(scales, k, fz)
         y_flat, carry = _dec_y_plane(data, idx, keep, dec_y, carry, lanes,
-                                     fz)
+                                     fz, kyc)
         y_q_r = _cm_unflat(y_flat, idx.shape).to(means.dtype)
         so_far = _stage_dec_restore(y_q_r, means, so_far, k)
     return _stage_recon(p, so_far, q_dec_prior, qp)
@@ -246,8 +249,10 @@ class DMCI:
     host coder (the default), as DMC.  lanes and bytes_per_symbol size the
     device-EC lane rANS staging; each one not given is read from
     OPENDCVC_TPU_EC_LANES / _EC_BPS (defaults 4096, 0.5), as the JAX
-    package reads them.  The cap fraction stays 0.5: the JAX package's DMCI
-    does not read OPENDCVC_TPU_EC_CAP_FRAC.  `transfers` counts the
+    package reads them.  Skip compaction reads
+    OPENDCVC_TPU_EC_SKIP_COMPACT / _EC_SKIP_FRAC as DMC does.  The
+    cap fraction stays 0.5: the JAX package's DMCI does not read
+    OPENDCVC_TPU_EC_CAP_FRAC.  `transfers` counts the
     host-EC copies, as DMC's.
 
     Device EC also codes batches of independent frames:
@@ -271,6 +276,8 @@ class DMCI:
         self.lanes = C.ec_setting(lanes, "OPENDCVC_TPU_EC_LANES", 4096)
         self.bytes_per_symbol = C.ec_setting(
             bytes_per_symbol, "OPENDCVC_TPU_EC_BPS", 0.5)
+        self.skip_compact = env_flag("OPENDCVC_TPU_EC_SKIP_COMPACT")
+        self.skip_frac = C.ec_setting(None, "OPENDCVC_TPU_EC_SKIP_FRAC", 0.5)
         self.params = None
         self.bit_estimator_z = BitEstimator(C.QP_NUM, z_channel)
         self.gaussian_encoder = GaussianEncoder()
@@ -330,15 +337,18 @@ class DMCI:
     # -- compress ------------------------------------------------------------
 
     def _plan(self, H, W):
-        """Lane count (scaled to the symbol count), symbol slots and steps
-        per lane for a frame size."""
+        """The StagingPlan of a frame size: lane count (scaled to the
+        symbol count), steps a lane of z and of each y quarter, and the
+        first skip-compaction rung."""
         y_h, y_w = C.get_downsampled_shape(H, W, 16)
         zh, zw = C.get_downsampled_shape(H, W, 64)
         n_y = y_h * y_w * self.N // 4
         n_z = zh * zw * self.z_channel
         lanes = effective_lanes(self.lanes, 4 * n_y + n_z)
-        k_total = 4 * -(-n_y // lanes) + -(-n_z // lanes)
-        return lanes, lanes * k_total, k_total
+        k_y = -(-n_y // lanes)
+        return StagingPlan(lanes, -(-n_z // lanes), k_y, 4,
+                           _kyc_for(k_y, self.force_zero_thres,
+                                    self.skip_compact, self.skip_frac))
 
     @staticmethod
     def _rung(lanes, k_total, bps):
@@ -354,20 +364,21 @@ class DMCI:
         K1 alone at a grown rung when the staging overflowed."""
         H, W = x.shape[2], x.shape[3]
         bps = max(self.bytes_per_symbol, self._ec_learned.get((H, W), 0.0))
-        lanes, n_total, k_total = self._plan(H, W)
-        x_hat, packed = _compress_frame_i(self.params, x, qp, lanes,
-                                          self.n_y_rows,
-                                          self.force_zero_thres)
-        launch = functools.partial(_launch_staging, packed, self.enc_table,
-                                   self.n_y_rows, qp, self.z_channel)
+        plan = self._plan(H, W)
+        x_hat, operand = _compress_frame_i(self.params, x, qp, plan.lanes,
+                                           self.n_y_rows,
+                                           self.force_zero_thres, plan.kyc)
+        launch = _launcher(operand, self.enc_table, self.n_y_rows, qp,
+                           self.z_channel)
 
         def settle(arr):
-            return _settle(self, arr, (H, W), lanes, n_total, k_total, bps,
-                           lambda mw, cap: _fetch_stagings(
-                               launch(mw, cap))())
+            return _settle(self, arr, (H, W), plan, bps,
+                           lambda mw, cap, kyc: _fetch_stagings(
+                               launch(mw, cap, kyc))())
 
         return (C.frame_to_nhwc(x_hat),
-                launch(*self._rung(lanes, k_total, bps)), settle)
+                launch(*self._rung(plan.lanes, plan.steps(), bps), plan.kyc),
+                settle)
 
     def compress_async(self, x, qp):
         """Device-EC encode of one frame (as compress): queues its stages
@@ -476,7 +487,7 @@ class DMCI:
         return C.frame_to_nhwc(_decompress_frame_i(
             self.params, staging, qp, self.dec_table, self.n_y_rows, zh, zw,
             y_h, y_w, self.z_channel, meta["L"], meta["cap"], meta["MW"],
-            self.dtype, self.force_zero_thres))
+            self.dtype, self.force_zero_thres, meta["kyc"]))
 
     def decompress_batch(self, bit_streams, sps, qps):
         """Batched device-EC decode of B independent streams at `qps` (an

@@ -1,4 +1,5 @@
-"""Reader of the JAX package's checkpoints, without JAX, flax or msgpack.
+"""Reader and writer of the JAX package's checkpoints, without JAX, flax or
+msgpack.
 
 `opendcvc_tpu/utils/checkpoint.py::save_params` writes flax's msgpack
 encoding of {"params": tree[, "extra": tree]}: nested maps and arrays of
@@ -17,12 +18,22 @@ tree with numpy leaves, except that a bfloat16 leaf, which numpy has no
 type for without ml_dtypes, comes back as a torch.bfloat16 tensor read
 bit for bit from its raw bytes; `utils/params.py::from_jax` turns a
 params tree into the port's tensors.  Malformed input raises ValueError.
+
+`save_params` writes the same layout from the port's tensors (conv
+weights back to HWIO, `utils/params.py::jax_layout`), with its own encoder:
+dict keys sorted as JAX's tree utilities sort them, every leaf an ndarray
+ext (code 1), msgpack's smallest encoding of each object, so the JAX
+package's `load_params` reads it and the bytes equal its `save_params`'s
+for the same tree.
 """
 
+import os
 import struct
 
 import numpy as np
 import torch
+
+from .params import jax_layout
 
 _CHUNKED = "__msgpack_chunked_array__"
 
@@ -201,3 +212,125 @@ def load_params(path):
     if isinstance(payload, dict) and "params" in payload:
         return payload["params"]
     return payload
+
+
+# ---------------------------------------------------------------------------
+# writer
+# ---------------------------------------------------------------------------
+
+_MAX_LEAF_BYTES = 1 << 30       # flax chunks larger leaves; none is here
+
+
+def _head(n, fix, fix_max, wide):
+    """A length-prefixed type head: fix | n up to fix_max, else the first
+    of `wide` ((type byte, struct format, max n)) that holds n."""
+    if fix is not None and n <= fix_max:
+        return bytes([fix | n])
+    for byte, fmt, top in wide:
+        if n <= top:
+            return bytes([byte]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack object of length {n} is too long")
+
+
+def _pack_int(v):
+    if 0 <= v < 0x80:
+        return bytes([v])
+    if v >= 0:
+        for byte, fmt, top in ((0xCC, ">B", 0xFF), (0xCD, ">H", 0xFFFF),
+                               (0xCE, ">I", 0xFFFFFFFF)):
+            if v <= top:
+                return bytes([byte]) + struct.pack(fmt, v)
+        return b"\xcf" + struct.pack(">Q", v)
+    if v >= -32:
+        return struct.pack(">b", v)
+    for byte, fmt, lo in ((0xD0, ">b", -0x80), (0xD1, ">h", -0x8000),
+                          (0xD2, ">i", -0x80000000)):
+        if v >= lo:
+            return bytes([byte]) + struct.pack(fmt, v)
+    return b"\xd3" + struct.pack(">q", v)
+
+
+def _pack_str(v):
+    raw = v.encode()
+    return _head(len(raw), 0xA0, 31, ((0xD9, ">B", 0xFF),
+                                      (0xDA, ">H", 0xFFFF),
+                                      (0xDB, ">I", 0xFFFFFFFF))) + raw
+
+
+def _pack_bin(raw):
+    return _head(len(raw), None, 0, ((0xC4, ">B", 0xFF),
+                                     (0xC5, ">H", 0xFFFF),
+                                     (0xC6, ">I", 0xFFFFFFFF))) + raw
+
+
+_FIXEXT = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+
+
+def _pack_ndarray(a):
+    """flax's ndarray ext: code 1 over msgpack (shape, dtype name, raw
+    C-order bytes)."""
+    if isinstance(a, torch.Tensor):        # a bfloat16 leaf
+        shape, name = tuple(a.shape), "bfloat16"
+        raw = a.detach().cpu().contiguous().view(torch.int16).numpy() \
+            .tobytes()
+    else:
+        a = np.asarray(a)
+        if a.dtype.hasobject:
+            raise ValueError("object arrays have no checkpoint encoding")
+        shape, name, raw = a.shape, a.dtype.name, a.tobytes("C")
+    if len(raw) > _MAX_LEAF_BYTES:
+        raise ValueError(f"a leaf of {len(raw)} bytes needs flax's chunked "
+                         f"layout, which this writer does not write")
+    inner = _head(3, 0x90, 15, ()) + _head(len(shape), 0x90, 15, (
+        (0xDC, ">H", 0xFFFF), (0xDD, ">I", 0xFFFFFFFF))) \
+        + b"".join(_pack_int(int(d)) for d in shape) + _pack_str(name) \
+        + _pack_bin(raw)
+    n = len(inner)
+    head = bytes([_FIXEXT[n]]) if n in _FIXEXT else _head(
+        n, None, 0, ((0xC7, ">B", 0xFF), (0xC8, ">H", 0xFFFF),
+                     (0xC9, ">I", 0xFFFFFFFF)))
+    return head + struct.pack(">b", 1) + inner
+
+
+def packb(node):
+    """Encode a tree of dicts (str keys, sorted), lists and array leaves
+    as flax's msgpack_serialize does."""
+    if isinstance(node, dict):
+        return _head(len(node), 0x80, 15, ((0xDE, ">H", 0xFFFF),
+                                           (0xDF, ">I", 0xFFFFFFFF))) \
+            + b"".join(_pack_str(k) + packb(node[k]) for k in sorted(node))
+    if isinstance(node, (list, tuple)):
+        return _head(len(node), 0x90, 15, ((0xDC, ">H", 0xFFFF),
+                                           (0xDD, ">I", 0xFFFFFFFF))) \
+            + b"".join(packb(v) for v in node)
+    return _pack_ndarray(node)
+
+
+def _leaves_as_arrays(tree):
+    """Every leaf as an ndarray (python and numpy scalars as 0-d arrays,
+    as the JAX package's save_params turns them), bfloat16 tensors as
+    they are."""
+    if isinstance(tree, dict):
+        return {k: _leaves_as_arrays(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_leaves_as_arrays(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree if tree.dtype == torch.bfloat16 else \
+            tree.detach().cpu().numpy()
+    return np.asarray(tree)
+
+
+def save_params(path, params, extra=None):
+    """Write the port's params tree (and an optional `extra` dict of
+    scalars or arrays, e.g. {"step": n}) as the JAX package's
+    `save_params` writes a checkpoint: conv weights HWIO, flax's msgpack
+    layout, written to a temporary file and renamed into place."""
+    payload = {"params": _leaves_as_arrays(jax_layout(params))}
+    if extra is not None:
+        payload["extra"] = _leaves_as_arrays(extra)
+    data = packb(payload)
+    tmp = path + ".tmp"
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)

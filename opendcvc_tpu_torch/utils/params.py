@@ -1,4 +1,4 @@
-"""Weight bridge: JAX parameter trees -> the port's tensors.
+"""Weight bridge: JAX parameter trees <-> the port's tensors.
 
 A JAX tree is nested dicts/lists of arrays (numpy or anything
 `np.asarray` takes).  The port keeps the JAX key names; the only layout
@@ -7,6 +7,7 @@ weight becomes (C, 1, k, k) by the same transpose).  Every other leaf
 (biases, QP banks, `bit_estimator_z`) copies over unchanged.  bfloat16
 leaves (`ml_dtypes.bfloat16` arrays, which torch.from_numpy refuses) cross
 bit for bit through their uint16 view, so no ml_dtypes import is needed.
+`to_jax` is the inverse: numpy leaves, HWIO conv weights.
 """
 
 import numpy as np
@@ -47,6 +48,39 @@ def from_jax(tree, device="cpu"):
             t = t.permute(3, 2, 0, 1)
         return t.clone(memory_format=torch.contiguous_format).to(device)
     return conv(tree)
+
+
+def _numpy(t):
+    """A tensor -> a numpy array of its dtype and bits; a bfloat16 tensor
+    becomes an ml_dtypes.bfloat16 array (the type JAX reads), from its
+    uint16 bits."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def jax_layout(tree, leaf=lambda t: t):
+    """The port's tree in the JAX package's layout: OIHW conv weights back
+    to HWIO, each leaf a tensor passed through `leaf`."""
+    def conv(node, key=None):
+        if isinstance(node, dict):
+            return {k: conv(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [conv(v) for v in node]
+        t = _tensor(node)
+        if key == "w" and t.ndim == 4:
+            t = t.permute(2, 3, 1, 0)
+        return leaf(t)
+    return conv(tree)
+
+
+def to_jax(tree):
+    """The inverse of from_jax: the port's tensors -> a tree of numpy
+    arrays, each of its leaf's dtype (bfloat16 bit for bit), OIHW conv
+    weights back to HWIO; the keys and lists kept."""
+    return jax_layout(tree, _numpy)
 
 
 def cast_floating(tree, dtype):

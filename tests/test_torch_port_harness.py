@@ -18,8 +18,10 @@ host-EC periodic refresh at frame 3, mid-chain.  Held:
     the bound from the colour transforms' agreement);
   * the recon files agree within one code value.
 Also: --worker 2 equals serial, --check_existing returns the stored log,
-the unported mode (estimate) raises, --dtype bfloat16 codes, and the
-default --device cuda raises without CUDA.
+--write_stream 0 (estimate mode) writes its JSON and no stream (its
+agreement with the JAX harness is test_torch_port_estimate.py),
+--dtype bfloat16 codes, and the default --device cuda raises without
+CUDA.
 """
 
 import io
@@ -305,15 +307,23 @@ def test_check_existing_returns_the_stored_log(tmp_path):
     assert {k: got[k] for k in log} == json.loads(stored.getvalue())
 
 
-@pytest.mark.parametrize("flag", [("--write_stream", "0")],
-                         ids=["estimate_mode"])
-def test_unported_modes_raise(tmp_path, flag):
-    cfg = _dataset(tmp_path, "yuv420", n=1)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _port_main(["--test_config", cfg, "--device", "cpu",
-                    "--output_path", str(tmp_path / "o.json"),
-                    "--stream_path", str(tmp_path / "bins"), *flag])
-    assert not (tmp_path / "bins").exists()
+def test_estimate_mode_writes_no_stream(tmp_path):
+    """--write_stream 0 (estimate mode, ported from the JAX harness; it
+    replaces the refusal this file held before the training forwards were
+    ported): 2 frames at the port's --seed weights give the JSON's frame
+    counts and finite bits and PSNR, and no .bin."""
+    cfg = _dataset(tmp_path, "yuv420", n=2)
+    _port_main(["--test_config", cfg, "--device", "cpu",
+                "--output_path", str(tmp_path / "o.json"),
+                "--stream_path", str(tmp_path / "bins"), "--rate_num", "1",
+                "--qp_i", str(QP), "--qp_p", str(QP), "--verbose_json", "1",
+                "--write_stream", "0"])
+    bins = tmp_path / "bins" / "tiny"
+    log = json.loads((bins / f"seq_q{QP}.json").read_text())
+    assert (log["i_frame_num"], log["p_frame_num"]) == (1, 1)
+    assert all(math.isfinite(b) and b > 0 for b in log["frame_bpp"])
+    assert all(math.isfinite(p) and p > 0 for p in log["frame_psnr"])
+    assert not any(p.endswith(".bin") for p in os.listdir(bins))
 
 
 def test_bfloat16_mode_codes(tmp_path):
