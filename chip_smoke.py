@@ -114,12 +114,31 @@ Phases (any failure exits nonzero and prints no result):
      frames of phase 7's sequence: the JSON written, every bpp and PSNR
      finite, no stream; prints them beside phase 7's and the seconds a
      frame.
+ 11. DCVC-FM (DMCIFM N 256, z 128; DMCFM at its module widths), host EC,
+     the port's random weights (DMCIFM seed 0, DMCFM seed 1): (a)
+     `opendcvc_tpu_torch.eval.fm_harness.main` in process on the first 10
+     frames of phase 7's sequence at qp 21 with reset_interval 5, so the
+     stream holds fa_idx 0, 1 and 2 and two refreshes (fa_idx 3, frames 1
+     and 6): fails unless every decoded frame's DPB (all five entries)
+     equals the encoder's, the JSON's bits are 8 x the .bin's size and
+     every PSNR is finite; prints per frame the enc / dec ms (host clock,
+     synchronized), the host coder's ms within them, the record's bytes,
+     bpp and PSNR, and test_time; (b) DMCIFM and DMCFM(stream_part=2) on
+     (a)'s first 5 frames with (a)'s schedule: decoder exact every frame,
+     every P stream a 2-part stream; ms and bytes beside (a)'s; (c) a
+     64x64 I-frame and 2 P-frames coded on the GPU, each also coded on
+     the CPU from the GPU's reference and decoded by the CPU port from
+     it: fails on a decode error or a DPB diff over 1e-3 (phase 5's
+     limit), unless the two devices' symbols differ only where the GPU's
+     value lies within the codecs' float agreement of its rounding
+     boundary (printed with that distance; the row is then reported).
 The kernel launch counters are zeroed before phase 3 and read after
 phase 4, so the counts are the main path's (the device-EC path); they are
 zeroed again before phase 6 and must read 0 after it, again before each
 run of phases 7, 9 and 10, and before phase 8; `launches` adds the
 device-EC runs of phases 7 (b), 8, 9 and 10 (a, and the checkpoints'
-coding in b) to phases 3-4's, and `launches_by_run` splits it.  Then it
+coding in b) to phases 3-4's, and `launches_by_run` splits it; they are
+zeroed before phase 11 and must read 0 after it.  Then it
 prints the card's name and power limit, one JSON line describing each
 kernel, and, last, {"ok": true, "device": {...}}.
 """
@@ -1733,6 +1752,318 @@ def phase_training_slice(dev, LR, f32, root, stream_job):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 11: DCVC-FM (DMCIFM + DMCFM, host EC)
+# ---------------------------------------------------------------------------
+
+N_FM = 10        # (a)'s frames of phase 7's sequence
+FM_RESET = 5     # refreshes at frames 1 and 6; frame 9 takes fa_idx 1
+N_FM_PARTS = 5   # (b)'s frames
+FM_DPB = ("ref_frame", "ref_feature", "ref_mv_feature", "ref_y",
+          "ref_mv_y")
+def _fm_wrap(net, kind, log, coder_ms):
+    """Wrap an FM codec's compress / decompress: each call synchronized,
+    timed, and logged with the host coder's ms within it and the DPB (an
+    I-frame's x_hat) it produced."""
+    compress, decompress = net.compress, net.decompress
+
+    def timed(side, fn, *args):
+        c0 = coder_ms[0]
+        _sync(net.device)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        _sync(net.device)
+        ms = (time.perf_counter() - t0) * 1e3
+        dpb = out["dpb"] if kind == "P" else {"ref_frame": out["x_hat"]}
+        log[side].append({"kind": kind, "ms": ms,
+                          "coder_ms": coder_ms[0] - c0, "dpb": dpb})
+        return out
+
+    net.compress = lambda *a: timed("enc", compress, *a)
+    net.decompress = lambda *a: timed("dec", decompress, *a)
+
+
+def _fm_records(data):
+    """(nal type, qp, fa_idx, bytes with its SPS) of each frame record of
+    an FM NAL stream."""
+    from opendcvc_tpu_torch.utils import stream_helper_fm as SF
+    rd, helper, out = io.BytesIO(data), SF.SPSHelper(), []
+    while rd.tell() < len(data):
+        start = rd.tell()
+        header = SF.read_header(rd)
+        while header["nal_type"] == SF.NalType.NAL_SPS:
+            helper.add_sps_by_id(SF.read_sps_remaining(rd,
+                                                       header["sps_id"]))
+            header = SF.read_header(rd)
+        sps = helper.get_sps_by_id(header["sps_id"])
+        SF.read_ip_remaining(rd)
+        out.append((header["nal_type"].name, sps["qp"], sps["fa_idx"],
+                    rd.tell() - start))
+    return out
+
+
+def _fm_exact(enc, dec, what):
+    for k in FM_DPB:
+        if k in enc and not torch.equal(enc[k], dec[k]):
+            _fail(f"{what}: the decoder's {k} differs from the encoder's")
+
+
+def _fm_harness_run(dev, root, h, w, n):
+    """Phase 11 (a): `opendcvc_tpu_torch.eval.fm_harness.main` in process
+    on the first n frames of phase 7's sequence; returns the per-frame
+    log and records."""
+    from opendcvc_tpu_torch.eval import fm_harness
+    log = {"enc": [], "dec": [], "psnr": []}
+    build, distortion = fm_harness.build_nets, fm_harness.get_distortion
+
+    def recording(args):
+        i_net, p_net = build(args)
+        for kind, net in (("I", i_net), ("P", p_net)):
+            _fm_wrap(net, kind, log, _clock_coder(net.entropy_coder))
+        return i_net, p_net
+
+    def measured(*args):
+        out = distortion(*args)
+        log["psnr"].append(out[0][0])
+        return out
+
+    fm_harness.build_nets, fm_harness.get_distortion = recording, measured
+    cfg = _write_config(root, h, w, n)
+    try:
+        fm_harness.main([
+            "--test_config", cfg,
+            "--output_path", os.path.join(root, "fm.json"),
+            "--stream_path", os.path.join(root, "fm"), "--rate_num", "1",
+            "--qp_i", str(QP), "--qp_p", str(QP),
+            "--reset_interval", str(FM_RESET), "--seed", "0",
+            "--device", dev.type])
+    finally:
+        fm_harness.build_nets, fm_harness.get_distortion = build, distortion
+    out_dir = os.path.join(root, "fm", "synthetic")
+    with open(os.path.join(out_dir, f"seq1080_q{QP}.json")) as f:
+        job = json.load(f)
+    with open(os.path.join(out_dir, f"seq1080_q{QP}.bin"), "rb") as f:
+        data = f.read()
+    return log, job, data
+
+
+def phase_fm_harness(dev, root, h, w, n=N_FM):
+    """Phase 11 (a): the FM harness as a user runs it; fails unless every
+    decoded frame's DPB equals the encoder's, the JSON's bits are 8 x the
+    .bin and every PSNR is finite."""
+    log, job, data = _fm_harness_run(dev, root, h, w, n)
+    mode = "phase 11 (a) FM harness"
+    if not len(log["enc"]) == len(log["dec"]) == len(log["psnr"]) == n:
+        _fail(f"{mode}: {len(log['enc'])} frames encoded, "
+              f"{len(log['dec'])} decoded, {len(log['psnr'])} measured")
+    for t, (e, d) in enumerate(zip(log["enc"], log["dec"])):
+        _fm_exact(e["dpb"], d["dpb"], f"{mode} frame {t} ({e['kind']})")
+    bits = job["ave_all_frame_bpp"] * n * job["frame_pixel_num"]
+    if round(bits) != 8 * len(data):
+        _fail(f"{mode}: the JSON's {bits} bits are not 8 x the .bin's "
+              f"{len(data)} bytes")
+    if not all(np.isfinite(p) for p in log["psnr"]):
+        _fail(f"{mode}: a PSNR is not finite: {log['psnr']}")
+    recs = _fm_records(data)
+    fa = [r[2] for r in recs]
+    if len(recs) != n or not {0, 1, 2, 3} <= set(fa):
+        _fail(f"{mode}: records {recs}: not every fa_idx 0-3")
+    for t, (e, d, r, p) in enumerate(zip(log["enc"], log["dec"], recs,
+                                         log["psnr"])):
+        _log(f"{mode}: frame {t} {e['kind']} fa_idx {r[2]} qp {r[1]}: "
+             f"enc {e['ms']:.2f} ms (coder {e['coder_ms']:.2f}), dec "
+             f"{d['ms']:.2f} ms (coder {d['coder_ms']:.2f}), "
+             f"{r[3]} B, bpp {8 * r[3] / (h * w):.4f}, PSNR {p:.4f} dB")
+    _log(f"{mode}: test_time {job['test_time']:.2f} s, bpp "
+         f"{job['ave_all_frame_bpp']:.4f}, PSNR "
+         f"{job['ave_all_frame_psnr']:.4f} dB, .bin {len(data)} B = JSON "
+         f"bits / 8; decoder exact (all five DPB entries) on all {n} "
+         f"frames")
+    return recs
+
+
+def _fm_src_frames(root, h, w, n, dev):
+    """The first n frames of phase 7's sequence as the FM harness feeds
+    them to its codecs (on `dev`, padded to 16)."""
+    from opendcvc_tpu_torch.eval.harness import get_src_frame, get_src_reader
+    from opendcvc_tpu_torch.models import common as C
+    pr, pb = C.get_padding_size(h, w, 16)
+    args = {"src_type": "yuv420", "src_path": os.path.join(root, "data",
+                                                           "seq1080"),
+            "src_width": w, "src_height": h, "frame_num": n,
+            "device": dev.type}
+    reader = get_src_reader(args)
+    frames = [get_src_frame(args, reader, (pb, pr))[0] for _ in range(n)]
+    reader.close()
+    return frames
+
+
+def _fm_schedule(n, qp=QP, reset=FM_RESET):
+    """The FM harness's (fa_idx as coded, fa_idx passed, refresh, qp) of
+    P-frames 1..n-1."""
+    from opendcvc_tpu_torch.eval.fm_harness import INDEX_MAP, QP_SHIFT
+    out = []
+    for t in range(1, n):
+        fa = 3 if reset > 0 and t % reset == 1 else INDEX_MAP[t % 8]
+        out.append((fa, min(fa, 2), fa == 3, min(qp + QP_SHIFT[fa], 63)))
+    return out
+
+
+def phase_fm_parts(dev, root, h, w, recs, n=N_FM_PARTS):
+    """Phase 11 (b): DMCIFM and DMCFM(stream_part=2) on (a)'s first n
+    frames with (a)'s schedule: decoder exact every frame, every P stream
+    a 2-part stream."""
+    from opendcvc_tpu_torch.models.dmc_fm import DMCFM
+    from opendcvc_tpu_torch.models.dmci_fm import DMCIFM
+    mode = "phase 11 (b) stream_part 2"
+    i_net = DMCIFM(device=dev)
+    i_net.init_params(seed=0)
+    i_net.update()
+    enc_net, dec_net = (DMCFM(device=dev, stream_part=2) for _ in range(2))
+    enc_net.init_params(seed=1)
+    dec_net.load_params(enc_net.params)
+    for net in (enc_net, dec_net):
+        net.update()
+    xs = _fm_src_frames(root, h, w, n, dev)
+    sps = {"height": h, "width": w, "qp": QP}
+    e, ms_e = _timed(lambda: i_net.compress(xs[0], QP), dev)
+    d, ms_d = _timed(lambda: i_net.decompress(e["bit_stream"], sps), dev)
+    _fm_exact({"ref_frame": e["x_hat"]}, {"ref_frame": d["x_hat"]},
+              f"{mode} I-frame")
+    rows = [f"I {ms_e:.2f} / {ms_d:.2f} ms, {len(e['bit_stream'])} B"]
+    none = dict.fromkeys(FM_DPB[1:])
+    enc_dpb = dict(none, ref_frame=e["x_hat"])
+    dec_dpb = dict(none, ref_frame=d["x_hat"])
+    for t, (fa, fa_in, refresh, qp) in enumerate(_fm_schedule(n), start=1):
+        if refresh:
+            enc_dpb = dict(none, ref_frame=enc_dpb["ref_frame"])
+            dec_dpb = dict(none, ref_frame=dec_dpb["ref_frame"])
+        out, ms_e = _timed(lambda: enc_net.compress(xs[t], enc_dpb, qp,
+                                                    fa_in), dev)
+        stream = out["bit_stream"]
+        if (stream[0] >> 4) + 1 != 2:
+            _fail(f"{mode}: P-frame {t}'s stream flag {stream[0]:#x} is "
+                  f"not a 2-part stream's")
+        dec, ms_d = _timed(lambda: dec_net.decompress(
+            stream, dec_dpb, dict(sps, qp=qp, fa_idx=fa_in)), dev)
+        enc_dpb, dec_dpb = out["dpb"], dec["dpb"]
+        _fm_exact(enc_dpb, dec_dpb, f"{mode} P-frame {t}")
+        rows.append(f"P{t} fa_idx {fa} {ms_e:.2f} / {ms_d:.2f} ms, "
+                    f"{len(stream)} B (one part: {recs[t][3]} B with its "
+                    f"record)")
+    _log(f"{mode}: enc / dec, bytes: " + "; ".join(rows)
+         + f"; decoder exact on all {n} frames, every P stream 2 parts")
+
+
+def phase_fm_reference(dev):
+    """Phase 11 (c): a 64x64 I-frame and 2 P-frames coded on the GPU,
+    each also coded on the CPU from the GPU's reference, and decoded by
+    the CPU port from it.  Fails on a decode error or a DPB diff over
+    1e-3 of max(1, max|ref|), unless the GPU's and the CPU's symbols
+    differ only at rounding boundaries (a tie: printed with the value and
+    its distance to the boundary, the row reported)."""
+    from opendcvc_tpu_torch.eval import fm_ties as TIES
+    from opendcvc_tpu_torch.models.dmc_fm import DMCFM
+    from opendcvc_tpu_torch.models.dmci_fm import DMCIFM
+    cpu = torch.device("cpu")
+    xs = [f[None].astype(np.float32) / 255.0
+          for f in textured_frames(64, 64, 3, seed=5)]
+    params = {"i": DMCIFM(device=cpu).init_params(seed=0),
+              "p": DMCFM(device=cpu).init_params(seed=1)}
+
+    def codec(cls, d):
+        net = cls(device=d)
+        net.load_params(params["i" if cls is DMCIFM else "p"])
+        net.update()
+        return net
+
+    enc = {d.type: (codec(DMCIFM, d), codec(DMCFM, d)) for d in (dev, cpu)}
+    dec = (codec(DMCIFM, cpu), codec(DMCFM, cpu))
+    coded = {k: [] for k in enc}
+    for k, nets in enc.items():
+        for net in nets:
+            TIES.record_coded(net, coded[k])
+
+    def to_cpu(dpb):
+        return {k: None if v is None else v.cpu() for k, v in dpb.items()}
+
+    sps = {"height": 64, "width": 64, "qp": QP}
+    ref = None
+    with TIES.PreRoundingFloats() as floats:
+        for t, (x, fa) in enumerate(zip(xs, (0, 0, 1))):
+            kind = "i" if t == 0 else "p"
+            for k in coded:
+                coded[k].clear()
+            floats.on = True
+            if t == 0:
+                g = enc[dev.type][0].compress(x, QP)
+                floats.on = False
+                c = enc["cpu"][0].compress(x, QP)
+                g_dpb = {"ref_frame": g["x_hat"]}
+            else:
+                p_sps = dict(sps, fa_idx=fa)
+                g = enc[dev.type][1].compress(x, ref, QP, fa)
+                floats.on = False
+                c = enc["cpu"][1].compress(x, to_cpu(ref), QP, fa)
+                g_dpb = g["dpb"]
+            stream = g["bit_stream"]
+            same = stream == c["bit_stream"]
+            plane, rows = (None, []) if same else \
+                TIES.first_differing_plane(coded[dev.type], coded["cpu"],
+                                           floats.take(kind), kind)
+            if same:
+                floats.take(kind)
+            tie = bool(rows) and all(r[3] <= r[4] for r in rows)
+            for r in rows:
+                _log(f"phase 11 (c): frame {t} {plane} {r[0]} {r[1]}: the "
+                     f"GPU's value {r[2]:.9g} lies {r[3]:.3g} from its "
+                     f"rounding boundary (float agreement {r[4]:.3g})")
+            if not same and not tie:
+                _fail(f"phase 11 (c): frame {t}: the GPU's and the CPU's "
+                      f"symbols differ away from a rounding boundary "
+                      f"({plane}: {rows[:4]})")
+            try:
+                if t == 0:
+                    d = {"ref_frame": dec[0].decompress(stream,
+                                                        sps)["x_hat"]}
+                else:
+                    d = dec[1].decompress(stream, to_cpu(ref), p_sps)["dpb"]
+            except ValueError as e:
+                if not tie:
+                    _fail(f"phase 11 (c): the CPU cannot decode the GPU's "
+                          f"frame {t}: {e}")
+                d = None
+            err = None if d is None else max(
+                float((d[k] - g_dpb[k].cpu()).abs().max())
+                / max(1.0, float(g_dpb[k].abs().max())) for k in g_dpb)
+            if not tie and err > 1e-3:
+                _fail(f"phase 11 (c): GPU and CPU disagree at frame {t} "
+                      f"({err:g})")
+            diff = "not decoded" if err is None else f"{err:.3g}"
+            _log(f"phase 11 (c): 64x64 {'I' if t == 0 else 'P'}-frame {t} "
+                 f"coded on the GPU, decoded by the CPU: max |DPB diff| / "
+                 f"max(1, max|ref|) {diff}; GPU and CPU streams identical: "
+                 f"{same}" + (f"; a rounding tie in {plane} (reported)"
+                              if tie else ""))
+            ref = g["dpb"] if t else dict.fromkeys(FM_DPB[1:]) | g_dpb
+
+
+def phase_fm(dev, LR, root, h=H, w=W):
+    """Phase 11: DCVC-FM at h x w, (a) the FM harness, (b) the N-part
+    split, (c) GPU -> CPU; K1 and K2 must not launch."""
+    LR.encode_scan.launches = 0
+    LR.decode_scan.launches = 0
+    t0 = time.perf_counter()
+    recs = phase_fm_harness(dev, root, h, w)
+    phase_fm_parts(dev, root, h, w, recs)
+    phase_fm_reference(dev)
+    launches = [LR.encode_scan.launches, LR.decode_scan.launches]
+    if max(launches):
+        _fail(f"phase 11: FM (host EC) launched K1 / K2 {launches}")
+    _log(f"phase 11: DCVC-FM done in {time.perf_counter() - t0:.1f} s; K1 "
+         f"{launches[0]}, K2 {launches[1]} launches")
+
+
 def main():
     if not torch.cuda.is_available():
         _fail("CUDA is not available")
@@ -1791,6 +2122,7 @@ def main():
         runs.update(phase_bf16(dev, LR, frames, f32, root, seq))
         runs.update(phase_training_slice(dev, LR, f32, root,
                                          stream7["job"]))
+        phase_fm(dev, LR, root)
     for i, k in enumerate(kernels):
         k["launches_by_run"] = {"phases 3-4": k["launches"]}
         for name, n in runs.items():

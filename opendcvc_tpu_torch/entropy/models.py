@@ -203,23 +203,52 @@ def _normal_cdf(x):
     return 0.5 * (1.0 + sp_special.erf(x / math.sqrt(2.0)))
 
 
+def _laplace_cdf(x):
+    """CDF of Laplace(0, b=1) at x (x pre-divided by the scale).  Both
+    where-branches are evaluated, so the exponents are clamped."""
+    return np.where(x < 0, 0.5 * np.exp(np.minimum(x, 0.0)),
+                    1.0 - 0.5 * np.exp(np.minimum(-x, 0.0)))
+
+
 class GaussianEncoder:
-    """Zero-mean Gaussian CDF tables over a log-spaced scale table (the RT
-    generation: [0.11, 16], 128 levels)."""
+    """Zero-mean CDF tables over a log-spaced scale table.
+
+    The defaults are the RT generation (gaussian, [0.11, 16], 128
+    levels, whatever the distribution); the FM generation takes 256
+    levels up to 64, and DMCFM a Laplace distribution over [0.01, 64].
+    `support` bounds each scale's pmf width.  SCALE_MIN, SCALE_MAX,
+    log_scale_min and log_step_recip are the constants the codecs build
+    CDF indexes with."""
 
     SCALE_MIN = 0.11
     SCALE_MAX = 16.0
     SCALE_LEVELS = 128
 
-    def __init__(self, support=8):
+    def __init__(self, distribution="gaussian", scale_min=SCALE_MIN,
+                 scale_max=SCALE_MAX, scale_levels=SCALE_LEVELS, support=8):
+        if distribution not in ("gaussian", "laplace"):
+            raise ValueError(f"distribution {distribution!r}")
+        self.distribution = distribution
+        self.SCALE_MIN = scale_min
+        self.SCALE_MAX = scale_max
+        self.SCALE_LEVELS = scale_levels
         self.support = support
+        self.log_scale_min = math.log(self.SCALE_MIN)
+        self.log_scale_max = math.log(self.SCALE_MAX)
+        self.log_scale_step = ((self.log_scale_max - self.log_scale_min)
+                               / (self.SCALE_LEVELS - 1))
+        self.log_step_recip = 1.0 / self.log_scale_step
         self.scale_table = np.exp(np.linspace(
-            math.log(self.SCALE_MIN), math.log(self.SCALE_MAX),
-            self.SCALE_LEVELS))
+            self.log_scale_min, self.log_scale_max, self.SCALE_LEVELS))
         self.cdf_info = None
         self.entropy_coder = None
         self.cdf_group_index = None
         self.force_zero_thres = None
+
+    def _cdf(self, x):
+        if self.distribution == "laplace":
+            return _laplace_cdf(x)
+        return _normal_cdf(x)
 
     def update(self, entropy_coder=None, force_zero_thres=None):
         """Returns `cdf_info`; with an entropy coder, also registers the
@@ -229,15 +258,15 @@ class GaussianEncoder:
         scales = self.scale_table.astype(np.float64)
         pmf_center = np.full(self.SCALE_LEVELS, S, dtype=np.int64)
         for i in range(S, 1, -1):
-            probs = _normal_cdf(i / scales)
+            probs = self._cdf(i / scales)
             pmf_center = np.where(probs > 0.9999, i, pmf_center)
 
         pmf_length = 2 * pmf_center + 1
         max_length = int(pmf_length.max())
         samples = (np.arange(max_length, dtype=np.float64)[None, :]
                    - pmf_center[:, None])
-        upper = _normal_cdf((samples + 0.5) / scales[:, None])
-        lower = _normal_cdf((samples - 0.5) / scales[:, None])
+        upper = self._cdf((samples + 0.5) / scales[:, None])
+        lower = self._cdf((samples - 0.5) / scales[:, None])
         pmf = upper - lower
         tail_mass = 2 * lower[:, :1]
 

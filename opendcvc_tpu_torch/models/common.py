@@ -118,3 +118,97 @@ def separate_prior_video_decoding(params):
     c = params.shape[1] // 3
     q_dec = torch.clamp_min(params[:, :c], 0.5)
     return q_dec, params[:, c:2 * c], params[:, 2 * c:]
+
+
+def q_vec(bank, qp, dtype=None):
+    """A qp's row of a bank as a (1, C, 1, 1) multiplier in `dtype`, the
+    activation's (default: the bank's own): a float32 bank (a checkpoint
+    loaded into a bfloat16 codec) must not promote the activation to
+    float32."""
+    return bank[qp][None, :, None, None].to(dtype or bank.dtype)
+
+
+# ---------------------------------------------------------------------------
+# host-EC layout: the host coder takes planes flattened NHWC
+# ---------------------------------------------------------------------------
+
+def nhwc_flat(plane):
+    """Flatten a (1, C, H, W) plane in NHWC order."""
+    return plane.permute(0, 2, 3, 1).reshape(-1)
+
+
+def pack_host(z_planes, y_planes, keeps=None):
+    """One int16 buffer of a frame's symbols for the host coder, each
+    plane flattened NHWC: the z planes (int8), the y planes packed
+    (symbol << 8) + CDF index, then, when given, each y plane's keep
+    mask."""
+    parts = [nhwc_flat(z) for z in z_planes] + [nhwc_flat(y)
+                                                for y in y_planes]
+    parts += [nhwc_flat(k) for k in keeps or ()]
+    return torch.cat([p.to(torch.int16) for p in parts])
+
+
+def unpack_host(buf, z_sizes, y_sizes, masked=False):
+    """Inverse of pack_host on the host: ([z int8], [packed y], [keep
+    mask, or None when not masked]) of the given sizes."""
+    planes, at = [], 0
+    for n in list(z_sizes) + list(y_sizes) * (2 if masked else 1):
+        planes.append(buf[at:at + n])
+        at += n
+    nz, ny = len(z_sizes), len(y_sizes)
+    keeps = [k.astype(bool) for k in planes[nz + ny:]] if masked else \
+        [None] * ny
+    return [z.astype(np.int8) for z in planes[:nz]], planes[nz:nz + ny], \
+        keeps
+
+
+def code_host(coder, z_coders, gaussian, buf, z_sizes, y_sizes,
+              masked=False):
+    """Host-code a frame's fetched pack_host buffer: each z plane with its
+    (bit estimator, qp) of `z_coders`, then the y planes in pass order
+    (their kept positions when masked); returns the stream."""
+    zs, ys, keeps = unpack_host(buf, z_sizes, y_sizes, masked)
+    coder.reset()
+    for (bit_estimator, qp), z in zip(z_coders, zs):
+        bit_estimator.encode_z(z, qp)
+    for packed, keep in zip(ys, keeps):
+        gaussian.encode_y_packed(packed, keep)
+    coder.flush()
+    return coder.get_encoded_stream()
+
+
+def index_buf(idx, keep=None):
+    """A y pass's CDF indexes (and keep mask), flattened NHWC, as one
+    uint8 buffer for the host decoder."""
+    parts = [nhwc_flat(idx)]
+    if keep is not None:
+        parts.append(nhwc_flat(keep).to(torch.uint8))
+    return torch.cat(parts)
+
+
+def from_host_nhwc(a, device, dtype):
+    """(1, H, W, C) numpy from the host coder -> (1, C, H, W) `dtype`
+    tensor on `device` with default strides: the layout the encoder's
+    stages saw, so convolutions take the same algorithms on both sides.
+    (`.contiguous()` keeps a permuted 1x1 plane's channels-last strides,
+    and a convolution then runs channels-last.)"""
+    nchw = upload(a, device).permute(0, 3, 1, 2)
+    return torch.empty(nchw.shape, dtype=dtype, device=device).copy_(nchw)
+
+
+def decode_y_host(gaussian, fetch, shape, device, dtype, transfers,
+                  masked=False):
+    """Host-decode one y pass: wait for its index_buf (`fetch`, from
+    fetch_async; with a keep mask when masked), decode it with the
+    GaussianEncoder `gaussian`, upload.  Returns the dense (1, C, H, W)
+    symbols as `dtype` on `device`, zeros where skipped; counts the fetch
+    and the upload in `transfers`."""
+    buf = fetch()
+    transfers["d2h"] += 1
+    n = buf.shape[0] // 2 if masked else buf.shape[0]
+    keep = buf[n:].astype(bool) if masked else None
+    gaussian.decode_y(buf[:n], keep)
+    b, c, h, w = shape
+    y = gaussian.get_y((b, h, w, c), keep, dtype=np.int8)
+    transfers["h2d"] += 1
+    return from_host_nhwc(y, device, dtype)

@@ -125,14 +125,6 @@ def _dcb_seq(params_list, x):
     return x
 
 
-def _q_vec(bank, qp, dtype=None):
-    """A qp's row of a bank as a (1, C, 1, 1) multiplier in `dtype`, the
-    activation's (default: the bank's own): a float32 bank (a checkpoint
-    loaded into a bfloat16 codec) must not promote the activation to
-    float32."""
-    return bank[qp][None, :, None, None].to(dtype or bank.dtype)
-
-
 def hyper_encoder(p, y_pad):
     h = L.depth_conv_block_apply(p["hyper_enc"][0], y_pad)
     h = L.res_block_stride2_apply(p["hyper_enc"][1], h)
@@ -165,7 +157,7 @@ def _stage_adaptor_p(p, feature):
 def _stage_fe_part1(p, feature, qp):
     """Shared: first 2 blocks + temporal context."""
     x1 = _dcb_seq(p["fe_conv1"], feature)
-    return x1, x1 * _q_vec(p["q_feature"], qp, x1.dtype)
+    return x1, x1 * C.q_vec(p["q_feature"], qp, x1.dtype)
 
 
 def _stage_fe_part2(p, x1):
@@ -180,8 +172,8 @@ def _stage_encode_y(p, x, ctx, qp):
                                     torch.cat((feat, ctx), dim=1))
     feat = L.depth_conv_block_apply(p["enc_conv2"][1], feat)
     feat = L.depth_conv_block_apply(
-        p["enc_conv3"], feat, quant_step=_q_vec(p["q_encoder"], qp,
-                                                feat.dtype))
+        p["enc_conv3"], feat, quant_step=C.q_vec(p["q_encoder"], qp,
+                                                 feat.dtype))
     y = L.conv_apply(p["enc_down"], feat, stride=2, padding=1)
     z = hyper_encoder(p, C.pad_for_y(y))
     z_hat, z_int8 = F.round_and_to_int8(z)
@@ -280,15 +272,15 @@ def _stage_feature(p, y_hat, ctx, qp):
     for bp in p["dec_conv1"]:
         feat = L.depth_conv_block_apply(bp, feat)
     feat = L.conv_apply(p["dec_conv2"], feat)
-    return feat * _q_vec(p["q_decoder"], qp, feat.dtype)
+    return feat * C.q_vec(p["q_decoder"], qp, feat.dtype)
 
 
 def _stage_recon_x(p, feature, qp):
     """Shared: feature -> frame (NCHW)."""
     out = _dcb_seq(p["recon_conv"][:3], feature)
     out = L.depth_conv_block_apply(p["recon_conv"][3], out,
-                                   quant_step=_q_vec(p["q_recon"], qp,
-                                                     out.dtype))
+                                   quant_step=C.q_vec(p["q_recon"], qp,
+                                                      out.dtype))
     return F.pixel_shuffle_clamp(L.conv_apply(p["recon_head"], out), 8)
 
 
@@ -456,82 +448,12 @@ def _settle(net, arr, key, plan, bps, rerun):
 # host-EC layout: the host coder takes planes flattened NHWC
 # ---------------------------------------------------------------------------
 
-def _nhwc_flat(plane):
-    """Flatten a (1, C, H, W) plane in NHWC order."""
-    return plane.permute(0, 2, 3, 1).reshape(-1)
-
-
 def _pack_host(z_int8, planes, fz):
-    """One int16 buffer of a frame's symbols for the host coder, each
-    plane flattened NHWC: z, then each y plane packed (symbol << 8) + CDF
-    index, then, with force_zero_thres, each y plane's keep mask."""
-    parts = [_nhwc_flat(z_int8).to(torch.int16)]
-    parts += [_nhwc_flat(sym * 256 + idx.to(torch.int32)).to(torch.int16)
-              for sym, idx, _ in planes]
-    if fz is not None:
-        parts += [_nhwc_flat(keep).to(torch.int16) for _, _, keep in planes]
-    return torch.cat(parts)
-
-
-def _unpack_host(buf, n_z, n_y, n_planes, fz):
-    """Inverse of _pack_host on the host: (z int8, packed planes, keep
-    masks or Nones)."""
-    ys = [buf[n_z + i * n_y:n_z + (i + 1) * n_y] for i in range(n_planes)]
-    if fz is None:
-        keeps = [None] * n_planes
-    else:
-        at = n_z + n_planes * n_y
-        keeps = [buf[at + i * n_y:at + (i + 1) * n_y].astype(bool)
-                 for i in range(n_planes)]
-    return buf[:n_z].astype(np.int8), ys, keeps
-
-
-def _code_host(coder, bit_estimator, gaussian, buf, n_z, n_y, n_planes, qp,
-               fz):
-    """Host-code a frame's fetched symbols: z, then the y planes in pass
-    order; returns the stream."""
-    z, ys, keeps = _unpack_host(buf, n_z, n_y, n_planes, fz)
-    coder.reset()
-    bit_estimator.encode_z(z, qp)
-    for packed, keep in zip(ys, keeps):
-        gaussian.encode_y_packed(packed, keep)
-    coder.flush()
-    return coder.get_encoded_stream()
-
-
-def _index_buf(idx, keep):
-    """A y pass's CDF indexes (and keep mask), flattened NHWC, as one
-    uint8 buffer for the host decoder."""
-    parts = [_nhwc_flat(idx)]
-    if keep is not None:
-        parts.append(_nhwc_flat(keep).to(torch.uint8))
-    return torch.cat(parts)
-
-
-def _from_host_nhwc(a, device, dtype):
-    """(1, H, W, C) numpy from the host coder -> (1, C, H, W) `dtype`
-    tensor on `device` with default strides: the layout the encoder's
-    stages saw, so convolutions take the same algorithms on both sides.
-    (`.contiguous()` keeps a permuted 1x1 plane's channels-last strides,
-    and a convolution then runs channels-last.)"""
-    nchw = C.upload(a, device).permute(0, 3, 1, 2)
-    return torch.empty(nchw.shape, dtype=dtype, device=device).copy_(nchw)
-
-
-def _decode_y_host(net, fetch, shape, dtype):
-    """Host-decode one y pass of a DMC or DMCI codec `net`: wait for its
-    _index_buf (`fetch`, from C.fetch_async), decode, upload.  Returns the
-    dense (1, C, H, W) symbols as `dtype` on the device, zeros where
-    skipped."""
-    buf = fetch()
-    net.transfers["d2h"] += 1
-    n = buf.shape[0] if net.force_zero_thres is None else buf.shape[0] // 2
-    keep = None if net.force_zero_thres is None else buf[n:].astype(bool)
-    net.gaussian_encoder.decode_y(buf[:n], keep)
-    b, c, h, w = shape
-    y = net.gaussian_encoder.get_y((b, h, w, c), keep, dtype=np.int8)
-    net.transfers["h2d"] += 1
-    return _from_host_nhwc(y, net.device, dtype)
+    """A frame's C.pack_host buffer: z, each y plane packed (symbol << 8) +
+    CDF index, then, with force_zero_thres, each y plane's keep mask."""
+    return C.pack_host([z_int8], [sym * 256 + idx.to(torch.int32)
+                                  for sym, idx, _ in planes],
+                       None if fz is None else [k for _, _, k in planes])
 
 
 # ---------------------------------------------------------------------------
@@ -868,9 +790,10 @@ class DMC:
         def finish():
             buf = fetch()
             self.transfers["d2h"] += 1
-            return _code_host(self.entropy_coder, self.bit_estimator_z,
-                              self.gaussian_encoder, buf, n_z, n_y,
-                              len(planes), qp, fz)
+            return C.code_host(self.entropy_coder,
+                               [(self.bit_estimator_z, qp)],
+                               self.gaussian_encoder, buf, [n_z],
+                               [n_y] * len(planes), fz is not None)
 
         return finish
 
@@ -998,25 +921,31 @@ class DMC:
         coder.set_stream(bit_stream)
         self.bit_estimator_z.decode_z((zh, zw), qp)
         x1, ctx_t = _stage_fe_part1(p, self.apply_feature_adaptor(), qp)
-        z_hat = _from_host_nhwc(self.bit_estimator_z.get_z((zh, zw), np.int8),
-                                self.device, x1.dtype)
+        z_hat = C.from_host_nhwc(self.bit_estimator_z.get_z((zh, zw),
+                                                            np.int8),
+                                 self.device, x1.dtype)
         self.transfers["h2d"] += 1
         params_prior = _stage_prior(p, z_hat, ctx_t)
 
+        def decode_y(fetch, shape):
+            return C.decode_y_host(self.gaussian_encoder, fetch, shape,
+                                   self.device, x1.dtype, self.transfers,
+                                   fz is not None)
+
         idx0, keep0 = _stage_dec_index0(params_prior, fz)
-        fetch0 = C.fetch_async(_index_buf(idx0, keep0))
+        fetch0 = C.fetch_async(C.index_buf(idx0, keep0))
         # the device runs the feature extractor's second part while the
         # host waits for the indexes and decodes y0
         ctx = _stage_fe_part2(p, x1)
         means0 = C.separate_prior_video_decoding(params_prior)[2]
         y_hat_0 = _stage_dec_restore_2x(
-            _decode_y_host(self, fetch0, idx0.shape, x1.dtype), means0, 0)
+            decode_y(fetch0, idx0.shape), means0, 0)
 
         scales1, means1 = _stage_spatial(p, y_hat_0, params_prior)
         idx1, keep1 = _stage_fold_index_2x(scales1, 1, fz)
         y_hat_1 = _stage_dec_restore_2x(
-            _decode_y_host(self, C.fetch_async(_index_buf(idx1, keep1)),
-                           idx1.shape, x1.dtype), means1, 1)
+            decode_y(C.fetch_async(C.index_buf(idx1, keep1)), idx1.shape),
+            means1, 1)
         coder.check_stream_end()
 
         feature_out = _stage_feature_out(p, y_hat_0, y_hat_1, params_prior,

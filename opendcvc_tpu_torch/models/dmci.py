@@ -34,10 +34,9 @@ from ..ops.lane_rans import (prepare_decode_table,
 from ..utils.common import env_flag
 from ..utils.params import cast_floating, to_device
 from . import common as C
-from .dmc import (_cm_unflat, _code_host, _dcb_seq, _dec_plane, _dec_y_plane,
-                  _decode_y_host, _fetch_stagings, _from_host_nhwc,
-                  _index_buf, _indexes_of, _kyc_for, _launcher, _operand,
-                  _pack_host, _q_vec, _settle, _z_rows)
+from .dmc import (_cm_unflat, _dcb_seq, _dec_plane, _dec_y_plane,
+                  _fetch_stagings, _indexes_of, _kyc_for, _launcher,
+                  _operand, _pack_host, _settle, _z_rows)
 
 G_CH_SRC = 3 * 8 * 8
 G_CH_ENC_DEC = 368
@@ -120,7 +119,7 @@ def spatial_prior(p, adaptor_p, x):
 
 def _stage_enc_front(p, x, qp):
     """Encoder-only: frame -> y, rounded z."""
-    y = intra_encoder(p, x, _q_vec(p["q_scale_enc"], qp, x.dtype))
+    y = intra_encoder(p, x, C.q_vec(p["q_scale_enc"], qp, x.dtype))
     z = hyper_encoder(p, C.pad_for_y(y))
     z_hat, z_int8 = F.round_and_to_int8(z)
     return y, z_hat.to(x.dtype), z_int8
@@ -175,8 +174,8 @@ def _stage_dec_restore(y_q_r, means, y_hat_so_far, k):
 def _stage_recon(p, y_hat_so_far, q_dec_prior, qp):
     """Shared: final dequant + intra decoder + clamp."""
     y_hat = y_hat_so_far * q_dec_prior
-    x_hat = intra_decoder(p, y_hat, _q_vec(p["q_scale_dec"], qp,
-                                           y_hat.dtype))
+    x_hat = intra_decoder(p, y_hat, C.q_vec(p["q_scale_dec"], qp,
+                                            y_hat.dtype))
     return torch.clamp(x_hat, 0.0, 1.0)
 
 
@@ -438,9 +437,11 @@ class DMCI:
         x_hat, z_int8, planes = _encode_stages_i(self.params, x, qp, fz)
         buf = C.fetch_async(_pack_host(z_int8, planes, fz))()
         self.transfers["d2h"] += 1
-        stream = _code_host(self.entropy_coder, self.bit_estimator_z,
-                            self.gaussian_encoder, buf, z_int8.numel(),
-                            planes[0][0].numel(), len(planes), qp, fz)
+        stream = C.code_host(self.entropy_coder,
+                             [(self.bit_estimator_z, qp)],
+                             self.gaussian_encoder, buf, [z_int8.numel()],
+                             [planes[0][0].numel()] * len(planes),
+                             fz is not None)
         return {"bit_stream": stream, "x_hat": C.frame_to_nhwc(x_hat)}
 
     # -- decompress ----------------------------------------------------------
@@ -455,8 +456,9 @@ class DMCI:
         coder.set_use_two_entropy_coders(sps["ec_part"] == 1)
         coder.set_stream(bit_stream)
         self.bit_estimator_z.decode_z((zh, zw), qp)
-        z_hat = _from_host_nhwc(self.bit_estimator_z.get_z((zh, zw), np.int8),
-                                self.device, self.dtype)
+        z_hat = C.from_host_nhwc(self.bit_estimator_z.get_z((zh, zw),
+                                                            np.int8),
+                                 self.device, self.dtype)
         self.transfers["h2d"] += 1
         _, q_dec_prior, scales, means, reduced = _stage_prior(p, z_hat, y_h,
                                                               y_w)
@@ -465,8 +467,10 @@ class DMCI:
             if k > 0:
                 scales, means = _stage_spatial(p, k, so_far, reduced)
             idx, keep = _stage_fold_index(scales, k, fz)
-            y_q_r = _decode_y_host(self, C.fetch_async(_index_buf(idx, keep)),
-                                   idx.shape, means.dtype)
+            y_q_r = C.decode_y_host(
+                self.gaussian_encoder, C.fetch_async(C.index_buf(idx, keep)),
+                idx.shape, self.device, means.dtype, self.transfers,
+                fz is not None)
             so_far = _stage_dec_restore(y_q_r, means, so_far, k)
         coder.check_stream_end()
         return _stage_recon(p, so_far, q_dec_prior, qp)

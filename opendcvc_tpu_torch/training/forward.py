@@ -58,7 +58,7 @@ def dmci_forward(params, x, qp, rng=None, quant_mode="ste"):
     p = params
     n_pix = x.shape[1] * x.shape[2]
     xc = _nchw(x)
-    y = MI.intra_encoder(p, xc, MV._q_vec(p["q_scale_enc"], qp, xc.dtype))
+    y = MI.intra_encoder(p, xc, C.q_vec(p["q_scale_enc"], qp, xc.dtype))
     z = MI.hyper_encoder(p, C.pad_for_y(y))
     z_hat = _quant(z, rng, quant_mode)
     bits_z = bit_estimator_bits(p["bit_estimator_z"], z_hat, qp)
@@ -87,7 +87,7 @@ def dmci_forward(params, x, qp, rng=None, quant_mode="ste"):
 
     y_hat = y_hat_so_far * q_dec_p
     x_hat = torch.clamp(MI.intra_decoder(
-        p, y_hat, MV._q_vec(p["q_scale_dec"], qp, y_hat.dtype)), 0.0, 1.0)
+        p, y_hat, C.q_vec(p["q_scale_dec"], qp, y_hat.dtype)), 0.0, 1.0)
     x_hat = C.frame_to_nhwc(x_hat)
     out = {"x_hat": x_hat, "mse": torch.mean(torch.square(x_hat - x))}
     out.update(_rates(bits_y, bits_z, n_pix))
@@ -115,7 +115,7 @@ def dmc_forward_one_frame(params, x, ref_frame, ref_feature, qp, rng=None,
     feat = L.depth_conv_block_apply(p["enc_conv2"][1], feat)
     feat = L.depth_conv_block_apply(
         p["enc_conv3"], feat,
-        quant_step=MV._q_vec(p["q_encoder"], qp, xc.dtype))
+        quant_step=C.q_vec(p["q_encoder"], qp, xc.dtype))
     y = L.conv_apply(p["enc_down"], feat, stride=2, padding=1)
     z = MV.hyper_encoder(p, C.pad_for_y(y))
     z_hat = _quant(z, rng, quant_mode)

@@ -75,7 +75,7 @@ def _near_boundary(v):
 
 def _boundary_counts(p, x, qp):
     """(z, y) values near a rounding boundary in the port's encoder."""
-    y = PDMCI.intra_encoder(p, x, PDMCI._q_vec(p["q_scale_enc"], qp))
+    y = PDMCI.intra_encoder(p, x, C.q_vec(p["q_scale_enc"], qp))
     z = PDMCI.hyper_encoder(p, C.pad_for_y(y))
     z_hat, _ = F.round_and_to_int8(z)
     q_enc, _, scales, means, reduced = PDMCI._stage_prior(

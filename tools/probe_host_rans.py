@@ -60,9 +60,9 @@ def frame_symbols(device, height, width):
             feature = D._stage_adaptor_i(net.params, x_hat)
             _, z, planes = D._encode_stages(net.params, x, feature, QP, FZ)
         buf = C.fetch_async(D._pack_host(z, planes, FZ))()
-        z_np, ys, keeps = D._unpack_host(buf, z.numel(),
-                                         planes[0][0].numel(), len(planes),
-                                         FZ)
+        (z_np,), ys, keeps = C.unpack_host(
+            buf, [z.numel()], [planes[0][0].numel()] * len(planes),
+            FZ is not None)
         ys = [y[k] for y, k in zip(ys, keeps)]
         out[name] = (z_np, ys, [(y & 0xFF).astype(np.uint8) for y in ys],
                      net.bit_estimator_z.channel,

@@ -2,18 +2,21 @@
 """Where the time of the PyTorch/CUDA port's P-frame goes, on one GPU.
 
     python3 tools/profile_torch_port.py [--frames 2] [--dtype bfloat16]
-        [--trace PATH]
+        [--codec rt|fm] [--trace PATH]
 
-Codes 1080p P-frames with DMC at full width on the device-EC path (random
-weights from seed 1, flat q banks, force_zero_thres 0.12, as chip_smoke.py's
-phase 4 does) in --dtype (float32 or bfloat16), warms up
-with one frame, then profiles `--frames` encodes and their decodes with
+--codec rt (the default) codes 1080p P-frames with DMC at full width on
+the device-EC path (random weights from seed 1, flat q banks,
+force_zero_thres 0.12, as chip_smoke.py's phase 4 does) in --dtype
+(float32 or bfloat16); --codec fm codes them with DCVC-FM's DMCFM
+(random weights from seed 1, host EC, float32, qp 21, fa_idx 0 on the
+propagated DPB, as chip_smoke.py's phase 11).  It warms up with one
+frame, then profiles `--frames` encodes and their decodes with
 torch.profiler.  Prints the card's name and power limit, the per-frame
 host-clock times, the device time by kernel (top 15) and by class
 (convolutions, the depthwise 3x3, the layout transposes around
-convolutions, elementwise, host->device uploads, device->host copies,
-lane rANS K1/K2, other), and the device busy and idle shares of the
-window; writes the Chrome trace to --trace.  The profiler slows the
+convolutions, elementwise, gathers (FM's warps), host->device uploads,
+device->host copies, lane rANS K1/K2, other), and the device busy and
+idle shares of the window; writes the Chrome trace to --trace.  The profiler slows the
 host's launches, so the window's idle share overstates the idle of an
 unprofiled frame: the same number of frames is first timed without the
 profiler, and the device time an enc + dec pair took under it is also
@@ -51,32 +54,20 @@ def _kernel_class(name):
     if any(s in n for s in ("conv", "gemm", "cudnn", "xmma", "cutlass",
                             "winograd", "implicit", "nvjet")):
         return "convolution (cuDNN, cuBLASLt)"
+    if "gather" in n:
+        return "gather (flow warps)"
     if "elementwise" in n or "vectorized" in n or "unrolled" in n:
         return "elementwise"
     return "other (copies, cat, scatter, reductions, ...)"
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--frames", type=int, default=2)
-    ap.add_argument("--dtype", default="float32",
-                    choices=["float32", "bfloat16"])
-    ap.add_argument("--trace", default="chiprun_out/torch_port_trace.json")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        sys.exit("profile_torch_port: CUDA is not available")
-    from torch.profiler import ProfilerActivity, profile
+def _rt_codec(dev, dtype, frames):
+    """DMC encoder and decoder on device EC, each seeded from frames[0];
+    returns (encode(x) -> stream, decode(stream), feature chain equal)."""
     from opendcvc_tpu_torch.models.dmc import DMC
-
-    dev = torch.device("cuda", 0)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
-    print(f"{card}; dtype {args.dtype}")
     nets = []
     for _ in range(2):
-        net = DMC(device=dev, device_ec=True,
-                  dtype=getattr(torch, args.dtype))
+        net = DMC(device=dev, device_ec=True, dtype=dtype)
         if nets:
             net.load_params(nets[0].params)
         else:
@@ -88,19 +79,73 @@ def main():
         net.update(force_zero_thres=FZ)
         nets.append(net)
     enc, dec = nets
-    rng = np.random.default_rng(0)
-    base = rng.random((1, H, W, 3), dtype=np.float32)
-    frames = [np.roll(base, 4 * t, axis=2) for t in range(args.frames + 2)]
     for net in nets:
         net.add_ref_frame(None, frames[0])
     sps = {"height": H, "width": W}
-    dec.decompress(enc.compress(frames[1], QP)["bit_stream"], sps, QP)
+    return (lambda x: enc.compress(x, QP)["bit_stream"],
+            lambda s: dec.decompress(s, sps, QP),
+            lambda: torch.equal(enc.dpb[0].feature, dec.dpb[0].feature))
+
+
+def _fm_codec(dev, frames):
+    """DMCFM encoder and decoder on host EC, their DPBs seeded from
+    frames[0]; the same three callables as _rt_codec."""
+    from opendcvc_tpu_torch.models.dmc_fm import DMCFM
+    enc, dec = DMCFM(device=dev), DMCFM(device=dev)
+    enc.init_params(seed=1)
+    dec.load_params(enc.params)
+    for net in (enc, dec):
+        net.update()
+    ref = {"ref_frame": torch.from_numpy(frames[0]).to(dev),
+           "ref_feature": None, "ref_mv_feature": None, "ref_y": None,
+           "ref_mv_y": None}
+    dpb = {"enc": ref, "dec": ref}
+    sps = {"height": H, "width": W, "qp": QP, "fa_idx": 0}
+
+    def encode(x):
+        out = enc.compress(x, dpb["enc"], QP, 0)
+        dpb["enc"] = out["dpb"]
+        return out["bit_stream"]
+
+    def decode(s):
+        dpb["dec"] = dec.decompress(s, dpb["dec"], sps)["dpb"]
+
+    return encode, decode, lambda: all(
+        torch.equal(dpb["enc"][k], dpb["dec"][k]) for k in dpb["enc"])
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=2)
+    ap.add_argument("--dtype", default="float32",
+                    choices=["float32", "bfloat16"])
+    ap.add_argument("--codec", default="rt", choices=["rt", "fm"])
+    ap.add_argument("--trace", default="chiprun_out/torch_port_trace.json")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("profile_torch_port: CUDA is not available")
+    if args.codec == "fm" and args.dtype != "float32":
+        sys.exit("profile_torch_port: DCVC-FM runs in float32 only")
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(f"{card}; codec {args.codec}, dtype {args.dtype}")
+    rng = np.random.default_rng(0)
+    base = rng.random((1, H, W, 3), dtype=np.float32)
+    frames = [np.roll(base, 4 * t, axis=2) for t in range(args.frames + 2)]
+    encode, decode, chain_equal = (
+        _rt_codec(dev, getattr(torch, args.dtype), frames)
+        if args.codec == "rt" else _fm_codec(dev, frames))
+    decode(encode(frames[1]))
     torch.cuda.synchronize()
 
     plain_ms = []       # enc + dec pairs, no profiler
     for x in frames[2:]:
         t0 = time.perf_counter()
-        dec.decompress(enc.compress(x, QP)["bit_stream"], sps, QP)
+        decode(encode(x))
         torch.cuda.synchronize()
         plain_ms.append((time.perf_counter() - t0) * 1e3)
     enc_ms, dec_ms = [], []
@@ -109,17 +154,17 @@ def main():
         t_window = time.perf_counter()
         for x in frames[2:]:
             t0 = time.perf_counter()
-            s = enc.compress(x, QP)["bit_stream"]
+            s = encode(x)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            dec.decompress(s, sps, QP)
+            decode(s)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             enc_ms.append((t1 - t0) * 1e3)
             dec_ms.append((t2 - t1) * 1e3)
         window_us = (time.perf_counter() - t_window) * 1e6
-    if not torch.equal(enc.dpb[0].feature, dec.dpb[0].feature):
-        sys.exit("profile_torch_port: enc/dec feature chain diverged")
+    if not chain_equal():
+        sys.exit("profile_torch_port: the enc/dec chain diverged")
 
     kernels = {}
     for ev in prof.events():
