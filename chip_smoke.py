@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (opendcvc_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--out DIR]
 
 Phases (any failure exits nonzero and prints no result):
   1. build the CUDA kernels from opendcvc_tpu_torch/csrc (nvcc, sm_90a);
@@ -12,15 +12,23 @@ Phases (any failure exits nonzero and prints no result):
      table (symbols drawn from each row, ~30 % skips): a DMC frame (16 z
      + 2 x 128 y steps), a DMCI frame (16 + 4 x 128) and a DMC frame
      under skip compaction at phase 10 (a)'s first rung (16 + 2 x 64),
+     a DMCIFM frame (16 + 4 x 128 over its 384-row [y | qp's z] table)
+     and a DMCFM frame (8 + 4 x 32 + 8 + 4 x 64 over its 384-row table),
      each at the staging ladder's first and top rung, and at the
      contract's edges (a
      partial warp, row ids past the table, odd staging widths that some
      lanes overflow); K2 on one 272-step launch over
      a 128-row table, then at the main path's own launch shapes, decoding
-     those two frames: a DMC frame's z (16 steps, the port's 128-row z
+     those frames: a DMC frame's z (16 steps, the port's 128-row z
      table), y0 and y1 (128 steps, its 128-row y table), a DMCI
-     frame's z and four y quarters and the compacted DMC frame's z, y0
-     and y1 (64 steps), with the (state, ptr) carry handed
+     frame's z and four y quarters, the compacted DMC frame's z, y0
+     and y1 (64 steps), a DMCIFM frame's z (16 steps, 128 rows) and four
+     y quarters (128 steps on the 256-row y table) and a DMCFM frame's
+     motion z, four motion-y quarters (32 steps, 256 rows), z and four y
+     quarters (64 steps, 256 rows), the z planes on 65-row tables (the y
+     table's row 0 for the lanes' pad slots, then the plane's 64 rows);
+     row 255 of a 256-row table is coded and the sentinel DEC_SKIP (511)
+     skips; with the (state, ptr) carry handed
      from launch to launch, and on arbitrary words at the contract's
      edges (a partial warp, clamped rows, pointers past either end).
      Every launch is timed as the median of 20 launches with CUDA events
@@ -132,17 +140,40 @@ Phases (any failure exits nonzero and prints no result):
      limit), unless the two devices' symbols differ only where the GPU's
      value lies within the codecs' float agreement of its rounding
      boundary (printed with that distance; the row is then reported).
+ 12. DCVC-FM on device EC: phase 11's frames, weights and schedule: (a)
+     the FM harness with OPENDCVC_TPU_DEVICE_EC=1 under phase 11 (a)'s
+     checks, and every frame's encoder and decoder DPB (all five entries;
+     x_hat on the I-frame) and per-frame PSNR equal to phase 11 (a)'s
+     host-EC ones; K1 launched once a frame plus once a ladder rerun, K2
+     5 times a decoded I-frame and 10 a P-frame, held exactly; prints per
+     frame the enc / dec ms beside host EC's, the bytes, bpp, reruns and
+     the count of y and motion-y CDF indexes of 255 (the JAX package's
+     device EC skips that row, the port codes it); (b) DMCIFM and DMCFM
+     on device EC called directly on the I-frame and four P-frames with
+     (a)'s schedule: per-frame launches exact, decoder exact, encoder
+     DPB (a)'s, enc / dec ms printed; (c) phase 11 (c) on device EC (the
+     planes compared are the host-EC coder's on each device, the same
+     planes).
+ 13. one 64x64 frame coded on the card with the committed trained
+     checkpoint docs/dmci_tiny_rd.msgpack through DMCI host EC and device
+     EC, both decoders exact; the frame, streams, the card's x_hats and
+     the card and versions written to OUT/h100_streams (`--out OUT`,
+     default chip_smoke_out), whose committed copy (tests/data/h100) the
+     CPU tests decode with the JAX package and the port.
 The kernel launch counters are zeroed before phase 3 and read after
 phase 4, so the counts are the main path's (the device-EC path); they are
 zeroed again before phase 6 and must read 0 after it, again before each
-run of phases 7, 9 and 10, and before phase 8; `launches` adds the
-device-EC runs of phases 7 (b), 8, 9 and 10 (a, and the checkpoints'
-coding in b) to phases 3-4's, and `launches_by_run` splits it; they are
-zeroed before phase 11 and must read 0 after it.  Then it
+run of phases 7, 9 and 10, and before phase 8; they are
+zeroed before phase 11 and must read 0 after it, and zeroed before phase
+12, whose runs hold them exact; `launches` adds the
+device-EC runs of phases 7 (b), 8, 9, 10 (a, and the checkpoints'
+coding in b) and 12 to phases 3-4's, and `launches_by_run` splits it.
+Then it
 prints the card's name and power limit, one JSON line describing each
 kernel, and, last, {"ok": true, "device": {...}}.
 """
 
+import argparse
 import io
 import json
 import os
@@ -356,25 +387,75 @@ def _decode_order(got, K):
     return data, states
 
 
-def _k2_bound(rows, dec_table, ptr_in, ptr_out):
+def _k2_bound(rows, dec_table, ptr_in, ptr_out, LR):
     """Bytes: rows and symbols, the compact table once, the words this
     run consumed, the carry in and out; operations: ~14 a coded step."""
     n_words = int((ptr_out.to(torch.int64) - ptr_in.to(torch.int64)).sum())
-    n_coded = int((rows != 255).sum())
+    n_coded = int((rows != LR.DEC_SKIP).sum())
     L = rows.shape[1]
     n_bytes = (2 * rows.numel() * 4 + dec_table.numel() * 4 + n_words * 4
                + 2 * L * 12)
     return _bound_ms(n_bytes, 14 * n_coded)
 
 
-def _model_tables():
-    """The port's own y rows (GaussianEncoder) and one qp's z rows
-    (BitEstimator, seeded init): (128, 257) int32 each."""
+def _frame_specs(dev, LR):
+    """The main path's frames as phase 2 codes them: (name, K1's prepared
+    combined table, decode-order segments (plane, steps, K2's table, its
+    (nr, 257) rows as numpy, the map from K2's row ids to K1's, whether
+    the plane has skip slots)).  RT: the port's own y rows
+    (GaussianEncoder) and one qp's z rows (BitEstimator, seeded init).
+    FM: the tables DMCIFM (seed 0, qp 21's z rows) and DMCFM (seed 1)
+    build for device EC, 256 y rows each; a DMCFM z table is the y
+    table's row 0 (the lanes' pad slots) and the plane's 64 rows."""
     from opendcvc_tpu_torch.entropy import models as M
     from opendcvc_tpu_torch.entropy.device_rans import full_range_cdf_rows
+    from opendcvc_tpu_torch.models.dmc_fm import DMCFM
+    from opendcvc_tpu_torch.models.dmci_fm import DMCIFM
+
+    def rows(dec_table):
+        return LR.expand_decode_table(dec_table.cpu()).numpy()
+
+    def same(ids):
+        return ids
+
     be = M.bit_estimator_init(torch.Generator().manual_seed(1), 1, 128)
-    return (full_range_cdf_rows(*M.GaussianEncoder().update()),
-            full_range_cdf_rows(*M.BitEstimator(1, 128).update(be)))
+    cum_y = full_range_cdf_rows(*M.GaussianEncoder().update())
+    cum_z = full_range_cdf_rows(*M.BitEstimator(1, 128).update(be))
+    t_rt = torch.from_numpy(np.concatenate([cum_y, cum_z])).to(dev)
+    d_y, d_z = (LR.prepare_decode_table(t_rt[a:a + len(cum_y)])
+                for a in (0, len(cum_y)))
+    z_rt = ("z", 16, d_z, cum_z, lambda i: i + len(cum_y), False)
+    specs = [(codec, LR.prepare_encode_table(t_rt), [z_rt] + [
+        (f"y{i}", k_y, d_y, cum_y, same, True) for i in range(n_y)])
+        for codec, n_y, k_y in (("DMC", 2, 128), ("DMCI", 4, 128),
+                                ("DMC kyc 64", 2, 64))]
+
+    inet = DMCIFM(device=dev, device_ec=True)
+    inet.init_params(seed=0)
+    inet.update()
+    n_y, z_base = inet.n_y_rows, inet.n_y_rows + QP * 128
+    fy, fz = inet.dec_table[:n_y], inet.dec_table[z_base:z_base + 128]
+    specs.append(("DMCIFM", torch.cat([inet.enc_table[:n_y],
+                                       inet.enc_table[z_base:z_base + 128]]),
+                  [("z", 16, fz, rows(fz), lambda i: i + n_y, False)]
+                  + [(f"y{i}", 128, fy, rows(fy), same, True)
+                     for i in range(4)]))
+    pnet = DMCFM(device=dev, device_ec=True)
+    pnet.init_params(seed=1)
+    pnet.update()
+    tabs = pnet.dec_tables
+    y_seg = (tabs["y"], rows(tabs["y"]), same, True)
+
+    def z_seg(name, base):
+        return (tabs[name], rows(tabs[name]),
+                lambda i: np.where(i == 0, 0, base - 1 + i), False)
+
+    specs.append(("DMCFM", pnet.enc_table,
+                  [("motion z", 8) + z_seg("mv_z", n_y + 64)]
+                  + [(f"mv{i}", 32) + y_seg for i in range(4)]
+                  + [("z", 8) + z_seg("z", n_y)]
+                  + [(f"y{i}", 64) + y_seg for i in range(4)]))
+    return specs
 
 
 def _draw(rng, cum, ids):
@@ -389,12 +470,13 @@ def _draw(rng, cum, ids):
 
 def phase_k2(dev, LR, rng, table, n_y_rows, sym, skip, L, K, k1_shapes):
     """K2 vs its plain version, bit for bit: one K-step launch over a
-    128-row random table (uniform symbols), then a DMC frame's three and
-    a DMCI frame's five carried launches at the main path's shapes over
-    the port's own y and z tables, symbols drawn from each row; times
-    every launch.  Each frame is coded by one K1 launch, checked and
-    timed at the first and the top staging rung (into k1_shapes).
-    Returns K2's kernel record."""
+    128-row random table (uniform symbols), then the carried launches of
+    each of _frame_specs' frames at the main path's shapes (DCVC-FM's y
+    planes on 256-row tables, whose row 255 is coded; DEC_SKIP on ~30 %
+    of every y plane's slots), symbols drawn from each row; times every
+    launch.  Each frame is coded by one K1 launch, checked and timed at
+    the first and the top staging rung (into k1_shapes).  Returns K2's
+    kernel record."""
     from opendcvc_tpu_torch.entropy.device_rans import staging_width
     t_y = table[:n_y_rows].contiguous()
     d_y = LR.prepare_decode_table(t_y)
@@ -415,14 +497,14 @@ def phase_k2(dev, LR, rng, table, n_y_rows, sym, skip, L, K, k1_shapes):
         ms = median_ms(lambda: LR.decode_scan(*args), dev)
         dev_ms = median_ms(lambda: LR.decode_scan(*args), dev, queued=True)
         plain = median_ms(lambda: LR.decode_scan_plain(*args), dev)
-        bound, by = _k2_bound(args[1], args[2], args[4], got[2])
+        bound, by = _k2_bound(args[1], args[2], args[4], got[2], LR)
         shapes.append({"steps": args[1].shape[0], "launch": what, "ms": ms,
                        "device_ms": dev_ms, "plain_ms": plain,
                        "bound_ms": bound, "bound_by": by})
         return shapes[-1]
 
     def dec_rows(ids, skip_mask):
-        return torch.from_numpy(np.where(skip_mask, 255, ids)) \
+        return torch.from_numpy(np.where(skip_mask, LR.DEC_SKIP, ids)) \
             .to(torch.int32).to(dev)
 
     # one K-step launch over the y rows (random rows, uniform symbols)
@@ -435,45 +517,39 @@ def phase_k2(dev, LR, rng, table, n_y_rows, sym, skip, L, K, k1_shapes):
     got = check(args, torch.from_numpy(sym).to(dev), f"K={K}")
     head = timed(args, got, "one launch")
 
-    # a frame: z (16 steps, never skipped), then n_y launches of k_y y
-    # steps (DMC: two halves, DMCI: four quarters, 128 steps each; with
-    # skip compaction at phase 10 (a)'s first rung, DMC's halves take 64),
-    # coded by one K1 launch against the combined [y | z] table and
-    # decoded with the carry
-    k_z = 16
-    cum_y, cum_z = _model_tables()
-    t_frame = torch.from_numpy(np.concatenate([cum_y, cum_z])).to(dev)
-    e_frame = LR.prepare_encode_table(t_frame)
-    d_fy, d_fz = (LR.prepare_decode_table(t_frame[a:a + len(cum_y)])
-                  for a in (0, len(cum_y)))
+    # the main path's frames, each coded by one K1 launch against its
+    # combined table and decoded launch by launch with the carry
+    # (_frame_specs): DMC (z 16 steps, two y halves of 128), DMCI (z, four
+    # y quarters of 128), DMC under skip compaction (halves of 64),
+    # DMCIFM (z 16, four y quarters of 128 on the 256-row y table) and
+    # DMCFM (motion z 8, four motion quarters of 32, z 8, four y quarters
+    # of 64)
     frame = {}
-    for codec, n_y, k_y in (("DMC", 2, 128), ("DMCI", 4, 128),
-                            ("DMC kyc 64", 2, 64)):
-        ids = rng.integers(0, len(cum_y), (k_z + n_y * k_y, L))
-        skip_f = rng.random(ids.shape) < 0.3
-        skip_f[:k_z] = False
-        sym_f = np.concatenate([_draw(rng, cum_z, ids[:k_z]),
-                                _draw(rng, cum_y, ids[k_z:])])
-        sym_f = np.where(skip_f, 0, sym_f)
-        comb = ids.copy()
-        comb[:k_z] += len(cum_y)
+    for codec, e_frame, segs in _frame_specs(dev, LR):
+        ids = [rng.integers(0, len(cum), (k, L))
+               for _, k, _, cum, _, _ in segs]
+        skips = [(rng.random(i.shape) < 0.3) if can else
+                 np.zeros(i.shape, bool)
+                 for i, (*_, can) in zip(ids, segs)]
+        syms = [np.where(sk, 0, _draw(rng, cum, i))
+                for i, sk, (_, _, _, cum, _, _) in zip(ids, skips, segs)]
+        comb = np.concatenate([to_comb(i) for i, (*_, to_comb, _)
+                               in zip(ids, segs)])
+        sym_f, skip_f = np.concatenate(syms), np.concatenate(skips)
         packed = _enc_operand(dev, LR, comb, sym_f, skip_f)
-        k_f = len(ids)
+        k_f = len(comb)
         _k1_case(dev, LR, packed, e_frame, staging_width(k_f, 0.5),
                  f"{codec} frame, first rung", k1_shapes)
         data, states = _decode_order(_k1_case(
             dev, LR, packed, e_frame, staging_width(k_f, 3.0),
             f"{codec} frame, top rung", k1_shapes), k_f)
         carry = (states, torch.zeros((L,), dtype=torch.int32, device=dev))
-        segs = [("z", 0, k_z, d_fz)] + [
-            (f"y{i}", k_z + i * k_y, k_z + (i + 1) * k_y, d_fy)
-            for i in range(n_y)]
         frame[codec] = {"ms": 0.0, "device_ms": 0.0}
-        for what, a, b, dt in segs:
-            args = (data, dec_rows(ids[a:b], skip_f[a:b]), dt) + carry
-            got = check(args, torch.from_numpy(sym_f[a:b]).to(dev),
-                        f"{codec} {what} (K={b - a})")
-            rec = timed(args, got, f"{codec} {what}")
+        for (what, k, dt, _, _, _), i, sk, sy in zip(segs, ids, skips, syms):
+            args = (data, dec_rows(i, sk), dt) + carry
+            got = check(args, torch.from_numpy(sy).to(dev),
+                        f"{codec} {what} (K={k}, {len(dt)} rows)")
+            rec = timed(args, got, f"{codec} {what} ({len(dt)} rows)")
             for key in frame[codec]:
                 frame[codec][key] += rec[key]
             carry = got[1:]
@@ -481,7 +557,7 @@ def phase_k2(dev, LR, rng, table, n_y_rows, sym, skip, L, K, k1_shapes):
     # a 24-row table, row ids past it, skips, pointers past either end
     lanes, k_e, nr_e, mw_e = 100, 40, 24, 20
     rows_e = rng.integers(0, nr_e + 8, (k_e, lanes))
-    rows_e[rng.random(rows_e.shape) < 0.2] = 255
+    rows_e[rng.random(rows_e.shape) < 0.2] = LR.DEC_SKIP
     arrays = (rng.integers(0, 1 << 16, (lanes, mw_e)).astype(np.int32),
               rows_e.astype(np.int32),
               rng.integers(1 << 16, 1 << 32, lanes),
@@ -497,6 +573,23 @@ def phase_k2(dev, LR, rng, table, n_y_rows, sym, skip, L, K, k1_shapes):
         _fail(f"K2 differs from its plain version at the contract's edges "
               f"(max |err| {errs[-1]})")
 
+    # K = 0 launches at RT's 128 rows and FM's 256: the launch, the
+    # table's bulk copy into shared memory (128 blocks x 784 B a row) and
+    # the prologue, queued so the events time the device alone
+    fixed = {}
+    for nr in (128, LR.DEC_MAX_ROWS):
+        d_t = LR.prepare_decode_table(
+            torch.from_numpy(random_tables(rng, nr)).to(dev))
+        args = (torch.zeros((L, 8), dtype=torch.int32, device=dev),
+                torch.zeros((0, L), dtype=torch.int32, device=dev), d_t,
+                torch.full((L,), 1 << 16, dtype=torch.int64, device=dev),
+                torch.zeros((L,), dtype=torch.int32, device=dev))
+        fixed[str(nr)] = median_ms(lambda: LR.decode_scan(*args), dev,
+                                   queued=True)
+    _log(f"phase 2: K2 K=0 (launch, table copy, prologue), device: "
+         f"{fixed['128']:.4f} ms at 128 rows, "
+         f"{fixed[str(LR.DEC_MAX_ROWS)]:.4f} ms at {LR.DEC_MAX_ROWS}")
+
     for s in shapes:
         _log(f"phase 2: K2 {s['launch']} K={s['steps']}: {s['ms']:.4f} ms, "
              f"device {s['device_ms']:.4f} ms (plain {s['plain_ms']:.3f} ms, "
@@ -504,16 +597,18 @@ def phase_k2(dev, LR, rng, table, n_y_rows, sym, skip, L, K, k1_shapes):
     for codec, t in frame.items():
         _log(f"phase 2: K2 per {codec} frame (sum of its timed launches): "
              f"{t['ms']:.4f} ms, device {t['device_ms']:.4f} ms")
-    _log(f"phase 2: K2 {len(d_y)}-row tables, {d_y.numel() * 4} B of "
-         f"shared memory a block; bit-exact, carry exact across each "
-         f"frame's launches, and at the contract's edges")
+    _log(f"phase 2: K2 tables of up to {LR.DEC_MAX_ROWS} rows, "
+         f"{LR.DEC_MAX_ROWS * LR.DEC_ROW_WORDS * 4} B of shared memory a "
+         f"block; bit-exact, carry exact across each frame's launches, and "
+         f"at the contract's edges")
     return {"name": "lane_rans_decode (K2)", "route": "cuda",
             "source": "opendcvc_tpu_torch/csrc/lane_rans.cu",
             "replaces": "opendcvc_tpu/ops/pallas_rans.py:267",
             "max_abs_err": max(errs), "ms": head["ms"],
             "device_ms": head["device_ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": None, "shapes": shapes, "frame_ms": frame}
+            "library_ms": None, "shapes": shapes, "frame_ms": frame,
+            "fixed_device_ms": fixed}
 
 
 def synthetic_frames(height, width, n):
@@ -1763,12 +1858,12 @@ FM_DPB = ("ref_frame", "ref_feature", "ref_mv_feature", "ref_y",
           "ref_mv_y")
 def _fm_wrap(net, kind, log, coder_ms):
     """Wrap an FM codec's compress / decompress: each call synchronized,
-    timed, and logged with the host coder's ms within it and the DPB (an
-    I-frame's x_hat) it produced."""
+    timed, and logged with the host coder's ms within it, the device-EC
+    ladder's reruns and the DPB (an I-frame's x_hat) it produced."""
     compress, decompress = net.compress, net.decompress
 
     def timed(side, fn, *args):
-        c0 = coder_ms[0]
+        c0, r0 = coder_ms[0], net.ec_reruns
         _sync(net.device)
         t0 = time.perf_counter()
         out = fn(*args)
@@ -1776,7 +1871,8 @@ def _fm_wrap(net, kind, log, coder_ms):
         ms = (time.perf_counter() - t0) * 1e3
         dpb = out["dpb"] if kind == "P" else {"ref_frame": out["x_hat"]}
         log[side].append({"kind": kind, "ms": ms,
-                          "coder_ms": coder_ms[0] - c0, "dpb": dpb})
+                          "coder_ms": coder_ms[0] - c0,
+                          "reruns": net.ec_reruns - r0, "dpb": dpb})
         return out
 
     net.compress = lambda *a: timed("enc", compress, *a)
@@ -1808,10 +1904,11 @@ def _fm_exact(enc, dec, what):
             _fail(f"{what}: the decoder's {k} differs from the encoder's")
 
 
-def _fm_harness_run(dev, root, h, w, n):
-    """Phase 11 (a): `opendcvc_tpu_torch.eval.fm_harness.main` in process
-    on the first n frames of phase 7's sequence; returns the per-frame
-    log and records."""
+def _fm_harness_run(dev, root, h, w, n, device_ec=False):
+    """Phase 11 (a) and 12 (a): `opendcvc_tpu_torch.eval.fm_harness.main`
+    in process on the first n frames of phase 7's sequence, with
+    OPENDCVC_TPU_DEVICE_EC=1 when device_ec (else unset); returns the
+    per-frame log, the JSON and the .bin."""
     from opendcvc_tpu_torch.eval import fm_harness
     log = {"enc": [], "dec": [], "psnr": []}
     build, distortion = fm_harness.build_nets, fm_harness.get_distortion
@@ -1819,7 +1916,10 @@ def _fm_harness_run(dev, root, h, w, n):
     def recording(args):
         i_net, p_net = build(args)
         for kind, net in (("I", i_net), ("P", p_net)):
-            _fm_wrap(net, kind, log, _clock_coder(net.entropy_coder))
+            if net.device_ec != device_ec:
+                _fail(f"the FM harness built {kind} on the wrong coder")
+            _fm_wrap(net, kind, log, [0.0] if device_ec else
+                     _clock_coder(net.entropy_coder))
         return i_net, p_net
 
     def measured(*args):
@@ -1829,17 +1929,24 @@ def _fm_harness_run(dev, root, h, w, n):
 
     fm_harness.build_nets, fm_harness.get_distortion = recording, measured
     cfg = _write_config(root, h, w, n)
+    tag = "fm_device_ec" if device_ec else "fm"
+    saved = os.environ.pop("OPENDCVC_TPU_DEVICE_EC", None)
+    if device_ec:
+        os.environ["OPENDCVC_TPU_DEVICE_EC"] = "1"
     try:
         fm_harness.main([
             "--test_config", cfg,
-            "--output_path", os.path.join(root, "fm.json"),
-            "--stream_path", os.path.join(root, "fm"), "--rate_num", "1",
+            "--output_path", os.path.join(root, f"{tag}.json"),
+            "--stream_path", os.path.join(root, tag), "--rate_num", "1",
             "--qp_i", str(QP), "--qp_p", str(QP),
             "--reset_interval", str(FM_RESET), "--seed", "0",
             "--device", dev.type])
     finally:
         fm_harness.build_nets, fm_harness.get_distortion = build, distortion
-    out_dir = os.path.join(root, "fm", "synthetic")
+        os.environ.pop("OPENDCVC_TPU_DEVICE_EC", None)
+        if saved is not None:
+            os.environ["OPENDCVC_TPU_DEVICE_EC"] = saved
+    out_dir = os.path.join(root, tag, "synthetic")
     with open(os.path.join(out_dir, f"seq1080_q{QP}.json")) as f:
         job = json.load(f)
     with open(os.path.join(out_dir, f"seq1080_q{QP}.bin"), "rb") as f:
@@ -1847,12 +1954,13 @@ def _fm_harness_run(dev, root, h, w, n):
     return log, job, data
 
 
-def phase_fm_harness(dev, root, h, w, n=N_FM):
-    """Phase 11 (a): the FM harness as a user runs it; fails unless every
-    decoded frame's DPB equals the encoder's, the JSON's bits are 8 x the
-    .bin and every PSNR is finite."""
-    log, job, data = _fm_harness_run(dev, root, h, w, n)
-    mode = "phase 11 (a) FM harness"
+def phase_fm_harness(dev, root, h, w, n=N_FM, device_ec=False,
+                     mode="phase 11 (a) FM harness"):
+    """Phase 11 (a) (host EC) and 12 (a) (device EC): the FM harness as a
+    user runs it; fails unless every decoded frame's DPB equals the
+    encoder's, the JSON's bits are 8 x the .bin and every PSNR is finite.
+    Returns (the frame records, the per-frame log)."""
+    log, job, data = _fm_harness_run(dev, root, h, w, n, device_ec)
     if not len(log["enc"]) == len(log["dec"]) == len(log["psnr"]) == n:
         _fail(f"{mode}: {len(log['enc'])} frames encoded, "
               f"{len(log['dec'])} decoded, {len(log['psnr'])} measured")
@@ -1870,16 +1978,19 @@ def phase_fm_harness(dev, root, h, w, n=N_FM):
         _fail(f"{mode}: records {recs}: not every fa_idx 0-3")
     for t, (e, d, r, p) in enumerate(zip(log["enc"], log["dec"], recs,
                                          log["psnr"])):
+        coder = "" if device_ec else f" (coder {e['coder_ms']:.2f})"
+        dcoder = "" if device_ec else f" (coder {d['coder_ms']:.2f})"
+        reruns = f", {e['reruns']} reruns" if device_ec else ""
         _log(f"{mode}: frame {t} {e['kind']} fa_idx {r[2]} qp {r[1]}: "
-             f"enc {e['ms']:.2f} ms (coder {e['coder_ms']:.2f}), dec "
-             f"{d['ms']:.2f} ms (coder {d['coder_ms']:.2f}), "
-             f"{r[3]} B, bpp {8 * r[3] / (h * w):.4f}, PSNR {p:.4f} dB")
+             f"enc {e['ms']:.2f} ms{coder}, dec {d['ms']:.2f} ms{dcoder}, "
+             f"{r[3]} B, bpp {8 * r[3] / (h * w):.4f}, PSNR {p:.4f} dB"
+             f"{reruns}")
     _log(f"{mode}: test_time {job['test_time']:.2f} s, bpp "
          f"{job['ave_all_frame_bpp']:.4f}, PSNR "
          f"{job['ave_all_frame_psnr']:.4f} dB, .bin {len(data)} B = JSON "
          f"bits / 8; decoder exact (all five DPB entries) on all {n} "
          f"frames")
-    return recs
+    return recs, log
 
 
 def _fm_src_frames(root, h, w, n, dev):
@@ -1916,10 +2027,11 @@ def phase_fm_parts(dev, root, h, w, recs, n=N_FM_PARTS):
     from opendcvc_tpu_torch.models.dmc_fm import DMCFM
     from opendcvc_tpu_torch.models.dmci_fm import DMCIFM
     mode = "phase 11 (b) stream_part 2"
-    i_net = DMCIFM(device=dev)
+    i_net = DMCIFM(device=dev, device_ec=False)
     i_net.init_params(seed=0)
     i_net.update()
-    enc_net, dec_net = (DMCFM(device=dev, stream_part=2) for _ in range(2))
+    enc_net, dec_net = (DMCFM(device=dev, device_ec=False, stream_part=2)
+                        for _ in range(2))
     enc_net.init_params(seed=1)
     dec_net.load_params(enc_net.params)
     for net in (enc_net, dec_net):
@@ -1955,32 +2067,38 @@ def phase_fm_parts(dev, root, h, w, recs, n=N_FM_PARTS):
          + f"; decoder exact on all {n} frames, every P stream 2 parts")
 
 
-def phase_fm_reference(dev):
-    """Phase 11 (c): a 64x64 I-frame and 2 P-frames coded on the GPU,
-    each also coded on the CPU from the GPU's reference, and decoded by
-    the CPU port from it.  Fails on a decode error or a DPB diff over
-    1e-3 of max(1, max|ref|), unless the GPU's and the CPU's symbols
-    differ only at rounding boundaries (a tie: printed with the value and
-    its distance to the boundary, the row reported)."""
+def phase_fm_reference(dev, device_ec=False, label="phase 11 (c)"):
+    """Phase 11 (c) (host EC) and 12 (c) (device EC): a 64x64 I-frame and
+    2 P-frames coded on the GPU, each also coded on the CPU from the GPU's
+    reference, and decoded by the CPU port from it.  Fails on a decode
+    error or a DPB diff over 1e-3 of max(1, max|ref|), unless the GPU's
+    and the CPU's symbols differ only at rounding boundaries (a tie:
+    printed with the value and its distance to the boundary, the row
+    reported).  The symbols compared are the planes each device's host
+    coder is handed: on device EC each frame is also coded through host
+    EC on both devices, whose planes device EC codes (phase 12 (a) holds
+    the two equal)."""
     from opendcvc_tpu_torch.eval import fm_ties as TIES
     from opendcvc_tpu_torch.models.dmc_fm import DMCFM
     from opendcvc_tpu_torch.models.dmci_fm import DMCIFM
     cpu = torch.device("cpu")
     xs = [f[None].astype(np.float32) / 255.0
           for f in textured_frames(64, 64, 3, seed=5)]
-    params = {"i": DMCIFM(device=cpu).init_params(seed=0),
-              "p": DMCFM(device=cpu).init_params(seed=1)}
+    params = {"i": DMCIFM(device=cpu, device_ec=False).init_params(seed=0),
+              "p": DMCFM(device=cpu, device_ec=False).init_params(seed=1)}
 
-    def codec(cls, d):
-        net = cls(device=d)
+    def codec(cls, d, ec=device_ec):
+        net = cls(device=d, device_ec=ec)
         net.load_params(params["i" if cls is DMCIFM else "p"])
         net.update()
         return net
 
     enc = {d.type: (codec(DMCIFM, d), codec(DMCFM, d)) for d in (dev, cpu)}
+    planes = {d.type: (codec(DMCIFM, d, False), codec(DMCFM, d, False))
+              for d in (dev, cpu)} if device_ec else enc
     dec = (codec(DMCIFM, cpu), codec(DMCFM, cpu))
     coded = {k: [] for k in enc}
-    for k, nets in enc.items():
+    for k, nets in planes.items():
         for net in nets:
             TIES.record_coded(net, coded[k])
 
@@ -1999,12 +2117,18 @@ def phase_fm_reference(dev):
                 g = enc[dev.type][0].compress(x, QP)
                 floats.on = False
                 c = enc["cpu"][0].compress(x, QP)
+                if device_ec:
+                    for k in planes:
+                        planes[k][0].compress(x, QP)
                 g_dpb = {"ref_frame": g["x_hat"]}
             else:
                 p_sps = dict(sps, fa_idx=fa)
                 g = enc[dev.type][1].compress(x, ref, QP, fa)
                 floats.on = False
                 c = enc["cpu"][1].compress(x, to_cpu(ref), QP, fa)
+                if device_ec:
+                    planes[dev.type][1].compress(x, ref, QP, fa)
+                    planes["cpu"][1].compress(x, to_cpu(ref), QP, fa)
                 g_dpb = g["dpb"]
             stream = g["bit_stream"]
             same = stream == c["bit_stream"]
@@ -2015,11 +2139,11 @@ def phase_fm_reference(dev):
                 floats.take(kind)
             tie = bool(rows) and all(r[3] <= r[4] for r in rows)
             for r in rows:
-                _log(f"phase 11 (c): frame {t} {plane} {r[0]} {r[1]}: the "
+                _log(f"{label}: frame {t} {plane} {r[0]} {r[1]}: the "
                      f"GPU's value {r[2]:.9g} lies {r[3]:.3g} from its "
                      f"rounding boundary (float agreement {r[4]:.3g})")
             if not same and not tie:
-                _fail(f"phase 11 (c): frame {t}: the GPU's and the CPU's "
+                _fail(f"{label}: frame {t}: the GPU's and the CPU's "
                       f"symbols differ away from a rounding boundary "
                       f"({plane}: {rows[:4]})")
             try:
@@ -2030,17 +2154,17 @@ def phase_fm_reference(dev):
                     d = dec[1].decompress(stream, to_cpu(ref), p_sps)["dpb"]
             except ValueError as e:
                 if not tie:
-                    _fail(f"phase 11 (c): the CPU cannot decode the GPU's "
+                    _fail(f"{label}: the CPU cannot decode the GPU's "
                           f"frame {t}: {e}")
                 d = None
             err = None if d is None else max(
                 float((d[k] - g_dpb[k].cpu()).abs().max())
                 / max(1.0, float(g_dpb[k].abs().max())) for k in g_dpb)
             if not tie and err > 1e-3:
-                _fail(f"phase 11 (c): GPU and CPU disagree at frame {t} "
+                _fail(f"{label}: GPU and CPU disagree at frame {t} "
                       f"({err:g})")
             diff = "not decoded" if err is None else f"{err:.3g}"
-            _log(f"phase 11 (c): 64x64 {'I' if t == 0 else 'P'}-frame {t} "
+            _log(f"{label}: 64x64 {'I' if t == 0 else 'P'}-frame {t} "
                  f"coded on the GPU, decoded by the CPU: max |DPB diff| / "
                  f"max(1, max|ref|) {diff}; GPU and CPU streams identical: "
                  f"{same}" + (f"; a rounding tie in {plane} (reported)"
@@ -2050,11 +2174,12 @@ def phase_fm_reference(dev):
 
 def phase_fm(dev, LR, root, h=H, w=W):
     """Phase 11: DCVC-FM at h x w, (a) the FM harness, (b) the N-part
-    split, (c) GPU -> CPU; K1 and K2 must not launch."""
+    split, (c) GPU -> CPU; K1 and K2 must not launch.  Returns (a)'s
+    per-frame log."""
     LR.encode_scan.launches = 0
     LR.decode_scan.launches = 0
     t0 = time.perf_counter()
-    recs = phase_fm_harness(dev, root, h, w)
+    recs, log = phase_fm_harness(dev, root, h, w)
     phase_fm_parts(dev, root, h, w, recs)
     phase_fm_reference(dev)
     launches = [LR.encode_scan.launches, LR.decode_scan.launches]
@@ -2062,9 +2187,237 @@ def phase_fm(dev, LR, root, h=H, w=W):
         _fail(f"phase 11: FM (host EC) launched K1 / K2 {launches}")
     _log(f"phase 11: DCVC-FM done in {time.perf_counter() - t0:.1f} s; K1 "
          f"{launches[0]}, K2 {launches[1]} launches")
+    return log
+
+
+# ---------------------------------------------------------------------------
+# phase 12: DCVC-FM on device EC
+# ---------------------------------------------------------------------------
+
+N_FM_ALONE = 5   # (b)'s frames: the I-frame and four P-frames
+FM_K2 = {"I": 5, "P": 10}    # K2 launches a decoded frame
+
+
+def _count_top_index():
+    """Wrap both FM modules' y_operand so every y and motion-y plane the
+    device-EC encoders code appends its count of CDF index 255 (a device
+    tensor, read after the run: no wait for the device) to the returned
+    list; returns (list, undo)."""
+    from opendcvc_tpu_torch.models import dmc_fm, dmci_fm
+    counts, orig = [], dmci_fm.y_operand
+
+    def counting(packed, lanes):
+        counts.append(((packed.to(torch.int32) & 255) == 255).sum())
+        return orig(packed, lanes)
+
+    dmci_fm.y_operand = dmc_fm.y_operand = counting
+
+    def undo():
+        dmci_fm.y_operand = dmc_fm.y_operand = orig
+    return counts, undo
+
+
+def _fm_top_by_frame(counts, kinds):
+    """Per frame, its planes' counts of index 255 (4 y planes an I-frame,
+    4 motion-y and 4 y planes a P-frame)."""
+    out, at = [], 0
+    for kind in kinds:
+        n = 4 if kind == "I" else 8
+        out.append(int(sum(int(c) for c in counts[at:at + n])))
+        at += n
+    if at != len(counts):
+        _fail(f"phase 12: {len(counts)} y planes coded for frames {kinds}")
+    return out
+
+
+def _fm_same(got, want, what):
+    for k in FM_DPB:
+        if k in want and not torch.equal(got[k], want[k]):
+            _fail(f"{what}: {k} differs from host EC's")
+
+
+def phase_fm_device_harness(dev, LR, root, host, h, w, n=N_FM):
+    """Phase 12 (a): the FM harness with OPENDCVC_TPU_DEVICE_EC=1 under
+    phase 11 (a)'s checks, then: every frame's encoder and decoder DPB
+    (x_hat on an I-frame) equal to phase 11 (a)'s host-EC ones and the
+    same per-frame PSNR; K1 launched once a frame plus once a rerun, K2
+    5 times a decoded I-frame and 10 a P-frame.  Returns the log."""
+    mode = "phase 12 (a) FM harness, device EC"
+    counts, undo = _count_top_index()
+    LR.encode_scan.launches = 0
+    LR.decode_scan.launches = 0
+    try:
+        recs, log = phase_fm_harness(dev, root, h, w, n, True, mode)
+    finally:
+        undo()
+    launches = [LR.encode_scan.launches, LR.decode_scan.launches]
+    kinds = [e["kind"] for e in log["enc"]]
+    reruns = sum(e["reruns"] for e in log["enc"])
+    want = [n + reruns, sum(FM_K2[k] for k in kinds)]
+    if launches != want:
+        _fail(f"{mode}: K1 / K2 launched {launches} times, not {want}")
+    for side in ("enc", "dec"):
+        for t, (a, b) in enumerate(zip(log[side], host[side])):
+            _fm_same(a["dpb"], b["dpb"], f"{mode} frame {t} {side}")
+    if log["psnr"] != host["psnr"]:
+        _fail(f"{mode}: per-frame PSNR {log['psnr']} differs from host "
+              f"EC's {host['psnr']}")
+    tops = _fm_top_by_frame(counts, kinds)
+    for t, (e, d, he, hd, r, top) in enumerate(zip(
+            log["enc"], log["dec"], host["enc"], host["dec"], recs, tops)):
+        _log(f"{mode}: frame {t} {e['kind']}: enc {e['ms']:.2f} ms (host "
+             f"EC {he['ms']:.2f}), dec {d['ms']:.2f} ms (host EC "
+             f"{hd['ms']:.2f}), {r[3]} B, bpp {8 * r[3] / (h * w):.4f}, "
+             f"{e['reruns']} reruns, {top} y and motion-y CDF indexes of "
+             f"255")
+    _log(f"{mode}: K1 {launches[0]} launches ({n} frames, {reruns} "
+         f"reruns), K2 {launches[1]} (5 an I-frame, 10 a P-frame); encoder "
+         f"and decoder DPBs and PSNR equal to host EC's on all {n} frames")
+    return log, launches
+
+
+def phase_fm_device_alone(dev, LR, root, ref, h, w, n=N_FM_ALONE):
+    """Phase 12 (b): DMCIFM and DMCFM on device EC, built and called
+    directly, on (a)'s first n frames with (a)'s schedule: per frame K1
+    once plus once a rerun and K2 5 / 10 times, the decoder exact, the
+    encoder's DPB (a)'s.  Prints each frame's enc / dec ms, reruns and
+    bytes."""
+    from opendcvc_tpu_torch.models.dmc_fm import DMCFM
+    from opendcvc_tpu_torch.models.dmci_fm import DMCIFM
+    mode = "phase 12 (b) device EC alone"
+    i_enc, i_dec = (DMCIFM(device=dev, device_ec=True) for _ in range(2))
+    p_enc, p_dec = (DMCFM(device=dev, device_ec=True) for _ in range(2))
+    i_enc.init_params(seed=0)
+    p_enc.init_params(seed=1)
+    i_dec.load_params(i_enc.params)
+    p_dec.load_params(p_enc.params)
+    for net in (i_enc, i_dec, p_enc, p_dec):
+        net.update()
+    xs = _fm_src_frames(root, h, w, n, dev)
+    sps = {"height": h, "width": w, "qp": QP}
+    rows, total = [], [0, 0]
+
+    def coded(t, kind, enc_fn, dec_fn, net):
+        k0 = [LR.encode_scan.launches, LR.decode_scan.launches]
+        r0 = net.ec_reruns
+        out, ms_e = _timed(enc_fn, dev)
+        k1 = LR.encode_scan.launches - k0[0]
+        dec, ms_d = _timed(lambda: dec_fn(out["bit_stream"]), dev)
+        k2 = LR.decode_scan.launches - k0[1]
+        reruns = net.ec_reruns - r0
+        if (k1, k2) != (1 + reruns, FM_K2[kind]):
+            _fail(f"{mode}: frame {t} launched K1 / K2 {(k1, k2)} times, "
+                  f"not {(1 + reruns, FM_K2[kind])}")
+        total[0] += k1
+        total[1] += k2
+        rows.append(f"{kind}{t} enc {ms_e:.2f} / dec {ms_d:.2f} ms, "
+                    f"{reruns} reruns, {len(out['bit_stream'])} B")
+        return out, dec
+
+    e, d = coded(0, "I", lambda: i_enc.compress(xs[0], QP),
+                 lambda s: i_dec.decompress(s, sps), i_enc)
+    _fm_exact({"ref_frame": e["x_hat"]}, {"ref_frame": d["x_hat"]},
+              f"{mode} I-frame")
+    _fm_same({"ref_frame": e["x_hat"]}, ref["enc"][0]["dpb"],
+             f"{mode} I-frame")
+    none = dict.fromkeys(FM_DPB[1:])
+    enc_dpb = dict(none, ref_frame=e["x_hat"])
+    dec_dpb = dict(none, ref_frame=d["x_hat"])
+    for t, (fa, fa_in, refresh, qp) in enumerate(_fm_schedule(n), start=1):
+        if refresh:
+            enc_dpb = dict(none, ref_frame=enc_dpb["ref_frame"])
+            dec_dpb = dict(none, ref_frame=dec_dpb["ref_frame"])
+        out, dec = coded(
+            t, "P", lambda: p_enc.compress(xs[t], enc_dpb, qp, fa_in),
+            lambda s: p_dec.decompress(s, dec_dpb,
+                                       dict(sps, qp=qp, fa_idx=fa_in)),
+            p_enc)
+        enc_dpb, dec_dpb = out["dpb"], dec["dpb"]
+        _fm_exact(enc_dpb, dec_dpb, f"{mode} P-frame {t}")
+        _fm_same(enc_dpb, ref["enc"][t]["dpb"], f"{mode} P-frame {t}")
+    _log(f"{mode}: " + "; ".join(rows) + f"; decoder exact and encoder "
+         f"equal to (a) on all {n} frames; K1 {total[0]}, K2 {total[1]} "
+         f"launches")
+    return total
+
+
+def phase_fm_device(dev, LR, root, host, h=H, w=W):
+    """Phase 12: DCVC-FM on device EC at h x w, phase 11's frames, weights
+    and schedule: (a) the FM harness, (b) the codecs alone, (c) GPU ->
+    CPU.  Returns the K1 / K2 launches of the phase."""
+    t0 = time.perf_counter()
+    log, launches = phase_fm_device_harness(dev, LR, root, host, h, w)
+    alone = phase_fm_device_alone(dev, LR, root, log, h, w)
+    phase_fm_reference(dev, True, "phase 12 (c)")
+    total = [a + b for a, b in zip(launches, alone)]
+    _log(f"phase 12: DCVC-FM device EC done in "
+         f"{time.perf_counter() - t0:.1f} s")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 13: an H100 stream for the CPU tests
+# ---------------------------------------------------------------------------
+
+H100_QP = 30
+
+
+def phase_h100_streams(dev, out_dir):
+    """Phase 13: one 64x64 frame (the port's synthetic_images(1, 64,
+    seed=0)) coded on the card with the committed trained checkpoint
+    docs/dmci_tiny_rd.msgpack (DMCI at TINY_KW), qp 30, through host EC
+    and device EC, each decoded on the card (exact, or the phase fails).
+    Writes the frame, both streams, the GPU decoder's x_hat of each and
+    the card and versions to out_dir/h100_streams; tests/data/h100 holds
+    a copy that tests/test_torch_port_h100_streams.py decodes on the CPU
+    with the JAX package and the port."""
+    from opendcvc_tpu_torch.eval.rd_evidence import TINY_KW, \
+        synthetic_images
+    from opendcvc_tpu_torch.models.dmci import DMCI
+    from opendcvc_tpu_torch.utils import checkpoint as ckpt
+    from opendcvc_tpu_torch.utils.params import from_jax
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs",
+                        "dmci_tiny_rd.msgpack")
+    params = from_jax(ckpt.load_params(path))
+    x = synthetic_images(1, 64, seed=0)[0]
+    out_dir = os.path.join(out_dir, "h100_streams")
+    os.makedirs(out_dir, exist_ok=True)
+    np.save(os.path.join(out_dir, "x.npy"), x)
+    sps = {"height": 64, "width": 64, "ec_part": 0}
+    sizes = {}
+    for mode, device_ec in (("host", False), ("device", True)):
+        enc, dec = (DMCI(device=dev, device_ec=device_ec, **TINY_KW)
+                    for _ in range(2))
+        for net in (enc, dec):
+            net.load_params(params)
+            net.update()
+        out = enc.compress(x, H100_QP)
+        x_hat = dec.decompress(out["bit_stream"], sps, H100_QP)["x_hat"]
+        if not torch.equal(x_hat, out["x_hat"]):
+            _fail(f"phase 13: the {mode}-EC decoder differs from its "
+                  f"encoder")
+        with open(os.path.join(out_dir, f"{mode}.bin"), "wb") as f:
+            f.write(out["bit_stream"])
+        np.save(os.path.join(out_dir, f"{mode}_x_hat.npy"),
+                x_hat.cpu().numpy())
+        sizes[mode] = len(out["bit_stream"])
+    meta = {"card": _card(), "torch": torch.__version__,
+            "cuda": torch.version.cuda, "qp": H100_QP, "size": 64,
+            "checkpoint": "docs/dmci_tiny_rd.msgpack", "dmci": TINY_KW,
+            "frame": "opendcvc_tpu_torch.eval.rd_evidence."
+                     "synthetic_images(1, 64, seed=0)", "bytes": sizes}
+    with open(os.path.join(out_dir, "meta.json"), "w") as f:
+        json.dump(meta, f, indent=1)
+    _log(f"phase 13: a 64x64 trained-DMCI frame coded on the card (host EC "
+         f"{sizes['host']} B, device EC {sizes['device']} B), both decoders "
+         f"exact; written to {out_dir}")
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="chip_smoke_out",
+                    help="directory phase 13 writes its streams into")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         _fail("CUDA is not available")
     try:
@@ -2122,7 +2475,11 @@ def main():
         runs.update(phase_bf16(dev, LR, frames, f32, root, seq))
         runs.update(phase_training_slice(dev, LR, f32, root,
                                          stream7["job"]))
-        phase_fm(dev, LR, root)
+        fm_host = phase_fm(dev, LR, root)
+        runs["phase 12 FM device EC"] = phase_fm_device(dev, LR, root,
+                                                        fm_host)
+        del fm_host
+    phase_h100_streams(dev, args.out)
     for i, k in enumerate(kernels):
         k["launches_by_run"] = {"phases 3-4": k["launches"]}
         for name, n in runs.items():

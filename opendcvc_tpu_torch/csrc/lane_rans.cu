@@ -51,10 +51,12 @@
 //
 // K2 keeps every memory load off the chain from one step's state to the
 // next, and the step free of branches but for the rare long search:
-//   * the slice's compact table (784 B a row, 98 KB for 128 rows) is
-//     copied into shared memory once a block by one bulk copy (TMA,
-//     cp.async.bulk) that completes on an mbarrier, while the lanes load
-//     their carry, first row ids and first refill words;
+//   * the slice's compact table (784 B a row: 98 KB for RT's 128 rows,
+//     200,704 B for DCVC-FM's 256-row y table, which with the rings'
+//     ~4.2 KB leaves a block one SM to itself, under the 227 KB a block
+//     may take) is copied into shared memory once a block by one bulk
+//     copy (TMA, cp.async.bulk) that completes on an mbarrier, while the
+//     lanes load their carry, first row ids and first refill words;
 //   * the symbol search reads only shared memory (lr_find_sym_compact:
 //     a bucket index, then the bucket's few u16 bins at once);
 //   * row ids and refill words reach each lane through two rings in
@@ -84,7 +86,13 @@ constexpr int kOpRing = 64;       // K1: operands in flight, in steps
 constexpr int kEncLead = 32;      // K1: entries requested this far ahead
 constexpr int kDecThreads = 32;   // K2: one warp a block
 constexpr int kRing = 16;         // K2: row ids and words in flight
-constexpr int kMaxDecRows = LR_DEC_SKIP - 1;
+constexpr int kMaxDecRows = LR_DEC_MAX_ROWS;
+// K2's static shared memory: the two rings and the mbarrier
+constexpr int kDecStaticSmem =
+    (2 * kRing + 1) * kDecThreads * 4 + (int)sizeof(uint64_t);
+static_assert(kMaxDecRows < LR_SKIP, "a row id must not be the sentinel");
+static_assert(kMaxDecRows * LR_DEC_ROW_BYTES + kDecStaticSmem <= 232448,
+              "K2's largest table and rings exceed a block's shared memory");
 
 __device__ inline uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -383,12 +391,12 @@ __global__ void __launch_bounds__(kDecThreads)
 }  // namespace
 
 // Launch on `stream` and return cudaGetLastError() (0 on success).
-// etab: nr prepared encode rows (16-byte aligned), 1 <= nr <= LR_ENC_SKIP;
+// etab: nr prepared encode rows (16-byte aligned), 1 <= nr <= LR_SKIP;
 // staging: (L, mw) words, 16-byte aligned.
 extern "C" int lr_encode_launch(const void* packed, const void* etab,
                                 void* staging, void* lens, void* states,
                                 int K, int L, int nr, int mw, void* stream) {
-  if (nr < 1 || nr > LR_ENC_SKIP || (uintptr_t)staging % 16)
+  if (nr < 1 || nr > LR_SKIP || (uintptr_t)staging % 16)
     return (int)cudaErrorInvalidValue;
   int blocks = (L + kEncThreads - 1) / kEncThreads;
   lr_encode_kernel<<<blocks, kEncThreads, 0, (cudaStream_t)stream>>>(

@@ -15,8 +15,10 @@
 //   * decode: f = state & 0xFFFF, symbol = last bin with cum <= f,
 //     state = freq * (state >> 16) + f - start; if state < 2^16 pull
 //     data[ptr++] (a read past the end gives 0);
-//   * the skip sentinel row is a zero-rate passthrough: no emission, no
-//     state change, decoded as 0.
+//   * the skip sentinel row (LR_SKIP) is a zero-rate passthrough: no
+//     emission, no state change, decoded as 0.  Unlike the JAX package's
+//     row 255, it lies outside every table, so a 256-row table codes its
+//     row 255 like any other.
 // Row ids at or above the table's row count (other than the sentinel) are
 // clamped to its last row, so a bad operand cannot read outside the table.
 //
@@ -41,8 +43,12 @@
 
 #define LR_ENC_ROW_BITS 9
 #define LR_ENC_ROW_MASK 511
-#define LR_ENC_SKIP 511  // 9-bit: combined encode tables reach 256 rows
-#define LR_DEC_SKIP 255  // decode tables stay below 255 rows
+// The skip row id of both kernels, 9 bits wide: K1's combined per-frame
+// tables reach 384 rows and K2's slices 256 (DCVC-FM's Laplace y table),
+// so an 8-bit sentinel would collide with a coded row.  (The JAX package's
+// streams mark a skip with row 255; the port's callers map it.)
+#define LR_SKIP 511
+#define LR_DEC_MAX_ROWS 256  // K2's shared-memory table: 256 x 784 B
 #define LR_ENC_ENTRY_WORDS 4
 #define LR_ENC_ROW_WORDS 1024  // 256 entries
 #define LR_DEC_ROW_BYTES 784
@@ -93,7 +99,7 @@ __host__ __device__ inline LrEncOp lr_enc_op(uint32_t c16, uint32_t ml,
 }
 
 __host__ __device__ inline bool lr_enc_is_skip(int32_t pk) {
-  return ((uint32_t)pk & LR_ENC_ROW_MASK) == LR_ENC_SKIP;
+  return ((uint32_t)pk & LR_ENC_ROW_MASK) == LR_SKIP;
 }
 
 // Word offset of the prepared entry of packed operand pk in a table whose
@@ -216,7 +222,7 @@ __host__ __device__ inline int lr_dec_lane_step(const uint8_t* tab, int nr,
                                                 int row, uint32_t word,
                                                 uint32_t* state,
                                                 int32_t* ptr) {
-  const bool skip = row == LR_DEC_SKIP;
+  const bool skip = row == LR_SKIP;
   const uint32_t last = (uint32_t)nr - 1u;
   const uint32_t r = (uint32_t)row < last ? (uint32_t)row : last;
   uint32_t start, freq;

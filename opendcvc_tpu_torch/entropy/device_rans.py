@@ -23,9 +23,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-#: sentinel local row id of a force_zero_thres-skipped symbol: the scans
-#: pass it through at zero rate and decode it as 0.  Real local row ids
-#: stay below it (y rows <= 127, z rows < the z channel count).
+from ..ops.lane_rans import DEC_SKIP, ENC_SKIP
+
+#: the JAX package's sentinel local row id of a force_zero_thres-skipped
+#: symbol: its scans pass it through at zero rate and decode it as 0.  The
+#: port's kernels take their own 9-bit sentinel (ops/lane_rans.py
+#: ENC_SKIP / DEC_SKIP, 511), since DCVC-FM's 256-row y table codes a row
+#: 255; this is the JAX package's value, under its name.
 SKIP_ROW = 255
 
 FRAME_MAGIC = 0xD6  # container format/version marker (v6)
@@ -231,6 +235,41 @@ def settle_staging(arr, plan, rung, bps, base_bps, rerun):
         "device rANS staging overflowed at the top ladder rung")
 
 
+def fm_rung(lanes, k_total, bps, top=False):
+    """(mw, cap) of a DCVC-FM staging rung: mw by staging_width, cap half
+    the rectangle (at least 4096 words), or the whole rectangle at a top
+    rung (`top`)."""
+    mw = staging_width(k_total, bps)
+    return mw, lanes * mw if top else max(4096, lanes * mw // 2)
+
+
+def fm_settle_staging(arr, lanes, k_total, bps, rerun):
+    """The DCVC-FM codecs' staging ladder, as the JAX package's FM loops
+    run it (models/dmc_fm.py and models/dmci_fm.py `_compress_device`),
+    which is not RT's settle_staging: the container records the rung the
+    last run used, not one derived from the payload, and a run gets the
+    whole rectangle only after a run at bps 3.0 overflowed (the top flag
+    is taken before the doubling).
+
+    `arr` is the fetched compact staging of a run at fm_rung(lanes,
+    k_total, bps).  While a lane reached mw - 2 words or the payload
+    exceeds cap, double bps (at most 3.0) and re-encode with `rerun(mw,
+    cap)`, which returns the new run's host staging.  Returns (stream,
+    reruns)."""
+    mw, cap = fm_rung(lanes, k_total, bps)
+    for reruns in range(8):
+        dense, ln, st = undensify_packed(arr, cap, lanes)
+        if int(ln.max(initial=0)) < mw - 2 and int(ln.sum()) <= cap:
+            return (serialize_frame_dense(dense, ln, st, lanes * k_total,
+                                          k_total, mw, cap), reruns)
+        top = bps >= 3.0
+        bps = min(bps * 2, 3.0)
+        mw, cap = fm_rung(lanes, k_total, bps, top)
+        arr = rerun(mw, cap)
+    raise OverflowError(
+        "device rANS staging overflowed at the top ladder rung")
+
+
 def serialize_frame_dense(dense, lens, states, n_symbols, K, MW, cap,
                           kyc=0):
     """v6 container from an already-dense (decode-order, lane-major) word
@@ -350,22 +389,24 @@ def _survivor_slots(keep, n_c):
 def compact_skip_enc(sym, rows, keep, n_c):
     """Compact a flat plane's survivors into n_c slots: (sym_c (n_c,),
     rows_c (n_c,), m).  Survivors keep their order; the tail slots ride
-    SKIP_ROW at zero rate with symbol 0; m counts every survivor, also
-    those past n_c, which are dropped (the caller re-runs at a larger
-    rung when m > n_c).  The JAX package's `compact_skip_enc`."""
+    the kernels' skip row id (ops/lane_rans.py ENC_SKIP; the JAX
+    package's `compact_skip_enc` fills SKIP_ROW) at zero rate with symbol
+    0; m counts every survivor, also those past n_c, which are dropped
+    (the caller re-runs at a larger rung when m > n_c)."""
     dst, m, n_buf = _survivor_slots(keep, n_c)
     sym_c = sym.new_zeros((n_buf,)).scatter_(0, dst, sym.reshape(-1))
-    rows_c = rows.new_full((n_buf,), SKIP_ROW).scatter_(
+    rows_c = rows.new_full((n_buf,), ENC_SKIP).scatter_(
         0, dst, rows.reshape(-1))
     return sym_c[:n_c], rows_c[:n_c], m
 
 
 def compact_skip_dec(rows, keep, n_c):
     """The decoder's side of compact_skip_enc: (rows_c (n_c,), orig (n_c,)
-    int64, each slot's position in the plane, n for a tail slot)."""
+    int64, each slot's position in the plane, n for a tail slot); tail
+    slots ride K2's DEC_SKIP."""
     dst, _, n_buf = _survivor_slots(keep, n_c)
     n = rows.numel()
-    rows_c = rows.new_full((n_buf,), SKIP_ROW).scatter_(
+    rows_c = rows.new_full((n_buf,), DEC_SKIP).scatter_(
         0, dst, rows.reshape(-1))
     orig = torch.full((n_buf,), n, dtype=torch.int64, device=rows.device)
     orig.scatter_(0, dst, torch.arange(n, device=rows.device))

@@ -50,6 +50,15 @@ class NPartEntropyCoder:
         for p in self.parts:
             p.reset()
 
+    def set_use_two_entropy_coders(self, b):
+        """The dual-coder split is the RT generation's; the N-part split
+        takes its place, so more than one part refuses it (as the JAX
+        package's NPartEntropyCoder asserts)."""
+        if b and self.stream_part > 1:
+            raise ValueError(f"two entropy coders with stream_part "
+                             f"{self.stream_part}: the N-part split takes "
+                             f"the dual coders' place")
+
     # -- encode --------------------------------------------------------------
 
     def encode_y(self, packed_symbols, cdf_group_index):

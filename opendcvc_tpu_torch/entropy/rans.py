@@ -60,6 +60,7 @@ class _Coder:
     def __init__(self, threaded=None):
         if threaded is None:
             threaded = _threaded_default()
+        self.threaded = bool(threaded)
         self._lib = load_host_rans()
         self._h = getattr(self._lib, self._new)(1 if threaded else 0)
         self._rows = []

@@ -16,8 +16,11 @@ reference frame alone with feature adaptor 2.
 
 The codecs run on `--device` (default cuda; without CUDA that raises, and
 the harness runs on the CPU only when `--device cpu` asks for it) with the
-host rANS coder; OPENDCVC_TPU_DEVICE_EC set makes the codecs raise (FM
-device EC is not ported).  Weights: `--model_path_i/_p` read the JAX
+host rANS coder, or, with OPENDCVC_TPU_DEVICE_EC=1 (read by the codecs'
+constructors, as the JAX package's read it), with device EC: kernels
+K1/K2 on the card, their plain versions on the CPU; a frame record then
+carries the "tpu-lane" container (the JAX FM harness writes its device
+streams the same way).  Weights: `--model_path_i/_p` read the JAX
 package's checkpoints (no JAX needed); without them the codecs take the
 port's own random init from `--seed` (intra) and `--seed + 1` (P), drawn
 by torch.Generator, not the JAX package's weights for the same seed.

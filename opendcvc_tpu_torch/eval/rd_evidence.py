@@ -1,12 +1,17 @@
 """Synthetic evaluation content (numpy).
 
-The port's copy of `synthetic_images` from the JAX package's
-`eval/rd_evidence.py`, which `python -m opendcvc_tpu_torch.bench` codes
-under BENCH_CKPT_I.  The rest of that module (the RD sweep of a trained
-checkpoint) is not ported yet.
+The port's copy of `synthetic_images` and `TINY_KW` from the JAX
+package's `eval/rd_evidence.py`: `python -m opendcvc_tpu_torch.bench`
+codes the images under BENCH_CKPT_I, and `chip_smoke.py` codes one with
+the committed trained checkpoint (`docs/dmci_tiny_rd.msgpack`, a DMCI at
+TINY_KW).  The rest of that module (the RD sweep of a trained checkpoint)
+is not ported yet.
 """
 
 import numpy as np
+
+#: the reduced DMCI widths of the trained RD-evidence checkpoint
+TINY_KW = {"N": 96, "z_channel": 64, "enc_dec_ch": 64}
 
 
 def synthetic_images(n, size, seed=0, width=None):

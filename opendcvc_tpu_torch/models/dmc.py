@@ -40,7 +40,7 @@ import threading
 import numpy as np
 import torch
 
-from ..entropy.device_rans import (SKIP_ROW, StagingPlan, _undensify_device,
+from ..entropy.device_rans import (StagingPlan, _undensify_device,
                                    compact_skip_dec, compact_skip_enc,
                                    densify_segment, effective_lanes,
                                    expand_compact_syms, full_range_cdf_rows,
@@ -51,8 +51,9 @@ from ..entropy.models import (BitEstimator, GaussianEncoder,
                               bit_estimator_init)
 from ..layers import blocks as L
 from ..ops import fused as F
-from ..ops.lane_rans import (ENC_SKIP, decode_scan, encode_scan, pack_operand,
-                              prepare_decode_table, prepare_encode_table)
+from ..ops.lane_rans import (DEC_SKIP, ENC_SKIP, decode_scan, encode_scan,
+                              pack_operand, prepare_decode_table,
+                              prepare_encode_table)
 from ..utils.common import env_flag
 from ..utils.params import cast_floating, to_device
 from . import common as C
@@ -351,7 +352,6 @@ def _pack_frame(y_planes, z_int8, lanes, n_y_rows, fz, kyc=0):
         if fz is not None and kyc > 0:
             sym, row, m = compact_skip_enc(sym, row, _cm_flat(keep),
                                            lanes * kyc)
-            row = torch.where(row == SKIP_ROW, ENC_SKIP, row)
             m_max = m if m_max is None else torch.maximum(m_max, m)
         elif fz is not None:
             kf = _cm_flat(keep)
@@ -381,15 +381,15 @@ def _dec_plane(data, rows_flat, dec_table, carry, lanes):
 def _dec_y_plane(data, idx, keep, dec_table, carry, lanes, fz, kyc=0):
     """Decode one y plane: its survivors compacted into lanes * kyc slots
     (kyc > 0, with force_zero_thres) and expanded back, or the full plane,
-    skipped positions at SKIP_ROW; the mapping comes from the shared keep
-    mask, as on the encoder."""
+    skipped positions at K2's DEC_SKIP; the mapping comes from the shared
+    keep mask, as on the encoder."""
     rows = _cm_flat(idx).to(torch.int32)
     if fz is not None and kyc > 0:
         rows_c, orig = compact_skip_dec(rows, _cm_flat(keep), lanes * kyc)
         syms_c, carry = _dec_plane(data, rows_c, dec_table, carry, lanes)
         return expand_compact_syms(syms_c, orig, rows.shape[0]), carry
     if fz is not None:
-        rows = torch.where(_cm_flat(keep), rows, SKIP_ROW)
+        rows = torch.where(_cm_flat(keep), rows, DEC_SKIP)
     return _dec_plane(data, rows, dec_table, carry, lanes)
 
 

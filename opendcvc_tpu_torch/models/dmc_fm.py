@@ -15,22 +15,36 @@ W, 3) as the codecs return x_hat; "ref_feature", "ref_mv_feature",
 "ref_y", "ref_mv_y" NCHW tensors, None before the first P-frame and after
 a refresh.  fa_idx picks `feature_adaptor[fa_idx]`.
 
-Host EC (the JAX package's default path): the encoder copies both z
-planes and the eight packed y planes to the host in one copy while the
-device runs the reconstruction; the decoder decodes both z planes on the
-host, then fetches each pass's CDF indexes and uploads its symbols.  With
-stream_part > 1 the frame's symbols split over that many coders
-(`entropy/nparts.py`).  Every stage the encoder and the decoder both
-evaluate is one shared function, so the DPB chain is bit-identical on the
-two sides (see models/dmc.py); the streams are the JAX package's, byte
-for byte.  Device EC and dtypes other than float32 raise (not ported
-yet; models/dmci_fm.py::refuse_unported).
+Entropy coding has two modes, as in the JAX package (`device_ec`, by
+default OPENDCVC_TPU_DEVICE_EC):
+  * host EC (the default): the encoder copies both z planes and the eight
+    packed y planes to the host in one copy while the device runs the
+    reconstruction; the decoder decodes both z planes on the host, then
+    fetches each pass's CDF indexes and uploads its symbols.  With
+    stream_part > 1 the frame's symbols split over that many coders
+    (`entropy/nparts.py`);
+  * device EC: kernel K1 codes the ten planes in reverse decode order (y3
+    .. y0, z, mv3 .. mv0, motion z) back to back per lane in one launch
+    over the frame's 384-row table (y rows 0-255, z rows 256 + channel,
+    motion z rows 320 + channel: the JAX package's layout), and ten K2
+    launches decode motion z, the four motion passes, z and the four y
+    passes, each between the stages that need it, carrying one rANS state
+    per lane.  stream_part has no effect, as in the JAX codec.  The
+    container and the staging ladder are DMCIFM's.
+Every stage the encoder and the decoder both evaluate is one shared
+function, so the DPB chain is bit-identical on the two sides (see
+models/dmc.py); the streams are the JAX package's, byte for byte, but for
+the device-EC fault of the JAX package models/dmci_fm.py describes (a y
+or motion-y CDF index of 255).  Dtypes other than float32 raise (not
+ported yet; models/dmci_fm.py::refuse_unported).
 """
 
 import numpy as np
 import torch
 
 from ..entropy.coder import EntropyCoder
+from ..entropy.device_rans import (effective_lanes, fm_rung,
+                                   fm_settle_staging, full_range_cdf_rows)
 from ..entropy.models import (BitEstimator, GaussianEncoder,
                               bit_estimator_init)
 from ..entropy.nparts import NPartEntropyCoder
@@ -38,10 +52,15 @@ from ..layers import blocks_fm as FM
 from ..layers.blocks import conv_apply, conv_init
 from ..ops import fused as F
 from ..ops.fused import depth_to_space
+from ..ops.lane_rans import (pack_operand, prepare_decode_table,
+                             prepare_encode_table)
 from ..ops.warp import bilinear_resize_2x, flow_warp
 from ..utils.params import to_device
 from . import common as C
-from .dmci_fm import gaussian_cfg, hyper_enc_apply, refuse_unported
+from .dmc import _dec_plane, _lane_layout_t, _z_rows
+from .dmci_fm import (decode_carry, dec_y_plane, fm_device_ec, gaussian_cfg,
+                      hyper_enc_apply, launch_staging, refuse_unported,
+                      y_operand)
 from .prior_stages import make_pass_stages
 
 G_CH_1X = 48
@@ -419,22 +438,29 @@ def _stage_y_spatial(p, k, y_hat_so_far, common_params):
 # ---------------------------------------------------------------------------
 
 class DMCFM:
-    """DCVC-FM P-frame codec on the host C++ rANS coder.
+    """DCVC-FM P-frame codec.
 
     compress / decompress exchange explicit DPB dicts (see the module
-    docstring).  stream_part > 1 splits each frame's stream over that many
-    coders (`NPartEntropyCoder`).  device: torch device (default cuda;
-    without CUDA that raises).  device_ec, a dtype other than float32 and
-    OPENDCVC_TPU_DEVICE_EC raise NotImplementedError (not ported yet).
-    `transfers` counts the host-EC copies: "d2h" the fetches the host
-    waits for, "h2d" the uploads."""
+    docstring).  device: torch device (default cuda; without CUDA that
+    raises).  device_ec and its settings: as DMCIFM's.
+    stream_part > 1 splits each host-EC frame's stream over that many
+    coders (`NPartEntropyCoder`), each on a worker thread of its own with
+    ec_thread (as the JAX package's DMCFM(ec_thread=); threading changes
+    no byte).  A dtype other than float32 raises NotImplementedError (not
+    ported yet).  `transfers` counts the host-EC copies: "d2h" the
+    fetches the host waits for, "h2d" the uploads; `ec_reruns` the
+    device-EC frames' ladder reruns (one K1 launch each)."""
 
-    def __init__(self, device="cuda", device_ec=False, dtype=torch.float32,
-                 stream_part=1):
-        refuse_unported(device_ec, dtype, "DMCFM")
+    def __init__(self, device="cuda", device_ec=None, dtype=torch.float32,
+                 stream_part=1, ec_thread=False):
+        refuse_unported(dtype, "DMCFM")
         self.device = C.resolve_device(device)
+        self.device_ec = fm_device_ec(device_ec)
         self.dtype = dtype
         self.stream_part = stream_part
+        self.ec_thread = ec_thread
+        self.lanes = C.ec_setting(None, "OPENDCVC_TPU_EC_LANES", 4096)
+        self.bytes_per_symbol = C.ec_setting(None, "OPENDCVC_TPU_EC_BPS", 0.5)
         self.params = None
         self.entropy_coder = None
         self.bit_estimator_z = BitEstimator(1, G_CH_Z, support=50)
@@ -443,6 +469,9 @@ class DMCFM:
             distribution="laplace", scale_min=0.01, scale_max=64.0,
             scale_levels=256, support=50)
         self.transfers = {"d2h": 0, "h2d": 0}
+        self.ec_reruns = 0
+        self.enc_table = None
+        self.dec_tables = None
         self._stages = make_pass_stages(gaussian_cfg(self.gaussian_encoder),
                                         4)
 
@@ -461,18 +490,50 @@ class DMCFM:
         self.params = to_device(params, self.device)
 
     def update(self):
-        """Register the CDF tables with a new host coder (or N-part
-        coder): group 0 the Laplace scale rows, group 1 z's rows, group 2
-        the motion z's."""
-        if self.stream_part > 1:
-            self.entropy_coder = NPartEntropyCoder(self.stream_part)
-        else:
-            self.entropy_coder = EntropyCoder()
-        self.gaussian_encoder.update(self.entropy_coder)
-        self.bit_estimator_z.update(self.params["bit_estimator_z"],
-                                    self.entropy_coder)
-        self.bit_estimator_z_mv.update(self.params["bit_estimator_z_mv"],
-                                       self.entropy_coder)
+        """Build the CDF tables: the Laplace scale rows, z's rows, the
+        motion z's.  Host EC: register them with a new host coder (or
+        N-part coder), groups 0, 1 and 2.  Device EC: K1 reads the
+        prepared 384-row table `enc_table`; K2 reads `dec_tables`: "y"
+        the 256 y rows, "z" and "mv_z" the y table's row 0 followed by the
+        plane's 64 rows (a lane's pad slot codes symbol 0 on row 0 of the
+        whole table, as the JAX package's lane layout pads it)."""
+        if not self.device_ec:
+            if self.stream_part > 1:
+                self.entropy_coder = NPartEntropyCoder(
+                    self.stream_part, threaded=self.ec_thread or None)
+            else:
+                self.entropy_coder = EntropyCoder()
+            self.gaussian_encoder.update(self.entropy_coder)
+            self.bit_estimator_z.update(self.params["bit_estimator_z"],
+                                        self.entropy_coder)
+            self.bit_estimator_z_mv.update(self.params["bit_estimator_z_mv"],
+                                           self.entropy_coder)
+            return
+        y_rows = full_range_cdf_rows(*self.gaussian_encoder.update())
+        rows = [y_rows] + [full_range_cdf_rows(*be.update(self.params[name]))
+                           for be, name in (
+                               (self.bit_estimator_z, "bit_estimator_z"),
+                               (self.bit_estimator_z_mv,
+                                "bit_estimator_z_mv"))]
+        table = torch.from_numpy(np.concatenate(rows)).to(self.device)
+        self.enc_table = prepare_encode_table(table)
+        dec = prepare_decode_table(table)
+        n_y = y_rows.shape[0]
+        self.dec_tables = {
+            "y": dec[:n_y],
+            "z": torch.cat([dec[:1], dec[n_y:n_y + G_CH_Z]]),
+            "mv_z": torch.cat([dec[:1], dec[n_y + G_CH_Z:]])}
+
+    def set_use_two_entropy_coders(self, b):
+        """Split each plane between two host coders (the JAX package's
+        DMCFM.set_use_two_entropy_coders; an N-part coder refuses it).
+        As there, it needs update() first, and has no effect with device
+        EC."""
+        if self.entropy_coder is None and self.enc_table is None:
+            raise RuntimeError(
+                "DMCFM.set_use_two_entropy_coders: call update() first")
+        if not self.device_ec:
+            self.entropy_coder.set_use_two_entropy_coders(b)
 
     # -- four-part prior drivers ---------------------------------------------
 
@@ -486,15 +547,10 @@ class DMCFM:
             packed.append(pk)
         return packed, st["finalize_video"](so_far, params_prior)
 
-    def _decompress_4x(self, params_prior, spatial_fn):
+    def _decompress_4x(self, params_prior, spatial_fn, decode):
+        """The four passes of a latent, `decode(idx)` giving each pass's
+        symbols from its CDF indexes."""
         st = self._stages
-
-        def decode(idx):
-            return C.decode_y_host(self.gaussian_encoder,
-                                   C.fetch_async(C.index_buf(idx)),
-                                   idx.shape, self.device, self.dtype,
-                                   self.transfers)
-
         so_far = st["dec_restore0_video"](
             decode(st["dec_index0_video"](params_prior)), params_prior)
         for k in range(1, 4):
@@ -505,6 +561,20 @@ class DMCFM:
 
     def _ref_frame(self, dpb):
         return C.frame_to_nchw(dpb["ref_frame"], self.device, self.dtype)
+
+    def _mw_cap_for(self, H, W):
+        """(lanes, steps a lane) of a frame, as the JAX package's
+        DMCFM._mw_cap_for: the lane count scaled to the ten planes'
+        symbols, k_total the sum of each plane's ceil(n / L)."""
+        n_y = (H // 16) * (W // 16) * G_CH_16X // 4
+        n_mv = (H // 16) * (W // 16) * CH_MV // 4
+        zh, zw = C.get_downsampled_shape(H, W, 64)
+        n_z, n_mvz = zh * zw * G_CH_Z, zh * zw * CH_MV
+        lanes = effective_lanes(self.lanes,
+                                4 * n_y + 4 * n_mv + n_z + n_mvz)
+        k_total = (4 * (-(-n_y // lanes)) + 4 * (-(-n_mv // lanes))
+                   + (-(-n_z // lanes)) + (-(-n_mvz // lanes)))
+        return lanes, k_total
 
     # -- compress / decompress -----------------------------------------------
 
@@ -531,19 +601,27 @@ class DMCFM:
         y_packed, y_hat = self._compress_4x(
             y, params,
             lambda k, so_far, prm: _stage_y_spatial(p, k, so_far, prm))
-        fetch = C.fetch_async(C.pack_host([mv_z_int8, z_int8],
-                                          mv_packed + y_packed))
+        if self.device_ec:
+            finish = self._launch_device(x, mv_z_int8, z_int8, mv_packed,
+                                         y_packed)
+        else:
+            fetch = C.fetch_async(C.pack_host([mv_z_int8, z_int8],
+                                              mv_packed + y_packed))
         # the device reconstructs while the host codes
         x_hat, feature = _stage_recon(p, y_hat, c1, c2, c3, qi)
         x_hat = C.frame_to_nhwc(x_hat)
 
-        buf = fetch()
-        self.transfers["d2h"] += 1
-        stream = C.code_host(
-            self.entropy_coder,
-            [(self.bit_estimator_z_mv, 0), (self.bit_estimator_z, 0)],
-            self.gaussian_encoder, buf, [mv_z_int8.numel(), z_int8.numel()],
-            [pk.numel() for pk in mv_packed + y_packed])
+        if self.device_ec:
+            stream = finish()
+        else:
+            buf = fetch()
+            self.transfers["d2h"] += 1
+            stream = C.code_host(
+                self.entropy_coder,
+                [(self.bit_estimator_z_mv, 0), (self.bit_estimator_z, 0)],
+                self.gaussian_encoder, buf,
+                [mv_z_int8.numel(), z_int8.numel()],
+                [pk.numel() for pk in mv_packed + y_packed])
         return {
             "dpb": {"ref_frame": x_hat, "ref_feature": feature,
                     "ref_mv_feature": mv_feature, "ref_y": y_hat,
@@ -551,40 +629,117 @@ class DMCFM:
             "bit_stream": stream,
         }
 
+    def _launch_device(self, x, mv_z_int8, z_int8, mv_packed, y_packed):
+        """Device EC: queue the frame's one K1 launch over the ten planes
+        in reverse decode order and its staging's copy; returns the
+        callable that serializes the stream (the FM staging ladder)."""
+        lanes, k_total = self._mw_cap_for(x.shape[2], x.shape[3])
+        n_y = self.dec_tables["y"].shape[0]
+
+        def z_operand(z_int8, base):
+            z_sym = z_int8.reshape(-1).to(torch.int32)
+            rows = _z_rows(z_sym.numel(), z_int8.shape[1], z_sym.device)
+            return pack_operand(_lane_layout_t(z_sym, lanes, True),
+                                _lane_layout_t(rows + base, lanes, True))
+
+        operand = torch.cat(
+            [y_operand(pk, lanes) for pk in y_packed[::-1]]
+            + [z_operand(z_int8, n_y)]
+            + [y_operand(pk, lanes) for pk in mv_packed[::-1]]
+            + [z_operand(mv_z_int8, n_y + G_CH_Z)])
+        bps = self.bytes_per_symbol
+        mw, cap = fm_rung(lanes, k_total, bps)
+        first = launch_staging(operand, self.enc_table, mw, cap)
+
+        def finish():
+            stream, reruns = fm_settle_staging(
+                first(), lanes, k_total, bps,
+                lambda mw, cap: launch_staging(operand, self.enc_table, mw,
+                                               cap)())
+            self.ec_reruns += reruns
+            return stream
+
+        return finish
+
     def decompress(self, bit_stream, dpb, sps):
         """sps: {"height", "width", "qp", "fa_idx" in {0, 1, 2}}.  Returns
         {"dpb": the next DPB}; its "ref_frame" is the decoded frame.  A
-        stream that is not exactly the frame's symbols raises
+        host-EC stream that is not exactly the frame's symbols raises
         ValueError."""
         p, qi = self.params, int(sps["qp"])
-        coder = self.entropy_coder
         zh, zw = C.get_downsampled_shape(sps["height"], sps["width"], 64)
         y_h, y_w = C.get_downsampled_shape(sps["height"], sps["width"], 16)
-        coder.set_stream(bit_stream)
-        z_planes = []
-        for be in (self.bit_estimator_z_mv, self.bit_estimator_z):
-            be.decode_z((zh, zw), 0)
-            z_planes.append(C.from_host_nhwc(be.get_z((zh, zw), np.int8),
-                                             self.device, self.dtype))
-        mv_z_hat, z_hat = z_planes
-        self.transfers["h2d"] += 2
+        if self.device_ec:
+            z_plane, decode, done = self._device_planes(bit_stream, zh, zw)
+        else:
+            z_plane, decode, done = self._host_planes(bit_stream, zh, zw)
         ref_frame = self._ref_frame(dpb)
 
-        mv_params = _stage_mv_prior(p, mv_z_hat, dpb["ref_mv_y"], y_h, y_w)
+        mv_params = _stage_mv_prior(p, z_plane("mv_z"), dpb["ref_mv_y"],
+                                    y_h, y_w)
         mv_y_hat = self._decompress_4x(
             mv_params,
-            lambda k, so_far, prm: _stage_mv_spatial(p, k, so_far, prm))
+            lambda k, so_far, prm: _stage_mv_spatial(p, k, so_far, prm),
+            decode)
         mv_hat, mv_feature = _stage_mv_dec(p, mv_y_hat, qi)
         c1, c2, c3, _ = _stage_motion_comp(p, mv_hat, ref_frame,
                                            dpb["ref_feature"],
                                            sps["fa_idx"])
-        params = _stage_ctx_prior(p, z_hat, c3, dpb["ref_y"], y_h, y_w)
+        params = _stage_ctx_prior(p, z_plane("z"), c3, dpb["ref_y"], y_h,
+                                  y_w)
         y_hat = self._decompress_4x(
             params,
-            lambda k, so_far, prm: _stage_y_spatial(p, k, so_far, prm))
-        coder.check_stream_end()
+            lambda k, so_far, prm: _stage_y_spatial(p, k, so_far, prm),
+            decode)
+        done()
         x_hat, feature = _stage_recon(p, y_hat, c1, c2, c3, qi)
         return {"dpb": {"ref_frame": C.frame_to_nhwc(x_hat),
                         "ref_feature": feature,
                         "ref_mv_feature": mv_feature, "ref_y": y_hat,
                         "ref_mv_y": mv_y_hat}}
+
+    def _host_planes(self, bit_stream, zh, zw):
+        """Host EC: both z planes decoded on the host at once (they lead
+        the stream); (z_plane(name), decode(idx), done()), done checking
+        that the stream ends with the frame's last symbol."""
+        coder = self.entropy_coder
+        coder.set_stream(bit_stream)
+        z = {}
+        for name, be in (("mv_z", self.bit_estimator_z_mv),
+                         ("z", self.bit_estimator_z)):
+            be.decode_z((zh, zw), 0)
+            z[name] = C.from_host_nhwc(be.get_z((zh, zw), np.int8),
+                                       self.device, self.dtype)
+        self.transfers["h2d"] += 2
+
+        def decode(idx):
+            return C.decode_y_host(self.gaussian_encoder,
+                                   C.fetch_async(C.index_buf(idx)),
+                                   idx.shape, self.device, self.dtype,
+                                   self.transfers)
+
+        return z.__getitem__, decode, coder.check_stream_end
+
+    def _device_planes(self, bit_stream, zh, zw):
+        """Device EC: (z_plane(name), decode(idx), done()), each plane one
+        K2 launch in decode order with the carry passed on; a z plane's
+        row ids are 1 + channel into its table (row 0 takes the pad
+        slots)."""
+        data, carry, lanes = decode_carry(bit_stream, self.device)
+        tabs = self.dec_tables
+
+        def z_plane(name):
+            nonlocal carry
+            c = tabs[name].shape[0] - 1
+            flat, carry = _dec_plane(
+                data, _z_rows(zh * zw * c, c, self.device) + 1, tabs[name],
+                carry, lanes)
+            return flat.reshape(1, c, zh, zw).to(self.dtype)
+
+        def decode(idx):
+            nonlocal carry
+            y, carry = dec_y_plane(data, idx, tabs["y"], carry, lanes,
+                                   self.dtype)
+            return y
+
+        return z_plane, decode, lambda: None

@@ -24,16 +24,20 @@ import threading
 
 import torch
 
-from ..entropy.device_rans import SKIP_ROW
-
 _LAUNCHES_LOCK = threading.Lock()
 
 #: the packed encode operand is (sym + 128) << ENC_ROW_BITS | row; rows
-#: take 9 bits because a combined per-frame table reaches 256 rows, where
-#: the 8-bit SKIP_ROW would collide with a real row id
+#: take 9 bits because a combined per-frame table reaches 384 rows (DCVC-FM),
+#: where the JAX package's 8-bit skip row (entropy/device_rans.py SKIP_ROW,
+#: 255) would collide with a real row id
 ENC_ROW_BITS = 9
 ENC_ROW_MASK = (1 << ENC_ROW_BITS) - 1
-ENC_SKIP = ENC_ROW_MASK
+#: the skip row id of both kernels (csrc/lane_rans_step.cuh LR_SKIP): a
+#: zero-rate passthrough that decodes as 0.  Callers holding the JAX
+#: package's row ids map its SKIP_ROW to it.
+ENC_SKIP = DEC_SKIP = ENC_ROW_MASK
+#: K2 takes slices of at most this many rows (DCVC-FM's 256-row y table)
+DEC_MAX_ROWS = 256
 
 
 def pack_operand(sym, rows):
@@ -238,9 +242,11 @@ def decode_scan(data, rows, dec_table, state, ptr):
     """Decode L lanes over K steps, continuing the carry (state, ptr).
 
     data: (L, MW) int32 u16 words in decode order; rows: (K, L) int32
-    local row ids in decode order, SKIP_ROW (255) decodes 0 at zero rate,
-    an id >= nr reads row nr - 1; dec_table: (nr, DEC_ROW_WORDS) int32
-    rows of prepare_decode_table, nr < 255; state: (L,) int64 u32 values;
+    local row ids in decode order, DEC_SKIP (511) decodes 0 at zero rate,
+    any other id >= nr reads row nr - 1 (row 255 of a 256-row table is a
+    coded row); dec_table: (nr, DEC_ROW_WORDS) int32 rows of
+    prepare_decode_table, 1 <= nr <= DEC_MAX_ROWS; state: (L,) int64 u32
+    values;
     ptr: (L,) int32, a word past either end of a lane's row reads as 0.
     Returns (symbols (K, L) int32 in [-128, 127], state, ptr)."""
     dev = data.device
@@ -248,8 +254,8 @@ def decode_scan(data, rows, dec_table, state, ptr):
     _check("rows", rows, torch.int32, 2, dev)
     _check("dec_table", dec_table, torch.int32, 2, dev)
     if dec_table.shape[1] != DEC_ROW_WORDS or \
-            not 0 < dec_table.shape[0] < SKIP_ROW:
-        raise ValueError(f"dec_table must be (1..{SKIP_ROW - 1}, "
+            not 0 < dec_table.shape[0] <= DEC_MAX_ROWS:
+        raise ValueError(f"dec_table must be (1..{DEC_MAX_ROWS}, "
                          f"{DEC_ROW_WORDS}), got {tuple(dec_table.shape)}")
     _check("state", state, torch.int64, 1, dev)
     _check("ptr", ptr, torch.int32, 1, dev)
@@ -300,7 +306,7 @@ def decode_scan_plain(data, rows, dec_table, state, ptr):
     out = torch.empty((K, L), dtype=torch.int32, device=dev)
     for k in range(K):
         r = rows[k].to(torch.int64)
-        skip = r == SKIP_ROW
+        skip = r == DEC_SKIP
         cum = tab[r.clamp(max=nr - 1)]                       # (L, 257)
         f = state & 0xFFFF
         sym = (cum[:, 1:] <= f[:, None]).sum(dim=1)          # last bin <= f

@@ -415,14 +415,17 @@ CODECS = {"DMCIFM": PDMCI.DMCIFM, "DMCFM": PDMC.DMCFM}
 
 @pytest.mark.parametrize("codec", list(CODECS))
 def test_fm_device_ec_refused(codec, monkeypatch):
+    """FM device EC is ported: device_ec=True and OPENDCVC_TPU_DEVICE_EC=1
+    select it, =0 (or unset) selects host EC, and an explicit device_ec
+    wins over the environment."""
     monkeypatch.delenv("OPENDCVC_TPU_DEVICE_EC", raising=False)
-    with pytest.raises(NotImplementedError, match="FM device EC"):
-        CODECS[codec](device="cpu", device_ec=True)
+    assert CODECS[codec](device="cpu", device_ec=True).device_ec
+    assert not CODECS[codec](device="cpu").device_ec
     monkeypatch.setenv("OPENDCVC_TPU_DEVICE_EC", "1")
-    with pytest.raises(NotImplementedError, match="FM device EC"):
-        CODECS[codec](device="cpu")
+    assert CODECS[codec](device="cpu").device_ec
+    assert not CODECS[codec](device="cpu", device_ec=False).device_ec
     monkeypatch.setenv("OPENDCVC_TPU_DEVICE_EC", "0")
-    CODECS[codec](device="cpu")
+    assert not CODECS[codec](device="cpu").device_ec
 
 
 @pytest.mark.parametrize("codec", list(CODECS))
@@ -443,13 +446,28 @@ def test_fm_cuda_default_raises_without_cuda(codec, monkeypatch):
 
 def test_fm_harness_refuses_device_ec_and_missing_cuda(tmp_path,
                                                        monkeypatch):
+    """Under OPENDCVC_TPU_DEVICE_EC=1 the harness builds both codecs on
+    device EC (here on the CPU, an empty config); without CUDA the default
+    --device raises before any work.  The name is the one this test had
+    while the harness refused FM device EC; it is kept so the test stays
+    the same test."""
     cfg = tmp_path / "c.json"
     cfg.write_text('{"root_path": ".", "test_classes": {}}')
     argv = ["--test_config", str(cfg), "--output_path",
             str(tmp_path / "o.json"), "--rate_num", "1", "--qp_i", "21"]
+    built = []
+    build = PH.build_nets
+
+    def recording(args):
+        nets = build(args)
+        built.extend(net.device_ec for net in nets)
+        return nets
+
+    monkeypatch.setattr(PH, "build_nets", recording)
     monkeypatch.setenv("OPENDCVC_TPU_DEVICE_EC", "1")
-    with pytest.raises(NotImplementedError, match="FM device EC"):
-        PH.main(argv + ["--device", "cpu"])
+    PH.main(argv + ["--device", "cpu"])
+    assert built == [True, True]
+    (tmp_path / "o.json").unlink()
     monkeypatch.delenv("OPENDCVC_TPU_DEVICE_EC")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

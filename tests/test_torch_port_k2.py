@@ -111,19 +111,24 @@ def test_prepare_decode_table_rejects_invalid_rows(kind):
 
 def test_decode_scan_rejects_a_255_row_slice():
     """A model table may hold thousands of rows; one launch takes at most
-    254, since row id 255 is the skip sentinel."""
+    DEC_MAX_ROWS (256, DCVC-FM's y table): a 257-row slice is refused, a
+    255-row and a 256-row one are taken (the skip sentinel, 511, lies
+    outside every table)."""
     dtab = LR.prepare_decode_table(
-        torch.from_numpy(_tables(np.random.default_rng(2), 255)))
+        torch.from_numpy(_tables(np.random.default_rng(2), 257)))
     lanes, k = 8, 4
+    assert LR.DEC_MAX_ROWS == 256 and LR.DEC_SKIP > LR.DEC_MAX_ROWS
     with pytest.raises(ValueError, match="dec_table"):
         LR.decode_scan(torch.zeros((lanes, 4), dtype=torch.int32),
                        torch.zeros((k, lanes), dtype=torch.int32), dtab,
                        torch.full((lanes,), 1 << 16, dtype=torch.int64),
                        torch.zeros(lanes, dtype=torch.int32))
-    LR.decode_scan(torch.zeros((lanes, 4), dtype=torch.int32),
-                   torch.zeros((k, lanes), dtype=torch.int32), dtab[:254],
-                   torch.full((lanes,), 1 << 16, dtype=torch.int64),
-                   torch.zeros(lanes, dtype=torch.int32))
+    for nr in (255, 256):
+        LR.decode_scan(torch.zeros((lanes, 4), dtype=torch.int32),
+                       torch.full((k, lanes), nr - 1, dtype=torch.int32),
+                       dtab[:nr].contiguous(),
+                       torch.full((lanes,), 1 << 16, dtype=torch.int64),
+                       torch.zeros(lanes, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -136,7 +141,7 @@ def test_host_decode_matches_plain_at_contract_edges(seed):
     dtab = LR.prepare_decode_table(torch.from_numpy(_tables(rng, nr)))
     data = rng.integers(0, 1 << 16, (lanes, mw)).astype(np.int32)
     rows = rng.integers(0, nr + 8, (k, lanes)).astype(np.int32)
-    rows[rng.random((k, lanes)) < 0.2] = PD.SKIP_ROW
+    rows[rng.random((k, lanes)) < 0.2] = LR.DEC_SKIP
     state = rng.integers(1 << 16, 1 << 32, lanes).astype(np.int64)
     ptr = rng.integers(-3, mw + 3, lanes).astype(np.int32)
     syms, st, p = LR.decode_scan(*(torch.from_numpy(a) for a in
@@ -154,4 +159,4 @@ def test_host_decode_matches_plain_at_contract_edges(seed):
     np.testing.assert_array_equal(h_syms, syms.numpy())
     np.testing.assert_array_equal(h_st, st.numpy())
     np.testing.assert_array_equal(h_p, p.numpy())
-    assert (syms.numpy()[rows == PD.SKIP_ROW] == 0).all()
+    assert (syms.numpy()[rows == LR.DEC_SKIP] == 0).all()

@@ -199,9 +199,16 @@ def _decode_all(pl, decode_one):
     return outs, segs
 
 
+def _k2_rows(rows):
+    """The JAX package's decode-order (L, k) row ids as K2's (k, L): its
+    skip row (SKIP_ROW, 255) becomes K2's DEC_SKIP."""
+    return np.ascontiguousarray(
+        np.where(rows == JD.SKIP_ROW, LR.DEC_SKIP, rows).T).astype(np.int32)
+
+
 def _port_decode_one(data, rows, table, state, ptr):
     syms, st, p = LR.decode_scan(
-        torch.from_numpy(data), torch.from_numpy(rows.T.copy()),
+        torch.from_numpy(data), torch.from_numpy(_k2_rows(rows)),
         LR.prepare_decode_table(torch.from_numpy(table)),
         torch.from_numpy(state), torch.from_numpy(ptr))
     return syms.numpy().T, st.numpy(), p.numpy()
@@ -225,7 +232,7 @@ def _pallas_decode_one(data, rows, table, state, ptr):
 def _host_decode_one(data, rows, table, state, ptr):
     lib = _build.load_host_shim()
     dtab = LR.prepare_decode_table(torch.from_numpy(table)).numpy()
-    rows_t = np.ascontiguousarray(rows.T).astype(np.int32)
+    rows_t = _k2_rows(rows)
     k = rows_t.shape[0]
     syms = np.zeros((k, L), np.int32)
     st = np.zeros(L, np.int64)

@@ -32,6 +32,7 @@ from opendcvc_tpu.models import dmci as JDMCI
 from opendcvc_tpu_torch.entropy import device_rans as PD
 from opendcvc_tpu_torch.models import dmc as PDMC
 from opendcvc_tpu_torch.models import dmci as PDMCI
+from opendcvc_tpu_torch.ops.lane_rans import DEC_SKIP
 from opendcvc_tpu_torch.utils.params import from_jax
 from test_torch_port_lane_rans import _one_thread  # noqa: F401  (fixture)
 
@@ -204,13 +205,21 @@ def test_dmci_batch_equals_single(jax_params, compaction):
         assert torch.equal(dec[t], s["x_hat"])
 
 
+def _jax_skip(rows):
+    """The port's compacted row ids with the kernels' skip row read as the
+    JAX package's SKIP_ROW."""
+    return torch.where(rows == DEC_SKIP, JD.SKIP_ROW, rows)
+
+
 @pytest.mark.parametrize("n_c", [700, 64, 4096], ids=["fits", "overflow",
                                                       "longer_than_plane"])
 def test_compaction_helpers_match_jax(n_c):
     """compact_skip_enc / compact_skip_dec / expand_compact_syms on a
     random 2000-symbol plane with 30 % survivors (~600): the JAX
-    package's outputs exactly, the survivor count with overflow too, and
-    the round trip gives the kept symbols with zeros elsewhere."""
+    package's outputs exactly (the tail slots' row, the kernels' DEC_SKIP
+    in the port, read as the JAX package's SKIP_ROW), the survivor count
+    with overflow too, and the round trip gives the kept symbols with
+    zeros elsewhere."""
     rng = np.random.default_rng(5)
     n = 2000
     sym = rng.integers(-20, 20, n).astype(np.int32)
@@ -220,12 +229,13 @@ def test_compaction_helpers_match_jax(n_c):
                             jnp.asarray(keep), n_c)
     p = PD.compact_skip_enc(torch.from_numpy(sym), torch.from_numpy(rows),
                             torch.from_numpy(keep), n_c)
+    p = (p[0], _jax_skip(p[1]), p[2])
     for a, b in zip(p, j):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     jr, jo = JD.compact_skip_dec(jnp.asarray(rows), jnp.asarray(keep), n_c)
     pr, po = PD.compact_skip_dec(torch.from_numpy(rows),
                                  torch.from_numpy(keep), n_c)
-    np.testing.assert_array_equal(pr.numpy(), np.asarray(jr))
+    np.testing.assert_array_equal(_jax_skip(pr).numpy(), np.asarray(jr))
     np.testing.assert_array_equal(po.numpy(), np.asarray(jo))
     full = PD.expand_compact_syms(p[0], po, n).numpy()
     np.testing.assert_array_equal(
