@@ -160,14 +160,40 @@ Phases (any failure exits nonzero and prints no result):
      the card and versions written to OUT/h100_streams (`--out OUT`,
      default chip_smoke_out), whose committed copy (tests/data/h100) the
      CPU tests decode with the JAX package and the port.
+ 14. DCVC-FM in bfloat16: phase 12 (b)'s I-frame and four P-frames through
+     DMCIFM / DMCFM(dtype=torch.bfloat16), seeds 0 / 1, qp 21, (a) on host
+     EC and on device EC, (b) on host EC with stream_part 2: fails unless
+     every decoder's DPB (all five entries, bfloat16) equals its
+     encoder's, device EC's and the 2-part run's DPBs equal host EC's on
+     every frame, and K1 launched once a frame plus once a rerun and K2 5
+     / 10 times a decoded I / P-frame on device EC, never on host EC;
+     prints per frame each run's enc / dec ms beside phase 12 (b)'s
+     float32, the host coder's ms, bytes, bpp, reruns and the count of y
+     and motion-y CDF indexes of 255; (c) a 64x64 bfloat16 chain coded on
+     the GPU and the CPU: equal symbols per plane and whether the CPU
+     decodes the GPU's stream, reported and never failed (phase 5's
+     bfloat16 row).
+ 15. DCVC-DC (DMCDC) at tools/family_bench.py's operating point: 704x1280,
+     3 P-frames after a raw reference (family_bench's frames, seed 3),
+     q_index 30 on the fine ladder, frame_idx t, host EC: (a) float32 and
+     bfloat16, stream_part 1 and 2: fails unless every decoded DPB entry
+     equals the encoder's (in the codec's dtype) and the 2-part DPBs the
+     1-part ones; prints per frame the enc / dec ms, the host coder's ms
+     within them and bpp; (b) `opendcvc_tpu_torch.family_bench.main` in
+     process at its defaults, its dc row printed; (c) a 64x64 float32
+     chain coded on the GPU, decoded by the CPU within phase 5's 1e-3
+     (phase 11 (c)'s rule for a rounding tie), identical streams reported.
+     Neither kernel may launch.
 The kernel launch counters are zeroed before phase 3 and read after
 phase 4, so the counts are the main path's (the device-EC path); they are
 zeroed again before phase 6 and must read 0 after it, again before each
 run of phases 7, 9 and 10, and before phase 8; they are
-zeroed before phase 11 and must read 0 after it, and zeroed before phase
-12, whose runs hold them exact; `launches` adds the
+zeroed before phase 11 and must read 0 after it, zeroed before phase
+12, whose runs hold them exact, before phase 14, whose device-EC run
+holds them exact and whose host-EC runs launch none, and before phase 15,
+after which they must read 0; `launches` adds the
 device-EC runs of phases 7 (b), 8, 9, 10 (a, and the checkpoints'
-coding in b) and 12 to phases 3-4's, and `launches_by_run` splits it.
+coding in b), 12 and 14 to phases 3-4's, and `launches_by_run` splits it.
 Then it
 prints the card's name and power limit, one JSON line describing each
 kernel, and, last, {"ok": true, "device": {...}}.
@@ -2067,7 +2093,80 @@ def phase_fm_parts(dev, root, h, w, recs, n=N_FM_PARTS):
          + f"; decoder exact on all {n} frames, every P stream 2 parts")
 
 
-def phase_fm_reference(dev, device_ec=False, label="phase 11 (c)"):
+def _to_cpu(dpb):
+    """A DPB's tensors copied to the CPU (None and a raw frame kept)."""
+    return {k: v.cpu() if torch.is_tensor(v) else v for k, v in dpb.items()}
+
+
+def _report_frame(label, what, same, coded, dev, kind, decode, g_dpb):
+    """One frame of a 64x64 bfloat16 chain coded on the GPU and on the CPU
+    (phase 14 (c)), reported and never failed: the share of equal symbols
+    per plane of the two devices' `coded` planes, and whether the CPU
+    decoder (`decode()`) takes the GPU's stream, with the max |DPB diff|
+    against the GPU encoder's `g_dpb` when it does (cuDNN's and oneDNN's
+    bfloat16 sums differ; phase 5's bfloat16 row)."""
+    from opendcvc_tpu_torch.eval import fm_ties as TIES
+    syms = {k: [p.astype(np.int32) >> 8 if p.dtype == np.int16 else p
+                for p in v] for k, v in coded.items()}
+    shares = {n: round(float((a == b).mean()), 4) for n, a, b in zip(
+        TIES.PLANES[kind][1], syms[dev.type], syms["cpu"])}
+    try:
+        d = decode()
+        diff = max(float((d[k].float() - g_dpb[k].cpu().float())
+                         .abs().max()) for k in g_dpb)
+        decoded = f"decoded, max |DPB diff| {diff:.4g}"
+    except ValueError as e:
+        decoded = f"not decoded ({e})"
+    _log(f"{label}: 64x64 bfloat16 {what} coded on the GPU and on the "
+         f"CPU: equal symbols {shares}; streams identical: {same}; the CPU "
+         f"on the GPU's stream: {decoded} (reported)")
+
+
+def _gpu_cpu_frame(label, what, same, coded, dev, floats, kind, decode,
+                   g_dpb):
+    """One frame of a 64x64 chain coded on the GPU and on the CPU (phases
+    11 (c), 12 (c), 15 (c)).  Where the two streams differ (`same`
+    false), the first differing plane of the two devices' `coded` planes
+    must differ only where the GPU's value before rounding (`floats`)
+    lies within the codecs' float agreement of its rounding boundary (a
+    tie: printed, the frame then reported).  `decode()` is the CPU
+    decoder on the GPU's stream; fails on its error or a DPB diff over
+    1e-3 of max(1, max|ref|) against the GPU encoder's `g_dpb`, unless
+    the frame is a tie."""
+    from opendcvc_tpu_torch.eval import fm_ties as TIES
+    plane, rows = (None, []) if same else \
+        TIES.first_differing_plane(coded[dev.type], coded["cpu"],
+                                   floats.take(kind), kind)
+    if same:
+        floats.take(kind)
+    tie = bool(rows) and all(r[3] <= r[4] for r in rows)
+    for r in rows:
+        _log(f"{label}: {what} {plane} {r[0]} {r[1]}: the GPU's value "
+             f"{r[2]:.9g} lies {r[3]:.3g} from its rounding boundary "
+             f"(float agreement {r[4]:.3g})")
+    if not same and not tie:
+        _fail(f"{label}: {what}: the GPU's and the CPU's symbols differ "
+              f"away from a rounding boundary ({plane}: {rows[:4]})")
+    try:
+        d = decode()
+    except ValueError as e:
+        if not tie:
+            _fail(f"{label}: the CPU cannot decode the GPU's {what}: {e}")
+        d = None
+    err = None if d is None else max(
+        float((d[k] - g_dpb[k].cpu()).abs().max())
+        / max(1.0, float(g_dpb[k].abs().max())) for k in g_dpb)
+    if not tie and err > 1e-3:
+        _fail(f"{label}: GPU and CPU disagree at {what} ({err:g})")
+    diff = "not decoded" if err is None else f"{err:.3g}"
+    _log(f"{label}: 64x64 {what} coded on the GPU, decoded by the CPU: max "
+         f"|DPB diff| / max(1, max|ref|) {diff}; GPU and CPU streams "
+         f"identical: {same}" + (f"; a rounding tie in {plane} (reported)"
+                                 if tie else ""))
+
+
+def phase_fm_reference(dev, device_ec=False, label="phase 11 (c)",
+                       dtype=torch.float32):
     """Phase 11 (c) (host EC) and 12 (c) (device EC): a 64x64 I-frame and
     2 P-frames coded on the GPU, each also coded on the CPU from the GPU's
     reference, and decoded by the CPU port from it.  Fails on a decode
@@ -2077,7 +2176,8 @@ def phase_fm_reference(dev, device_ec=False, label="phase 11 (c)"):
     reported).  The symbols compared are the planes each device's host
     coder is handed: on device EC each frame is also coded through host
     EC on both devices, whose planes device EC codes (phase 12 (a) holds
-    the two equal)."""
+    the two equal).  In bfloat16 (phase 14 (c), host EC) each frame is
+    reported and never failed (`_report_frame`)."""
     from opendcvc_tpu_torch.eval import fm_ties as TIES
     from opendcvc_tpu_torch.models.dmc_fm import DMCFM
     from opendcvc_tpu_torch.models.dmci_fm import DMCIFM
@@ -2088,7 +2188,7 @@ def phase_fm_reference(dev, device_ec=False, label="phase 11 (c)"):
               "p": DMCFM(device=cpu, device_ec=False).init_params(seed=1)}
 
     def codec(cls, d, ec=device_ec):
-        net = cls(device=d, device_ec=ec)
+        net = cls(device=d, device_ec=ec, dtype=dtype)
         net.load_params(params["i" if cls is DMCIFM else "p"])
         net.update()
         return net
@@ -2101,9 +2201,6 @@ def phase_fm_reference(dev, device_ec=False, label="phase 11 (c)"):
     for k, nets in planes.items():
         for net in nets:
             TIES.record_coded(net, coded[k])
-
-    def to_cpu(dpb):
-        return {k: None if v is None else v.cpu() for k, v in dpb.items()}
 
     sps = {"height": 64, "width": 64, "qp": QP}
     ref = None
@@ -2125,50 +2222,28 @@ def phase_fm_reference(dev, device_ec=False, label="phase 11 (c)"):
                 p_sps = dict(sps, fa_idx=fa)
                 g = enc[dev.type][1].compress(x, ref, QP, fa)
                 floats.on = False
-                c = enc["cpu"][1].compress(x, to_cpu(ref), QP, fa)
+                c = enc["cpu"][1].compress(x, _to_cpu(ref), QP, fa)
                 if device_ec:
                     planes[dev.type][1].compress(x, ref, QP, fa)
-                    planes["cpu"][1].compress(x, to_cpu(ref), QP, fa)
+                    planes["cpu"][1].compress(x, _to_cpu(ref), QP, fa)
                 g_dpb = g["dpb"]
             stream = g["bit_stream"]
-            same = stream == c["bit_stream"]
-            plane, rows = (None, []) if same else \
-                TIES.first_differing_plane(coded[dev.type], coded["cpu"],
-                                           floats.take(kind), kind)
-            if same:
-                floats.take(kind)
-            tie = bool(rows) and all(r[3] <= r[4] for r in rows)
-            for r in rows:
-                _log(f"{label}: frame {t} {plane} {r[0]} {r[1]}: the "
-                     f"GPU's value {r[2]:.9g} lies {r[3]:.3g} from its "
-                     f"rounding boundary (float agreement {r[4]:.3g})")
-            if not same and not tie:
-                _fail(f"{label}: frame {t}: the GPU's and the CPU's "
-                      f"symbols differ away from a rounding boundary "
-                      f"({plane}: {rows[:4]})")
-            try:
+
+            def decode():
                 if t == 0:
-                    d = {"ref_frame": dec[0].decompress(stream,
-                                                        sps)["x_hat"]}
-                else:
-                    d = dec[1].decompress(stream, to_cpu(ref), p_sps)["dpb"]
-            except ValueError as e:
-                if not tie:
-                    _fail(f"{label}: the CPU cannot decode the GPU's "
-                          f"frame {t}: {e}")
-                d = None
-            err = None if d is None else max(
-                float((d[k] - g_dpb[k].cpu()).abs().max())
-                / max(1.0, float(g_dpb[k].abs().max())) for k in g_dpb)
-            if not tie and err > 1e-3:
-                _fail(f"{label}: GPU and CPU disagree at frame {t} "
-                      f"({err:g})")
-            diff = "not decoded" if err is None else f"{err:.3g}"
-            _log(f"{label}: 64x64 {'I' if t == 0 else 'P'}-frame {t} "
-                 f"coded on the GPU, decoded by the CPU: max |DPB diff| / "
-                 f"max(1, max|ref|) {diff}; GPU and CPU streams identical: "
-                 f"{same}" + (f"; a rounding tie in {plane} (reported)"
-                              if tie else ""))
+                    return {"ref_frame": dec[0].decompress(stream,
+                                                           sps)["x_hat"]}
+                return dec[1].decompress(stream, _to_cpu(ref), p_sps)["dpb"]
+
+            what = f"{'I' if t == 0 else 'P'}-frame {t}"
+            same = stream == c["bit_stream"]
+            if dtype == torch.float32:
+                _gpu_cpu_frame(label, what, same, coded, dev, floats, kind,
+                               decode, g_dpb)
+            else:
+                floats.take(kind)
+                _report_frame(label, what, same, coded, dev, kind, decode,
+                              g_dpb)
             ref = g["dpb"] if t else dict.fromkeys(FM_DPB[1:]) | g_dpb
 
 
@@ -2230,10 +2305,10 @@ def _fm_top_by_frame(counts, kinds):
     return out
 
 
-def _fm_same(got, want, what):
+def _fm_same(got, want, what, ref="host EC's"):
     for k in FM_DPB:
         if k in want and not torch.equal(got[k], want[k]):
-            _fail(f"{what}: {k} differs from host EC's")
+            _fail(f"{what}: {k} differs from {ref}")
 
 
 def phase_fm_device_harness(dev, LR, root, host, h, w, n=N_FM):
@@ -2276,83 +2351,108 @@ def phase_fm_device_harness(dev, LR, root, host, h, w, n=N_FM):
     return log, launches
 
 
-def phase_fm_device_alone(dev, LR, root, ref, h, w, n=N_FM_ALONE):
-    """Phase 12 (b): DMCIFM and DMCFM on device EC, built and called
-    directly, on (a)'s first n frames with (a)'s schedule: per frame K1
-    once plus once a rerun and K2 5 / 10 times, the decoder exact, the
-    encoder's DPB (a)'s.  Prints each frame's enc / dec ms, reruns and
-    bytes."""
+def _fm_chain(dev, LR, xs, h, w, device_ec, dtype=torch.float32,
+              stream_part=1, label="phase 12 (b)"):
+    """DMCIFM (seed 0) and DMCFM (seed 1), built and called directly on
+    xs (the I-frame, then P-frames with phase 11 (a)'s schedule), each
+    frame decoded by a second pair: fails unless every decoded frame's
+    DPB (all five entries) equals the encoder's and, per frame, K1
+    launched once plus once a rerun and K2 5 / 10 times on device EC, not
+    at all on host EC.  Returns per frame {kind, enc / dec ms, the host
+    coder's ms within them (host EC), reruns, bytes, launches, enc / dec
+    DPB}."""
     from opendcvc_tpu_torch.models.dmc_fm import DMCFM
     from opendcvc_tpu_torch.models.dmci_fm import DMCIFM
-    mode = "phase 12 (b) device EC alone"
-    i_enc, i_dec = (DMCIFM(device=dev, device_ec=True) for _ in range(2))
-    p_enc, p_dec = (DMCFM(device=dev, device_ec=True) for _ in range(2))
+    kw = {"device": dev, "device_ec": device_ec, "dtype": dtype}
+    i_enc, i_dec = (DMCIFM(**kw) for _ in range(2))
+    p_enc, p_dec = (DMCFM(stream_part=stream_part, **kw) for _ in range(2))
     i_enc.init_params(seed=0)
     p_enc.init_params(seed=1)
     i_dec.load_params(i_enc.params)
     p_dec.load_params(p_enc.params)
+    clocks = {}
     for net in (i_enc, i_dec, p_enc, p_dec):
         net.update()
-    xs = _fm_src_frames(root, h, w, n, dev)
+        clocks[id(net)] = [0.0] if device_ec else \
+            _clock_coder(net.entropy_coder)
     sps = {"height": h, "width": w, "qp": QP}
-    rows, total = [], [0, 0]
+    rows = []
 
-    def coded(t, kind, enc_fn, dec_fn, net):
+    def coded(kind, enc_fn, dec_fn, enc_net, dec_net):
         k0 = [LR.encode_scan.launches, LR.decode_scan.launches]
-        r0 = net.ec_reruns
+        r0 = enc_net.ec_reruns
+        c0 = [clocks[id(enc_net)][0], clocks[id(dec_net)][0]]
         out, ms_e = _timed(enc_fn, dev)
-        k1 = LR.encode_scan.launches - k0[0]
         dec, ms_d = _timed(lambda: dec_fn(out["bit_stream"]), dev)
-        k2 = LR.decode_scan.launches - k0[1]
-        reruns = net.ec_reruns - r0
-        if (k1, k2) != (1 + reruns, FM_K2[kind]):
-            _fail(f"{mode}: frame {t} launched K1 / K2 {(k1, k2)} times, "
-                  f"not {(1 + reruns, FM_K2[kind])}")
-        total[0] += k1
-        total[1] += k2
-        rows.append(f"{kind}{t} enc {ms_e:.2f} / dec {ms_d:.2f} ms, "
-                    f"{reruns} reruns, {len(out['bit_stream'])} B")
-        return out, dec
+        reruns = enc_net.ec_reruns - r0
+        launches = (LR.encode_scan.launches - k0[0],
+                    LR.decode_scan.launches - k0[1])
+        want = (1 + reruns, FM_K2[kind]) if device_ec else (0, 0)
+        if launches != want:
+            _fail(f"{label}: frame {len(rows)} launched K1 / K2 "
+                  f"{launches} times, not {want}")
+        enc_dpb = out.get("dpb", {"ref_frame": out.get("x_hat")})
+        dec_dpb = dec.get("dpb", {"ref_frame": dec.get("x_hat")})
+        _fm_exact(enc_dpb, dec_dpb, f"{label} frame {len(rows)} ({kind})")
+        rows.append({"kind": kind, "enc_ms": ms_e, "dec_ms": ms_d,
+                     "enc_coder_ms": clocks[id(enc_net)][0] - c0[0],
+                     "dec_coder_ms": clocks[id(dec_net)][0] - c0[1],
+                     "reruns": reruns, "bytes": len(out["bit_stream"]),
+                     "launches": launches, "enc": enc_dpb, "dec": dec_dpb})
 
-    e, d = coded(0, "I", lambda: i_enc.compress(xs[0], QP),
-                 lambda s: i_dec.decompress(s, sps), i_enc)
-    _fm_exact({"ref_frame": e["x_hat"]}, {"ref_frame": d["x_hat"]},
-              f"{mode} I-frame")
-    _fm_same({"ref_frame": e["x_hat"]}, ref["enc"][0]["dpb"],
-             f"{mode} I-frame")
+    coded("I", lambda: i_enc.compress(xs[0], QP),
+          lambda s: i_dec.decompress(s, sps), i_enc, i_dec)
     none = dict.fromkeys(FM_DPB[1:])
-    enc_dpb = dict(none, ref_frame=e["x_hat"])
-    dec_dpb = dict(none, ref_frame=d["x_hat"])
-    for t, (fa, fa_in, refresh, qp) in enumerate(_fm_schedule(n), start=1):
+    enc_dpb = dict(none, ref_frame=rows[0]["enc"]["ref_frame"])
+    dec_dpb = dict(none, ref_frame=rows[0]["dec"]["ref_frame"])
+    for t, (fa, fa_in, refresh, qp) in enumerate(_fm_schedule(len(xs)),
+                                                 start=1):
         if refresh:
             enc_dpb = dict(none, ref_frame=enc_dpb["ref_frame"])
             dec_dpb = dict(none, ref_frame=dec_dpb["ref_frame"])
-        out, dec = coded(
-            t, "P", lambda: p_enc.compress(xs[t], enc_dpb, qp, fa_in),
-            lambda s: p_dec.decompress(s, dec_dpb,
-                                       dict(sps, qp=qp, fa_idx=fa_in)),
-            p_enc)
-        enc_dpb, dec_dpb = out["dpb"], dec["dpb"]
-        _fm_exact(enc_dpb, dec_dpb, f"{mode} P-frame {t}")
-        _fm_same(enc_dpb, ref["enc"][t]["dpb"], f"{mode} P-frame {t}")
-    _log(f"{mode}: " + "; ".join(rows) + f"; decoder exact and encoder "
-         f"equal to (a) on all {n} frames; K1 {total[0]}, K2 {total[1]} "
-         f"launches")
-    return total
+        coded("P", lambda: p_enc.compress(xs[t], enc_dpb, qp, fa_in),
+              lambda s: p_dec.decompress(s, dec_dpb,
+                                         dict(sps, qp=qp, fa_idx=fa_in)),
+              p_enc, p_dec)
+        enc_dpb, dec_dpb = rows[-1]["enc"], rows[-1]["dec"]
+    return rows
+
+
+def _launch_total(rows):
+    return [sum(r["launches"][i] for r in rows) for i in (0, 1)]
+
+
+def phase_fm_device_alone(dev, LR, root, ref, h, w, n=N_FM_ALONE):
+    """Phase 12 (b): DMCIFM and DMCFM on device EC, built and called
+    directly, on (a)'s first n frames with (a)'s schedule (`_fm_chain`'s
+    checks), the encoder's DPB (a)'s.  Prints each frame's enc / dec ms,
+    reruns and bytes.  Returns the rows."""
+    mode = "phase 12 (b) device EC alone"
+    rows = _fm_chain(dev, LR, _fm_src_frames(root, h, w, n, dev), h, w,
+                     True, label=mode)
+    for t, r in enumerate(rows):
+        _fm_same(r["enc"], ref["enc"][t]["dpb"], f"{mode} frame {t}")
+    total = _launch_total(rows)
+    _log(f"{mode}: " + "; ".join(
+        f"{r['kind']}{t} enc {r['enc_ms']:.2f} / dec {r['dec_ms']:.2f} ms, "
+        f"{r['reruns']} reruns, {r['bytes']} B" for t, r in enumerate(rows))
+        + f"; decoder exact and encoder equal to (a) on all {n} frames; "
+        f"K1 {total[0]}, K2 {total[1]} launches")
+    return rows
 
 
 def phase_fm_device(dev, LR, root, host, h=H, w=W):
     """Phase 12: DCVC-FM on device EC at h x w, phase 11's frames, weights
     and schedule: (a) the FM harness, (b) the codecs alone, (c) GPU ->
-    CPU.  Returns the K1 / K2 launches of the phase."""
+    CPU.  Returns the K1 / K2 launches of the phase and (b)'s rows."""
     t0 = time.perf_counter()
     log, launches = phase_fm_device_harness(dev, LR, root, host, h, w)
     alone = phase_fm_device_alone(dev, LR, root, log, h, w)
     phase_fm_reference(dev, True, "phase 12 (c)")
-    total = [a + b for a, b in zip(launches, alone)]
+    total = [a + b for a, b in zip(launches, _launch_total(alone))]
     _log(f"phase 12: DCVC-FM device EC done in "
          f"{time.perf_counter() - t0:.1f} s")
-    return total
+    return total, alone
 
 
 # ---------------------------------------------------------------------------
@@ -2411,6 +2511,216 @@ def phase_h100_streams(dev, out_dir):
     _log(f"phase 13: a 64x64 trained-DMCI frame coded on the card (host EC "
          f"{sizes['host']} B, device EC {sizes['device']} B), both decoders "
          f"exact; written to {out_dir}")
+
+
+# ---------------------------------------------------------------------------
+# phase 14: DCVC-FM in bfloat16
+# ---------------------------------------------------------------------------
+
+def phase_fm_bf16(dev, LR, root, f32_rows, h=H, w=W, n=N_FM_ALONE):
+    """Phase 14: phase 12 (b)'s I-frame and four P-frames through DMCIFM /
+    DMCFM(dtype=torch.bfloat16), seeds 0 / 1, qp 21, on host EC and on
+    device EC (`_fm_chain`'s checks: decoder exact, launches), and on host
+    EC with stream_part 2; fails unless every DPB entry is bfloat16, host
+    EC equals device EC (every frame's encoder and decoder DPB) and the
+    2-part run decodes to host EC's DPB.  Prints per frame the enc / dec
+    ms of each run beside phase 12 (b)'s float32, the host coder's ms,
+    bytes, bpp, reruns and the count of y and motion-y CDF indexes of
+    255; (c) `phase_fm_reference` in bfloat16.  Returns device EC's K1 / K2
+    launches."""
+    bf16, label = torch.bfloat16, "phase 14 FM bfloat16"
+    t0 = time.perf_counter()
+    xs = _fm_src_frames(root, h, w, n, dev)
+    LR.encode_scan.launches = 0
+    LR.decode_scan.launches = 0
+    host = _fm_chain(dev, LR, xs, h, w, False, bf16,
+                     label=f"{label} (a) host EC")
+    counts, undo = _count_top_index()
+    try:
+        device = _fm_chain(dev, LR, xs, h, w, True, bf16,
+                           label=f"{label} (a) device EC")
+    finally:
+        undo()
+    parts = _fm_chain(dev, LR, xs, h, w, False, bf16, stream_part=2,
+                      label=f"{label} (b) stream_part 2")
+    kinds = [r["kind"] for r in host]
+    tops = _fm_top_by_frame(counts, kinds)
+    for t, (a, b, c) in enumerate(zip(host, device, parts)):
+        for side in ("enc", "dec"):
+            if any(v.dtype != bf16 for v in a[side].values()
+                   if v is not None):
+                _fail(f"{label}: frame {t}'s {side} DPB is not bfloat16")
+            _fm_same(b[side], a[side], f"{label} device EC frame {t} {side}")
+            _fm_same(c[side], a[side], f"{label} 2 parts frame {t} {side}")
+    for t, (a, b, c, f, top) in enumerate(zip(host, device, parts,
+                                              f32_rows, tops)):
+        _log(f"{label}: frame {t} {a['kind']}: host EC enc {a['enc_ms']:.2f}"
+             f" ms (coder {a['enc_coder_ms']:.2f}) / dec {a['dec_ms']:.2f} "
+             f"ms (coder {a['dec_coder_ms']:.2f}), {a['bytes']} B, bpp "
+             f"{8 * a['bytes'] / (h * w):.4f}; device EC enc "
+             f"{b['enc_ms']:.2f} / dec {b['dec_ms']:.2f} ms, {b['bytes']} B,"
+             f" bpp {8 * b['bytes'] / (h * w):.4f}, {b['reruns']} reruns, "
+             f"{top} y and motion-y CDF indexes of 255; 2 parts enc "
+             f"{c['enc_ms']:.2f} / dec {c['dec_ms']:.2f} ms, {c['bytes']} B;"
+             f" float32 device EC (phase 12 (b)) enc {f['enc_ms']:.2f} / dec"
+             f" {f['dec_ms']:.2f} ms")
+    launches = _launch_total(device)
+    _log(f"{label}: decoder exact (all five DPB entries, bfloat16) on all "
+         f"{n} frames in every run; device EC == host EC == 2 parts; K1 "
+         f"{launches[0]}, K2 {launches[1]} launches (device EC)")
+    phase_fm_reference(dev, label="phase 14 (c)", dtype=torch.bfloat16)
+    _log(f"phase 14: done in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 15: DCVC-DC at tools/family_bench.py's operating point
+# ---------------------------------------------------------------------------
+
+DC_H, DC_W, DC_FRAMES, DC_Q = 704, 1280, 3, 30
+
+
+def _dc_chain(dev, xs, h, w, dtype, stream_part, label, params=None):
+    """DMCDC (seed 0, or `params`) on xs (the raw reference, then
+    P-frames with frame_idx t), host EC, each frame decoded by a second
+    DMCDC: fails unless every decoded DPB entry equals the encoder's and
+    has `dtype`.  Returns per frame {enc / dec ms, coder ms, bytes,
+    stream, enc DPB}."""
+    from opendcvc_tpu_torch.models.dmc_dc import DMCDC
+    enc, dec = (DMCDC(device=dev, dtype=dtype, stream_part=stream_part)
+                for _ in range(2))
+    if params is None:
+        enc.init_params(seed=0)
+    else:
+        enc.load_params(params)
+    dec.load_params(enc.params)
+    clocks = {}
+    for net in (enc, dec):
+        net.update()
+        clocks[id(net)] = _clock_coder(net.entropy_coder)
+    enc_dpb = dec_dpb = dict.fromkeys(FM_DPB[1:]) | {"ref_frame": xs[0]}
+    rows = []
+    for t in range(1, len(xs)):
+        c0 = clocks[id(enc)][0], clocks[id(dec)][0]
+        out, ms_e = _timed(lambda: enc.compress(
+            xs[t], enc_dpb, q_in_ckpt=False, q_index=DC_Q, frame_idx=t), dev)
+        d, ms_d = _timed(lambda: dec.decompress(
+            out["bit_stream"], dec_dpb, h, w, q_in_ckpt=False, q_index=DC_Q,
+            frame_idx=t), dev)
+        enc_dpb, dec_dpb = out["dpb"], d["dpb"]
+        _fm_exact(enc_dpb, dec_dpb, f"{label} frame {t}")
+        if any(v.dtype != dtype for v in enc_dpb.values()):
+            _fail(f"{label}: frame {t}'s DPB is not {dtype}")
+        rows.append({"enc_ms": ms_e, "dec_ms": ms_d,
+                     "enc_coder_ms": clocks[id(enc)][0] - c0[0],
+                     "dec_coder_ms": clocks[id(dec)][0] - c0[1],
+                     "bytes": len(out["bit_stream"]),
+                     "stream": out["bit_stream"], "enc": enc_dpb})
+    return rows, enc.params
+
+
+def _dc_reference(dev, label="phase 15 (c)"):
+    """Phase 15 (c): a 64x64 float32 DCVC-DC chain (3 P-frames after a
+    raw reference) coded on the GPU, each frame also coded on the CPU
+    from the GPU's reference and decoded by the CPU port from it: fails
+    on a decode error or a DPB diff over 1e-3 of max(1, max|ref|) (phase
+    5's bound), unless the two devices' symbols differ only where the
+    GPU's value lies within the codecs' float agreement of its rounding
+    boundary (printed, the row reported); identical streams reported."""
+    from opendcvc_tpu_torch.eval import fm_ties as TIES
+    from opendcvc_tpu_torch.models.dmc_dc import DMCDC
+    cpu = torch.device("cpu")
+    xs = [f[None].astype(np.float32) / 255.0
+          for f in textured_frames(64, 64, 4, seed=6)]
+    params = DMCDC(device=cpu).init_params(seed=0)
+
+    def codec(d):
+        net = DMCDC(device=d)
+        net.load_params(params)
+        net.update()
+        return net
+
+    enc = {dev.type: codec(dev), "cpu": codec(cpu)}
+    dec = codec(cpu)
+    coded = {k: [] for k in enc}
+    for k, net in enc.items():
+        TIES.record_coded(net, coded[k])
+
+    ref = dict.fromkeys(FM_DPB[1:]) | {"ref_frame": xs[0]}
+    with TIES.PreRoundingFloats() as floats:
+        for t in range(1, len(xs)):
+            for k in coded:
+                coded[k].clear()
+            floats.on = True
+            g = enc[dev.type].compress(xs[t], ref, False, DC_Q, frame_idx=t)
+            floats.on = False
+            c = enc["cpu"].compress(xs[t], _to_cpu(ref), False, DC_Q,
+                                    frame_idx=t)
+            _gpu_cpu_frame(
+                label, f"P-frame {t}", g["bit_stream"] == c["bit_stream"],
+                coded, dev, floats, "p",
+                lambda: dec.decompress(g["bit_stream"], _to_cpu(ref), 64, 64,
+                                       False, DC_Q, frame_idx=t)["dpb"],
+                g["dpb"])
+            ref = g["dpb"]
+
+
+def phase_dc(dev, LR):
+    """Phase 15: DCVC-DC at tools/family_bench.py's operating point
+    (704x1280, 3 P-frames after a raw reference, q_index 30 on the fine
+    ladder, frame_idx t; family_bench's frames, seed 3), host EC: (a)
+    float32 and bfloat16, stream_part 1 and 2, decoder exact every frame
+    and entry, each part count's DPB equal to one part's; prints per
+    frame enc / dec ms, the host coder's ms within them and bpp; (b)
+    `opendcvc_tpu_torch.family_bench.main` in process, its dc row
+    printed; (c) `_dc_reference`.  Neither kernel may launch."""
+    from opendcvc_tpu_torch import family_bench
+    t0 = time.perf_counter()
+    LR.encode_scan.launches = 0
+    LR.decode_scan.launches = 0
+    xs = family_bench._frames(DC_H, DC_W, DC_FRAMES, dev, seed=3)
+    params = None
+    for dtype in (torch.float32, torch.bfloat16):
+        runs = {}
+        for parts in (1, 2):
+            label = f"phase 15 (a) DCVC-DC {str(dtype)[6:]} {parts} part" \
+                + ("s" if parts > 1 else "")
+            runs[parts], params = _dc_chain(dev, xs, DC_H, DC_W, dtype,
+                                            parts, label, params)
+            for t, r in enumerate(runs[parts], 1):
+                _log(f"{label}: frame {t} (frame_idx {t}): enc "
+                     f"{r['enc_ms']:.2f} ms (coder {r['enc_coder_ms']:.2f})"
+                     f" / dec {r['dec_ms']:.2f} ms (coder "
+                     f"{r['dec_coder_ms']:.2f}), {r['bytes']} B, bpp "
+                     f"{8 * r['bytes'] / (DC_H * DC_W):.4f}; decoder exact")
+        for t, (a, b) in enumerate(zip(runs[1], runs[2]), 1):
+            _fm_same(b["enc"], a["enc"], f"phase 15 (a) {dtype} 2 parts "
+                     f"frame {t}", "one part's")
+            if (b["stream"][0] >> 4) + 1 != 2:
+                _fail(f"phase 15 (a): frame {t} is not a 2-part stream")
+    env = {k: os.environ.pop(k, None) for k in ("FAM_H", "FAM_W",
+                                                "FAM_FRAMES", "FAM_CODECS",
+                                                "FAM_PLATFORM")}
+    with tempfile.TemporaryDirectory(prefix="family_bench_") as d:
+        try:
+            result = family_bench.main([os.path.join(d, "fam.json")])
+        finally:
+            for k, v in env.items():
+                if v is not None:
+                    os.environ[k] = v
+    row = result["codecs"]["dc"]
+    if not (row["h"], row["w"], row["frames"]) == (DC_H, DC_W, DC_FRAMES) \
+            or not row["bpp"] > 0 \
+            or result["platform"] != ("gpu" if dev.type == "cuda" else "cpu"):
+        _fail(f"phase 15 (b): family_bench's dc row {row} on "
+              f"{result['platform']}")
+    _log(f"phase 15 (b) family_bench: dc {json.dumps(row)}")
+    _dc_reference(dev)
+    launches = [LR.encode_scan.launches, LR.decode_scan.launches]
+    if max(launches):
+        _fail(f"phase 15: DCVC-DC (host EC) launched K1 / K2 {launches}")
+    _log(f"phase 15: DCVC-DC done in {time.perf_counter() - t0:.1f} s; K1 "
+         f"{launches[0]}, K2 {launches[1]} launches")
 
 
 def main():
@@ -2476,10 +2786,13 @@ def main():
         runs.update(phase_training_slice(dev, LR, f32, root,
                                          stream7["job"]))
         fm_host = phase_fm(dev, LR, root)
-        runs["phase 12 FM device EC"] = phase_fm_device(dev, LR, root,
-                                                        fm_host)
+        runs["phase 12 FM device EC"], fm_f32 = phase_fm_device(
+            dev, LR, root, fm_host)
         del fm_host
-    phase_h100_streams(dev, args.out)
+        phase_h100_streams(dev, args.out)
+        runs["phase 14 FM bfloat16"] = phase_fm_bf16(dev, LR, root, fm_f32)
+        del fm_f32
+        phase_dc(dev, LR)
     for i, k in enumerate(kernels):
         k["launches_by_run"] = {"phases 3-4": k["launches"]}
         for name, n in runs.items():

@@ -18,8 +18,9 @@ module tells such a tie from a real mismatch:
     tolerance it is held to (REL_TOL x the plane's max |value|).
 
 PLANES holds the order in which the FM codecs compute their planes and
-the order in which they code them; both the codecs and this module must
-change together if either order changes.
+the order in which they code them; DCVC-DC's P-frame (DMCDC) computes and
+codes DMCFM's planes in DMCFM's orders ("p").  The codecs and this module
+must change together if either order changes.
 """
 
 import numpy as np
@@ -100,7 +101,7 @@ class PreRoundingFloats:
 
 
 def record_coded(net, log):
-    """Append to `log` each plane the FM codec `net` (DMCIFM or DMCFM)
+    """Append to `log` each plane the codec `net` (DMCIFM, DMCFM or DMCDC)
     hands its coder, in coding order."""
     ge = net.gaussian_encoder
     enc_y = ge.encode_y_packed

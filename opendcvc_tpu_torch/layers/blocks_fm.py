@@ -4,14 +4,15 @@ conv weights OIHW).
 Counterpart of the JAX package's `layers/blocks_fm.py` and of the
 EVC-generation blocks it takes from `layers/blocks_evc.py`, with the JAX
 package's parameter names, so a JAX parameter tree converts mechanically
-(`utils/params.py`):
+(`utils/params.py`).  LeakyReLU, ResidualBlockWithStride(2),
+ResidualBlockUpsample and the 1x1 subpel conv are `blocks_evc`'s, taken
+from there as the JAX package's `blocks_fm` takes them:
   * DepthConv (LeakyReLU 0.01 after its first 1x1 only) and the gated
     DepthConv2; ConvFFN (LeakyReLU 0.1), the gated ConvFFN2 and the
     two-slope ConvFFN3 (0.1 / 0.01); DCB / DCB2 / DCB3 / DCB4 pair them;
   * UNet (DCB2 blocks, strided 2x2 convs down) and UNet2 (DCB4 blocks,
     2x2 max pooling down), both up by 1x1 subpel convs;
-  * the pre-activation ResBlock, ResidualBlockWithStride(2) (LeakyReLU
-    0.01 then 0.1), ResidualBlockUpsample and the 1x1 subpel conv;
+  * the pre-activation ResBlock and ResidualBlockWithStride2;
   * SpyNet's ME_Basic and the 4-level coarse-to-fine flow.
 Pooling is a reshape and a reduction, as in the JAX package.  `init`
 functions draw from an explicit `torch.Generator` with the JAX package's
@@ -19,56 +20,13 @@ distributions (not its draws).
 """
 
 import torch
-import torch.nn.functional as F
 
-from ..ops.fused import depth_to_space
 from ..ops.warp import bilinear_resize_2x, flow_warp
 from .blocks import conv_apply, conv_init
-
-
-def lrelu(x, slope=0.01):
-    """The JAX package's where(x >= 0, x, slope * x), bit for bit (at
-    -0.0 both give -0.0), in one kernel."""
-    return F.leaky_relu(x, slope)
-
-
-# ---------------------------------------------------------------------------
-# EVC-generation residual blocks
-# ---------------------------------------------------------------------------
-
-def res_block_stride_init(gen, in_ch, out_ch):
-    return {"conv1": conv_init(gen, in_ch, out_ch, 3),
-            "conv2": conv_init(gen, out_ch, out_ch, 3),
-            "down": conv_init(gen, in_ch, out_ch, 1)}
-
-
-def res_block_stride_apply(p, x, stride=2):
-    out = lrelu(conv_apply(p["conv1"], x, stride=stride, padding=1), 0.01)
-    out = lrelu(conv_apply(p["conv2"], out, padding=1), 0.1)
-    identity = x
-    if "down" in p:
-        identity = conv_apply(p["down"], x, stride=stride)
-    return out + identity
-
-
-def subpel1x1_init(gen, in_ch, out_ch, r=2):
-    return conv_init(gen, in_ch, out_ch * r * r, 1)
-
-
-def subpel1x1_apply(p, x, r=2):
-    return depth_to_space(conv_apply(p, x), r)
-
-
-def res_block_upsample_init(gen, in_ch, out_ch):
-    return {"subpel": subpel1x1_init(gen, in_ch, out_ch),
-            "conv": conv_init(gen, out_ch, out_ch, 3),
-            "up": subpel1x1_init(gen, in_ch, out_ch)}
-
-
-def res_block_upsample_apply(p, x):
-    out = lrelu(subpel1x1_apply(p["subpel"], x), 0.01)
-    out = lrelu(conv_apply(p["conv"], out, padding=1), 0.1)
-    return out + subpel1x1_apply(p["up"], x)
+from .blocks_evc import (lrelu, res_block_stride_apply,  # noqa: F401
+                         res_block_stride_init, res_block_upsample_apply,
+                         res_block_upsample_init, subpel1x1_apply,
+                         subpel1x1_init)
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,15 @@ QP_NUM = 64
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def check_dtype(dtype, codec):
+    """Raise NotImplementedError for an activation dtype the port does
+    not run (one other than float32 and bfloat16)."""
+    if dtype not in DTYPES.values():
+        raise NotImplementedError(
+            f"{codec}: dtype {dtype} is not ported; the port runs "
+            f"float32 and bfloat16")
+
+
 def ec_setting(value, name, default):
     """A device-EC staging setting: `value` when the caller gives one,
     else the environment variable `name` (the JAX package's

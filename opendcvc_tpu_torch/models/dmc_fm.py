@@ -1,4 +1,4 @@
-"""DMCFM — the DCVC-FM P-frame codec (NCHW), host EC.
+"""DMCFM — the DCVC-FM P-frame codec (NCHW).
 
 Counterpart of the JAX package's `models/dmc_fm.py`: explicit motion
 coding (SpyNet flow -> a coded motion latent -> bilinear-warp motion
@@ -35,8 +35,9 @@ Every stage the encoder and the decoder both evaluate is one shared
 function, so the DPB chain is bit-identical on the two sides (see
 models/dmc.py); the streams are the JAX package's, byte for byte, but for
 the device-EC fault of the JAX package models/dmci_fm.py describes (a y
-or motion-y CDF index of 255).  Dtypes other than float32 raise (not
-ported yet; models/dmci_fm.py::refuse_unported).
+or motion-y CDF index of 255).  dtype is float32 or bfloat16, the
+activations' dtype, with DMCIFM's rules (models/dmci_fm.py); the
+quant anchors are log-interpolated in float32 and cast to it.
 """
 
 import numpy as np
@@ -59,8 +60,7 @@ from ..utils.params import to_device
 from . import common as C
 from .dmc import _dec_plane, _lane_layout_t, _z_rows
 from .dmci_fm import (decode_carry, dec_y_plane, fm_device_ec, gaussian_cfg,
-                      hyper_enc_apply, launch_staging, refuse_unported,
-                      y_operand)
+                      hyper_enc_apply, launch_staging, y_operand)
 from .prior_stages import make_pass_stages
 
 G_CH_1X = 48
@@ -434,6 +434,58 @@ def _stage_y_spatial(p, k, y_hat_so_far, common_params):
 
 
 # ---------------------------------------------------------------------------
+# the four-part prior passes and host-EC z planes (DMCFM's and DMCDC's)
+# ---------------------------------------------------------------------------
+
+def compress_4x(stages, y, params_prior, spatial_fn):
+    """The four passes of a latent on the encoder: (the four packed
+    planes, y_hat); `stages` a make_pass_stages(cfg, 4) dict,
+    `spatial_fn(k, so_far, params_prior)` pass k's (scales, means)."""
+    y_div, packed0, so_far = stages["enc_pass0_video"](y, params_prior)
+    packed = [packed0]
+    for k in range(1, 4):
+        scales, means = spatial_fn(k, so_far, params_prior)
+        pk, so_far = stages["enc_pass_k"](y_div, scales, means, so_far, k)
+        packed.append(pk)
+    return packed, stages["finalize_video"](so_far, params_prior)
+
+
+def decompress_4x(stages, params_prior, spatial_fn, decode):
+    """The four passes of a latent on the decoder, `decode(idx)` giving
+    each pass's symbols from its CDF indexes: y_hat."""
+    so_far = stages["dec_restore0_video"](
+        decode(stages["dec_index0_video"](params_prior)), params_prior)
+    for k in range(1, 4):
+        scales, means = spatial_fn(k, so_far, params_prior)
+        so_far = stages["dec_restore_acc"](
+            decode(stages["dec_index_k"](scales, k)), means, so_far, k)
+    return stages["finalize_video"](so_far, params_prior)
+
+
+def host_planes(coder, z_estimators, gaussian, bit_stream, zh, zw, device,
+                dtype, transfers):
+    """Host EC: the z planes decoded on the host at once (they lead the
+    stream), `z_estimators` [(name, BitEstimator)] in stream order;
+    (z_plane(name), decode(idx), done()), decode host-decoding a y pass
+    with `gaussian`, done checking that the stream ends with the frame's
+    last symbol.  Planes land on `device` as `dtype`; the copies are
+    counted in `transfers`."""
+    coder.set_stream(bit_stream)
+    z = {}
+    for name, be in z_estimators:
+        be.decode_z((zh, zw), 0)
+        z[name] = C.from_host_nhwc(be.get_z((zh, zw), np.int8), device,
+                                   dtype)
+    transfers["h2d"] += len(z_estimators)
+
+    def decode(idx):
+        return C.decode_y_host(gaussian, C.fetch_async(C.index_buf(idx)),
+                               idx.shape, device, dtype, transfers)
+
+    return z.__getitem__, decode, coder.check_stream_end
+
+
+# ---------------------------------------------------------------------------
 # host orchestrator
 # ---------------------------------------------------------------------------
 
@@ -446,14 +498,14 @@ class DMCFM:
     stream_part > 1 splits each host-EC frame's stream over that many
     coders (`NPartEntropyCoder`), each on a worker thread of its own with
     ec_thread (as the JAX package's DMCFM(ec_thread=); threading changes
-    no byte).  A dtype other than float32 raises NotImplementedError (not
-    ported yet).  `transfers` counts the host-EC copies: "d2h" the
-    fetches the host waits for, "h2d" the uploads; `ec_reruns` the
-    device-EC frames' ladder reruns (one K1 launch each)."""
+    no byte).  dtype: float32 or bfloat16 activations.  `transfers`
+    counts the host-EC copies: "d2h" the fetches the host waits for,
+    "h2d" the uploads; `ec_reruns` the device-EC frames' ladder reruns
+    (one K1 launch each)."""
 
     def __init__(self, device="cuda", device_ec=None, dtype=torch.float32,
                  stream_part=1, ec_thread=False):
-        refuse_unported(dtype, "DMCFM")
+        C.check_dtype(dtype, "DMCFM")
         self.device = C.resolve_device(device)
         self.device_ec = fm_device_ec(device_ec)
         self.dtype = dtype
@@ -535,30 +587,6 @@ class DMCFM:
         if not self.device_ec:
             self.entropy_coder.set_use_two_entropy_coders(b)
 
-    # -- four-part prior drivers ---------------------------------------------
-
-    def _compress_4x(self, y, params_prior, spatial_fn):
-        st = self._stages
-        y_div, packed0, so_far = st["enc_pass0_video"](y, params_prior)
-        packed = [packed0]
-        for k in range(1, 4):
-            scales, means = spatial_fn(k, so_far, params_prior)
-            pk, so_far = st["enc_pass_k"](y_div, scales, means, so_far, k)
-            packed.append(pk)
-        return packed, st["finalize_video"](so_far, params_prior)
-
-    def _decompress_4x(self, params_prior, spatial_fn, decode):
-        """The four passes of a latent, `decode(idx)` giving each pass's
-        symbols from its CDF indexes."""
-        st = self._stages
-        so_far = st["dec_restore0_video"](
-            decode(st["dec_index0_video"](params_prior)), params_prior)
-        for k in range(1, 4):
-            scales, means = spatial_fn(k, so_far, params_prior)
-            so_far = st["dec_restore_acc"](
-                decode(st["dec_index_k"](scales, k)), means, so_far, k)
-        return st["finalize_video"](so_far, params_prior)
-
     def _ref_frame(self, dpb):
         return C.frame_to_nchw(dpb["ref_frame"], self.device, self.dtype)
 
@@ -589,8 +617,8 @@ class DMCFM:
             p, x, ref_frame, dpb["ref_mv_feature"], qi)
         mv_params = _stage_mv_prior(p, mv_z_hat, dpb["ref_mv_y"],
                                     mv_y.shape[2], mv_y.shape[3])
-        mv_packed, mv_y_hat = self._compress_4x(
-            mv_y, mv_params,
+        mv_packed, mv_y_hat = compress_4x(
+            self._stages, mv_y, mv_params,
             lambda k, so_far, prm: _stage_mv_spatial(p, k, so_far, prm))
         mv_hat, mv_feature = _stage_mv_dec(p, mv_y_hat, qi)
         c1, c2, c3, _ = _stage_motion_comp(p, mv_hat, ref_frame,
@@ -598,8 +626,8 @@ class DMCFM:
         y, z_hat, z_int8 = _stage_ctx_enc(p, x, c1, c2, c3, qi)
         params = _stage_ctx_prior(p, z_hat, c3, dpb["ref_y"], y.shape[2],
                                   y.shape[3])
-        y_packed, y_hat = self._compress_4x(
-            y, params,
+        y_packed, y_hat = compress_4x(
+            self._stages, y, params,
             lambda k, so_far, prm: _stage_y_spatial(p, k, so_far, prm))
         if self.device_ec:
             finish = self._launch_device(x, mv_z_int8, z_int8, mv_packed,
@@ -672,13 +700,18 @@ class DMCFM:
         if self.device_ec:
             z_plane, decode, done = self._device_planes(bit_stream, zh, zw)
         else:
-            z_plane, decode, done = self._host_planes(bit_stream, zh, zw)
+            z_plane, decode, done = host_planes(
+                self.entropy_coder,
+                [("mv_z", self.bit_estimator_z_mv),
+                 ("z", self.bit_estimator_z)],
+                self.gaussian_encoder, bit_stream, zh, zw, self.device,
+                self.dtype, self.transfers)
         ref_frame = self._ref_frame(dpb)
 
         mv_params = _stage_mv_prior(p, z_plane("mv_z"), dpb["ref_mv_y"],
                                     y_h, y_w)
-        mv_y_hat = self._decompress_4x(
-            mv_params,
+        mv_y_hat = decompress_4x(
+            self._stages, mv_params,
             lambda k, so_far, prm: _stage_mv_spatial(p, k, so_far, prm),
             decode)
         mv_hat, mv_feature = _stage_mv_dec(p, mv_y_hat, qi)
@@ -687,8 +720,8 @@ class DMCFM:
                                            sps["fa_idx"])
         params = _stage_ctx_prior(p, z_plane("z"), c3, dpb["ref_y"], y_h,
                                   y_w)
-        y_hat = self._decompress_4x(
-            params,
+        y_hat = decompress_4x(
+            self._stages, params,
             lambda k, so_far, prm: _stage_y_spatial(p, k, so_far, prm),
             decode)
         done()
@@ -697,28 +730,6 @@ class DMCFM:
                         "ref_feature": feature,
                         "ref_mv_feature": mv_feature, "ref_y": y_hat,
                         "ref_mv_y": mv_y_hat}}
-
-    def _host_planes(self, bit_stream, zh, zw):
-        """Host EC: both z planes decoded on the host at once (they lead
-        the stream); (z_plane(name), decode(idx), done()), done checking
-        that the stream ends with the frame's last symbol."""
-        coder = self.entropy_coder
-        coder.set_stream(bit_stream)
-        z = {}
-        for name, be in (("mv_z", self.bit_estimator_z_mv),
-                         ("z", self.bit_estimator_z)):
-            be.decode_z((zh, zw), 0)
-            z[name] = C.from_host_nhwc(be.get_z((zh, zw), np.int8),
-                                       self.device, self.dtype)
-        self.transfers["h2d"] += 2
-
-        def decode(idx):
-            return C.decode_y_host(self.gaussian_encoder,
-                                   C.fetch_async(C.index_buf(idx)),
-                                   idx.shape, self.device, self.dtype,
-                                   self.transfers)
-
-        return z.__getitem__, decode, coder.check_stream_end
 
     def _device_planes(self, bit_stream, zh, zw):
         """Device EC: (z_plane(name), decode(idx), done()), each plane one

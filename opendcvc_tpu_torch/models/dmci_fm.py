@@ -28,8 +28,11 @@ row (they code it at zero rate and decode 0), where K1/K2 code it like
 any other row.  On a frame with no index 255 the device-EC streams are
 the JAX package's, byte for byte.
 
-Not ported yet, and refused rather than run another way: any dtype but
-float32 (ROADMAP, "FM bfloat16").
+dtype (float32 or bfloat16) is the activations' dtype, as in the JAX
+package's FM codecs: the parameters stay as loaded (float32 from init,
+never cast), each convolution casts its weights to its input's dtype, the
+q banks are cast explicitly and the decoded symbols arrive in `dtype`.
+Any other dtype raises NotImplementedError.
 """
 
 import numpy as np
@@ -56,15 +59,6 @@ from .prior_stages import make_pass_stages
 QP_NUM = 64
 N = 256       # y channels
 Z_CH = 128    # z channels
-
-
-def refuse_unported(dtype, codec):
-    """Raise NotImplementedError for a dtype other than float32, which
-    the port's FM codecs do not run yet."""
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"{codec}: dtype {dtype} is not ported (ROADMAP Queue 1, 'FM "
-            f"bfloat16'); FM runs in float32")
 
 
 def fm_device_ec(device_ec):
@@ -269,14 +263,14 @@ class DMCIFM:
     CPU runs only when asked for).  device_ec: the coder (None reads
     OPENDCVC_TPU_DEVICE_EC, as the JAX package's constructor does; its
     largest lane count and first staging rung come from
-    OPENDCVC_TPU_EC_LANES / _EC_BPS, read there too).  A dtype
-    other than float32 raises NotImplementedError (not ported yet).
+    OPENDCVC_TPU_EC_LANES / _EC_BPS, read there too).  dtype: float32
+    or bfloat16 activations (the module docstring).
     `transfers` counts the host-EC path's copies: "d2h" the fetches the
     host waits for, "h2d" the uploads; `ec_reruns` the device-EC frames'
     ladder reruns (one K1 launch each)."""
 
     def __init__(self, device="cuda", device_ec=None, dtype=torch.float32):
-        refuse_unported(dtype, "DMCIFM")
+        C.check_dtype(dtype, "DMCIFM")
         self.device = C.resolve_device(device)
         self.device_ec = fm_device_ec(device_ec)
         self.dtype = dtype

@@ -8,7 +8,9 @@ explicit arithmetic rather than through `F.grid_sample` /
     and the same weighted sum, in float32 and cast back;
   * `bilinear_resize_2x`: up is `jax.image.resize(method="bilinear")` at
     scale 2 (half-pixel centers, taps 1/4 and 3/4, the weights
-    renormalised at the border, where the edge sample is taken whole);
+    renormalised at the border, where the edge sample is taken whole;
+    each axis summed in float32 and rounded once to the input's dtype,
+    the longer axis first, in `jax.image.resize`'s order);
     down is the mean of each 2x2 block (torch's bilinear x1/2 without
     antialiasing).
 """
@@ -54,23 +56,31 @@ def flow_warp(im, flow):
 def _up2_along(x, dim):
     """Bilinear x2 along `dim`: output 2k = 1/4 x[k-1] + 3/4 x[k], output
     2k+1 = 3/4 x[k] + 1/4 x[k+1]; the first and last outputs, whose outer
-    tap falls off the edge, take the edge sample with weight 1."""
+    tap falls off the edge, take the edge sample with weight 1.  The taps
+    are summed in float32 and the sum rounded once to x's dtype, as
+    `jax.image.resize`'s contraction rounds it (a bfloat16 sum of
+    bfloat16 products would round twice)."""
     n = x.shape[dim]
-    prev = torch.cat((x.narrow(dim, 0, 1), x.narrow(dim, 0, n - 1)), dim)
-    nxt = torch.cat((x.narrow(dim, 1, n - 1), x.narrow(dim, n - 1, 1)), dim)
-    even = 0.25 * prev + 0.75 * x
-    odd = 0.75 * x + 0.25 * nxt
-    even.narrow(dim, 0, 1).copy_(x.narrow(dim, 0, 1))
-    odd.narrow(dim, n - 1, 1).copy_(x.narrow(dim, n - 1, 1))
+    xf = x.float()
+    prev = torch.cat((xf.narrow(dim, 0, 1), xf.narrow(dim, 0, n - 1)), dim)
+    nxt = torch.cat((xf.narrow(dim, 1, n - 1), xf.narrow(dim, n - 1, 1)),
+                    dim)
+    even = 0.25 * prev + 0.75 * xf
+    odd = 0.75 * xf + 0.25 * nxt
+    even.narrow(dim, 0, 1).copy_(xf.narrow(dim, 0, 1))
+    odd.narrow(dim, n - 1, 1).copy_(xf.narrow(dim, n - 1, 1))
     out = torch.stack((even, odd), dim + 1)
     shape = list(x.shape)
     shape[dim] = 2 * n
-    return out.reshape(shape)
+    return out.reshape(shape).to(x.dtype)
 
 
 def bilinear_resize_2x(x, up=True):
     """(B, C, H, W) -> (B, C, 2H, 2W) (up) or (B, C, H/2, W/2) (down)."""
     b, c, h, w = x.shape
     if up:
-        return _up2_along(_up2_along(x, 2), 3)
+        # jax.image.resize's einsum contracts the longer axis first (the
+        # height on a tie); each contraction rounds to x's dtype
+        first, second = (3, 2) if w > h else (2, 3)
+        return _up2_along(_up2_along(x, first), second)
     return x.reshape(b, c, h // 2, 2, w // 2, 2).mean(dim=(3, 5))

@@ -103,7 +103,7 @@ def probe_k2(dev, rng):
     _report("K2", fixed,
             lambda k: time_rows(torch.from_numpy(
                 rng.integers(0, n_rows, (k, L)))),
-            lambda k: time_rows(torch.full((k, L), 255)))
+            lambda k: time_rows(torch.full((k, L), LR.DEC_SKIP)))
 
 
 def main():

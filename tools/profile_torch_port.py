@@ -2,14 +2,17 @@
 """Where the time of the PyTorch/CUDA port's P-frame goes, on one GPU.
 
     python3 tools/profile_torch_port.py [--frames 2] [--dtype bfloat16]
-        [--codec rt|fm] [--trace PATH]
+        [--codec rt|fm|dc] [--trace PATH]
 
---codec rt (the default) codes 1080p P-frames with DMC at full width on
-the device-EC path (random weights from seed 1, flat q banks,
-force_zero_thres 0.12, as chip_smoke.py's phase 4 does) in --dtype
-(float32 or bfloat16); --codec fm codes them with DCVC-FM's DMCFM
-(random weights from seed 1, host EC, float32, qp 21, fa_idx 0 on the
-propagated DPB, as chip_smoke.py's phase 11).  It warms up with one
+Every codec runs in --dtype (float32 or bfloat16).  --codec rt (the
+default) codes 1080p P-frames with DMC at full width on the device-EC
+path (random weights from seed 1, flat q banks, force_zero_thres 0.12,
+as chip_smoke.py's phase 4 does); --codec fm codes them with DCVC-FM's
+DMCFM (random weights from seed 1, host EC, qp 21, fa_idx 0 on the
+propagated DPB, as chip_smoke.py's phase 11 and 14); --codec dc codes
+704x1280 P-frames with DCVC-DC's DMCDC (random weights from seed 0, host
+EC, q_index 30 on the fine ladder, frame_idx t from a raw reference, as
+tools/family_bench.py and chip_smoke.py's phase 15).  It warms up with one
 frame, then profiles `--frames` encodes and their decodes with
 torch.profiler.  Prints the card's name and power limit, the per-frame
 host-clock times, the device time by kernel (top 15) and by class
@@ -35,7 +38,10 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-H, W, QP, FZ = 1088, 1920, 21, 0.12
+QP, FZ = 21, 0.12
+#: each codec's frame size: 1080p padded to 16, or family_bench's
+SIZES = {"rt": (1088, 1920), "fm": (1088, 1920), "dc": (704, 1280)}
+DC_Q = 30
 
 
 def _kernel_class(name):
@@ -61,7 +67,7 @@ def _kernel_class(name):
     return "other (copies, cat, scatter, reductions, ...)"
 
 
-def _rt_codec(dev, dtype, frames):
+def _rt_codec(dev, dtype, frames, H, W):
     """DMC encoder and decoder on device EC, each seeded from frames[0];
     returns (encode(x) -> stream, decode(stream), feature chain equal)."""
     from opendcvc_tpu_torch.models.dmc import DMC
@@ -87,19 +93,22 @@ def _rt_codec(dev, dtype, frames):
             lambda: torch.equal(enc.dpb[0].feature, dec.dpb[0].feature))
 
 
-def _fm_codec(dev, frames):
+def _fresh(frame, dev):
+    return {"ref_frame": torch.from_numpy(frame).to(dev),
+            "ref_feature": None, "ref_mv_feature": None, "ref_y": None,
+            "ref_mv_y": None}
+
+
+def _fm_codec(dev, dtype, frames, H, W):
     """DMCFM encoder and decoder on host EC, their DPBs seeded from
     frames[0]; the same three callables as _rt_codec."""
     from opendcvc_tpu_torch.models.dmc_fm import DMCFM
-    enc, dec = DMCFM(device=dev), DMCFM(device=dev)
+    enc, dec = DMCFM(device=dev, dtype=dtype), DMCFM(device=dev, dtype=dtype)
     enc.init_params(seed=1)
     dec.load_params(enc.params)
     for net in (enc, dec):
         net.update()
-    ref = {"ref_frame": torch.from_numpy(frames[0]).to(dev),
-           "ref_feature": None, "ref_mv_feature": None, "ref_y": None,
-           "ref_mv_y": None}
-    dpb = {"enc": ref, "dec": ref}
+    dpb = {"enc": _fresh(frames[0], dev), "dec": _fresh(frames[0], dev)}
     sps = {"height": H, "width": W, "qp": QP, "fa_idx": 0}
 
     def encode(x):
@@ -114,31 +123,60 @@ def _fm_codec(dev, frames):
         torch.equal(dpb["enc"][k], dpb["dec"][k]) for k in dpb["enc"])
 
 
+def _dc_codec(dev, dtype, frames, H, W):
+    """DMCDC encoder and decoder on host EC from the raw reference
+    frames[0], frame_idx counting up from 1; the same three callables as
+    _rt_codec."""
+    from opendcvc_tpu_torch.models.dmc_dc import DMCDC
+    enc, dec = DMCDC(device=dev, dtype=dtype), DMCDC(device=dev, dtype=dtype)
+    enc.init_params(seed=0)
+    dec.load_params(enc.params)
+    for net in (enc, dec):
+        net.update()
+    dpb = {"enc": _fresh(frames[0], dev), "dec": _fresh(frames[0], dev)}
+    t = {"enc": 0, "dec": 0}
+
+    def encode(x):
+        t["enc"] += 1
+        out = enc.compress(x, dpb["enc"], False, DC_Q, frame_idx=t["enc"])
+        dpb["enc"] = out["dpb"]
+        return out["bit_stream"]
+
+    def decode(s):
+        t["dec"] += 1
+        dpb["dec"] = dec.decompress(s, dpb["dec"], H, W, False, DC_Q,
+                                    frame_idx=t["dec"])["dpb"]
+
+    return encode, decode, lambda: all(
+        torch.equal(dpb["enc"][k], dpb["dec"][k]) for k in dpb["enc"])
+
+
+CODECS = {"rt": _rt_codec, "fm": _fm_codec, "dc": _dc_codec}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=2)
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])
-    ap.add_argument("--codec", default="rt", choices=["rt", "fm"])
+    ap.add_argument("--codec", default="rt", choices=sorted(CODECS))
     ap.add_argument("--trace", default="chiprun_out/torch_port_trace.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_port: CUDA is not available")
-    if args.codec == "fm" and args.dtype != "float32":
-        sys.exit("profile_torch_port: DCVC-FM runs in float32 only")
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda", 0)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    print(f"{card}; codec {args.codec}, dtype {args.dtype}")
+    H, W = SIZES[args.codec]
+    print(f"{card}; codec {args.codec}, dtype {args.dtype}, {W}x{H}")
     rng = np.random.default_rng(0)
     base = rng.random((1, H, W, 3), dtype=np.float32)
     frames = [np.roll(base, 4 * t, axis=2) for t in range(args.frames + 2)]
-    encode, decode, chain_equal = (
-        _rt_codec(dev, getattr(torch, args.dtype), frames)
-        if args.codec == "rt" else _fm_codec(dev, frames))
+    encode, decode, chain_equal = CODECS[args.codec](
+        dev, getattr(torch, args.dtype), frames, H, W)
     decode(encode(frames[1]))
     torch.cuda.synchronize()
 
