@@ -180,18 +180,38 @@ Phases (any failure exits nonzero and prints no result):
      equals the encoder's (in the codec's dtype) and the 2-part DPBs the
      1-part ones; prints per frame the enc / dec ms, the host coder's ms
      within them and bpp; (b) `opendcvc_tpu_torch.family_bench.main` in
-     process at its defaults, its dc row printed; (c) a 64x64 float32
-     chain coded on the GPU, decoded by the CPU within phase 5's 1e-3
-     (phase 11 (c)'s rule for a rounding tie), identical streams reported.
-     Neither kernel may launch.
+     process at its defaults with FAM_CODECS=dc, its dc row printed; (c)
+     a 64x64 float32 chain coded on the GPU, decoded by the CPU within
+     phase 5's 1e-3 (phase 11 (c)'s rule for a rounding tie), identical
+     streams reported.  Neither kernel may launch.
+ 16. DCVC-HEM at family_bench's operating point (704x1280, its frames,
+     seed 2; the port's init, seed 0, HEM's anchors spread to [2.0, 1.2,
+     0.8, 0.5], the rung get_interpolated_q_scales(4)[1]), host EC: (a)
+     an IntraNoAR I-frame (q_scale 1.0), then 3 DMCHEM P-frames from its
+     x_hat, in float32 and bfloat16: fails unless the decoded I-frame
+     equals the encoder's x_hat and every decoded DPB entry (all four)
+     the encoder's, of the codec's dtype; prints per frame the enc / dec
+     ms, the host coder's ms within them and bpp; (b) family_bench's hem
+     row (FAM_CODECS=hem); (c) a 64x64 float32 I-frame and 2 P-frames
+     coded on the GPU, decoded by the CPU, under phase 15 (c)'s rule.
+ 17. DCVC-TCM at family_bench's operating point (704x1280, 3 P-frames
+     after its raw reference, seed 1; seed-0 weights), host EC: (a)
+     float32 and bfloat16, fails unless the decoder's x_hat and feature
+     equal the encoder's; times and bpp as 16 (a); (b) the tcm row; (c)
+     a 64x64 float32 chain GPU -> CPU as 16 (c); (d) `python -m
+     opendcvc_tpu_torch.train_video --model tcm` in process at its
+     defaults (batch 8, crop 256, --frames 3, 7 steps, synthetic data):
+     finite losses, float32 state, ms a step and peak memory printed, then
+     5 steps on one fixed batch, whose loss must fall.  Neither kernel
+     may launch in phases 16-17.
 The kernel launch counters are zeroed before phase 3 and read after
 phase 4, so the counts are the main path's (the device-EC path); they are
 zeroed again before phase 6 and must read 0 after it, again before each
 run of phases 7, 9 and 10, and before phase 8; they are
 zeroed before phase 11 and must read 0 after it, zeroed before phase
 12, whose runs hold them exact, before phase 14, whose device-EC run
-holds them exact and whose host-EC runs launch none, and before phase 15,
-after which they must read 0; `launches` adds the
+holds them exact and whose host-EC runs launch none, and before each of
+phases 15, 16 and 17, after which they must read 0; `launches` adds the
 device-EC runs of phases 7 (b), 8, 9, 10 (a, and the checkpoints'
 coding in b), 12 and 14 to phases 3-4's, and `launches_by_run` splits it.
 Then it
@@ -1712,15 +1732,15 @@ def _float32_tree(leaves, what, label):
             _fail(f"{label}: {what} holds a {t.dtype} tensor")
 
 
-def _train_run(dev, model, amp, save_dir):
+def _train_run(dev, model, amp, save_dir, label=None):
     """train_video's main in process at its defaults (synthetic data,
-    batch 8, crop 256; dmc with --frames 3) for N_TRAIN steps."""
+    batch 8, crop 256; dmc and tcm with --frames 3) for N_TRAIN steps."""
     from opendcvc_tpu_torch import train_video
     from opendcvc_tpu_torch.training.train import tree_leaves
-    label = f"phase 10 ({'c' if amp else 'b'}) {model}"
+    label = label or f"phase 10 ({'c' if amp else 'b'}) {model}"
     argv = ["--model", model, "--steps", str(N_TRAIN), "--save_dir",
             save_dir, "--log_every", str(N_TRAIN), "--amp",
-            "1" if amp else "0"] + (["--frames", "3"] if model == "dmc"
+            "1" if amp else "0"] + (["--frames", "3"] if model != "dmci"
                                     else [])
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -1744,12 +1764,13 @@ def _train_run(dev, model, amp, save_dir):
     return {"ms": ms, "peak": peak}
 
 
-def _descent(dev, model):
+def _descent(dev, model, label="phase 10 (b)"):
     """The loss on one fixed batch (the defaults' shape) over N_DESCENT
     steps at lr 1e-4, no warmup, must fall, as the JAX package's
     tests/test_training.py holds its train step."""
     from opendcvc_tpu_torch.models import common as C
     from opendcvc_tpu_torch.models.dmc import dmc_init
+    from opendcvc_tpu_torch.models.dmc_tcm import dmc_tcm_init
     from opendcvc_tpu_torch.models.dmci import dmci_init
     from opendcvc_tpu_torch.training import train as T
     from opendcvc_tpu_torch.training.data import SyntheticVideoDataset
@@ -1761,6 +1782,8 @@ def _descent(dev, model):
 
         def loss_fn(p, frames, qp, rng):
             return loss_img(p, frames[:, 0], qp, rng)
+    elif model == "tcm":
+        params, loss_fn = dmc_tcm_init(gen), T.make_tcm_loss(256.0)
     else:
         params, loss_fn = dmc_init(gen), T.make_dmc_loss(256.0)
     params = to_device(params, dev)
@@ -1775,9 +1798,9 @@ def _descent(dev, model):
         params, state, metrics = step(params, state, batch, 32, None)
         losses.append(float(metrics["loss"]))
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        _fail(f"phase 10 (b) {model}: the loss on one batch did not fall "
+        _fail(f"{label} {model}: the loss on one batch did not fall "
               f"over {N_DESCENT} steps: {losses}")
-    _log(f"phase 10 (b) {model}: one fixed batch, {N_DESCENT} steps at lr "
+    _log(f"{label} {model}: one fixed batch, {N_DESCENT} steps at lr "
          f"1e-4: loss " + " ".join(f"{v:.3f}" for v in losses))
 
 
@@ -2665,6 +2688,33 @@ def _dc_reference(dev, label="phase 15 (c)"):
             ref = g["dpb"]
 
 
+def _family_row(dev, name, label):
+    """`opendcvc_tpu_torch.family_bench.main` in process at its defaults
+    (704x1280, 3 frames; FAM_* cleared) but for FAM_CODECS=name: fails
+    unless its row has that shape, a positive bpp and the platform is
+    the device's; the row printed."""
+    from opendcvc_tpu_torch import family_bench
+    env = {k: os.environ.pop(k, None) for k in ("FAM_H", "FAM_W",
+                                                "FAM_FRAMES", "FAM_CODECS",
+                                                "FAM_PLATFORM")}
+    os.environ["FAM_CODECS"] = name
+    with tempfile.TemporaryDirectory(prefix="family_bench_") as d:
+        try:
+            result = family_bench.main([os.path.join(d, "fam.json")])
+        finally:
+            del os.environ["FAM_CODECS"]
+            for k, v in env.items():
+                if v is not None:
+                    os.environ[k] = v
+    row = result["codecs"][name]
+    if not (row["h"], row["w"], row["frames"]) == (DC_H, DC_W, DC_FRAMES) \
+            or not row["bpp"] > 0 \
+            or result["platform"] != ("gpu" if dev.type == "cuda" else "cpu"):
+        _fail(f"{label}: family_bench's {name} row {row} on "
+              f"{result['platform']}")
+    _log(f"{label} family_bench: {name} {json.dumps(row)}")
+
+
 def phase_dc(dev, LR):
     """Phase 15: DCVC-DC at tools/family_bench.py's operating point
     (704x1280, 3 P-frames after a raw reference, q_index 30 on the fine
@@ -2698,29 +2748,277 @@ def phase_dc(dev, LR):
                      f"frame {t}", "one part's")
             if (b["stream"][0] >> 4) + 1 != 2:
                 _fail(f"phase 15 (a): frame {t} is not a 2-part stream")
-    env = {k: os.environ.pop(k, None) for k in ("FAM_H", "FAM_W",
-                                                "FAM_FRAMES", "FAM_CODECS",
-                                                "FAM_PLATFORM")}
-    with tempfile.TemporaryDirectory(prefix="family_bench_") as d:
-        try:
-            result = family_bench.main([os.path.join(d, "fam.json")])
-        finally:
-            for k, v in env.items():
-                if v is not None:
-                    os.environ[k] = v
-    row = result["codecs"]["dc"]
-    if not (row["h"], row["w"], row["frames"]) == (DC_H, DC_W, DC_FRAMES) \
-            or not row["bpp"] > 0 \
-            or result["platform"] != ("gpu" if dev.type == "cuda" else "cpu"):
-        _fail(f"phase 15 (b): family_bench's dc row {row} on "
-              f"{result['platform']}")
-    _log(f"phase 15 (b) family_bench: dc {json.dumps(row)}")
+    _family_row(dev, "dc", "phase 15 (b)")
     _dc_reference(dev)
     launches = [LR.encode_scan.launches, LR.decode_scan.launches]
     if max(launches):
         _fail(f"phase 15: DCVC-DC (host EC) launched K1 / K2 {launches}")
     _log(f"phase 15: DCVC-DC done in {time.perf_counter() - t0:.1f} s; K1 "
          f"{launches[0]}, K2 {launches[1]} launches")
+
+# ---------------------------------------------------------------------------
+# phases 16-17: DCVC-HEM and DCVC-TCM at tools/family_bench.py's operating
+# points
+# ---------------------------------------------------------------------------
+
+HEM_SEED, TCM_SEED = 2, 1   # family_bench's frame seeds
+
+
+def _codec_pair(cls, dev, dtype, tree):
+    """An encoder and a decoder of `cls` on `tree`'s weights, update()d,
+    with their host coders' clocks."""
+    nets = []
+    for _ in range(2):
+        net = cls(device=dev, dtype=dtype)
+        net.load_params(tree)
+        net.update()
+        nets.append(net)
+    return nets, [_clock_coder(net.entropy_coder) for net in nets]
+
+
+def _coded(kind, clocks, c0, ms_e, ms_d, stream):
+    return {"kind": kind, "enc_ms": ms_e, "dec_ms": ms_d,
+            "enc_coder_ms": clocks[0][0] - c0[0],
+            "dec_coder_ms": clocks[1][0] - c0[1], "bytes": len(stream)}
+
+
+def _hem_trees(dev):
+    """IntraNoAR's and DMCHEM's weights (the port's init, seed 0), HEM's
+    anchors spread as family_bench spreads them."""
+    from opendcvc_tpu_torch.family_bench import HEM_ANCHORS
+    from opendcvc_tpu_torch.models.dmc_hem import DMCHEM
+    from opendcvc_tpu_torch.models.intra_no_ar import IntraNoAR
+    intra = IntraNoAR(device=dev).init_params(seed=0)
+    hem = DMCHEM(device=dev).init_params(seed=0)
+    for name in ("y_q_scale", "mv_y_q_scale"):
+        hem[name] = torch.tensor(HEM_ANCHORS, device=dev)
+    return intra, hem
+
+
+def _hem_chain(dev, xs, h, w, dtype, label, trees):
+    """An IntraNoAR I-frame (q_scale 1.0) of xs[0] (after an untimed
+    warm-up one), then DMCHEM P-frames of xs[1:] from its x_hat at the
+    rung get_interpolated_q_scales(4)[1], host EC, each frame decoded by
+    a second codec: fails unless the
+    decoded I-frame equals the encoder's x_hat and every decoded DPB
+    entry the encoder's, all of `dtype`.  Returns per frame {kind, enc /
+    dec ms, the host coder's ms within them, bytes}."""
+    from opendcvc_tpu_torch.models.dmc_hem import DMCHEM
+    from opendcvc_tpu_torch.models.intra_no_ar import IntraNoAR
+    (ie, idec), iclk = _codec_pair(IntraNoAR, dev, dtype, trees[0])
+    (pe, pdec), pclk = _codec_pair(DMCHEM, dev, dtype, trees[1])
+    y_l, mv_l = pe.get_interpolated_q_scales(4)
+    yq, mvq = float(y_l[1]), float(mv_l[1])
+    # a warm-up I-frame, untimed: the dtype's first convolutions set up
+    # cuDNN (over 1 s on the card)
+    idec.decompress(ie.compress(xs[0], 1.0)["bit_stream"], h, w, 1.0)
+    c0 = iclk[0][0], iclk[1][0]
+    out, ms_e = _timed(lambda: ie.compress(xs[0], 1.0), dev)
+    d, ms_d = _timed(lambda: idec.decompress(out["bit_stream"], h, w, 1.0),
+                     dev)
+    if not torch.equal(d["x_hat"], out["x_hat"]) \
+            or out["x_hat"].dtype != dtype:
+        _fail(f"{label}: the decoded I-frame differs from the encoder's "
+              f"x_hat (or is not {dtype})")
+    rows = [_coded("I", iclk, c0, ms_e, ms_d, out["bit_stream"])]
+    enc_dpb = {"ref_frame": out["x_hat"], "ref_feature": None,
+               "ref_y": None, "ref_mv_y": None}
+    dec_dpb = dict(enc_dpb, ref_frame=d["x_hat"])
+    for t in range(1, len(xs)):
+        c0 = pclk[0][0], pclk[1][0]
+        out, ms_e = _timed(lambda: pe.compress(xs[t], enc_dpb, mvq, yq), dev)
+        d, ms_d = _timed(lambda: pdec.decompress(
+            dec_dpb, out["bit_stream"], h, w, mvq, yq), dev)
+        enc_dpb, dec_dpb = out["dpb"], d["dpb"]
+        _fm_exact(enc_dpb, dec_dpb, f"{label} P-frame {t}")
+        if any(v.dtype != dtype for v in enc_dpb.values()):
+            _fail(f"{label}: P-frame {t}'s DPB is not {dtype}")
+        rows.append(_coded("P", pclk, c0, ms_e, ms_d, out["bit_stream"]))
+    return rows
+
+
+def _tcm_chain(dev, xs, h, w, dtype, label, tree):
+    """DMCTCM P-frames of xs[1:] after the raw reference xs[0], host EC,
+    each decoded by a second DMCTCM: fails unless the decoder's x_hat and
+    feature equal the encoder's, of `dtype`.  Returns per frame as
+    _hem_chain."""
+    from opendcvc_tpu_torch.models.dmc_tcm import DMCTCM
+    (enc, dec), clk = _codec_pair(DMCTCM, dev, dtype, tree)
+    refs = {"enc": (xs[0], None), "dec": (xs[0], None)}
+    rows = []
+    for t in range(1, len(xs)):
+        c0 = clk[0][0], clk[1][0]
+        out, ms_e = _timed(lambda: enc.compress(xs[t], *refs["enc"]), dev)
+        d, ms_d = _timed(lambda: dec.decompress(
+            *refs["dec"], out["bit_stream"], h, w), dev)
+        for k in ("x_hat", "feature"):
+            if not torch.equal(out[k], d[k]) or out[k].dtype != dtype:
+                _fail(f"{label}: P-frame {t}'s decoded {k} differs from "
+                      f"the encoder's (or is not {dtype})")
+        refs = {"enc": (out["x_hat"], out["feature"]),
+                "dec": (d["x_hat"], d["feature"])}
+        rows.append(_coded("P", clk, c0, ms_e, ms_d, out["bit_stream"]))
+    return rows
+
+
+def _log_rows(label, rows, h, w):
+    """One line a frame; P-frames count from 1."""
+    for t, r in enumerate(rows, 0 if rows[0]["kind"] == "I" else 1):
+        _log(f"{label}: {r['kind']}-frame {t}: enc {r['enc_ms']:.2f} ms "
+             f"(coder {r['enc_coder_ms']:.2f}) / dec {r['dec_ms']:.2f} ms "
+             f"(coder {r['dec_coder_ms']:.2f}), {r['bytes']} B, bpp "
+             f"{8 * r['bytes'] / (h * w):.4f}; decoder exact")
+
+
+def _small_frames(seed, n):
+    return [f[None].astype(np.float32) / 255.0
+            for f in textured_frames(64, 64, n, seed=seed)]
+
+
+def _hem_reference(dev, label="phase 16 (c)"):
+    """Phase 16 (c): a 64x64 float32 IntraNoAR I-frame and 2 DMCHEM
+    P-frames coded on the GPU, each frame also coded on the CPU from the
+    GPU's reference and decoded by the CPU port from it, under phase 15
+    (c)'s rule (`_gpu_cpu_frame`)."""
+    from opendcvc_tpu_torch.eval import fm_ties as TIES
+    from opendcvc_tpu_torch.models.dmc_hem import DMCHEM
+    from opendcvc_tpu_torch.models.intra_no_ar import IntraNoAR
+    cpu = torch.device("cpu")
+    xs = _small_frames(7, 3)
+    trees = _hem_trees(cpu)
+
+    def codecs(d):
+        return tuple(_codec_pair(cls, d, torch.float32, tree)[0][0]
+                     for cls, tree in zip((IntraNoAR, DMCHEM), trees))
+
+    enc = {dev.type: codecs(dev), "cpu": codecs(cpu)}
+    dec = codecs(cpu)
+    coded = {k: [] for k in enc}
+    for k, pair in enc.items():
+        for net in pair:
+            TIES.record_coded(net, coded[k])
+    y_l, mv_l = dec[1].get_interpolated_q_scales(4)
+    yq, mvq = float(y_l[1]), float(mv_l[1])
+    with TIES.PreRoundingFloats() as floats:
+        floats.on = True
+        g = enc[dev.type][0].compress(xs[0], 1.0)
+        floats.on = False
+        c = enc["cpu"][0].compress(xs[0], 1.0)
+        _gpu_cpu_frame(
+            label, "I-frame", g["bit_stream"] == c["bit_stream"], coded,
+            dev, floats, "noar",
+            lambda: {"ref_frame": dec[0].decompress(g["bit_stream"], 64, 64,
+                                                    1.0)["x_hat"]},
+            {"ref_frame": g["x_hat"]})
+        ref = {"ref_frame": g["x_hat"], "ref_feature": None, "ref_y": None,
+               "ref_mv_y": None}
+        for t in range(1, len(xs)):
+            for k in coded:
+                coded[k].clear()
+            floats.on = True
+            g = enc[dev.type][1].compress(xs[t], ref, mvq, yq)
+            floats.on = False
+            c = enc["cpu"][1].compress(xs[t], _to_cpu(ref), mvq, yq)
+            _gpu_cpu_frame(
+                label, f"P-frame {t}", g["bit_stream"] == c["bit_stream"],
+                coded, dev, floats, "hem",
+                lambda: dec[1].decompress(_to_cpu(ref), g["bit_stream"], 64,
+                                          64, mvq, yq)["dpb"], g["dpb"])
+            ref = g["dpb"]
+
+
+def _tcm_reference(dev, label="phase 17 (c)"):
+    """Phase 17 (c): 3 64x64 float32 DMCTCM P-frames after a raw
+    reference, coded on the GPU, each also coded on the CPU from the
+    GPU's references and decoded by the CPU port, under phase 15 (c)'s
+    rule."""
+    from opendcvc_tpu_torch.eval import fm_ties as TIES
+    from opendcvc_tpu_torch.models.dmc_tcm import DMCTCM
+    cpu = torch.device("cpu")
+    xs = _small_frames(8, 4)
+    tree = DMCTCM(device=cpu).init_params(seed=0)
+    enc = {d.type: _codec_pair(DMCTCM, d, torch.float32, tree)[0][0]
+           for d in (dev, cpu)}
+    dec = _codec_pair(DMCTCM, cpu, torch.float32, tree)[0][0]
+    coded = {k: [] for k in enc}
+    for k, net in enc.items():
+        TIES.record_coded(net, coded[k])
+    ref, feat = xs[0], None
+    with TIES.PreRoundingFloats() as floats:
+        for t in range(1, len(xs)):
+            for k in coded:
+                coded[k].clear()
+            floats.on = True
+            g = enc[dev.type].compress(xs[t], ref, feat)
+            floats.on = False
+            cref = ref.cpu() if torch.is_tensor(ref) else ref
+            cfeat = None if feat is None else feat.cpu()
+            c = enc["cpu"].compress(xs[t], cref, cfeat)
+            _gpu_cpu_frame(
+                label, f"P-frame {t}", g["bit_stream"] == c["bit_stream"],
+                coded, dev, floats, "tcm",
+                lambda: dec.decompress(cref, cfeat, g["bit_stream"], 64, 64),
+                {"x_hat": g["x_hat"], "feature": g["feature"]})
+            ref, feat = g["x_hat"], g["feature"]
+
+
+def _no_launches(LR, label, t0):
+    launches = [LR.encode_scan.launches, LR.decode_scan.launches]
+    if max(launches):
+        _fail(f"{label} (host EC) launched K1 / K2 {launches}")
+    _log(f"{label} done in {time.perf_counter() - t0:.1f} s; K1 "
+         f"{launches[0]}, K2 {launches[1]} launches")
+
+
+def phase_hem(dev, LR):
+    """Phase 16: DCVC-HEM at tools/family_bench.py's operating point
+    (704x1280, family_bench's frames, seed 2; HEM's anchors spread, its
+    rung get_interpolated_q_scales(4)[1]), host EC: (a) an IntraNoAR
+    I-frame (q_scale 1.0) and 3 DMCHEM P-frames from its x_hat, in
+    float32 and bfloat16, the decoders exact (`_hem_chain`), per frame
+    enc / dec ms, the host coder's ms and bpp printed; (b) family_bench's
+    hem row; (c) `_hem_reference`.  Neither kernel may launch."""
+    from opendcvc_tpu_torch import family_bench
+    t0 = time.perf_counter()
+    LR.encode_scan.launches = 0
+    LR.decode_scan.launches = 0
+    xs = family_bench._frames(DC_H, DC_W, DC_FRAMES, dev, seed=HEM_SEED)
+    trees = _hem_trees(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        label = f"phase 16 (a) DCVC-HEM {str(dtype)[6:]}"
+        _log_rows(label, _hem_chain(dev, xs, DC_H, DC_W, dtype, label,
+                                    trees), DC_H, DC_W)
+    _family_row(dev, "hem", "phase 16 (b)")
+    _hem_reference(dev)
+    _no_launches(LR, "phase 16: DCVC-HEM", t0)
+
+
+def phase_tcm(dev, LR, root):
+    """Phase 17: DCVC-TCM at tools/family_bench.py's operating point
+    (704x1280, 3 P-frames after family_bench's raw reference, seed 1),
+    host EC: (a) float32 and bfloat16, the decoders exact
+    (`_tcm_chain`), per frame enc / dec ms, the host coder's ms and bpp
+    printed; (b) family_bench's tcm row; (c) `_tcm_reference`; (d)
+    train_video --model tcm at its defaults (batch 8, crop 256, --frames
+    3) for N_TRAIN steps, then N_DESCENT steps on one fixed batch, whose
+    loss must fall.  Neither kernel may launch."""
+    from opendcvc_tpu_torch import family_bench
+    from opendcvc_tpu_torch.models.dmc_tcm import DMCTCM
+    t0 = time.perf_counter()
+    LR.encode_scan.launches = 0
+    LR.decode_scan.launches = 0
+    xs = family_bench._frames(DC_H, DC_W, DC_FRAMES, dev, seed=TCM_SEED)
+    tree = DMCTCM(device=dev).init_params(seed=0)
+    for dtype in (torch.float32, torch.bfloat16):
+        label = f"phase 17 (a) DCVC-TCM {str(dtype)[6:]}"
+        _log_rows(label, _tcm_chain(dev, xs, DC_H, DC_W, dtype, label,
+                                    tree), DC_H, DC_W)
+    _family_row(dev, "tcm", "phase 17 (b)")
+    _tcm_reference(dev)
+    _train_run(dev, "tcm", False, os.path.join(root, "ckpt"),
+               label="phase 17 (d) tcm")
+    _descent(dev, "tcm", label="phase 17 (d)")
+    _no_launches(LR, "phase 17: DCVC-TCM", t0)
 
 
 def main():
@@ -2793,6 +3091,8 @@ def main():
         runs["phase 14 FM bfloat16"] = phase_fm_bf16(dev, LR, root, fm_f32)
         del fm_f32
         phase_dc(dev, LR)
+        phase_hem(dev, LR)
+        phase_tcm(dev, LR, root)
     for i, k in enumerate(kernels):
         k["launches_by_run"] = {"phases 3-4": k["launches"]}
         for name, n in runs.items():

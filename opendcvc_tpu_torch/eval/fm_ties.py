@@ -1,26 +1,29 @@
-"""Rounding ties between two DCVC-FM encoders that coded a frame apart.
+"""Rounding ties between two encoders that coded a frame apart.
 
 Two encoders that agree to float precision (the port on two devices, or
 the port and the JAX package) can still round a value that lies at a
 rounding boundary to different integers; the streams then differ.  This
 module tells such a tie from a real mismatch:
 
-  * `PreRoundingFloats` records, while on, the values the port's FM
-    encoder rounds, in the order it computes them: each z plane
-    (`round_and_to_int8`'s input), each y pass's folded residual
-    (`process_with_mask`'s) and its CDF index before truncation
-    (`build_index_dec`'s);
-  * `record_coded(net, log)` logs each plane an FM codec hands its coder,
-    in coding order;
+  * `PreRoundingFloats` records, while on, the values the port's encoder
+    rounds, in the order it computes them: each z plane
+    (`round_and_to_int8`'s input), each y pass's residual
+    (`process_with_mask`'s, or a dense latent's `quantize_dense`
+    residual) and its CDF index before truncation (`build_index_dec`'s);
+  * `record_coded(net, log)` logs each plane a codec hands its coder, in
+    coding order;
   * `first_differing_plane` finds the first plane, in compute order,
     whose coded symbols differ, and gives each differing element's
     distance from its value to the rounding boundary beside the
     tolerance it is held to (REL_TOL x the plane's max |value|).
 
-PLANES holds the order in which the FM codecs compute their planes and
-the order in which they code them; DCVC-DC's P-frame (DMCDC) computes and
-codes DMCFM's planes in DMCFM's orders ("p").  The codecs and this module
-must change together if either order changes.
+PLANES holds, by frame kind, the order in which the codecs compute their
+planes and the order in which they code them, and FOLD how a pass's
+residual folds to its coded plane: the FM codecs ("i", "p"; DCVC-DC's
+DMCDC computes and codes DMCFM's planes in DMCFM's orders) fold four
+quarters, IntraNoAR ("noar") and DMCHEM ("hem") two checkerboard halves,
+DMCTCM ("tcm") codes each latent whole.  The codecs and this module must
+change together if either order changes.
 """
 
 import numpy as np
@@ -30,13 +33,20 @@ from ..ops import fused as F
 
 #: the codecs' float agreement, relative to a plane's max |value|
 REL_TOL = 1e-4
-#: each FM frame's planes: (compute order, coding order), by frame kind
+#: each frame's planes: (compute order, coding order), by frame kind
 PLANES = {"i": (["z", "y0", "y1", "y2", "y3"],
                 ["z", "y0", "y1", "y2", "y3"]),
           "p": (["mv_z", "mv0", "mv1", "mv2", "mv3", "z", "y0", "y1", "y2",
                  "y3"],
                 ["mv_z", "z", "mv0", "mv1", "mv2", "mv3", "y0", "y1", "y2",
-                 "y3"])}
+                 "y3"]),
+          "noar": (["z", "y0", "y1"], ["z", "y0", "y1"]),
+          "hem": (["mv_z", "mv0", "mv1", "z", "y0", "y1"],
+                  ["mv_z", "mv0", "mv1", "z", "y0", "y1"]),
+          "tcm": (["mv_z", "mv", "z", "y"], ["mv_z", "mv", "z", "y"])}
+#: how a y pass's residual folds to its coded plane, by frame kind
+FOLD = {"i": F.fold_quarters, "p": F.fold_quarters, "noar": F.fold_halves,
+        "hem": F.fold_halves, "tcm": lambda t: t}
 
 
 def _flat(t):
@@ -44,6 +54,11 @@ def _flat(t):
     host."""
     return t.permute(0, 2, 3, 1).reshape(-1).to("cpu", torch.float32,
                                                 copy=True)
+
+
+def _host(t):
+    """A float32 copy of t on the host."""
+    return t.to("cpu", torch.float32, copy=True)
 
 
 class PreRoundingFloats:
@@ -57,9 +72,10 @@ class PreRoundingFloats:
         self._saved = None
 
     def __enter__(self):
-        rnd, pwm, bid = self._saved = (F.round_and_to_int8,
-                                       F.process_with_mask,
-                                       F.build_index_dec)
+        rnd, pwm, qd, bid = self._saved = (F.round_and_to_int8,
+                                           F.process_with_mask,
+                                           F.quantize_dense,
+                                           F.build_index_dec)
 
         def round_and_to_int8(z):
             if self.on:
@@ -69,8 +85,13 @@ class PreRoundingFloats:
         def process_with_mask(y, scales, means, mask, fz=None):
             out = pwm(y, scales, means, mask, fz)
             if self.on:
-                self.res.append(_flat(F.fold_quarters(out[0])))
+                self.res.append(_host(out[0]))
             return out
+
+        def quantize_dense(y, means):
+            if self.on:
+                self.res.append(_host(y - means))
+            return qd(y, means)
 
         def build_index_dec(scales, smin, smax, lsm, recip, thres=None):
             if self.on:
@@ -80,29 +101,33 @@ class PreRoundingFloats:
 
         F.round_and_to_int8 = round_and_to_int8
         F.process_with_mask = process_with_mask
+        F.quantize_dense = quantize_dense
         F.build_index_dec = build_index_dec
         return self
 
     def __exit__(self, *exc):
-        (F.round_and_to_int8, F.process_with_mask,
+        (F.round_and_to_int8, F.process_with_mask, F.quantize_dense,
          F.build_index_dec) = self._saved
         return False
 
     def take(self, kind):
-        """{plane name: values} of the last frame of `kind` ("i" or "p"):
-        a z plane its floats, a y plane (residual, index float)."""
+        """{plane name: values} of the last frame of `kind` (a key of
+        PLANES): a z plane its floats, a y plane (residual folded to the
+        coded plane, index float)."""
         compute = PLANES[kind][0]
         zs = [n for n in compute if n.endswith("z")]
         ys = [n for n in compute if not n.endswith("z")]
         out = dict(zip(zs, self.z))
-        out.update({n: (r, i) for n, r, i in zip(ys, self.res, self.idx)})
+        fold = FOLD[kind]
+        out.update({n: (_flat(fold(r)), i)
+                    for n, r, i in zip(ys, self.res, self.idx)})
         self.z, self.res, self.idx = [], [], []
         return out
 
 
 def record_coded(net, log):
-    """Append to `log` each plane the codec `net` (DMCIFM, DMCFM or DMCDC)
-    hands its coder, in coding order."""
+    """Append to `log` each plane the codec `net` (an FM codec, DMCDC,
+    IntraNoAR, DMCHEM or DMCTCM) hands its coder, in coding order."""
     ge = net.gaussian_encoder
     enc_y = ge.encode_y_packed
 

@@ -19,7 +19,7 @@ printed as it finishes, then the whole result written to out.json:
 
 Env, with the JAX tool's defaults: FAM_H / FAM_W (704 / 1280),
 FAM_FRAMES (3), FAM_CODECS (comma list; default the codecs the port has,
-now "dc").  A codec the port does not have yet raises
+in the JAX tool's order: "tcm,hem,dc").  A codec the port does not have yet raises
 NotImplementedError with its ROADMAP item.  FAM_PLATFORM=cpu runs on
 the CPU; otherwise the codecs run on "cuda" and raise without CUDA.
 
@@ -40,10 +40,15 @@ import torch
 
 from .eval.rd_evidence import synthetic_images
 from .models.dmc_dc import DMCDC
+from .models.dmc_hem import DMCHEM
+from .models.dmc_tcm import DMCTCM
 
 #: the JAX tool's codecs the port does not have yet, by ROADMAP Queue 1
 #: item
-UNPORTED = {"tcm": "8e", "hem": "8d", "evc": "8g", "dcvc": "8f"}
+UNPORTED = {"evc": "8g", "dcvc": "8f"}
+#: HEM's anchors, spread so that the continuous ladder's rung is a real
+#: operating point between them (the init's anchors are flat)
+HEM_ANCHORS = [2.0, 1.2, 0.8, 0.5]
 DEFAULT_OUT = "family_bench_torch.json"
 NOTE = ("untrained init weights (the port's own); wall times incl. NN + "
         "host rANS + container; RT codecs (DMC/DMCI) are covered by "
@@ -76,6 +81,89 @@ def _fresh_dpb(frame):
             "ref_y": None, "ref_mv_y": None}
 
 
+def _time(fn):
+    """(seconds of one call of fn after a warm call, its result)."""
+    fn()
+    t0 = time.perf_counter()
+    out = fn()
+    return time.perf_counter() - t0, out
+
+
+def bench_tcm(h, w, n, device):
+    """DCVC-TCM: n P-frames after the raw reference frame 0, the x_hat and
+    feature propagated; host EC.  Returns (encode seconds, decode seconds,
+    bpp) of the timed chains."""
+    xs = _frames(h, w, n, device, seed=1)
+    net = DMCTCM(device=device)
+    net.init_params(seed=0)
+    net.update()
+
+    def enc_chain():
+        ref, feat, streams = xs[0], None, []
+        for t in range(1, n + 1):
+            out = net.compress(xs[t], ref, feat)
+            ref, feat = out["x_hat"], out["feature"]
+            streams.append(out["bit_stream"])
+        _sync(device)
+        return streams
+
+    t_enc, streams = _time(enc_chain)
+    dec = DMCTCM(device=device)
+    dec.load_params(net.params)
+    dec.update()
+
+    def dec_chain():
+        ref, feat = xs[0], None
+        for s in streams:
+            out = dec.decompress(ref, feat, s, h, w)
+            ref, feat = out["x_hat"], out["feature"]
+        _sync(device)
+
+    t_dec, _ = _time(dec_chain)
+    return t_enc, t_dec, sum(len(s) * 8 for s in streams) / (n * h * w)
+
+
+def bench_hem(h, w, n, device):
+    """DCVC-HEM: n P-frames after the raw reference frame 0, the anchors
+    spread to HEM_ANCHORS and the rung get_interpolated_q_scales(4)[1];
+    host EC.  Returns (encode seconds, decode seconds, bpp)."""
+    xs = _frames(h, w, n, device, seed=2)
+    net = DMCHEM(device=device)
+    net.init_params(seed=0)
+    for name in ("y_q_scale", "mv_y_q_scale"):
+        net.params[name] = torch.tensor(HEM_ANCHORS, device=device)
+    net.update()
+    y_l, mv_l = net.get_interpolated_q_scales(4)
+    yq, mvq = float(y_l[1]), float(mv_l[1])
+
+    def fresh():
+        return {"ref_frame": xs[0], "ref_feature": None, "ref_y": None,
+                "ref_mv_y": None}
+
+    def enc_chain():
+        dpb, streams = fresh(), []
+        for t in range(1, n + 1):
+            out = net.compress(xs[t], dpb, mv_y_q_scale=mvq, y_q_scale=yq)
+            dpb = out["dpb"]
+            streams.append(out["bit_stream"])
+        _sync(device)
+        return streams
+
+    t_enc, streams = _time(enc_chain)
+    dec = DMCHEM(device=device)
+    dec.load_params(net.params)
+    dec.update()
+
+    def dec_chain():
+        dpb = fresh()
+        for s in streams:
+            dpb = dec.decompress(dpb, s, h, w, mvq, yq)["dpb"]
+        _sync(device)
+
+    t_dec, _ = _time(dec_chain)
+    return t_enc, t_dec, sum(len(s) * 8 for s in streams) / (n * h * w)
+
+
 def bench_dc(h, w, n, device):
     """DCVC-DC: n P-frames after the raw reference frame 0, q_index 30 on
     the fine ladder (q_in_ckpt False), frame_idx t; host EC.  Returns
@@ -95,11 +183,7 @@ def bench_dc(h, w, n, device):
         _sync(device)
         return streams
 
-    enc_chain()  # warm
-    t0 = time.perf_counter()
-    streams = enc_chain()
-    t_enc = time.perf_counter() - t0
-
+    t_enc, streams = _time(enc_chain)
     dec = DMCDC(device=device)
     dec.load_params(net.params)
     dec.update()
@@ -111,15 +195,11 @@ def bench_dc(h, w, n, device):
                                  frame_idx=t)["dpb"]
         _sync(device)
 
-    dec_chain()  # warm
-    t0 = time.perf_counter()
-    dec_chain()
-    t_dec = time.perf_counter() - t0
-    bpp = sum(len(s) * 8 for s in streams) / (n * h * w)
-    return t_enc, t_dec, bpp
+    t_dec, _ = _time(dec_chain)
+    return t_enc, t_dec, sum(len(s) * 8 for s in streams) / (n * h * w)
 
 
-BENCHES = {"dc": bench_dc}
+BENCHES = {"tcm": bench_tcm, "hem": bench_hem, "dc": bench_dc}
 
 
 def main(argv=None):

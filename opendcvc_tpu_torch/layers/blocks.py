@@ -39,6 +39,23 @@ def conv_apply(p, x, stride=1, padding=0, groups=1):
     return out.add_(p["b"].to(x.dtype)[:, None, None])
 
 
+def conv_transpose2x_apply(p, x, torch_padding=None):
+    """The JAX package's `conv_transpose2x_apply`: an exact 2x upsample,
+    computed there as the correlation of the 2x zero-dilated input, padded
+    (k-1-p, k-p) on each spatial axis, with the kernel as stored
+    (unflipped; p the torch padding, default (k-1)//2), then the bias
+    added and rounded separately, as in `conv_apply`.  torch's
+    conv_transpose2d flips its kernel and swaps in/out channels, so it
+    takes the flipped, transposed weight: conv_transpose2d(x, w', stride
+    2, padding p, output_padding 1) is that same correlation."""
+    w = p["w"].to(x.dtype)
+    k = w.shape[-1]
+    tp = torch_padding if torch_padding is not None else (k - 1) // 2
+    out = F.conv_transpose2d(x, w.flip(2, 3).transpose(0, 1), None,
+                             stride=2, padding=tp, output_padding=1)
+    return out.add_(p["b"].to(x.dtype)[:, None, None])
+
+
 def wsilu(x):
     """WSiLU(x) = x * sigmoid(4x)."""
     return x * torch.sigmoid(4.0 * x)

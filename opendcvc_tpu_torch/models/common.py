@@ -151,10 +151,7 @@ def pack_host(z_planes, y_planes, keeps=None):
     plane flattened NHWC: the z planes (int8), the y planes packed
     (symbol << 8) + CDF index, then, when given, each y plane's keep
     mask."""
-    parts = [nhwc_flat(z) for z in z_planes] + [nhwc_flat(y)
-                                                for y in y_planes]
-    parts += [nhwc_flat(k) for k in keeps or ()]
-    return torch.cat([p.to(torch.int16) for p in parts])
+    return pack_planes(list(z_planes) + list(y_planes) + list(keeps or ()))
 
 
 def unpack_host(buf, z_sizes, y_sizes, masked=False):
@@ -184,6 +181,39 @@ def code_host(coder, z_coders, gaussian, buf, z_sizes, y_sizes,
         gaussian.encode_y_packed(packed, keep)
     coder.flush()
     return coder.get_encoded_stream()
+
+
+def pack_planes(planes):
+    """One int16 buffer of a frame's planes for the host coder, each
+    flattened NHWC, in coding order (z planes int8, y planes packed)."""
+    return torch.cat([nhwc_flat(p).to(torch.int16) for p in planes])
+
+
+def code_host_ordered(coder, gaussian, buf, planes):
+    """Host-code a frame's fetched pack_planes buffer whose z and y
+    planes interleave in coding order: `planes` holds (size, (bit
+    estimator, qp)) for a z plane and (size, None) for a packed y plane.
+    Returns the stream."""
+    coder.reset()
+    at = 0
+    for n, z_coder in planes:
+        part = buf[at:at + n]
+        at += n
+        if z_coder is None:
+            gaussian.encode_y_packed(part)
+        else:
+            z_coder[0].encode_z(part.astype(np.int8), z_coder[1])
+    coder.flush()
+    return coder.get_encoded_stream()
+
+
+def decode_z_host(bit_estimator, qp, zh, zw, device, dtype, transfers):
+    """Host-decode the (zh, zw) z plane next in the stream and upload it
+    as (1, C, zh, zw) `dtype` on `device`; counts the upload."""
+    bit_estimator.decode_z((zh, zw), qp)
+    transfers["h2d"] += 1
+    return from_host_nhwc(bit_estimator.get_z((zh, zw), np.int8), device,
+                          dtype)
 
 
 def index_buf(idx, keep=None):

@@ -473,10 +473,7 @@ def host_planes(coder, z_estimators, gaussian, bit_stream, zh, zw, device,
     coder.set_stream(bit_stream)
     z = {}
     for name, be in z_estimators:
-        be.decode_z((zh, zw), 0)
-        z[name] = C.from_host_nhwc(be.get_z((zh, zw), np.int8), device,
-                                   dtype)
-    transfers["h2d"] += len(z_estimators)
+        z[name] = C.decode_z_host(be, 0, zh, zw, device, dtype, transfers)
 
     def decode(idx):
         return C.decode_y_host(gaussian, C.fetch_async(C.index_buf(idx)),

@@ -455,11 +455,8 @@ class DMCI:
         y_h, y_w = C.get_downsampled_shape(sps["height"], sps["width"], 16)
         coder.set_use_two_entropy_coders(sps["ec_part"] == 1)
         coder.set_stream(bit_stream)
-        self.bit_estimator_z.decode_z((zh, zw), qp)
-        z_hat = C.from_host_nhwc(self.bit_estimator_z.get_z((zh, zw),
-                                                            np.int8),
-                                 self.device, self.dtype)
-        self.transfers["h2d"] += 1
+        z_hat = C.decode_z_host(self.bit_estimator_z, qp, zh, zw, self.device,
+                                self.dtype, self.transfers)
         _, q_dec_prior, scales, means, reduced = _stage_prior(p, z_hat, y_h,
                                                               y_w)
         so_far = None

@@ -405,11 +405,8 @@ class DMCIFM:
                 return y
         else:
             self.entropy_coder.set_stream(bit_stream)
-            self.bit_estimator_z.decode_z((zh, zw), qp)
-            z_hat = C.from_host_nhwc(
-                self.bit_estimator_z.get_z((zh, zw), np.int8), self.device,
-                self.dtype)
-            self.transfers["h2d"] += 1
+            z_hat = C.decode_z_host(self.bit_estimator_z, qp, zh, zw,
+                                    self.device, self.dtype, self.transfers)
 
             def decode(idx):
                 return C.decode_y_host(self.gaussian_encoder,

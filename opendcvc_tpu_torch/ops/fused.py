@@ -44,6 +44,12 @@ def process_with_mask(y, scales, means, mask, force_zero_thres=None):
     return y_res, y_q, y_hat, scales_hat
 
 
+def quantize_dense(y, means):
+    """Dense (maskless) quantization: y - means (in y's dtype) rounded in
+    float32 and clipped to the int8 range, as float32."""
+    return torch.clamp(torch.round((y - means).float()), -128.0, 127.0)
+
+
 def fold_halves(x):
     """Sum the two channel halves: (B, C, H, W) -> (B, C/2, H, W)."""
     c = x.shape[1]

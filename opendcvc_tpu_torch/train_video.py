@@ -1,6 +1,7 @@
-"""RD training CLI of the port: DCVC-RT's DMCI or DMC on one device.
+"""RD training CLI of the port: DCVC-RT's DMCI or DMC, or DCVC-TCM, on
+one device.
 
-    python -m opendcvc_tpu_torch.train_video --model dmci|dmc [...]
+    python -m opendcvc_tpu_torch.train_video --model dmci|dmc|tcm [...]
 
 Counterpart of the JAX package's root `train_video.py`: the same options,
 defaults, log line and checkpoint (`{save_dir}/{model}_latest.msgpack` in
@@ -14,7 +15,9 @@ np.random.default_rng(seed + 1), as the JAX package draws it.
 
 It runs on --device (default cuda; without CUDA that raises, and the CPU
 runs only with --device cpu) and on one card: --data_axis other than -1 or
-1 raises, as do --model dcvc and tcm (ROADMAP Queue 1 item 8).
+1 raises, as does --model dcvc (ROADMAP Queue 1 item 8f).  --model tcm
+trains on the cascaded TCM loss (the propagated feature carries the
+context from frame to frame; --frames 3 gives two P-frames).
 """
 
 import argparse
@@ -26,25 +29,24 @@ import torch
 
 from .models import common as C
 from .models.dmc import dmc_init
+from .models.dmc_tcm import dmc_tcm_init
 from .models.dmci import dmci_init
 from .training.data import SyntheticVideoDataset, Vimeo90kSeptupletDataset
 from .training.train import (make_dmc_loss, make_dmci_loss, make_optimizer,
-                             make_train_step, tree_leaves)
+                             make_tcm_loss, make_train_step, tree_leaves)
 from .utils import checkpoint as ckpt
 from .utils.common import create_folder, str2bool
 from .utils.params import from_jax, to_device
 
 NOT_PORTED = {
     "dcvc": "--model dcvc is not ported: the DCVC forward and staged loss "
-            "wait for the family codecs (ROADMAP Queue 1 item 8)",
-    "tcm": "--model tcm is not ported: the TCM forward and loss wait for "
-           "the family codecs (ROADMAP Queue 1 item 8)",
+            "wait for the family codecs (ROADMAP Queue 1 item 8f)",
 }
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
-        description="opendcvc_tpu_torch RD training (DMCI, DMC)")
+        description="opendcvc_tpu_torch RD training (DMCI, DMC, TCM)")
     p.add_argument("--model", choices=["dmci", "dmc", "dcvc", "tcm"],
                    default="dmc")
     p.add_argument("--stage", type=int, default=4, choices=[1, 2, 3, 4],
@@ -132,6 +134,9 @@ def main(argv=None):
         def loss_fn(params, frames, qp, rng):
             # the first frame of each clip, as an image
             return loss_img(params, frames[:, 0], qp, rng)
+    elif args.model == "tcm":
+        params = dmc_tcm_init(gen)
+        loss_fn = make_tcm_loss(args.lmbda, quant_mode=args.quant_mode)
     else:
         params = dmc_init(gen)
         loss_fn = make_dmc_loss(args.lmbda, quant_mode=args.quant_mode,

@@ -1,9 +1,10 @@
-"""Differentiable training forwards of DCVC-RT (DMCI and DMC).
+"""Differentiable training forwards of DCVC-RT (DMCI and DMC) and
+DCVC-TCM.
 
 Counterpart of the JAX package's `training/forward.py`, cut to the RT
-pair: straight-through rounding (or additive uniform noise) for the
-quantizers, the factorized prior's and the conditional Gaussian's rate
-terms (`entropy/models.py`, always float32), the same stages the codecs
+pair and TCM: straight-through rounding (or additive uniform noise) for
+the quantizers, the factorized prior's and the conditional Gaussian's or
+Laplace's rate terms (always float32), the same stages the codecs
 run.  Frames are NHWC (B, H, W, 3) at the edges, as the codecs take them;
 inside everything is NCHW, and the propagated feature DMC returns and
 takes is NCHW, as the codecs' DPB holds it.  Rates are bits over the
@@ -14,8 +15,10 @@ import torch
 
 from ..entropy.models import bit_estimator_bits, gaussian_bits
 from ..layers import blocks as L
+from ..layers.blocks_hem import hem_spynet_apply
 from ..models import common as C
 from ..models import dmc as MV
+from ..models import dmc_tcm as T
 from ..models import dmci as MI
 from ..ops import fused as F
 
@@ -142,3 +145,75 @@ def dmc_forward_one_frame(params, x, ref_frame, ref_feature, qp, rng=None,
            "mse": torch.mean(torch.square(x_hat - x))}
     out.update(_rates(bits_y, bits_z, n_pix))
     return out
+
+
+# ---------------------------------------------------------------------------
+# DCVC-TCM: hard rounding through a straight-through estimator, Laplace
+# rates on y and the motion latent, factorized z and motion z
+# ---------------------------------------------------------------------------
+
+def laplace_bits(x_res, scales):
+    """Differentiable bits of x_res under Laplace(0, b = scales),
+    integrated over [x - 0.5, x + 0.5] (b clipped at 1e-9, the
+    difference at 1e-9), in float32: the JAX package's
+    cdf(v) = 0.5 + 0.5 sign(v) (-expm1(-|v| / b))."""
+    b = torch.clamp(scales.float(), min=1e-9)
+    x = x_res.float()
+
+    def cdf(v):
+        return 0.5 + 0.5 * torch.sign(v) * (-torch.expm1(-v.abs() / b))
+
+    probs = torch.clamp(cdf(x + 0.5) - cdf(x - 0.5), min=1e-9)
+    return -torch.log2(probs)
+
+
+def dmc_tcm_forward_one_frame(params, x, ref_frame, ref_feature, rng=None,
+                              quant_mode="ste"):
+    """One P-frame RD forward of DMCTCM: x and ref_frame (B, H, W, 3)
+    NHWC, ref_feature (NCHW) or None.  The four quantizers (motion z, the
+    motion latent's residual, z, y's residual) round through the STE, or
+    add uniform noise in quant_mode "noise", drawn from the Generator
+    `rng` or taken from `rng`, a sequence of the four noise tensors (NCHW)
+    in that order.  Rates are bits over B * H * W, as in the JAX
+    package's TCM forward.  Returns {x_hat (NHWC), feature (NCHW), mse,
+    warp_mse, bpp, bpp_y, bpp_z, bpp_mv_y, bpp_mv_z}."""
+    p = params
+    n_pix = x.shape[0] * x.shape[1] * x.shape[2]
+    xc, rf = _nchw(x), _nchw(ref_frame)
+
+    def quant(v, k):
+        r = rng[k] if isinstance(rng, (list, tuple)) else rng
+        return _quant(v, r, quant_mode)
+
+    est_mv = hem_spynet_apply(p["optic_flow"], xc, rf)
+    mv_y = T.mv_encoder(p, est_mv)
+    mv_z_hat = quant(T.mv_prior_enc(p, mv_y), 0)
+    mv_scales, mv_means = T._stage_mv_params(p, mv_z_hat)
+    mv_y_q = quant(mv_y - mv_means, 1)
+    mv_hat = T.mv_decoder(p, mv_y_q + mv_means)
+    c1, c2, c3, warp_frame = T._stage_motion_comp(p, mv_hat, rf,
+                                                  ref_feature)
+
+    y = T.contextual_encoder(p, xc, c1, c2, c3)
+    z_hat = quant(T.hyper_enc(p, y), 2)
+    scales, means = T._stage_y_params(p, z_hat, c1, c2, c3)
+    y_q = quant(y - means, 3)
+    feature, x_hat = T._stage_recon(p, y_q + means, c1, c2, c3)
+    x_hat = C.frame_to_nhwc(x_hat)
+
+    # the Laplace rates with the reference's clamp of the scales at 1e-5
+    bpp_y = torch.sum(laplace_bits(y_q, torch.clamp(scales, min=1e-5))) \
+        / n_pix
+    bpp_mv_y = torch.sum(laplace_bits(
+        mv_y_q, torch.clamp(mv_scales, min=1e-5))) / n_pix
+    bpp_z = torch.sum(bit_estimator_bits(p["bit_estimator_z"], z_hat,
+                                         0)) / n_pix
+    bpp_mv_z = torch.sum(bit_estimator_bits(p["bit_estimator_z_mv"],
+                                            mv_z_hat, 0)) / n_pix
+    return {"x_hat": x_hat, "feature": feature,
+            "mse": torch.mean(torch.square(x_hat - x)),
+            "warp_mse": torch.mean(torch.square(
+                C.frame_to_nhwc(warp_frame) - x)),
+            "bpp_y": bpp_y, "bpp_z": bpp_z, "bpp_mv_y": bpp_mv_y,
+            "bpp_mv_z": bpp_mv_z,
+            "bpp": bpp_y + bpp_z + bpp_mv_y + bpp_mv_z}

@@ -1,7 +1,8 @@
 """RD training of DCVC-RT on one device: losses, optax's schedules and
 optimizer rules, the train step.
 
-Counterpart of the JAX package's `training/train.py`, cut to DMCI and DMC.
+Counterpart of the JAX package's `training/train.py`, cut to DMCI, DMC
+and DCVC-TCM.
 optax is re-expressed by hand, rule for rule, so the port steps as the JAX
 package does:
   * a schedule is evaluated at the update count before the update (so
@@ -23,7 +24,8 @@ import math
 import numpy as np
 import torch
 
-from .forward import dmc_forward_one_frame, dmci_forward
+from .forward import (dmc_forward_one_frame, dmc_tcm_forward_one_frame,
+                      dmci_forward)
 
 PLATEAU_NOT_PORTED = ("reduce-on-plateau (optax.contrib.reduce_on_plateau) "
                       "is not ported yet (ROADMAP Queue 1 item 6)")
@@ -127,6 +129,35 @@ def make_dmc_loss(lmbda, quant_mode="ste", lmbda_max=None):
             metrics["bpp"] = metrics["bpp"] + out["bpp"] / n_frames
             feature = out["feature"]
             ref = out["x_hat"]
+        loss = total / n_frames
+        metrics["loss"] = loss
+        return loss, metrics
+    return loss_fn
+
+
+def make_tcm_loss(lmbda, quant_mode="ste"):
+    """Cascaded DCVC-TCM loss: frames (B, T, H, W, 3); frame 0 is the
+    pixel reference, and each later frame is coded from the previous
+    frame's x_hat and propagated feature, neither detached.  rng: a
+    torch.Generator, or a sequence of T - 1 per-frame sequences of the
+    four noise tensors `dmc_tcm_forward_one_frame` takes (quant_mode
+    "noise").  qp is taken and unused, as in the JAX package."""
+    def loss_fn(params, frames, qp, rng):
+        del qp
+        ref = frames[:, 0]
+        feature = None
+        n_frames = frames.shape[1] - 1
+        total = 0.0
+        metrics = {"mse": 0.0, "bpp": 0.0, "warp_mse": 0.0}
+        for t in range(n_frames):
+            r = rng[t] if isinstance(rng, (list, tuple)) else rng
+            out = dmc_tcm_forward_one_frame(params, frames[:, t + 1], ref,
+                                            feature, r, quant_mode)
+            total = total + rd_loss(out, lmbda)
+            for k in metrics:
+                metrics[k] = metrics[k] + out[k] / n_frames
+            ref = out["x_hat"]
+            feature = out["feature"]
         loss = total / n_frames
         metrics["loss"] = loss
         return loss, metrics

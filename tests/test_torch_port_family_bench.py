@@ -2,12 +2,15 @@
 package's `tools/family_bench.py` (FAM_PLATFORM=cpu, 64x64, 2 frames).
 
 Both tools code the same frames with the same weights: the JAX tool's
-DMCDC.init_params is made to load the port's init (seed 0) carried to
-the JAX layout, so the two dc rows' bpp must be equal; the JAX codec
-codes with its plain coder (OPENDCVC_TPU_FORCE_PY_RANS=1).  Held: the
-frames equal the JAX tool's; the result's keys and the dc row's keys are
-the JAX tool's; bpp equal; an unported codec raises NotImplementedError
-with its ROADMAP item; the default output is not the JAX tool's file.
+init_params of each codec (DMCTCM, DMCHEM, DMCDC) is made to load the
+port's init (seed 0) carried to the JAX layout, so each row's bpp must be
+equal (HEM's anchors spread by both tools after that init); the JAX
+codecs code with their plain coder (OPENDCVC_TPU_FORCE_PY_RANS=1).
+Held: the frames equal the JAX tool's; the result's keys and each row's
+keys are the JAX tool's; bpp equal; the default codecs are the ported
+ones in the JAX tool's order; an unported codec raises
+NotImplementedError with its ROADMAP item; the default output is not the
+JAX tool's file.
 """
 
 import importlib.util
@@ -20,8 +23,12 @@ import pytest
 import torch
 
 from opendcvc_tpu.models import dmc_dc as JDC
+from opendcvc_tpu.models import dmc_hem as JHEM
+from opendcvc_tpu.models import dmc_tcm as JTCM
 from opendcvc_tpu_torch import family_bench
 from opendcvc_tpu_torch.models.dmc_dc import DMCDC
+from opendcvc_tpu_torch.models.dmc_hem import DMCHEM
+from opendcvc_tpu_torch.models.dmc_tcm import DMCTCM
 from opendcvc_tpu_torch.utils.params import to_jax
 from test_torch_port_lane_rans import _one_thread  # noqa: F401  (fixture)
 
@@ -51,30 +58,44 @@ def small_env(monkeypatch):
     return tool
 
 
+#: row -> (the JAX codec class, the port's codec class)
+CODECS = {"dc": (JDC.DMCDC, DMCDC), "hem": (JHEM.DMCHEM, DMCHEM),
+          "tcm": (JTCM.DMCTCM, DMCTCM)}
+
+
 @pytest.fixture(scope="module")
-def port_tree():
-    return DMCDC(device="cpu").init_params(seed=0)
+def port_trees():
+    return {name: cls(device="cpu").init_params(seed=0)
+            for name, (_, cls) in CODECS.items()}
 
 
-def test_frames_equal_jax_tool(small_env):
-    want = small_env._frames(64, 64, 2, seed=3)
-    got = family_bench._frames(64, 64, 2, torch.device("cpu"), seed=3)
+def _frames_equal(tool, seed):
+    want = tool._frames(64, 64, 2, seed=seed)
+    got = family_bench._frames(64, 64, 2, torch.device("cpu"), seed=seed)
     assert len(got) == len(want) == 3
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-def test_dc_row_matches_jax_tool(small_env, port_tree, monkeypatch,
-                                 tmp_path):
-    tree = to_jax(port_tree)
+def test_frames_equal_jax_tool(small_env):
+    _frames_equal(small_env, 3)
 
+
+@pytest.mark.parametrize("seed", [1, 2], ids=["tcm", "hem"])
+def test_tcm_hem_frames_equal_jax_tool(small_env, seed):
+    _frames_equal(small_env, seed)
+
+
+def _row_matches_jax_tool(name, small_env, port_trees, monkeypatch,
+                          tmp_path):
+    """The `name` row of both tools on the port's weights."""
     def init_params(self, seed=0):
-        self.load_params(tree)
+        self.load_params(to_jax(port_trees[name]))
         return self.params
 
-    monkeypatch.setattr(JDC.DMCDC, "init_params", init_params)
+    monkeypatch.setattr(CODECS[name][0], "init_params", init_params)
     monkeypatch.setenv("OPENDCVC_TPU_FORCE_PY_RANS", "1")
-    monkeypatch.setenv("FAM_CODECS", "dc")
+    monkeypatch.setenv("FAM_CODECS", name)
     monkeypatch.setattr(sys, "argv", ["family_bench.py",
                                       str(tmp_path / "jax.json")])
     small_env.main()
@@ -86,13 +107,43 @@ def test_dc_row_matches_jax_tool(small_env, port_tree, monkeypatch,
     assert set(got) == set(want)
     assert got["platform"] == want["platform"] == "cpu"
     assert got["host_ec"] is True
-    assert list(got["codecs"]) == list(want["codecs"]) == ["dc"]
-    row, ref = got["codecs"]["dc"], want["codecs"]["dc"]
+    assert list(got["codecs"]) == list(want["codecs"]) == [name]
+    row, ref = got["codecs"][name], want["codecs"][name]
     assert list(row) == list(ref)
     assert (row["h"], row["w"], row["frames"]) == (64, 64, 2)
-    print(f"port dc row {row}; JAX tool's {ref}")
+    print(f"port {name} row {row}; JAX tool's {ref}")
     assert row["bpp"] == ref["bpp"] > 0
     assert row["enc_fps"] > 0 and row["dec_fps"] > 0
+
+
+def test_dc_row_matches_jax_tool(small_env, port_trees, monkeypatch,
+                                 tmp_path):
+    _row_matches_jax_tool("dc", small_env, port_trees, monkeypatch,
+                          tmp_path)
+
+
+def test_hem_row_matches_jax_tool(small_env, port_trees, monkeypatch,
+                                  tmp_path):
+    """At the spread anchors' rung get_interpolated_q_scales(4)[1]."""
+    _row_matches_jax_tool("hem", small_env, port_trees, monkeypatch,
+                          tmp_path)
+
+
+def test_tcm_row_matches_jax_tool(small_env, port_trees, monkeypatch,
+                                  tmp_path):
+    _row_matches_jax_tool("tcm", small_env, port_trees, monkeypatch,
+                          tmp_path)
+
+
+def test_default_codecs_are_the_ported_ones_in_jax_order(small_env):
+    """FAM_CODECS' default: the JAX tool's order ("tcm,hem,dc,evc,dcvc")
+    cut to the codecs the port has; every JAX row is a ported or an
+    UNPORTED one."""
+    jax_order = ["tcm", "hem", "dc", "evc", "dcvc"]
+    assert list(family_bench.BENCHES) == [c for c in jax_order
+                                          if c not in family_bench.UNPORTED]
+    assert set(family_bench.BENCHES) | set(family_bench.UNPORTED) == \
+        set(small_env.BENCHES)
 
 
 @pytest.mark.parametrize("codec,item", sorted(family_bench.UNPORTED.items()))

@@ -2,7 +2,7 @@
 """Where the time of the PyTorch/CUDA port's P-frame goes, on one GPU.
 
     python3 tools/profile_torch_port.py [--frames 2] [--dtype bfloat16]
-        [--codec rt|fm|dc] [--trace PATH]
+        [--codec rt|fm|dc|hem|tcm] [--trace PATH]
 
 Every codec runs in --dtype (float32 or bfloat16).  --codec rt (the
 default) codes 1080p P-frames with DMC at full width on the device-EC
@@ -12,7 +12,11 @@ DMCFM (random weights from seed 1, host EC, qp 21, fa_idx 0 on the
 propagated DPB, as chip_smoke.py's phase 11 and 14); --codec dc codes
 704x1280 P-frames with DCVC-DC's DMCDC (random weights from seed 0, host
 EC, q_index 30 on the fine ladder, frame_idx t from a raw reference, as
-tools/family_bench.py and chip_smoke.py's phase 15).  It warms up with one
+tools/family_bench.py and chip_smoke.py's phase 15); --codec hem and tcm
+code 704x1280 P-frames with DCVC-HEM's DMCHEM (seed 0, the anchors spread
+to family_bench's, its rung get_interpolated_q_scales(4)[1]) and DCVC-TCM's
+DMCTCM (seed 0), host EC, from a raw reference, as family_bench and
+chip_smoke.py's phases 16-17 do.  It warms up with one
 frame, then profiles `--frames` encodes and their decodes with
 torch.profiler.  Prints the card's name and power limit, the per-frame
 host-clock times, the device time by kernel (top 15) and by class
@@ -40,7 +44,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 QP, FZ = 21, 0.12
 #: each codec's frame size: 1080p padded to 16, or family_bench's
-SIZES = {"rt": (1088, 1920), "fm": (1088, 1920), "dc": (704, 1280)}
+SIZES = {"rt": (1088, 1920), "fm": (1088, 1920), "dc": (704, 1280),
+         "hem": (704, 1280), "tcm": (704, 1280)}
 DC_Q = 30
 
 
@@ -151,7 +156,66 @@ def _dc_codec(dev, dtype, frames, H, W):
         torch.equal(dpb["enc"][k], dpb["dec"][k]) for k in dpb["enc"])
 
 
-CODECS = {"rt": _rt_codec, "fm": _fm_codec, "dc": _dc_codec}
+def _hem_codec(dev, dtype, frames, H, W):
+    """DMCHEM encoder and decoder on host EC from the raw reference
+    frames[0], at family_bench's rung; the same three callables as
+    _rt_codec."""
+    from opendcvc_tpu_torch.family_bench import HEM_ANCHORS
+    from opendcvc_tpu_torch.models.dmc_hem import DMCHEM
+    enc, dec = DMCHEM(device=dev, dtype=dtype), DMCHEM(device=dev,
+                                                        dtype=dtype)
+    enc.init_params(seed=0)
+    for name in ("y_q_scale", "mv_y_q_scale"):
+        enc.params[name] = torch.tensor(HEM_ANCHORS, device=dev)
+    dec.load_params(enc.params)
+    for net in (enc, dec):
+        net.update()
+    y_l, mv_l = enc.get_interpolated_q_scales(4)
+    yq, mvq = float(y_l[1]), float(mv_l[1])
+    dpb = {k: {"ref_frame": torch.from_numpy(frames[0]).to(dev),
+               "ref_feature": None, "ref_y": None, "ref_mv_y": None}
+           for k in ("enc", "dec")}
+
+    def encode(x):
+        out = enc.compress(x, dpb["enc"], mvq, yq)
+        dpb["enc"] = out["dpb"]
+        return out["bit_stream"]
+
+    def decode(s):
+        dpb["dec"] = dec.decompress(dpb["dec"], s, H, W, mvq, yq)["dpb"]
+
+    return encode, decode, lambda: all(
+        torch.equal(dpb["enc"][k], dpb["dec"][k]) for k in dpb["enc"])
+
+
+def _tcm_codec(dev, dtype, frames, H, W):
+    """DMCTCM encoder and decoder on host EC from the raw reference
+    frames[0]; the same three callables as _rt_codec."""
+    from opendcvc_tpu_torch.models.dmc_tcm import DMCTCM
+    enc, dec = DMCTCM(device=dev, dtype=dtype), DMCTCM(device=dev,
+                                                        dtype=dtype)
+    enc.init_params(seed=0)
+    dec.load_params(enc.params)
+    for net in (enc, dec):
+        net.update()
+    ref = torch.from_numpy(frames[0]).to(dev)
+    refs = {"enc": (ref, None), "dec": (ref, None)}
+
+    def encode(x):
+        out = enc.compress(x, *refs["enc"])
+        refs["enc"] = (out["x_hat"], out["feature"])
+        return out["bit_stream"]
+
+    def decode(s):
+        out = dec.decompress(*refs["dec"], s, H, W)
+        refs["dec"] = (out["x_hat"], out["feature"])
+
+    return encode, decode, lambda: all(
+        torch.equal(a, b) for a, b in zip(refs["enc"], refs["dec"]))
+
+
+CODECS = {"rt": _rt_codec, "fm": _fm_codec, "dc": _dc_codec,
+          "hem": _hem_codec, "tcm": _tcm_codec}
 
 
 def main():
