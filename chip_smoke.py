@@ -204,6 +204,36 @@ Phases (any failure exits nonzero and prints no result):
      finite losses, float32 state, ms a step and peak memory printed, then
      5 steps on one fixed batch, whose loss must fall.  Neither kernel
      may launch in phases 16-17.
+ 18. EVC, host EC: (a) EVC_LL at family_bench's point (704x1280, its
+     frames, seed 4, 3 images, q_scale 1.0; seed-0 weights) in float32
+     and bfloat16, then bfloat16 with q_basic from U(0.6, 3.0) at q_scale
+     0.37, then the seven other width classes and ScalableEVC at rates
+     0-3 in float32: every decoded x_hat equals the encoder's bit for
+     bit; per image enc / dec ms, the host coder's ms and bpp printed;
+     the evc row; (b) the image harness (EVC_LL, --rate_num 4,
+     --calc_ssim 1) on four 768x512 images, through `main` on PNGs when
+     PIL imports, else `run_one_image`: each .bin's bits 8 x its size,
+     each decoded frame the encoder's x_hat, PSNR finite; (c) a 64x64
+     image coded on the GPU, decoded by the CPU within 1e-3.
+ 19. DCVC, host EC, the AR loop on the host: (a) family_bench's point
+     (256x256, its frames, seed 5, 3 P-frames each against the raw frame
+     0) on the seed-0 weights and on the "live" tree (the last conv of
+     mv_enc, ctx_enc, prior_enc and mv_prior_enc scaled by 20, so every
+     plane carries non-zero symbols, counted and required), float32 and
+     bfloat16: decompress equals recon_image bit for bit; per frame enc /
+     dec ms, the coder's and the AR loop's ms, the four strings' bytes
+     and bpp; the dcvc row; (b) a 64x64 live P-frame GPU -> CPU within
+     1e-3; (c) `train_video --model dcvc` at its defaults (batch 8, crop
+     256, --frames 2), 7 steps of --stage 4 (masks unchanged bit for
+     bit), a fixed batch's loss falling over 5 steps, 3 steps of --stage
+     2 (the motion branch unchanged too), then the checkpoint codes a
+     256x256 pair in DCVCNet, the decoder exact.
+ 20. The CompressAI zoo (five models, default widths, seed-0 weights) on
+     one 768x512 image, float32 and bfloat16: the decoded latent equals
+     the encoder's (recomputed through the stage functions), x_hat in [0,
+     1], a second decode identical; then a 64x64 image a model coded on
+     the GPU and decoded by the CPU within 1e-3.  Neither kernel may
+     launch in phases 18-20; each phase prints its seconds.
 The kernel launch counters are zeroed before phase 3 and read after
 phase 4, so the counts are the main path's (the device-EC path); they are
 zeroed again before phase 6 and must read 0 after it, again before each
@@ -211,7 +241,7 @@ run of phases 7, 9 and 10, and before phase 8; they are
 zeroed before phase 11 and must read 0 after it, zeroed before phase
 12, whose runs hold them exact, before phase 14, whose device-EC run
 holds them exact and whose host-EC runs launch none, and before each of
-phases 15, 16 and 17, after which they must read 0; `launches` adds the
+phases 15-20, after which they must read 0; `launches` adds the
 device-EC runs of phases 7 (b), 8, 9, 10 (a, and the checkpoints'
 coding in b), 12 and 14 to phases 3-4's, and `launches_by_run` splits it.
 Then it
@@ -1732,23 +1762,26 @@ def _float32_tree(leaves, what, label):
             _fail(f"{label}: {what} holds a {t.dtype} tensor")
 
 
-def _train_run(dev, model, amp, save_dir, label=None):
+def _train_run(dev, model, amp, save_dir, label=None, extra=(),
+               steps=N_TRAIN):
     """train_video's main in process at its defaults (synthetic data,
-    batch 8, crop 256; dmc and tcm with --frames 3) for N_TRAIN steps."""
+    batch 8, crop 256; dmc and tcm with --frames 3, dcvc with its default
+    2) for `steps` steps, with the `extra` options.  Returns {ms a step,
+    peak memory, the run's result}."""
     from opendcvc_tpu_torch import train_video
     from opendcvc_tpu_torch.training.train import tree_leaves
     label = label or f"phase 10 ({'c' if amp else 'b'}) {model}"
-    argv = ["--model", model, "--steps", str(N_TRAIN), "--save_dir",
-            save_dir, "--log_every", str(N_TRAIN), "--amp",
-            "1" if amp else "0"] + (["--frames", "3"] if model != "dmci"
-                                    else [])
+    argv = ["--model", model, "--steps", str(steps), "--save_dir",
+            save_dir, "--log_every", str(steps), "--amp",
+            "1" if amp else "0"] + (["--frames", "3"] if model in
+                                    ("dmc", "tcm") else []) + list(extra)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     out = train_video.main(argv)
     run_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     losses = [m["loss"] for m in out["metrics"]]
-    if len(losses) != N_TRAIN or not all(np.isfinite(losses)):
+    if len(losses) != steps or not all(np.isfinite(losses)):
         _fail(f"{label}: losses {losses}")
     _float32_tree(tree_leaves(out["params"]), "the parameters", label)
     _float32_tree(out["opt_state"]["mu"] + out["opt_state"]["nu"],
@@ -1756,12 +1789,12 @@ def _train_run(dev, model, amp, save_dir, label=None):
     ms = float(np.median(out["step_ms"][2:]))
     _log(f"{label}: {'bfloat16 AMP' if amp else 'float32'}, batch 8, crop "
          f"256: {ms:.1f} ms a step (CUDA events, steps queued; median of "
-         f"steps 3-{N_TRAIN}; all "
+         f"steps 3-{steps}; all "
          + " ".join(f"{t:.1f}" for t in out["step_ms"]) + f"), "
          f"{8e3 / ms:.1f} samples/s, peak memory "
          f"{peak / 2 ** 30:.2f} GiB ({peak} B); losses "
          + " ".join(f"{v:.3f}" for v in losses) + f"; run {run_s:.1f} s")
-    return {"ms": ms, "peak": peak}
+    return {"ms": ms, "peak": peak, "out": out}
 
 
 def _descent(dev, model, label="phase 10 (b)"):
@@ -1769,6 +1802,7 @@ def _descent(dev, model, label="phase 10 (b)"):
     steps at lr 1e-4, no warmup, must fall, as the JAX package's
     tests/test_training.py holds its train step."""
     from opendcvc_tpu_torch.models import common as C
+    from opendcvc_tpu_torch.models.dcvc import dcvc_init
     from opendcvc_tpu_torch.models.dmc import dmc_init
     from opendcvc_tpu_torch.models.dmc_tcm import dmc_tcm_init
     from opendcvc_tpu_torch.models.dmci import dmci_init
@@ -1784,13 +1818,16 @@ def _descent(dev, model, label="phase 10 (b)"):
             return loss_img(p, frames[:, 0], qp, rng)
     elif model == "tcm":
         params, loss_fn = dmc_tcm_init(gen), T.make_tcm_loss(256.0)
+    elif model == "dcvc":
+        params = dcvc_init(gen)
+        loss_fn = T.make_dcvc_loss(256.0, quant_mode="ste")
     else:
         params, loss_fn = dmc_init(gen), T.make_dmc_loss(256.0)
     params = to_device(params, dev)
     tx = T.make_optimizer(1e-4)
     step = T.make_train_step(loss_fn, tx)
-    state = tx.init(T.tree_leaves(params))
-    frames = 2 if model == "dmci" else 3
+    state = tx.init(T.trainable_leaves(params))
+    frames = 2 if model in ("dmci", "dcvc") else 3
     batch = C.upload(next(SyntheticVideoDataset(frames, 256, seed=0)
                           .batches(8, 1)), dev)
     losses = []
@@ -2688,15 +2725,16 @@ def _dc_reference(dev, label="phase 15 (c)"):
             ref = g["dpb"]
 
 
-def _family_row(dev, name, label):
+def _family_row(dev, name, label, hw=(DC_H, DC_W)):
     """`opendcvc_tpu_torch.family_bench.main` in process at its defaults
-    (704x1280, 3 frames; FAM_* cleared) but for FAM_CODECS=name: fails
-    unless its row has that shape, a positive bpp and the platform is
-    the device's; the row printed."""
+    (704x1280, 256x256 for dcvc, 3 frames; FAM_* cleared) but for
+    FAM_CODECS=name: fails unless its row has the shape hw, a positive bpp
+    and the platform is the device's; the row printed."""
     from opendcvc_tpu_torch import family_bench
     env = {k: os.environ.pop(k, None) for k in ("FAM_H", "FAM_W",
                                                 "FAM_FRAMES", "FAM_CODECS",
-                                                "FAM_PLATFORM")}
+                                                "FAM_PLATFORM",
+                                                "FAM_DCVC_HW")}
     os.environ["FAM_CODECS"] = name
     with tempfile.TemporaryDirectory(prefix="family_bench_") as d:
         try:
@@ -2707,7 +2745,7 @@ def _family_row(dev, name, label):
                 if v is not None:
                     os.environ[k] = v
     row = result["codecs"][name]
-    if not (row["h"], row["w"], row["frames"]) == (DC_H, DC_W, DC_FRAMES) \
+    if not (row["h"], row["w"], row["frames"]) == (*hw, DC_FRAMES) \
             or not row["bpp"] > 0 \
             or result["platform"] != ("gpu" if dev.type == "cuda" else "cpu"):
         _fail(f"{label}: family_bench's {name} row {row} on "
@@ -3021,6 +3059,525 @@ def phase_tcm(dev, LR, root):
     _no_launches(LR, "phase 17: DCVC-TCM", t0)
 
 
+# ---------------------------------------------------------------------------
+# phases 18-20: EVC, DCVC and the CompressAI zoo
+# ---------------------------------------------------------------------------
+
+EVC_SEED, DCVC_SEED = 4, 5  # family_bench's frame seeds
+DCVC_HW = 256               # family_bench's FAM_DCVC_HW
+KODAK_H, KODAK_W = 512, 768  # Kodak's landscape shape
+LIVE = 20.0                 # the live trees' scale
+
+
+def _evc_images(dev, label, enc, dec, clk, xs, h, w, q, warm=True):
+    """Each image of xs coded by enc at q and decoded by dec: fails unless
+    the decoded x_hat equals the encoder's, bit for bit.  Returns per
+    image {kind, enc / dec ms, coder ms, bytes}; one untimed warm-up
+    image first when `warm`."""
+    if warm:
+        dec.decompress(enc.compress(xs[0], q)["bit_stream"], h, w, q)
+    rows = []
+    for t, x in enumerate(xs):
+        c0 = clk[0][0], clk[1][0]
+        out, ms_e = _timed(lambda: enc.compress(x, q), dev)
+        d, ms_d = _timed(lambda: dec.decompress(out["bit_stream"], h, w, q),
+                         dev)
+        if not torch.equal(d["x_hat"], out["x_hat"]):
+            _fail(f"{label}: image {t}'s decoded x_hat differs from the "
+                  f"encoder's")
+        rows.append(_coded("I", clk, c0, ms_e, ms_d, out["bit_stream"]))
+    return rows
+
+
+def phase_evc_codecs(dev):
+    """Phase 18 (a): EVC_LL at family_bench's point (704x1280, its
+    frames, seed 4, 3 images, q_scale 1.0) in float32 and bfloat16, then
+    bfloat16 with q_basic from U(0.6, 3.0) at q_scale 0.37, then the seven
+    other width classes and ScalableEVC (enc_num 4) at rates 0-3 once in
+    float32; every decoder exact."""
+    from opendcvc_tpu_torch import family_bench
+    from opendcvc_tpu_torch.models import evc as PE
+    from opendcvc_tpu_torch.utils.params import cast_floating
+    xs = family_bench._frames(DC_H, DC_W, DC_FRAMES, dev, seed=EVC_SEED)[1:]
+    tree = PE.EVC_LL(device=dev).init_params(seed=0)
+    for dtype in (torch.float32, torch.bfloat16):
+        label = f"phase 18 (a) EVC_LL {str(dtype)[6:]}"
+        (enc, dec), clk = _codec_pair(PE.EVC_LL, dev, dtype,
+                                    cast_floating(tree, dtype))
+        rows = _evc_images(dev, label, enc, dec, clk, xs, DC_H, DC_W, 1.0)
+        _log_rows(label, rows, DC_H, DC_W)
+    spread = dict(tree)
+    spread["q_basic"] = torch.from_numpy(np.random.default_rng(9).uniform(
+        0.6, 3.0, 192).astype(np.float32)).to(dev)
+    label = "phase 18 (a) EVC_LL bfloat16, q_basic U(0.6, 3.0), q 0.37"
+    (enc, dec), clk = _codec_pair(PE.EVC_LL, dev, torch.bfloat16,
+                                cast_floating(spread, torch.bfloat16))
+    _log_rows(label, _evc_images(dev, label, enc, dec, clk, xs[:1], DC_H,
+                                 DC_W, 0.37, warm=False), DC_H, DC_W)
+    for name in ("EVC_LM", "EVC_LS", "EVC_ML", "EVC_SL", "EVC_MM", "EVC_MS",
+                 "EVC_SS"):
+        cls = getattr(PE, name)
+        label = f"phase 18 (a) {name} float32"
+        (enc, dec), clk = _codec_pair(cls, dev, torch.float32,
+                                    cls(device=dev).init_params(seed=0))
+        _log_rows(label, _evc_images(dev, label, enc, dec, clk, xs[:1],
+                                     DC_H, DC_W, 1.0), DC_H, DC_W)
+    stree = PE.ScalableEVC(device=dev).init_params(seed=0)
+    (enc, dec), clk = _codec_pair(PE.ScalableEVC, dev, torch.float32, stree)
+    for rate in range(4):
+        enc.set_rate(rate)
+        label = f"phase 18 (a) ScalableEVC float32 rate {rate}"
+        _log_rows(label, _evc_images(dev, label, enc, dec, clk, xs[:1],
+                                     DC_H, DC_W, 1.0, warm=rate == 0),
+                  DC_H, DC_W)
+
+
+def _write_pngs(root, images):
+    """The images as PNGs under root/kodak and a config naming them."""
+    from PIL import Image
+    os.makedirs(os.path.join(root, "kodak"), exist_ok=True)
+    names = []
+    for i, img in enumerate(images):
+        names.append(f"kodim{i + 1:02d}.png")
+        Image.fromarray(img).save(os.path.join(root, "kodak", names[-1]))
+    cfg = os.path.join(root, "kodak.json")
+    with open(cfg, "w") as f:
+        json.dump({"root_path": root, "test_classes": {"kodak": {
+            "test": 1, "base_path": "kodak", "images": names}}}, f)
+    return cfg, names
+
+
+def phase_image_harness(dev, root):
+    """Phase 18 (b): the image harness (EVC_LL, seed 0, --rate_num 4, the
+    anchors; --calc_ssim 1) on four 768x512 images: in process through
+    `main` on PNGs when PIL imports, else `run_one_image` on the same
+    arrays.  Fails unless each .bin's bits are 8 x its size, each decoded
+    frame equals the encoder's x_hat, and PSNR is finite.  Prints per
+    coding the harness's enc / dec ms, the host coder's ms within them
+    (the codec's coder clocked on its first call), bytes, bpp, PSNR."""
+    from opendcvc_tpu_torch.eval import image_harness as IH
+    label = "phase 18 (b) image harness"
+    images = textured_frames(KODAK_H, KODAK_W, 4, seed=11)
+    cls = IH.MODEL_REGISTRY["EVC_LL"]
+    seen = []
+    enc_fn, dec_fn = cls.compress, cls.decompress
+
+    def clocked(self, side, fn, *args):
+        if not hasattr(self, "_coder_ms"):
+            self._coder_ms = _clock_coder(self.entropy_coder)
+        c0 = self._coder_ms[0]
+        out = fn(self, *args)
+        seen.append([side, out["x_hat"], self._coder_ms[0] - c0])
+        return out
+
+    def compress(self, x, q):
+        return clocked(self, "enc", enc_fn, x, q)
+
+    def decompress(self, *args):
+        return clocked(self, "dec", dec_fn, *args)
+
+    try:
+        import PIL  # noqa: F401
+        have_pil = True
+    except ImportError:
+        have_pil = False
+    bins = os.path.join(root, "image_bins")
+    cls.compress, cls.decompress = compress, decompress
+    try:
+        if have_pil:
+            cfg, names = _write_pngs(root, images)
+            t0 = time.perf_counter()
+            results = IH.main(["--test_config", cfg, "--output_path",
+                               os.path.join(root, "image.json"),
+                               "--stream_path", bins, "--calc_ssim", "1",
+                               "--rate_num", "4", "--device",
+                               str(dev)])["kodak"]
+            how = "main on PNGs (PIL present)"
+        else:
+            net = cls(device=dev)
+            net.init_params(seed=0)
+            net.update()
+            os.makedirs(bins, exist_ok=True)
+            names, results = [f"kodim{i + 1:02d}.png" for i in range(4)], {}
+            t0 = time.perf_counter()
+            for name, img in zip(names, images):
+                results[name] = {}
+                for ri, q in enumerate(net.get_q_scales()):
+                    results[name][f"{ri:03d}"] = IH.run_one_image(
+                        net, img.astype(np.float32) / 255, float(q),
+                        os.path.join(bins, f"{name}_{ri}.bin"), True)
+            how = "run_one_image on the arrays (no PIL)"
+        run_s = time.perf_counter() - t0
+    finally:
+        del cls.compress, cls.decompress
+    if len(seen) != 2 * 4 * 4:
+        _fail(f"{label}: {len(seen)} codec calls for 16 codings")
+    for (ek, e, _), (dk, d, _) in zip(seen[::2], seen[1::2]):
+        if (ek, dk) != ("enc", "dec") or not torch.equal(e, d):
+            _fail(f"{label}: a decoded frame differs from its encoder's")
+    coder_ms = iter(zip(seen[::2], seen[1::2]))
+    for name in names:
+        for ri, r in results[name].items():
+            (_, _, ce), (_, _, cd) = next(coder_ms)
+            size = os.path.getsize(os.path.join(bins,
+                                                f"{name}_{int(ri)}.bin"))
+            if round(r["bpp"] * KODAK_H * KODAK_W) != 8 * size \
+                    or not np.isfinite(r["psnr"]):
+                _fail(f"{label}: {name} rate {ri}: {r}, {size} B")
+            _log(f"{label}: {name} rate {ri} (q {r['q_scale']:.2f}): enc "
+                 f"{1e3 * r['encoding_time']:.2f} ms (coder {ce:.2f}) / dec "
+                 f"{1e3 * r['decoding_time']:.2f} ms (coder {cd:.2f}), "
+                 f"{size} B, bpp "
+                 f"{r['bpp']:.4f}, PSNR {r['psnr']:.3f}, MS-SSIM "
+                 f"{r['msssim']:.5f}")
+    _log(f"{label}: {how}: 16 codings of 4 {KODAK_W}x{KODAK_H} images in "
+         f"{run_s:.1f} s, every decoded frame equal to its encoder's")
+
+
+def phase_evc_reference(dev):
+    """Phase 18 (c): a 64x64 EVC_LL image coded on the GPU and on the CPU,
+    the GPU's stream decoded by the CPU port: x_hat within 1e-3 (phase
+    15 (c)'s rule, `_gpu_cpu_frame`)."""
+    from opendcvc_tpu_torch.eval import fm_ties as TIES
+    from opendcvc_tpu_torch.models import evc as PE
+    cpu = torch.device("cpu")
+    x = _small_frames(12, 1)[0]
+    tree = PE.EVC_LL(device=cpu).init_params(seed=0)
+    nets = {k: _codec_pair(PE.EVC_LL, d, torch.float32, tree)[0]
+            for k, d in ((dev.type, dev), ("cpu", cpu))}
+    coded = {k: [] for k in nets}
+    for k, (enc, _) in nets.items():
+        TIES.record_coded(enc, coded[k])
+    with TIES.PreRoundingFloats() as floats:
+        floats.on = True
+        g = nets[dev.type][0].compress(x, 1.0)
+        floats.on = False
+        c = nets["cpu"][0].compress(x, 1.0)
+        _gpu_cpu_frame("phase 18 (c)", "EVC_LL image",
+                       g["bit_stream"] == c["bit_stream"], coded, dev,
+                       floats, "evc",
+                       lambda: nets["cpu"][1].decompress(g["bit_stream"],
+                                                         64, 64, 1.0),
+                       {"x_hat": g["x_hat"]})
+
+
+def phase_evc(dev, LR, root):
+    """Phase 18: EVC, host EC: (a) `phase_evc_codecs`, (b)
+    `phase_image_harness`, (c) `phase_evc_reference`.  Neither kernel may
+    launch."""
+    t0 = time.perf_counter()
+    LR.encode_scan.launches = 0
+    LR.decode_scan.launches = 0
+    phase_evc_codecs(dev)
+    _family_row(dev, "evc", "phase 18 (a)")
+    phase_image_harness(dev, root)
+    phase_evc_reference(dev)
+    _no_launches(LR, "phase 18: EVC", t0)
+
+
+def live_dcvc_tree(tree, scale=LIVE):
+    """The DCVC tree whose motion latent, motion z, y and z carry
+    non-zero symbols: the last conv of mv_enc, ctx_enc, prior_enc and
+    mv_prior_enc scaled (`tests/test_torch_port_dcvc.py`'s tree)."""
+    import copy
+    tree = copy.deepcopy(tree)
+    for conv in (tree["mv_enc"]["convs"][3], tree["ctx_enc"]["convs"][3],
+                 tree["prior_enc"][2], tree["mv_prior_enc"][2]):
+        conv["w"] = conv["w"] * scale
+        conv["b"] = conv["b"] * scale
+    return tree
+
+
+def _clock_ar(net):
+    """Wrap the codec's two AR coders so each call adds its host ms to
+    the returned one-element list."""
+    spent = [0.0]
+    for ar in (net._ar, net._ar_mv):
+        for name in ("encode", "decode"):
+            def timed(*args, _fn=getattr(ar, name)):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args)
+                finally:
+                    spent[0] += (time.perf_counter() - t0) * 1e3
+            setattr(ar, name, timed)
+    return spent
+
+
+DCVC_KEYS = ("mv_z_string", "mv_y_string", "z_string", "y_string")
+
+
+def _dcvc_args(o):
+    return [o[k] for k in ("mv_y_string", "mv_z_string", "y_string",
+                           "z_string")]
+
+
+def _dcvc_frames(dev, label, tree, xs, hw, dtype, count=False):
+    """DCVCNet on `tree`: each of xs[1:] coded against the raw xs[0] and
+    decoded by a second codec (one untimed warm-up frame first): fails
+    unless decompress equals recon_image bit for bit, of `dtype`.  Prints
+    per frame enc / dec ms, the host coder's and the AR loop's ms within
+    them, the four strings' bytes and bpp; with `count`, each plane's
+    non-zero symbols, which must all be > 0."""
+    from opendcvc_tpu_torch.eval import fm_ties as TIES
+    from opendcvc_tpu_torch.models.dcvc import DCVCNet
+    nets = []
+    for _ in range(2):
+        net = DCVCNet(device=dev, dtype=dtype)
+        net.load_params(tree)
+        net.update()
+        nets.append(net)
+    enc, dec = nets
+    dec.decompress(xs[0], *_dcvc_args(enc.compress(xs[0], xs[1])), hw, hw)
+    clk = [_clock_coder(n.entropy_coder) for n in nets]
+    ar = [_clock_ar(n) for n in nets]
+    coded = []
+    TIES.record_coded(enc, coded)
+    for t in range(1, len(xs)):
+        coded.clear()
+        c0 = clk[0][0], clk[1][0], ar[0][0], ar[1][0]
+        out, ms_e = _timed(lambda: enc.compress(xs[0], xs[t]), dev)
+        d, ms_d = _timed(lambda: dec.decompress(xs[0], *_dcvc_args(out), hw,
+                                                hw), dev)
+        if not torch.equal(d, out["recon_image"]) or d.dtype != dtype:
+            _fail(f"{label}: P-frame {t}'s decoded frame differs from "
+                  f"recon_image (or is not {dtype})")
+        sizes = [len(out[k]) for k in DCVC_KEYS]
+        nz = ""
+        if count:
+            counts = {n: int(((p.astype(np.int32) >> 8)
+                              if p.dtype == np.int16 else p).astype(bool)
+                             .sum())
+                      for n, p in zip(TIES.PLANES["dcvc"][1], coded)}
+            if min(counts.values()) == 0:
+                _fail(f"{label}: P-frame {t} has a plane without a "
+                      f"non-zero symbol: {counts}")
+            nz = f"; non-zero symbols {counts}"
+        _log(f"{label}: P-frame {t}: enc {ms_e:.2f} ms (coder "
+             f"{clk[0][0] - c0[0]:.2f}, AR loop {ar[0][0] - c0[2]:.2f}) / "
+             f"dec {ms_d:.2f} ms (coder {clk[1][0] - c0[1]:.2f}, AR loop "
+             f"{ar[1][0] - c0[3]:.2f}), mv_z / mv_y / z / y {sizes} B, bpp "
+             f"{8 * sum(sizes) / (hw * hw):.4f}; decoder exact{nz}")
+
+
+def phase_dcvc_reference(dev, tree):
+    """Phase 19 (b): a 64x64 P-frame on the live tree coded on the GPU and
+    on the CPU, the GPU's strings decoded by the CPU port: within 1e-3
+    (`_gpu_cpu_frame`)."""
+    from opendcvc_tpu_torch.eval import fm_ties as TIES
+    from opendcvc_tpu_torch.models.dcvc import DCVCNet
+    from opendcvc_tpu_torch.utils.params import to_device
+    cpu = torch.device("cpu")
+    ref, x = _small_frames(13, 2)
+    nets = {}
+    for k, d in ((dev.type, dev), ("cpu", cpu), ("dec", cpu)):
+        nets[k] = DCVCNet(device=d)
+        nets[k].load_params(to_device(tree, d))
+        nets[k].update()
+    coded = {dev.type: [], "cpu": []}
+    for k in coded:
+        TIES.record_coded(nets[k], coded[k])
+    with TIES.PreRoundingFloats() as floats:
+        floats.on = True
+        g = nets[dev.type].compress(ref, x)
+        floats.on = False
+        c = nets["cpu"].compress(ref, x)
+        _gpu_cpu_frame("phase 19 (b)", "DCVC P-frame (live tree)",
+                       all(g[k] == c[k] for k in DCVC_KEYS), coded, dev,
+                       floats, "dcvc",
+                       lambda: {"x_hat": nets["dec"].decompress(
+                           ref, *_dcvc_args(g), 64, 64)},
+                       {"x_hat": g["recon_image"]})
+
+
+def phase_dcvc_training(dev, root):
+    """Phase 19 (c): train_video --model dcvc at its defaults (batch 8,
+    crop 256, --frames 2), float32, N_TRAIN steps of --stage 4: finite
+    losses, every mask unchanged bit for bit; one fixed batch's loss falls
+    over N_DESCENT steps; then 3 steps of --stage 2: every leaf of
+    DCVC_MOTION_SUBTREES unchanged; then the checkpoint loads into
+    DCVCNet, which codes a 256x256 pair, the decoder exact."""
+    from opendcvc_tpu_torch import family_bench
+    from opendcvc_tpu_torch.models.dcvc import DCVCNet, dcvc_init
+    from opendcvc_tpu_torch.training.forward import DCVC_MOTION_SUBTREES
+    from opendcvc_tpu_torch.training.train import _paths, tree_leaves
+    from opendcvc_tpu_torch.utils import checkpoint as ckpt
+    from opendcvc_tpu_torch.utils.params import from_jax
+    save_dir = os.path.join(root, "ckpt_dcvc")
+    init = dcvc_init(torch.Generator().manual_seed(0))
+    paths = _paths(init)
+    for stage, steps, frozen in ((4, N_TRAIN, ()),
+                                 (2, 3, DCVC_MOTION_SUBTREES)):
+        label = f"phase 19 (c) dcvc --stage {stage}"
+        run = _train_run(dev, "dcvc", False, save_dir, label=label,
+                         extra=["--stage", str(stage)], steps=steps)
+        after = tree_leaves(run["out"]["params"])
+        kept = [p for p in paths if p.endswith("/mask")
+                or p.split("/")[0] in frozen]
+        for path, a, b in zip(paths, tree_leaves(init), after):
+            if path in kept and not torch.equal(a, b.cpu()):
+                _fail(f"{label}: {path} moved")
+        _log(f"{label}: {len(kept)} fixed leaves (the masks"
+             + (", the motion branch" if frozen else "")
+             + ") unchanged bit for bit")
+        if stage == 4:
+            _descent(dev, "dcvc", label="phase 19 (c)")
+    net = DCVCNet(device=dev)
+    net.load_params(from_jax(ckpt.load_params(
+        os.path.join(save_dir, "dcvc_latest.msgpack"))))
+    net.update()
+    xs = family_bench._frames(DCVC_HW, DCVC_HW, 1, dev, seed=DCVC_SEED)
+    out = net.compress(xs[0], xs[1])
+    if not torch.equal(net.decompress(xs[0], *_dcvc_args(out), DCVC_HW,
+                                      DCVC_HW), out["recon_image"]):
+        _fail("phase 19 (c): the trained DCVC's decoded frame differs")
+    _log(f"phase 19 (c): the saved checkpoint loads in DCVCNet and codes a "
+         f"{DCVC_HW}x{DCVC_HW} pair ({sum(len(out[k]) for k in DCVC_KEYS)}"
+         f" B), the decoder exact")
+
+
+def phase_dcvc(dev, LR, root):
+    """Phase 19: DCVC at family_bench's point (256x256, its frames, seed
+    5, 3 P-frames against the raw frame 0), host EC: (a) the init (seed 0)
+    and the live tree, float32 and bfloat16, every decoder exact, the live
+    tree's non-zero symbols printed (`_dcvc_frames`); (b)
+    `phase_dcvc_reference`; (c) `phase_dcvc_training`.  Neither kernel may
+    launch."""
+    from opendcvc_tpu_torch import family_bench
+    from opendcvc_tpu_torch.models.dcvc import DCVCNet
+    t0 = time.perf_counter()
+    LR.encode_scan.launches = 0
+    LR.decode_scan.launches = 0
+    xs = family_bench._frames(DCVC_HW, DCVC_HW, DC_FRAMES, dev,
+                              seed=DCVC_SEED)
+    tree = DCVCNet(device=dev).init_params(seed=0)
+    live = live_dcvc_tree(tree)
+    for name, t, count in (("init", tree, False), ("live", live, True)):
+        for dtype in (torch.float32, torch.bfloat16):
+            _dcvc_frames(dev, f"phase 19 (a) DCVC {name} "
+                         f"{str(dtype)[6:]}", t, xs, DCVC_HW, dtype, count)
+    _family_row(dev, "dcvc", "phase 19 (a)", (DCVC_HW, DCVC_HW))
+    phase_dcvc_reference(dev, live)
+    phase_dcvc_training(dev, root)
+    _no_launches(LR, "phase 19: DCVC", t0)
+
+
+def _zoo_latent(net, x):
+    """The latent the encoder of the zoo codec `net` codes for x,
+    recomputed through its stage functions, as the decoder's synthesis
+    takes it (NCHW, the codec's dtype).  For the autoregressive models,
+    the y and prior the stage functions give must be those compress
+    handed the host coder (`net._seen`), whose y_hat is the latent."""
+    from opendcvc_tpu_torch.models import priors_zoo as PZ
+    from opendcvc_tpu_torch.models.common import from_host_nhwc
+    from opendcvc_tpu_torch.models.dcvc import from_host_hwc
+    from opendcvc_tpu_torch.ops import fused as F
+    p, dev, dtype = net.params, net.device, net.dtype
+    xc = net._x(x)
+    if isinstance(net, PZ.FactorizedPrior):
+        return F.round_and_to_int8(PZ._ga_apply(p["g_a"], xc))[1].to(dtype)
+    y, z = net._fwd_ga(p, xc)
+    z_hat = F.round_and_to_int8(z)[1].to(torch.float32).to(dtype)
+    if isinstance(net, PZ.JointAutoregressiveHierarchicalPriors):
+        prior = net._fwd_hs(p, z_hat)
+        y_in, prior_in, y_hat = net._seen
+        host = [t[0].permute(1, 2, 0).float().cpu().numpy()
+                for t in (y, prior)]
+        if not (np.array_equal(host[0], y_in)
+                and np.array_equal(host[1], prior_in)):
+            _fail(f"{type(net).__name__}: the stage functions' y or prior "
+                  f"differs from the one compress coded")
+        return from_host_hwc(y_hat, dev, dtype)
+    y_host = PZ._host_f32(y)
+    if isinstance(net, PZ.MeanScaleHyperprior):
+        _, means = net._scales_means(z_hat)
+        y_q = np.clip(np.round(y_host - means), -128, 127) + means
+    else:
+        y_q = np.clip(np.round(y_host), -128, 127)
+    return from_host_nhwc(y_q.astype(np.float32), dev, dtype)
+
+
+def _zoo_codec(cls, dev, dtype, tree):
+    net = cls(device=dev, dtype=dtype)
+    net.load_params(tree)
+    net.update()
+    if getattr(net, "_ar", None) is not None:
+        encode = net._ar.encode
+
+        def seen(y, prior, ge):
+            y_hat = encode(y, prior, ge)
+            net._seen = (y, prior, y_hat)
+            return y_hat
+
+        net._ar.encode = seen
+    return net
+
+
+def phase_zoo(dev, LR):
+    """Phase 20: each zoo model at its default widths (the port's init,
+    seed 0) on one 768x512 image, float32 and bfloat16, host EC: fails
+    unless the decoded latent equals the encoder's (recomputed by
+    `_zoo_latent`), x_hat lies in [0, 1] and a second decode is
+    identical; prints enc / dec ms, the host coder's ms and bytes.  Then
+    a 64x64 float32 image a model coded on the GPU, its strings decoded by
+    the CPU port: x_hat within 1e-3.  Neither kernel may launch."""
+    from opendcvc_tpu_torch.models import priors_zoo as PZ
+    from opendcvc_tpu_torch.utils.params import to_device
+    t0 = time.perf_counter()
+    LR.encode_scan.launches = 0
+    LR.decode_scan.launches = 0
+    cpu = torch.device("cpu")
+    x = textured_frames(KODAK_H, KODAK_W, 1, seed=14)[0][None] \
+        .astype(np.float32) / 255
+    small = _small_frames(15, 1)[0]
+    for name, cls in PZ.IMAGE_CODEC_ZOO.items():
+        tree = cls(device=dev).init_params(seed=0)
+        for dtype in (torch.float32, torch.bfloat16):
+            label = f"phase 20 {name} {str(dtype)[6:]}"
+            enc, dec = (_zoo_codec(cls, dev, dtype, tree) for _ in range(2))
+            seen = []
+            gs = dec._gs
+            dec._gs = lambda y_hat: (seen.append(y_hat), gs(y_hat))[1]
+            clk = [_clock_coder(n.entropy_coder) for n in (enc, dec)]
+            out, ms_e = _timed(lambda: enc.compress(x), dev)
+            d1, ms_d = _timed(lambda: dec.decompress(out["strings"],
+                                                     out["shape"]), dev)
+            coder_ms = clk[0][0], clk[1][0]
+            d2 = dec.decompress(out["strings"], out["shape"])
+            want = _zoo_latent(enc, x)
+            if not torch.equal(seen[0], want) or seen[0].dtype != dtype:
+                _fail(f"{label}: the decoded latent differs from the "
+                      f"encoder's")
+            xh = d1["x_hat"]
+            if not torch.equal(xh, d2["x_hat"]) or xh.dtype != dtype \
+                    or float(xh.min()) < 0 or float(xh.max()) > 1:
+                _fail(f"{label}: x_hat out of [0, 1], of another dtype, or "
+                      f"a second decode differs")
+            sizes = [len(s) for g in out["strings"] for s in g]
+            _log(f"{label}: enc {ms_e:.2f} ms (coder {coder_ms[0]:.2f}) / "
+                 f"dec {ms_d:.2f} ms (coder {coder_ms[1]:.2f}), strings "
+                 f"{sizes} B, bpp {8 * sum(sizes) / (KODAK_H * KODAK_W):.4f}"
+                 f"; latent exact, second decode identical")
+        g = _zoo_codec(cls, dev, torch.float32, tree).compress(small)
+        c = _zoo_codec(cls, cpu, torch.float32,
+                       to_device(tree, cpu)).compress(small)
+        d = _zoo_codec(cls, cpu, torch.float32, to_device(tree, cpu)) \
+            .decompress(g["strings"], g["shape"])["x_hat"]
+        ref = _zoo_codec(cls, dev, torch.float32, tree) \
+            .decompress(g["strings"], g["shape"])["x_hat"].cpu()
+        err = float((d - ref).abs().max())
+        if err > 1e-3:
+            _fail(f"phase 20 {name}: GPU and CPU disagree on a 64x64 "
+                  f"image ({err:g})")
+        same = [a == b for a, b in zip(
+            [s for grp in g["strings"] for s in grp],
+            [s for grp in c["strings"] for s in grp])]
+        _log(f"phase 20 {name}: 64x64 image coded on the GPU, decoded by "
+             f"the CPU: max |x_hat diff| {err:.3g}; GPU and CPU strings "
+             f"identical: {same}")
+    _no_launches(LR, "phase 20: the CompressAI zoo", t0)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chip_smoke_out",
@@ -3093,6 +3650,9 @@ def main():
         phase_dc(dev, LR)
         phase_hem(dev, LR)
         phase_tcm(dev, LR, root)
+        phase_evc(dev, LR, root)
+        phase_dcvc(dev, LR, root)
+        phase_zoo(dev, LR)
     for i, k in enumerate(kernels):
         k["launches_by_run"] = {"phases 3-4": k["launches"]}
         for name, n in runs.items():

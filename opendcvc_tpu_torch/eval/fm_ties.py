@@ -21,14 +21,17 @@ PLANES holds, by frame kind, the order in which the codecs compute their
 planes and the order in which they code them, and FOLD how a pass's
 residual folds to its coded plane: the FM codecs ("i", "p"; DCVC-DC's
 DMCDC computes and codes DMCFM's planes in DMCFM's orders) fold four
-quarters, IntraNoAR ("noar") and DMCHEM ("hem") two checkerboard halves,
-DMCTCM ("tcm") codes each latent whole.  The codecs and this module must
-change together if either order changes.
+quarters, IntraNoAR ("noar"), EVC ("evc") and DMCHEM ("hem") two
+checkerboard halves, DMCTCM ("tcm") codes each latent whole, and so does
+DCVC ("dcvc"), whose y planes are rounded by the host's autoregressive
+coder (`models/dcvc.py::_ARCoder`, its `last_floats` recorded here).  The
+codecs and this module must change together if either order changes.
 """
 
 import numpy as np
 import torch
 
+from ..models import dcvc as D
 from ..ops import fused as F
 
 #: the codecs' float agreement, relative to a plane's max |value|
@@ -43,10 +46,13 @@ PLANES = {"i": (["z", "y0", "y1", "y2", "y3"],
           "noar": (["z", "y0", "y1"], ["z", "y0", "y1"]),
           "hem": (["mv_z", "mv0", "mv1", "z", "y0", "y1"],
                   ["mv_z", "mv0", "mv1", "z", "y0", "y1"]),
-          "tcm": (["mv_z", "mv", "z", "y"], ["mv_z", "mv", "z", "y"])}
+          "tcm": (["mv_z", "mv", "z", "y"], ["mv_z", "mv", "z", "y"]),
+          "evc": (["z", "y0", "y1"], ["z", "y0", "y1"]),
+          "dcvc": (["mv_z", "mv_y", "z", "y"], ["mv_z", "mv_y", "z", "y"])}
 #: how a y pass's residual folds to its coded plane, by frame kind
 FOLD = {"i": F.fold_quarters, "p": F.fold_quarters, "noar": F.fold_halves,
-        "hem": F.fold_halves, "tcm": lambda t: t}
+        "hem": F.fold_halves, "tcm": lambda t: t, "evc": F.fold_halves,
+        "dcvc": lambda t: t}
 
 
 def _flat(t):
@@ -72,10 +78,11 @@ class PreRoundingFloats:
         self._saved = None
 
     def __enter__(self):
-        rnd, pwm, qd, bid = self._saved = (F.round_and_to_int8,
-                                           F.process_with_mask,
-                                           F.quantize_dense,
-                                           F.build_index_dec)
+        rnd, pwm, qd, bid, ar = self._saved = (F.round_and_to_int8,
+                                               F.process_with_mask,
+                                               F.quantize_dense,
+                                               F.build_index_dec,
+                                               D._ARCoder.encode)
 
         def round_and_to_int8(z):
             if self.on:
@@ -99,15 +106,25 @@ class PreRoundingFloats:
                 self.idx.append(_flat((torch.log(s) - lsm) * recip))
             return bid(scales, smin, smax, lsm, recip, thres)
 
+        def ar_encode(coder, y, prior, gaussian_encoder):
+            out = ar(coder, y, prior, gaussian_encoder)
+            if self.on:
+                res, idx = coder.last_floats
+                self.res.append(torch.from_numpy(res).permute(2, 0, 1)[None]
+                                .float())
+                self.idx.append(torch.from_numpy(idx).reshape(-1).float())
+            return out
+
         F.round_and_to_int8 = round_and_to_int8
         F.process_with_mask = process_with_mask
         F.quantize_dense = quantize_dense
         F.build_index_dec = build_index_dec
+        D._ARCoder.encode = ar_encode
         return self
 
     def __exit__(self, *exc):
         (F.round_and_to_int8, F.process_with_mask, F.quantize_dense,
-         F.build_index_dec) = self._saved
+         F.build_index_dec, D._ARCoder.encode) = self._saved
         return False
 
     def take(self, kind):
@@ -127,7 +144,8 @@ class PreRoundingFloats:
 
 def record_coded(net, log):
     """Append to `log` each plane the codec `net` (an FM codec, DMCDC,
-    IntraNoAR, DMCHEM or DMCTCM) hands its coder, in coding order."""
+    IntraNoAR, EVC, DMCHEM, DMCTCM or DCVCNet) hands its coder, in coding
+    order."""
     ge = net.gaussian_encoder
     enc_y = ge.encode_y_packed
 

@@ -1,5 +1,5 @@
 """Family-codec scorecard of the port: one measured enc/dec number per
-family codec the port has.
+family codec.
 
     python -m opendcvc_tpu_torch.family_bench [out.json]      # on the card
     FAM_PLATFORM=cpu FAM_H=64 FAM_W=64 FAM_FRAMES=2 \\
@@ -18,10 +18,11 @@ printed as it finishes, then the whole result written to out.json:
                        "enc_ms_pf", "dec_ms_pf", "bpp"}}}
 
 Env, with the JAX tool's defaults: FAM_H / FAM_W (704 / 1280),
-FAM_FRAMES (3), FAM_CODECS (comma list; default the codecs the port has,
-in the JAX tool's order: "tcm,hem,dc").  A codec the port does not have yet raises
-NotImplementedError with its ROADMAP item.  FAM_PLATFORM=cpu runs on
-the CPU; otherwise the codecs run on "cuda" and raise without CUDA.
+FAM_FRAMES (3), FAM_CODECS (comma list; default the JAX tool's
+"tcm,hem,dc,evc,dcvc"; an unknown name raises ValueError), FAM_DCVC_HW
+(256: DCVC's square frame side, since its autoregressive coder runs on
+the host one latent pixel at a time).  FAM_PLATFORM=cpu runs on the CPU;
+otherwise the codecs run on "cuda" and raise without CUDA.
 
 Differences from the JAX tool: the weights are the port's
 torch.Generator init (seed 0), not the JAX package's, so bpp is the
@@ -39,13 +40,12 @@ import numpy as np
 import torch
 
 from .eval.rd_evidence import synthetic_images
+from .models.dcvc import DCVCNet
 from .models.dmc_dc import DMCDC
 from .models.dmc_hem import DMCHEM
 from .models.dmc_tcm import DMCTCM
+from .models.evc import EVC
 
-#: the JAX tool's codecs the port does not have yet, by ROADMAP Queue 1
-#: item
-UNPORTED = {"evc": "8g", "dcvc": "8f"}
 #: HEM's anchors, spread so that the continuous ladder's rung is a real
 #: operating point between them (the init's anchors are flat)
 HEM_ANCHORS = [2.0, 1.2, 0.8, 0.5]
@@ -199,7 +199,67 @@ def bench_dc(h, w, n, device):
     return t_enc, t_dec, sum(len(s) * 8 for s in streams) / (n * h * w)
 
 
-BENCHES = {"tcm": bench_tcm, "hem": bench_hem, "dc": bench_dc}
+def bench_evc(h, w, n, device):
+    """EVC (EVC_LL's widths): n images (frames 1..n) at q_scale 1.0, each
+    decoded by a second EVC; host EC.  Returns (encode seconds, decode
+    seconds, bpp) of the timed passes."""
+    xs = _frames(h, w, n, device, seed=4)
+    net = EVC(device=device)
+    net.init_params(seed=0)
+    net.update()
+
+    def enc_all():
+        streams = [net.compress(xs[t], 1.0)["bit_stream"]
+                   for t in range(1, n + 1)]
+        _sync(device)
+        return streams
+
+    t_enc, streams = _time(enc_all)
+    dec = EVC(device=device)
+    dec.load_params(net.params)
+    dec.update()
+
+    def dec_all():
+        for s in streams:
+            dec.decompress(s, h, w, 1.0)
+        _sync(device)
+
+    t_dec, _ = _time(dec_all)
+    return t_enc, t_dec, sum(len(s) * 8 for s in streams) / (n * h * w)
+
+
+def bench_dcvc(h, w, n, device):
+    """DCVC: n P-frames, each coded against the raw frame 0 (not chained),
+    decoded by the same codec; host EC, the autoregressive coder on the
+    host.  bpp counts all four strings.  Returns (encode seconds, decode
+    seconds, bpp)."""
+    xs = _frames(h, w, n, device, seed=5)
+    net = DCVCNet(device=device)
+    net.init_params(seed=0)
+    net.update()
+
+    def enc_all():
+        outs = [net.compress(xs[0], xs[t]) for t in range(1, n + 1)]
+        _sync(device)
+        return outs
+
+    t_enc, outs = _time(enc_all)
+
+    def dec_all():
+        for o in outs:
+            net.decompress(xs[0], o["mv_y_string"], o["mv_z_string"],
+                           o["y_string"], o["z_string"], h, w)
+        _sync(device)
+
+    t_dec, _ = _time(dec_all)
+    nbits = sum(8 * (len(o["mv_y_string"]) + len(o["mv_z_string"])
+                     + len(o["y_string"]) + len(o["z_string"]))
+                for o in outs)
+    return t_enc, t_dec, nbits / (n * h * w)
+
+
+BENCHES = {"tcm": bench_tcm, "hem": bench_hem, "dc": bench_dc,
+           "evc": bench_evc, "dcvc": bench_dcvc}
 
 
 def main(argv=None):
@@ -211,10 +271,6 @@ def main(argv=None):
     n = int(os.environ.get("FAM_FRAMES", 3))
     codecs = os.environ.get("FAM_CODECS", ",".join(BENCHES)).split(",")
     for name in codecs:
-        if name in UNPORTED:
-            raise NotImplementedError(
-                f"family_bench: {name} is not ported yet (ROADMAP Queue 1, "
-                f"item {UNPORTED[name]})")
         if name not in BENCHES:
             raise ValueError(f"family_bench: unknown codec {name!r}")
     out_path = argv[0] if argv else DEFAULT_OUT
@@ -225,9 +281,11 @@ def main(argv=None):
                            "run on the CPU")
     rows = {}
     for name in codecs:
-        t_enc, t_dec, bpp = BENCHES[name](h, w, n, device)
+        ch, cw = (h, w) if name != "dcvc" else (
+            int(os.environ.get("FAM_DCVC_HW", 256)),) * 2
+        t_enc, t_dec, bpp = BENCHES[name](ch, cw, n, device)
         rows[name] = {
-            "h": h, "w": w, "frames": n,
+            "h": ch, "w": cw, "frames": n,
             "enc_fps": round(n / t_enc, 3),
             "dec_fps": round(n / t_dec, 3),
             "enc_ms_pf": round(1e3 * t_enc / n, 1),

@@ -1,7 +1,7 @@
-"""RD training CLI of the port: DCVC-RT's DMCI or DMC, or DCVC-TCM, on
-one device.
+"""RD training CLI of the port: DCVC-RT's DMCI or DMC, DCVC-TCM or DCVC,
+on one device.
 
-    python -m opendcvc_tpu_torch.train_video --model dmci|dmc|tcm [...]
+    python -m opendcvc_tpu_torch.train_video --model dmci|dmc|tcm|dcvc [...]
 
 Counterpart of the JAX package's root `train_video.py`: the same options,
 defaults, log line and checkpoint (`{save_dir}/{model}_latest.msgpack` in
@@ -15,9 +15,12 @@ np.random.default_rng(seed + 1), as the JAX package draws it.
 
 It runs on --device (default cuda; without CUDA that raises, and the CPU
 runs only with --device cpu) and on one card: --data_axis other than -1 or
-1 raises, as does --model dcvc (ROADMAP Queue 1 item 8f).  --model tcm
-trains on the cascaded TCM loss (the propagated feature carries the
-context from frame to frame; --frames 3 gives two P-frames).
+1 raises.  --model tcm trains on the cascaded TCM loss (the propagated
+feature carries the context from frame to frame; --frames 3 gives two
+P-frames).  --model dcvc trains on DCVC's staged loss, --stage 1-4: 1 the
+motion warm-up, 2 reconstruction and 3 reconstruction + y's rate with the
+motion branch frozen, 4 end to end; the masked convolutions' causal masks
+are never trained.
 """
 
 import argparse
@@ -28,29 +31,29 @@ import numpy as np
 import torch
 
 from .models import common as C
+from .models.dcvc import dcvc_init
 from .models.dmc import dmc_init
 from .models.dmc_tcm import dmc_tcm_init
 from .models.dmci import dmci_init
 from .training.data import SyntheticVideoDataset, Vimeo90kSeptupletDataset
-from .training.train import (make_dmc_loss, make_dmci_loss, make_optimizer,
-                             make_tcm_loss, make_train_step, tree_leaves)
+from .training.train import (dcvc_stage_grad_transform, make_dcvc_loss,
+                             make_dmc_loss, make_dmci_loss, make_optimizer,
+                             make_tcm_loss, make_train_step,
+                             trainable_leaves)
 from .utils import checkpoint as ckpt
 from .utils.common import create_folder, str2bool
 from .utils.params import from_jax, to_device
 
-NOT_PORTED = {
-    "dcvc": "--model dcvc is not ported: the DCVC forward and staged loss "
-            "wait for the family codecs (ROADMAP Queue 1 item 8f)",
-}
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
-        description="opendcvc_tpu_torch RD training (DMCI, DMC, TCM)")
+        description="opendcvc_tpu_torch RD training (DMCI, DMC, TCM, DCVC)")
     p.add_argument("--model", choices=["dmci", "dmc", "dcvc", "tcm"],
                    default="dmc")
     p.add_argument("--stage", type=int, default=4, choices=[1, 2, 3, 4],
-                   help="dcvc staged training (not ported)")
+                   help="dcvc staged training: 1=ME warmup, 2=recon "
+                        "(motion frozen), 3=+bits (motion frozen), "
+                        "4=end-to-end")
     p.add_argument("--dataset_root", type=str, default=None,
                    help="vimeo_septuplet root; synthetic data if omitted")
     p.add_argument("--list_file", type=str, default=None)
@@ -117,8 +120,6 @@ def main(argv=None):
     for the device only to log, to save and at the end, so it queues the
     next step while the device runs this one."""
     args = parse_args(argv)
-    if args.model in NOT_PORTED:
-        raise NotImplementedError(NOT_PORTED[args.model])
     if args.data_axis not in (-1, 1):
         raise ValueError(f"--data_axis {args.data_axis}: the port trains on "
                          f"one card (multi-GPU is ROADMAP Queue 1 item 9)")
@@ -126,6 +127,7 @@ def main(argv=None):
     print(f"devices: 1, device: {device}")
 
     gen = torch.Generator().manual_seed(args.seed)
+    grad_transform = None
     if args.model == "dmci":
         params = dmci_init(gen)
         loss_img = make_dmci_loss(args.lmbda, quant_mode=args.quant_mode,
@@ -137,6 +139,11 @@ def main(argv=None):
     elif args.model == "tcm":
         params = dmc_tcm_init(gen)
         loss_fn = make_tcm_loss(args.lmbda, quant_mode=args.quant_mode)
+    elif args.model == "dcvc":
+        params = dcvc_init(gen)
+        loss_fn = make_dcvc_loss(args.lmbda, stage=args.stage,
+                                 quant_mode=args.quant_mode)
+        grad_transform = dcvc_stage_grad_transform(args.stage)
     else:
         params = dmc_init(gen)
         loss_fn = make_dmc_loss(args.lmbda, quant_mode=args.quant_mode,
@@ -153,9 +160,10 @@ def main(argv=None):
 
     tx = make_optimizer(args.lr, args.schedule, args.steps,
                         args.warmup_steps, args.grad_clip)
-    opt_state = tx.init(tree_leaves(params))
+    opt_state = tx.init(trainable_leaves(params))
     step_fn = make_train_step(
-        loss_fn, tx, compute_dtype=torch.bfloat16 if args.amp else None)
+        loss_fn, tx, compute_dtype=torch.bfloat16 if args.amp else None,
+        grad_transform=grad_transform)
 
     if args.dataset_root:
         ds = Vimeo90kSeptupletDataset(

@@ -1,14 +1,15 @@
-"""Differentiable training forwards of DCVC-RT (DMCI and DMC) and
-DCVC-TCM.
+"""Differentiable training forwards of DCVC-RT (DMCI and DMC), DCVC-TCM
+and DCVC.
 
 Counterpart of the JAX package's `training/forward.py`, cut to the RT
-pair and TCM: straight-through rounding (or additive uniform noise) for
-the quantizers, the factorized prior's and the conditional Gaussian's or
-Laplace's rate terms (always float32), the same stages the codecs
-run.  Frames are NHWC (B, H, W, 3) at the edges, as the codecs take them;
-inside everything is NCHW, and the propagated feature DMC returns and
-takes is NCHW, as the codecs' DPB holds it.  Rates are bits over the
-frame's pixel count H * W, summed over the batch, as in the JAX package.
+pair, TCM and DCVC (with DCVC's four-stage loss): straight-through
+rounding (or additive uniform noise) for the quantizers, the factorized
+prior's and the conditional Gaussian's or Laplace's rate terms (always
+float32), the same stages the codecs run.  Frames are NHWC (B, H, W, 3)
+at the edges, as the codecs take them; inside everything is NCHW, and the
+propagated feature DMC returns and takes is NCHW, as the codecs' DPB
+holds it.  Rates are bits over the frame's pixel count H * W, summed over
+the batch, as in the JAX package (TCM's and DCVC's over B * H * W).
 """
 
 import torch
@@ -17,10 +18,12 @@ from ..entropy.models import bit_estimator_bits, gaussian_bits
 from ..layers import blocks as L
 from ..layers.blocks_hem import hem_spynet_apply
 from ..models import common as C
+from ..models import dcvc as D
 from ..models import dmc as MV
 from ..models import dmc_tcm as T
 from ..models import dmci as MI
 from ..ops import fused as F
+from ..ops.warp import flow_warp
 
 
 def ste_round(x):
@@ -217,3 +220,105 @@ def dmc_tcm_forward_one_frame(params, x, ref_frame, ref_feature, rng=None,
             "bpp_y": bpp_y, "bpp_z": bpp_z, "bpp_mv_y": bpp_mv_y,
             "bpp_mv_z": bpp_mv_z,
             "bpp": bpp_y + bpp_z + bpp_mv_y + bpp_mv_z}
+
+
+# ---------------------------------------------------------------------------
+# DCVC: the reference's own training target, additive-noise (or STE)
+# quantizers, Laplace rates on y and the motion latent through the dense
+# masked convolution, and the four-stage loss
+# ---------------------------------------------------------------------------
+
+def _laplace_scales(logscale):
+    """exp(softplus(ls + 2.3) - 2.3), the reference's scale transform
+    (log-scale kept above -2.3); softplus as JAX's logaddexp(v, 0)."""
+    v = logscale + 2.3
+    return torch.exp(torch.logaddexp(v, torch.zeros_like(v)) - 2.3)
+
+
+def _mean_scale(plist, params, ctx_params):
+    g = D.entropy_params_apply(plist, torch.cat((params, ctx_params), dim=1))
+    c = g.shape[1] // 2
+    return g[:, :c], _laplace_scales(g[:, c:])
+
+
+def dcvc_forward(params, x, ref_frame, rng=None, stage=4, quant_mode="noise"):
+    """One P-frame RD forward of DCVC with every term the staged losses
+    take: x and ref_frame (B, H, W, 3) NHWC.  The four quantizers (motion
+    z, motion latent, z, y) add uniform noise (quant_mode "noise") drawn
+    from the Generator `rng`, or taken from `rng`, a sequence of the four
+    noise tensors (NCHW) in that order, or round through the STE.  The
+    autoregressive context is the masked convolution over the whole
+    quantized latent.  Rates are bits over B * H * W.  Returns {x_hat,
+    pixel_rec (NHWC), mse, warp_mse, bpp, bpp_y, bpp_z, bpp_mv_y,
+    bpp_mv_z}; `stage` is taken for the JAX package's signature."""
+    del stage
+    p = params
+    n_pix = x.shape[0] * x.shape[1] * x.shape[2]
+    xc, rf = _nchw(x), _nchw(ref_frame)
+
+    def quant(v, k):
+        r = rng[k] if isinstance(rng, (list, tuple)) else rng
+        return _quant(v, r, quant_mode)
+
+    est_mv = D.spynet_apply(p["optic_flow"], xc, rf)
+    mv_y = D.mv_encoder(p, est_mv)
+    mv_z_hat = quant(D.prior_enc(p["mv_prior_enc"], mv_y), 0)
+    params_mv = D.prior_dec(p["mv_prior_dec"], mv_z_hat)
+    mv_y_hat = quant(mv_y, 1)
+    means_mv, scales_mv = _mean_scale(
+        p["entropy_parameters_mv"], params_mv,
+        D.masked_conv_apply(p["auto_regressive_mv"], mv_y_hat))
+
+    mv_up = D.mv_decoder_part1(p, mv_y_hat)
+    mv_ref = D.mv_refine(p, rf, mv_up)
+    ctx = D.motion_compensation(p, rf, mv_ref)
+    # stage 1's target: the pixel-domain warp of the reference
+    pixel_rec = C.frame_to_nhwc(flow_warp(rf, mv_ref))
+
+    temporal = D.temporal_prior_enc(p, ctx)
+    y = D.contextual_encoder(p, xc, ctx)
+    z_hat = quant(D.prior_enc(p["prior_enc"], y), 2)
+    hp = D.prior_dec(p["prior_dec"], z_hat)
+    y_hat = quant(y, 3)
+    means, scales = _mean_scale(
+        p["entropy_parameters"], torch.cat((temporal, hp), dim=1),
+        D.masked_conv_apply(p["auto_regressive"], y_hat))
+
+    x_hat = C.frame_to_nhwc(D.contextual_decoder(p, y_hat, ctx))
+
+    bpp_y = torch.sum(laplace_bits(y_hat - means, scales)) / n_pix
+    bpp_mv_y = torch.sum(laplace_bits(mv_y_hat - means_mv, scales_mv)) \
+        / n_pix
+    bpp_z = torch.sum(bit_estimator_bits(p["bit_estimator_z"], z_hat,
+                                         0)) / n_pix
+    bpp_mv_z = torch.sum(bit_estimator_bits(p["bit_estimator_z_mv"],
+                                            mv_z_hat, 0)) / n_pix
+    return {"x_hat": x_hat, "pixel_rec": pixel_rec,
+            "mse": torch.mean(torch.square(x_hat - x)),
+            "warp_mse": torch.mean(torch.square(pixel_rec - x)),
+            "bpp_y": bpp_y, "bpp_z": bpp_z, "bpp_mv_y": bpp_mv_y,
+            "bpp_mv_z": bpp_mv_z,
+            "bpp": bpp_y + bpp_z + bpp_mv_y + bpp_mv_z}
+
+
+#: parameter subtrees of the motion branch, frozen in stages 2-3
+DCVC_MOTION_SUBTREES = (
+    "optic_flow", "mv_enc", "mv_dec1", "mv_dec2", "mv_prior_enc",
+    "mv_prior_dec", "entropy_parameters_mv", "auto_regressive_mv",
+    "bit_estimator_z_mv",
+)
+
+
+def stage_loss_dcvc(out, lmbda, stage):
+    """The reference's four-stage loss:
+      1: lmbda * mse(warp, x) + bpp_mv_y + bpp_mv_z   (motion warm-up)
+      2: lmbda * mse(x_hat, x)                        (motion frozen)
+      3: lmbda * mse(x_hat, x) + bpp_y + bpp_z        (motion frozen)
+      4: lmbda * mse(x_hat, x) + bpp                  (end to end)"""
+    if stage == 1:
+        return lmbda * out["warp_mse"] + out["bpp_mv_y"] + out["bpp_mv_z"]
+    if stage == 2:
+        return lmbda * out["mse"]
+    if stage == 3:
+        return lmbda * out["mse"] + out["bpp_y"] + out["bpp_z"]
+    return lmbda * out["mse"] + out["bpp"]

@@ -1,8 +1,9 @@
 """RD training of DCVC-RT on one device: losses, optax's schedules and
 optimizer rules, the train step.
 
-Counterpart of the JAX package's `training/train.py`, cut to DMCI, DMC
-and DCVC-TCM.
+Counterpart of the JAX package's `training/train.py`, cut to DMCI, DMC,
+DCVC-TCM and DCVC (its staged loss and the stage-dependent freeze of its
+motion branch).
 optax is re-expressed by hand, rule for rule, so the port steps as the JAX
 package does:
   * a schedule is evaluated at the update count before the update (so
@@ -15,8 +16,12 @@ package does:
   * `optax.adam`: m and v moments, bias-corrected, m_hat / (sqrt(v_hat) +
     1e-8), times -lr.
 Parameter trees are the codecs' nested dicts and lists of tensors; the
-optimizer and the step work on their leaves in one fixed order.  The
-reduce-on-plateau option is not ported yet.
+optimizer and the step work on their trainable leaves in one fixed order.
+A leaf keyed "mask" (a masked convolution's causal mask) is not trained:
+it takes no gradient, no Adam update and no part in the clip's norm, as
+the reference keeps it a buffer.  The JAX package trains it like any
+leaf, so there its zeros move (ROADMAP Queue 3).  The reduce-on-plateau
+option is not ported yet.
 """
 
 import math
@@ -24,11 +29,14 @@ import math
 import numpy as np
 import torch
 
-from .forward import (dmc_forward_one_frame, dmc_tcm_forward_one_frame,
-                      dmci_forward)
+from .forward import (DCVC_MOTION_SUBTREES, dcvc_forward,
+                      dmc_forward_one_frame, dmc_tcm_forward_one_frame,
+                      dmci_forward, stage_loss_dcvc)
 
 PLATEAU_NOT_PORTED = ("reduce-on-plateau (optax.contrib.reduce_on_plateau) "
                       "is not ported yet (ROADMAP Queue 1 item 6)")
+#: the keys of leaves the step never trains
+FIXED_LEAVES = ("mask",)
 
 
 # ---------------------------------------------------------------------------
@@ -68,6 +76,17 @@ def _paths(tree, prefix=""):
         return [p for i, v in enumerate(tree)
                 for p in _paths(v, f"{prefix}[{i}]/")]
     return [prefix[:-1]]
+
+
+def _trainable(tree):
+    """Per leaf, in tree_leaves' order: whether the step trains it."""
+    return [p.rsplit("/", 1)[-1] not in FIXED_LEAVES for p in _paths(tree)]
+
+
+def trainable_leaves(tree):
+    """The leaves the optimizer works on: every leaf but FIXED_LEAVES',
+    in tree_leaves' order."""
+    return [t for t, k in zip(tree_leaves(tree), _trainable(tree)) if k]
 
 
 # ---------------------------------------------------------------------------
@@ -162,6 +181,46 @@ def make_tcm_loss(lmbda, quant_mode="ste"):
         metrics["loss"] = loss
         return loss, metrics
     return loss_fn
+
+
+def make_dcvc_loss(lmbda, stage=4, quant_mode="noise"):
+    """DCVC's staged loss over cascaded frames (B, T, H, W, 3): frame 0 is
+    the pixel reference; in stages 1-3 each later frame is coded from the
+    previous frame's x_hat detached, in stage 4 not detached, so the
+    gradient flows through the chain.  rng: a torch.Generator, or a
+    sequence of T - 1 per-frame sequences of the four noise tensors
+    `dcvc_forward` takes.  qp is taken and unused (DCVC has no QP
+    banks)."""
+    def loss_fn(params, frames, qp, rng):
+        del qp
+        ref = frames[:, 0]
+        n_frames = frames.shape[1] - 1
+        total = 0.0
+        metrics = {"mse": 0.0, "bpp": 0.0, "warp_mse": 0.0, "bpp_mv": 0.0}
+        for t in range(n_frames):
+            r = rng[t] if isinstance(rng, (list, tuple)) else rng
+            out = dcvc_forward(params, frames[:, t + 1], ref, r, stage=stage,
+                               quant_mode=quant_mode)
+            total = total + stage_loss_dcvc(out, lmbda, stage)
+            metrics["mse"] = metrics["mse"] + out["mse"] / n_frames
+            metrics["warp_mse"] = metrics["warp_mse"] \
+                + out["warp_mse"] / n_frames
+            metrics["bpp"] = metrics["bpp"] + out["bpp"] / n_frames
+            metrics["bpp_mv"] = metrics["bpp_mv"] \
+                + (out["bpp_mv_y"] + out["bpp_mv_z"]) / n_frames
+            ref = out["x_hat"] if stage == 4 else out["x_hat"].detach()
+        loss = total / n_frames
+        metrics["loss"] = loss
+        return loss, metrics
+    return loss_fn
+
+
+def dcvc_stage_grad_transform(stage):
+    """Stages 2-3 freeze the motion branch (its gradients zeroed); None in
+    stages 1 and 4."""
+    if stage in (2, 3):
+        return lambda grads: freeze_subtree(grads, DCVC_MOTION_SUBTREES)
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -316,19 +375,23 @@ def make_train_step(loss_fn, tx, compute_dtype=None, grad_transform=None,
     so the casts are part of the graph and the gradients land on the
     float32 leaves; parameters and optimizer state stay float32.
     grad_transform edits the gradient tree before the optimizer (the
-    parameter-freeze hook, e.g. freeze_subtree)."""
+    parameter-freeze hook, e.g. freeze_subtree); a fixed leaf's gradient
+    in that tree is zero.  The optimizer state is over
+    trainable_leaves(params)."""
     if plateau:
         raise NotImplementedError(PLATEAU_NOT_PORTED)
 
     def step(params, opt_state, batch, qp, rng):
-        leaves = tree_leaves(params)
+        all_leaves = tree_leaves(params)
+        keep = _trainable(params)
+        leaves = [t for t, k in zip(all_leaves, keep) if k]
         for t in leaves:
             if not t.requires_grad:
                 t.requires_grad_(True)
         with torch.enable_grad():
             if compute_dtype is not None:
                 use = tree_unflatten(params, [_cast(t, compute_dtype)
-                                              for t in leaves])
+                                              for t in all_leaves])
                 batch = _cast(batch, compute_dtype)
             else:
                 use = params
@@ -337,7 +400,11 @@ def make_train_step(loss_fn, tx, compute_dtype=None, grad_transform=None,
         grads = [torch.zeros_like(t) if g is None else g
                  for t, g in zip(leaves, grads)]
         if grad_transform is not None:
-            grads = tree_leaves(grad_transform(tree_unflatten(params, grads)))
+            it = iter(grads)
+            full = [next(it) if k else torch.zeros_like(t)
+                    for t, k in zip(all_leaves, keep)]
+            full = tree_leaves(grad_transform(tree_unflatten(params, full)))
+            grads = [g for g, k in zip(full, keep) if k]
         updates, opt_state = tx.update(grads, opt_state)
         with torch.no_grad():
             torch._foreach_add_(leaves, updates)

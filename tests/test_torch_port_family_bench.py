@@ -2,15 +2,14 @@
 package's `tools/family_bench.py` (FAM_PLATFORM=cpu, 64x64, 2 frames).
 
 Both tools code the same frames with the same weights: the JAX tool's
-init_params of each codec (DMCTCM, DMCHEM, DMCDC) is made to load the
-port's init (seed 0) carried to the JAX layout, so each row's bpp must be
-equal (HEM's anchors spread by both tools after that init); the JAX
-codecs code with their plain coder (OPENDCVC_TPU_FORCE_PY_RANS=1).
-Held: the frames equal the JAX tool's; the result's keys and each row's
-keys are the JAX tool's; bpp equal; the default codecs are the ported
-ones in the JAX tool's order; an unported codec raises
-NotImplementedError with its ROADMAP item; the default output is not the
-JAX tool's file.
+init_params of each codec (DMCTCM, DMCHEM, DMCDC, EVC, DCVCNet) is made
+to load the port's init (seed 0) carried to the JAX layout, so each row's
+bpp must be equal (HEM's anchors spread by both tools after that init);
+the JAX codecs code with their plain coder (OPENDCVC_TPU_FORCE_PY_RANS=1).
+The dcvc row runs at FAM_DCVC_HW=64.  Held: the frames equal the JAX
+tool's; the result's keys and each row's keys are the JAX tool's; bpp
+equal; the default codecs are the JAX tool's, in its order; an unknown
+codec raises ValueError; the default output is not the JAX tool's file.
 """
 
 import importlib.util
@@ -22,19 +21,23 @@ import numpy as np
 import pytest
 import torch
 
+from opendcvc_tpu.models import dcvc as JDCVC
 from opendcvc_tpu.models import dmc_dc as JDC
 from opendcvc_tpu.models import dmc_hem as JHEM
 from opendcvc_tpu.models import dmc_tcm as JTCM
+from opendcvc_tpu.models import evc as JEVC
 from opendcvc_tpu_torch import family_bench
+from opendcvc_tpu_torch.models.dcvc import DCVCNet
 from opendcvc_tpu_torch.models.dmc_dc import DMCDC
 from opendcvc_tpu_torch.models.dmc_hem import DMCHEM
 from opendcvc_tpu_torch.models.dmc_tcm import DMCTCM
+from opendcvc_tpu_torch.models.evc import EVC
 from opendcvc_tpu_torch.utils.params import to_jax
 from test_torch_port_lane_rans import _one_thread  # noqa: F401  (fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = {"FAM_PLATFORM": "cpu", "FAM_H": "64", "FAM_W": "64",
-         "FAM_FRAMES": "2"}
+         "FAM_FRAMES": "2", "FAM_DCVC_HW": "64"}
 
 
 def _jax_tool():
@@ -50,8 +53,8 @@ def _jax_tool():
 
 @pytest.fixture
 def small_env(monkeypatch):
-    monkeypatch.delenv("FAM_CODECS", raising=False)
-    monkeypatch.delenv("FAM_PLATFORM", raising=False)
+    for k in ("FAM_CODECS", "FAM_PLATFORM", "FAM_DCVC_HW"):
+        monkeypatch.delenv(k, raising=False)
     tool = _jax_tool()
     for k, v in SMALL.items():
         monkeypatch.setenv(k, v)
@@ -60,7 +63,8 @@ def small_env(monkeypatch):
 
 #: row -> (the JAX codec class, the port's codec class)
 CODECS = {"dc": (JDC.DMCDC, DMCDC), "hem": (JHEM.DMCHEM, DMCHEM),
-          "tcm": (JTCM.DMCTCM, DMCTCM)}
+          "tcm": (JTCM.DMCTCM, DMCTCM), "evc": (JEVC.EVC, EVC),
+          "dcvc": (JDCVC.DCVCNet, DCVCNet)}
 
 
 @pytest.fixture(scope="module")
@@ -81,7 +85,8 @@ def test_frames_equal_jax_tool(small_env):
     _frames_equal(small_env, 3)
 
 
-@pytest.mark.parametrize("seed", [1, 2], ids=["tcm", "hem"])
+@pytest.mark.parametrize("seed", [1, 2, 4, 5],
+                         ids=["tcm", "hem", "evc", "dcvc"])
 def test_tcm_hem_frames_equal_jax_tool(small_env, seed):
     _frames_equal(small_env, seed)
 
@@ -110,7 +115,8 @@ def _row_matches_jax_tool(name, small_env, port_trees, monkeypatch,
     assert list(got["codecs"]) == list(want["codecs"]) == [name]
     row, ref = got["codecs"][name], want["codecs"][name]
     assert list(row) == list(ref)
-    assert (row["h"], row["w"], row["frames"]) == (64, 64, 2)
+    assert (row["h"], row["w"], row["frames"]) == \
+        (ref["h"], ref["w"], ref["frames"]) == (64, 64, 2)
     print(f"port {name} row {row}; JAX tool's {ref}")
     assert row["bpp"] == ref["bpp"] > 0
     assert row["enc_fps"] > 0 and row["dec_fps"] > 0
@@ -135,22 +141,33 @@ def test_tcm_row_matches_jax_tool(small_env, port_trees, monkeypatch,
                           tmp_path)
 
 
-def test_default_codecs_are_the_ported_ones_in_jax_order(small_env):
-    """FAM_CODECS' default: the JAX tool's order ("tcm,hem,dc,evc,dcvc")
-    cut to the codecs the port has; every JAX row is a ported or an
-    UNPORTED one."""
-    jax_order = ["tcm", "hem", "dc", "evc", "dcvc"]
-    assert list(family_bench.BENCHES) == [c for c in jax_order
-                                          if c not in family_bench.UNPORTED]
-    assert set(family_bench.BENCHES) | set(family_bench.UNPORTED) == \
-        set(small_env.BENCHES)
+def test_evc_row_matches_jax_tool(small_env, port_trees, monkeypatch,
+                                  tmp_path):
+    """EVC (EVC_LL's widths) at q_scale 1.0."""
+    _row_matches_jax_tool("evc", small_env, port_trees, monkeypatch,
+                          tmp_path)
 
 
-@pytest.mark.parametrize("codec,item", sorted(family_bench.UNPORTED.items()))
-def test_unported_codec_raises(small_env, monkeypatch, codec, item,
-                               tmp_path):
+def test_dcvc_row_matches_jax_tool(small_env, port_trees, monkeypatch,
+                                   tmp_path):
+    """At FAM_DCVC_HW square, every P-frame against the raw frame 0;
+    bpp counts the four strings."""
+    _row_matches_jax_tool("dcvc", small_env, port_trees, monkeypatch,
+                          tmp_path)
+
+
+def test_default_codecs_are_the_jax_tools(small_env):
+    """FAM_CODECS' default: the JAX tool's "tcm,hem,dc,evc,dcvc"."""
+    assert list(family_bench.BENCHES) == ["tcm", "hem", "dc", "evc",
+                                          "dcvc"]
+    assert list(family_bench.BENCHES) == list(small_env.BENCHES)
+    assert not hasattr(family_bench, "UNPORTED")
+
+
+@pytest.mark.parametrize("codec", ["dmc", "fm"])
+def test_unknown_codec_raises(small_env, monkeypatch, codec, tmp_path):
     monkeypatch.setenv("FAM_CODECS", f"dc,{codec}")
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    with pytest.raises(ValueError, match=f"unknown codec '{codec}'"):
         family_bench.main([str(tmp_path / "o.json")])
     assert not (tmp_path / "o.json").exists()
 

@@ -483,13 +483,13 @@ def test_train_video_cpu_saves_and_resumes(tmp_path):
 
 @pytest.mark.parametrize("argv,err", [
     ([], RuntimeError), (["--model", "tcm"], RuntimeError),
-    (["--device", "cpu", "--model", "dcvc"], NotImplementedError),
+    (["--model", "dcvc"], RuntimeError),
     (["--device", "cpu", "--data_axis", "2"], ValueError)],
     ids=["cuda_without_cuda", "tcm", "dcvc", "data_axis"])
 def test_train_video_refuses(argv, err, tmp_path):
     """The default --device cuda raises without CUDA (no silent CPU run),
-    for DMC and for TCM (which trains now); the unported model
-    (dcvc) and more than one card raise."""
+    for DMC, TCM and DCVC (which train now); more than one card
+    raises."""
     with pytest.raises(err):
         train_video.main(argv + ["--steps", "1", "--save_dir",
                                  str(tmp_path)])

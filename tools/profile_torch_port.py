@@ -2,7 +2,7 @@
 """Where the time of the PyTorch/CUDA port's P-frame goes, on one GPU.
 
     python3 tools/profile_torch_port.py [--frames 2] [--dtype bfloat16]
-        [--codec rt|fm|dc|hem|tcm] [--trace PATH]
+        [--codec rt|fm|dc|hem|tcm|evc|dcvc] [--size HxW] [--trace PATH]
 
 Every codec runs in --dtype (float32 or bfloat16).  --codec rt (the
 default) codes 1080p P-frames with DMC at full width on the device-EC
@@ -16,10 +16,17 @@ tools/family_bench.py and chip_smoke.py's phase 15); --codec hem and tcm
 code 704x1280 P-frames with DCVC-HEM's DMCHEM (seed 0, the anchors spread
 to family_bench's, its rung get_interpolated_q_scales(4)[1]) and DCVC-TCM's
 DMCTCM (seed 0), host EC, from a raw reference, as family_bench and
-chip_smoke.py's phases 16-17 do.  It warms up with one
+chip_smoke.py's phases 16-17 do; --codec evc codes 704x1280 images with
+EVC_LL (seed 0, q_scale 1.0) and --codec dcvc 256x256 P-frames with
+DCVCNet (seed 0), each against the raw frame 0, host EC, as family_bench
+and chip_smoke.py's phases 18-19 do; for dcvc the host time of the
+autoregressive loop (`_ARCoder`) within each encode and decode is printed
+beside the frame times.  --size HxW replaces the codec's frame size
+(multiples of 64).  It warms up with one
 frame, then profiles `--frames` encodes and their decodes with
 torch.profiler.  Prints the card's name and power limit, the per-frame
-host-clock times, the device time by kernel (top 15) and by class
+host-clock times, the device kernels launched a pair, the device time
+by kernel (top 15) and by class
 (convolutions, the depthwise 3x3, the layout transposes around
 convolutions, elementwise, gathers (FM's warps), host->device uploads,
 device->host copies, lane rANS K1/K2, other), and the device busy and
@@ -45,7 +52,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 QP, FZ = 21, 0.12
 #: each codec's frame size: 1080p padded to 16, or family_bench's
 SIZES = {"rt": (1088, 1920), "fm": (1088, 1920), "dc": (704, 1280),
-         "hem": (704, 1280), "tcm": (704, 1280)}
+         "hem": (704, 1280), "tcm": (704, 1280), "evc": (704, 1280),
+         "dcvc": (256, 256)}
 DC_Q = 30
 
 
@@ -214,8 +222,78 @@ def _tcm_codec(dev, dtype, frames, H, W):
         torch.equal(a, b) for a, b in zip(refs["enc"], refs["dec"]))
 
 
+def _evc_codec(dev, dtype, frames, H, W):
+    """EVC_LL encoder and decoder on host EC at q_scale 1.0, each frame an
+    image; the same three callables as _rt_codec (the chain: the last
+    decoded x_hat equals its encoder's)."""
+    from opendcvc_tpu_torch.models.evc import EVC_LL
+    enc, dec = EVC_LL(device=dev, dtype=dtype), EVC_LL(device=dev,
+                                                        dtype=dtype)
+    enc.init_params(seed=0)
+    dec.load_params(enc.params)
+    for net in (enc, dec):
+        net.update()
+    last = {}
+
+    def encode(x):
+        out = enc.compress(x, 1.0)
+        last["enc"] = out["x_hat"]
+        return out["bit_stream"]
+
+    def decode(s):
+        last["dec"] = dec.decompress(s, H, W, 1.0)["x_hat"]
+
+    return encode, decode, lambda: torch.equal(last["enc"], last["dec"])
+
+
+def _dcvc_codec(dev, dtype, frames, H, W):
+    """DCVCNet encoder and decoder on host EC, each frame against the raw
+    frames[0]; the same three callables as _rt_codec, and `encode.report`
+    gives each encode's and decode's host ms in the AR loop."""
+    from opendcvc_tpu_torch.models.dcvc import DCVCNet
+    enc, dec = DCVCNet(device=dev, dtype=dtype), DCVCNet(device=dev,
+                                                          dtype=dtype)
+    enc.init_params(seed=0)
+    dec.load_params(enc.params)
+    ar_ms = {"enc": [], "dec": []}
+    for side, net in (("enc", enc), ("dec", dec)):
+        net.update()
+        for ar in (net._ar, net._ar_mv):
+            for name in ("encode", "decode"):
+                def timed(*args, _fn=getattr(ar, name), _side=side):
+                    t0 = time.perf_counter()
+                    try:
+                        return _fn(*args)
+                    finally:
+                        ar_ms[_side].append((time.perf_counter() - t0)
+                                            * 1e3)
+                setattr(ar, name, timed)
+    ref = torch.from_numpy(frames[0]).to(dev)
+    last = {}
+
+    def encode(x):
+        out = enc.compress(ref, x)
+        last["enc"] = out["recon_image"]
+        return out
+
+    def decode(o):
+        last["dec"] = dec.decompress(ref, o["mv_y_string"], o["mv_z_string"],
+                                     o["y_string"], o["z_string"], H, W)
+
+    def report():
+        pairs = {k: [round(a + b, 2) for a, b in zip(v[::2], v[1::2])]
+                 for k, v in ar_ms.items()}
+        return (f"AR loop (host) ms a frame, mv_y + y: enc {pairs['enc']} "
+                f"dec {pairs['dec']} (warm-up and unprofiled frames "
+                f"included)")
+
+    encode.report = report
+    return encode, decode, lambda: torch.equal(last["enc"], last["dec"])
+
+
 CODECS = {"rt": _rt_codec, "fm": _fm_codec, "dc": _dc_codec,
-          "hem": _hem_codec, "tcm": _tcm_codec}
+          "hem": _hem_codec, "tcm": _tcm_codec, "evc": _evc_codec,
+          "dcvc": _dcvc_codec}
 
 
 def main():
@@ -224,6 +302,8 @@ def main():
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])
     ap.add_argument("--codec", default="rt", choices=sorted(CODECS))
+    ap.add_argument("--size", default=None,
+                    help="HxW instead of the codec's frame size")
     ap.add_argument("--trace", default="chiprun_out/torch_port_trace.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -234,7 +314,8 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    H, W = SIZES[args.codec]
+    H, W = SIZES[args.codec] if args.size is None else \
+        map(int, args.size.split("x"))
     print(f"{card}; codec {args.codec}, dtype {args.dtype}, {W}x{H}")
     rng = np.random.default_rng(0)
     base = rng.random((1, H, W, 3), dtype=np.float32)
@@ -268,20 +349,24 @@ def main():
     if not chain_equal():
         sys.exit("profile_torch_port: the enc/dec chain diverged")
 
-    kernels = {}
+    kernels, launched = {}, 0
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
+            launched += 1
             kernels[ev.name] = kernels.get(ev.name, 0.0) + ev.time_range \
                 .elapsed_us()
     busy_us = sum(kernels.values())
     if busy_us == 0:
         sys.exit("profile_torch_port: the profiler recorded no device time")
-    print(f"P-frame enc ms {[round(t, 2) for t in enc_ms]} dec ms "
+    print(f"frame enc ms {[round(t, 2) for t in enc_ms]} dec ms "
           f"{[round(t, 2) for t in dec_ms]} (host clock, synchronized)")
+    if hasattr(encode, "report"):
+        print(encode.report())
     print(f"window {window_us / 1e3:.2f} ms, device busy "
           f"{busy_us / 1e3:.2f} ms = {100 * busy_us / window_us:.1f} %, "
           f"idle {100 - 100 * busy_us / window_us:.1f} %")
     pair_busy = busy_us / 1e3 / len(enc_ms)
+    print(f"device kernels and copies a pair: {launched / len(enc_ms):.0f}")
     print(f"without the profiler an enc + dec pair took "
           f"{[round(t, 2) for t in plain_ms]} ms (host clock); the device's "
           f"{pair_busy:.2f} ms a pair is "
