@@ -234,6 +234,34 @@ Phases (any failure exits nonzero and prints no result):
      1], a second decode identical; then a 64x64 image a model coded on
      the GPU and decoded by the CPU within 1e-3.  Neither kernel may
      launch in phases 18-20; each phase prints its seconds.
+ 21. The rest of training and the evaluation extras: (a) the DMCI
+     campaign (`training/campaign.py`) at full width (N 256, z 128), 12
+     steps of DEFAULT_STAGES (crops 128 / 192 / 256, batches 8 / 4 / 2), a
+     16-image bank of 320 px, saves every 3 steps, float32, under
+     torch.use_deterministic_algorithms (warn_only; the ops it warns
+     about are printed): uninterrupted, killed at step 6 and resumed,
+     the two train states equal byte for byte (with a warned op, within
+     RESUME_ATOL) and in the JAX package's layout; then once with --amp
+     (a float32 state); (b) the DMC campaign on (a)'s checkpoint (6 steps
+     of DMC_STAGES, 16 sequences of 256 px), every reference rewritten,
+     uninterrupted and killed at 3 and resumed, equal; losses finite,
+     ms a step by stage (the campaign's log) and peak memory printed;
+     (c) make_fm_loss through the train step at full width, batch 2,
+     crop 256, 3 frames, float32 and AMP, 5 steps on one batch: the loss
+     falls, the state stays float32; (d) make_train_step(plateau=True)
+     on DMCI, 8 steps, factor 0.5, patience 2, rtol 0.5: each step's
+     scale equals optax's rule replayed on the printed losses, and it
+     fell; (e) precompute_references on four 448x256 im1.png (a Vimeo
+     septuplet's frame) with (a)'s DMCI on device EC (K1) and host EC:
+     equal PNGs, equal to compress's rounded x_hat; (f) rd_evidence's
+     measure on docs/dmci_tiny_rd.msgpack (qps 20 / 40, 128 px; then
+     1080x1920 at qp 20) on host EC, held to the JAX package's gate
+     (0.97 < stream / estimate < 1.03, qp 20's bpp > 1.2 x qp 40's), and
+     on device EC (K1), whose estimate and PSNR must equal host EC's (its
+     stream carries the container's lane headers); measure_dmc on a
+     random full-width DMC at 128 px on device EC (K1 + K2), decoder
+     exact; train_tiny for 20 steps; (g) profile_dmc's stage table at
+     1080p and report_dmci at 768x512.
 The kernel launch counters are zeroed before phase 3 and read after
 phase 4, so the counts are the main path's (the device-EC path); they are
 zeroed again before phase 6 and must read 0 after it, again before each
@@ -241,9 +269,10 @@ run of phases 7, 9 and 10, and before phase 8; they are
 zeroed before phase 11 and must read 0 after it, zeroed before phase
 12, whose runs hold them exact, before phase 14, whose device-EC run
 holds them exact and whose host-EC runs launch none, and before each of
-phases 15-20, after which they must read 0; `launches` adds the
-device-EC runs of phases 7 (b), 8, 9, 10 (a, and the checkpoints'
-coding in b), 12 and 14 to phases 3-4's, and `launches_by_run` splits it.
+phases 15-20, after which they must read 0, and before each device-EC
+run of phase 21; `launches` adds the device-EC runs of phases 7 (b), 8,
+9, 10 (a, and the checkpoints' coding in b), 12, 14 and 21 (e, f) to
+phases 3-4's, and `launches_by_run` splits it.
 Then it
 prints the card's name and power limit, one JSON line describing each
 kernel, and, last, {"ok": true, "device": {...}}.
@@ -3578,11 +3607,529 @@ def phase_zoo(dev, LR):
     _no_launches(LR, "phase 20: the CompressAI zoo", t0)
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the rest of training and the evaluation extras
+# ---------------------------------------------------------------------------
+
+CAMP_STEPS = 12      # DEFAULT_STAGES at 12 steps: 8 at crop 128, 2 + 2
+CAMP_KILL = 6
+DMC_CAMP_STEPS = 6   # DMC_STAGES at 6 steps: 3 with 1 P-frame, 1 + 2 with 2
+FM_STEPS = 5
+PLATEAU_STEPS = 8
+PLATEAU = dict(factor=0.5, patience=2, rtol=0.5)
+VIMEO_H, VIMEO_W = 256, 448  # a Vimeo-90k septuplet frame
+RD_QPS = (20, 40)
+RESUME_ATOL = 1e-5   # the resume's bound if an op has no deterministic form
+
+
+class _Deterministic:
+    """torch.use_deterministic_algorithms(True, warn_only=True) inside the
+    block; `ops` lists the first line of each warning about an operation
+    without a deterministic CUDA implementation."""
+
+    def __enter__(self):
+        import warnings
+        self._catch = warnings.catch_warnings(record=True)
+        self._seen = self._catch.__enter__()
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        return self
+
+    def __exit__(self, *exc):
+        torch.use_deterministic_algorithms(False)
+        self._catch.__exit__(*exc)
+        self.ops = sorted({str(w.message).splitlines()[0] for w in self._seen
+                           if "determinis" in str(w.message)})
+        return False
+
+
+def _recorded_steps(CP, losses):
+    """Patch the campaign's make_train_step so each step's loss (a device
+    tensor) lands in `losses`; returns the original."""
+    orig = CP.make_train_step
+
+    def make(loss_fn, tx, **kw):
+        step = orig(loss_fn, tx, **kw)
+
+        def run(*args):
+            out = step(*args)
+            losses.append(out[2]["loss"])
+            return out
+        return run
+
+    CP.make_train_step = make
+    return orig
+
+
+def _campaign_run(dev, CP, label, fn, *args, **kw):
+    """One campaign call: its losses (finite, or the phase fails), seconds
+    and peak memory printed."""
+    losses = []
+    orig = _recorded_steps(CP, losses)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    try:
+        fn(*args, **kw)
+    finally:
+        CP.make_train_step = orig
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    vals = [float(v) for v in losses]
+    if not vals or not all(np.isfinite(vals)):
+        _fail(f"{label}: losses {vals}")
+    _log(f"{label}: {len(vals)} steps, {secs:.1f} s in all (the bank, the "
+         f"init, the saves and the probes included), peak memory "
+         f"{peak / 2 ** 30:.2f} GiB ({peak} B); losses "
+         + " ".join(f"{v:.4f}" for v in vals))
+    return vals
+
+
+def _same_state(label, a, b, det):
+    """Fail unless the train states in files a and b are equal byte for
+    byte; with a determinism warning, hold them to RESUME_ATOL instead and
+    print the difference."""
+    from opendcvc_tpu_torch.training.train import tree_leaves
+    from opendcvc_tpu_torch.utils import checkpoint as ckpt
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        if fa.read() == fb.read():
+            _log(f"{label}: the resumed run's train state (params, Adam's "
+                 f"moments, step) equals the uninterrupted run's bit for "
+                 f"bit")
+            return
+    pa, pb = ckpt.load_checkpoint(a), ckpt.load_checkpoint(b)
+    diff = max(float(np.abs(np.asarray(x, np.float64)
+                            - np.asarray(y, np.float64)).max())
+               for x, y in zip(tree_leaves(pa), tree_leaves(pb)))
+    _log(f"{label}: resumed != uninterrupted, max |diff| {diff:.3g}; ops "
+         f"without a deterministic CUDA form: {det.ops}")
+    if not det.ops or diff > RESUME_ATOL:
+        _fail(f"{label}: the resumed run differs from the uninterrupted "
+              f"one ({diff:g})")
+
+
+def _check_layout(label, path):
+    """The file holds the JAX package's full train state layout."""
+    from opendcvc_tpu_torch.utils import checkpoint as ckpt
+    p = ckpt.load_checkpoint(path)
+    st = p.get("opt_state", {})
+    ok = set(p) == {"params", "opt_state", "step", "extra"} and \
+        set(st) == {"0", "1"} and st["0"] == {} and \
+        set(st["1"]) == {"0", "1"} and \
+        set(st["1"]["0"]) == {"count", "mu", "nu"} and \
+        set(st["1"]["1"]) == {"count"} and \
+        np.asarray(st["1"]["0"]["count"]).dtype == np.int32 and \
+        np.asarray(p["step"]).dtype == np.int64
+    if not ok:
+        _fail(f"{label}: {path} is not the JAX package's train state layout")
+    return p
+
+
+def _memo(fn):
+    """fn with its results kept by argument: the campaigns' init trees,
+    drawn once and handed out as copies."""
+    from opendcvc_tpu_torch.utils.params import tree_map
+    cache = {}
+
+    def draw(*args):
+        key = repr(args)
+        if key not in cache:
+            cache[key] = fn(*args)
+        return tree_map(torch.clone, cache[key])
+    return draw
+
+
+def phase_campaign(dev, root):
+    """Phase 21 (a) and (b): the DMCI campaign at full width, uninterrupted,
+    killed at CAMP_KILL and resumed, and with --amp; then the DMC campaign
+    on (a)'s checkpoint, uninterrupted and killed at 3 and resumed.
+    Returns (a)'s checkpoint."""
+    from opendcvc_tpu_torch.training import campaign as CP
+    inits = CP._dmci_params, CP._dmc_params
+    CP._dmci_params, CP._dmc_params = map(_memo, inits)
+    try:
+        return _campaigns(dev, root, CP)
+    finally:
+        CP._dmci_params, CP._dmc_params = inits
+
+
+def _campaigns(dev, root, CP):
+    from opendcvc_tpu_torch.training.train import tree_leaves
+    d = os.path.join(root, "campaign")
+    kw = dict(total_steps=CAMP_STEPS, seed=0, bank_images=16, bank_size=320,
+              save_every=3, log_every=CAMP_STEPS, eval_every=CAMP_STEPS,
+              device=dev)
+    a, b, amp = (os.path.join(d, f"dmci_{n}.msgpack")
+                 for n in ("a", "b", "amp"))
+    with _Deterministic() as det:
+        _campaign_run(dev, CP, "phase 21 (a) DMCI uninterrupted",
+                      CP.train_dmci_campaign, a, **kw)
+        _campaign_run(dev, CP, f"phase 21 (a) DMCI killed at {CAMP_KILL}",
+                      CP.train_dmci_campaign, b, stop_after=CAMP_KILL, **kw)
+        _campaign_run(dev, CP, "phase 21 (a) DMCI resumed",
+                      CP.train_dmci_campaign, b, resume=True, **kw)
+    _same_state("phase 21 (a)", a, b, det)
+    p = _check_layout("phase 21 (a)", b)
+    _log(f"phase 21 (a): the file is the JAX package's train state layout "
+         f"(step {int(p['step'])}, Adam count "
+         f"{int(p['opt_state']['1']['0']['count'])}); ops without a "
+         f"deterministic CUDA form: {det.ops or 'none'}")
+    _campaign_run(dev, CP, "phase 21 (a) DMCI --amp", CP.train_dmci_campaign,
+                  amp, amp=True, **kw)
+    p = _check_layout("phase 21 (a) --amp", amp)
+    adam = p["opt_state"]["1"]["0"]
+    if any(np.asarray(t).dtype != np.float32 for t in tree_leaves(
+            [p["params"], adam["mu"], adam["nu"]])):
+        _fail("phase 21 (a) --amp: the train state is not float32")
+
+    refs = []
+    orig = CP._recon_refs
+
+    def spy(bank, groups, ckpt_path, device):
+        before = bank.bank[:, 0].copy()
+        orig(bank, groups, ckpt_path, device)
+        refs.append((before, bank.bank.copy()))
+
+    dkw = dict(dmci_ckpt=a, total_steps=DMC_CAMP_STEPS, seed=0, bank_seqs=16,
+               bank_size=256, seq_t=3, save_every=3,
+               log_every=DMC_CAMP_STEPS, eval_every=DMC_CAMP_STEPS,
+               device=dev)
+    da, db = (os.path.join(d, f"dmc_{n}.msgpack") for n in ("a", "b"))
+    CP._recon_refs = spy
+    try:
+        with _Deterministic() as det:
+            _campaign_run(dev, CP, "phase 21 (b) DMC uninterrupted",
+                          CP.train_dmc_campaign, da, **dkw)
+            _campaign_run(dev, CP, "phase 21 (b) DMC killed at 3",
+                          CP.train_dmc_campaign, db, stop_after=3, **dkw)
+            _campaign_run(dev, CP, "phase 21 (b) DMC resumed",
+                          CP.train_dmc_campaign, db, resume=True, **dkw)
+    finally:
+        CP._recon_refs = orig
+    for before, after in refs:
+        if any(np.array_equal(before[i], after[i, 0])
+               for i in range(len(before))):
+            _fail("phase 21 (b): a reference was not rewritten by the "
+                  "frozen DMCI")
+    _log(f"phase 21 (b): every run rewrote all {len(refs[0][0])} "
+         f"references through (a)'s DMCI at the qp anchors "
+         f"{CP.REF_QP_ANCHORS}")
+    _same_state("phase 21 (b)", da, db, det)
+    _check_layout("phase 21 (b)", db)
+    return a
+
+
+def phase_fm_training(dev):
+    """Phase 21 (c): make_fm_loss through the port's step at full width,
+    batch 2, crop 256, 3 frames, q_index 30, float32 then AMP, FM_STEPS
+    steps on one fixed batch: the loss falls, the state stays float32."""
+    from opendcvc_tpu_torch.models import common as C
+    from opendcvc_tpu_torch.models.dmc_fm import dmc_fm_init
+    from opendcvc_tpu_torch.training import train as T
+    from opendcvc_tpu_torch.training.syndata import natural_seqs
+    from opendcvc_tpu_torch.utils.params import to_device
+    batch = C.upload(np.stack(natural_seqs(2, 256, t=3, seed=5)), dev)
+    for amp in (False, True):
+        label = f"phase 21 (c) FM {'AMP' if amp else 'float32'}"
+        params = to_device(dmc_fm_init(torch.Generator().manual_seed(0)),
+                           dev)
+        tx = T.make_optimizer(1e-4)
+        state = tx.init(T.trainable_leaves(params))
+        step = T.make_train_step(T.make_fm_loss(32.0, 4096.0), tx,
+                                 compute_dtype=torch.bfloat16 if amp
+                                 else None)
+        torch.cuda.reset_peak_memory_stats(dev)
+        marks, losses = [], []
+        for _ in range(FM_STEPS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            params, state, m = step(params, state, batch, 30, None)
+            ev[1].record()
+            marks.append(ev)
+            losses.append(m["loss"])
+        _sync(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        ms = [a.elapsed_time(b) for a, b in marks]
+        vals = [float(v) for v in losses]
+        if not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
+            _fail(f"{label}: the loss on one batch did not fall over "
+                  f"{FM_STEPS} steps: {vals}")
+        _float32_tree(T.tree_leaves(params) + state["mu"] + state["nu"],
+                      "the train state", label)
+        _log(f"{label}: batch 2, crop 256, 2 P-frames: "
+             f"{float(np.median(ms[1:])):.1f} ms a step (CUDA events, "
+             f"steps queued; median of steps 2-{FM_STEPS}; all "
+             + " ".join(f"{t:.1f}" for t in ms) + f"), peak memory "
+             f"{peak / 2 ** 30:.2f} GiB ({peak} B); loss "
+             + " ".join(f"{v:.3f}" for v in vals))
+
+
+def _plateau_replay(values, factor, patience, rtol=1e-4, atol=0.0,
+                    cooldown=0, accumulation_size=1, min_scale=0.0):
+    """optax.contrib.reduce_on_plateau's scales after each value, in numpy
+    float32 (the plain version of the port's rule)."""
+    f32, i32 = np.float32, np.int32
+    avg, best, scale = f32(0), f32(np.inf), f32(1)
+    count = plateau = cool = i32(0)
+    out = []
+    for v in values:
+        new_count = count + 1
+        avg = f32(f32(f32(count) * avg + f32(v)) / f32(new_count))
+        count = new_count
+        if count == accumulation_size:
+            improved = avg < f32(f32(f32(1 - rtol) * best) - f32(atol))
+            best = avg if improved else best
+            curr = i32(0) if improved else plateau + 1
+            if cool > 0:
+                plateau, cool = i32(0), cool - 1
+            else:
+                hit = curr == patience
+                plateau = i32(0) if hit else curr
+                scale = max(f32(scale * f32(factor)) if hit else scale,
+                            f32(min_scale))
+                cool = i32(cooldown) if hit else i32(0)
+            count, avg = i32(0), f32(0)
+        out.append(float(scale))
+    return out
+
+
+def phase_plateau(dev):
+    """Phase 21 (d): make_train_step(plateau=True) on the full DMCI for
+    PLATEAU_STEPS steps (ImageBank batches, crop 128, batch 8): every
+    step's scale equals optax's rule replayed on the printed losses, and
+    the scale fell."""
+    from opendcvc_tpu_torch.models import common as C
+    from opendcvc_tpu_torch.models.dmci import dmci_init
+    from opendcvc_tpu_torch.training import train as T
+    from opendcvc_tpu_torch.training.syndata import ImageBank
+    from opendcvc_tpu_torch.utils.params import to_device
+    params = to_device(dmci_init(torch.Generator().manual_seed(0)), dev)
+    tx = T.make_optimizer(1e-4, plateau=PLATEAU)
+    state = tx.init(T.trainable_leaves(params))
+    step = T.make_train_step(T.make_dmci_loss(32.0, lmbda_max=4096.0), tx,
+                             plateau=True)
+    bank = ImageBank(n_images=8, size=256, seed=1)
+    losses, scales = [], []
+    for i in range(PLATEAU_STEPS):
+        r = np.random.default_rng(i)
+        params, state, m = step(params, state,
+                                C.upload(bank.sample(r, 8, 128), dev),
+                                int(r.integers(0, 64)), None)
+        losses.append(m["loss"])
+        scales.append(state["plateau"]["scale"].clone())
+    vals = np.asarray([float(v) for v in losses], np.float32)
+    got = [float(s) for s in scales]
+    want = _plateau_replay(vals, **PLATEAU)
+    _log(f"phase 21 (d) plateau {PLATEAU}: losses "
+         + " ".join(f"{v:.6g}" for v in vals) + "; scale after each step "
+         + " ".join(f"{s:g}" for s in got) + " (optax's rule on these "
+         "losses: " + " ".join(f"{s:g}" for s in want) + ")")
+    if got != want or min(got) >= 1.0:
+        _fail("phase 21 (d): the plateau's scale does not follow optax's "
+              "rule, or never fell")
+
+
+def _vimeo_tree(root, n=4):
+    from PIL import Image
+    from opendcvc_tpu_torch.training.syndata import natural_images
+    names = [f"00001/{i + 1:04d}" for i in range(n)]
+    imgs = natural_images(n, VIMEO_H, seed=21, width=VIMEO_W)
+    for name, img in zip(names, imgs):
+        d = os.path.join(root, "sequences", name)
+        os.makedirs(d)
+        Image.fromarray(np.round(img[0] * 255).astype(np.uint8)).save(
+            os.path.join(d, "im1.png"))
+    lst = os.path.join(root, "sep_trainlist.txt")
+    with open(lst, "w") as f:
+        f.write("\n".join(names) + "\n")
+    return names, lst
+
+
+def phase_precompute(dev, LR, root, dmci_ckpt):
+    """Phase 21 (e): precompute_references on a Vimeo-layout tree of four
+    448x256 im1.png with the campaign's DMCI at qp 21, on device EC (K1)
+    and host EC: the PNGs equal, and equal to the uint8 rounding of
+    DMCI.compress's x_hat.  Returns the K1 / K2 launches."""
+    from PIL import Image
+    from opendcvc_tpu_torch.models import common as C
+    from opendcvc_tpu_torch.models.dmci import DMCI
+    from opendcvc_tpu_torch.training.preprocessing import \
+        precompute_references
+    from opendcvc_tpu_torch.utils import checkpoint as ckpt
+    from opendcvc_tpu_torch.utils.params import from_jax
+    vroot = os.path.join(root, "vimeo")
+    names, lst = _vimeo_tree(vroot)
+    params = from_jax(ckpt.load_params(dmci_ckpt))
+    nets, launches = {}, {}
+    for name, device_ec in (("ref_dev", True), ("ref_host", False)):
+        net = DMCI(device=dev, device_ec=device_ec)
+        net.load_params(params)
+        net.update()
+        nets[name] = net
+        LR.encode_scan.launches = 0
+        LR.decode_scan.launches = 0
+        t0 = time.perf_counter()
+        precompute_references(vroot, lst, net, QP, name)
+        launches[name] = [LR.encode_scan.launches, LR.decode_scan.launches]
+        _log(f"phase 21 (e) {name}: {len(names)} references in "
+             f"{time.perf_counter() - t0:.2f} s, K1 / K2 launches "
+             f"{launches[name]}")
+    if launches["ref_dev"][0] < len(names) or launches["ref_dev"][1] or \
+            max(launches["ref_host"]):
+        _fail(f"phase 21 (e): launches {launches}")
+    pr, pb = C.get_padding_size(VIMEO_H, VIMEO_W, 64)
+    for name in names:
+        d = os.path.join(vroot, "sequences", name)
+        dev_png, host_png = (np.asarray(Image.open(os.path.join(d, f)))
+                             for f in ("ref_dev.png", "ref_host.png"))
+        img = np.asarray(Image.open(os.path.join(d, "im1.png")),
+                         np.float32) / 255.0
+        x = np.pad(img[None], ((0, 0), (0, pb), (0, pr), (0, 0)),
+                   mode="edge")
+        x_hat = nets["ref_host"].compress(x, QP)["x_hat"][0, :VIMEO_H,
+                                                          :VIMEO_W]
+        want = np.clip(np.round(x_hat.float().cpu().numpy() * 255), 0,
+                       255).astype(np.uint8)
+        if not (np.array_equal(dev_png, host_png)
+                and np.array_equal(host_png, want)):
+            _fail(f"phase 21 (e) {name}: the PNGs differ between the "
+                  f"coders or from compress's x_hat")
+    _log(f"phase 21 (e): {len(names)} {VIMEO_W}x{VIMEO_H} references equal "
+         f"on device EC and host EC and to compress's rounded x_hat")
+    return launches["ref_dev"]
+
+
+def phase_rd_evidence(dev, LR, root):
+    """Phase 21 (f): measure on docs/dmci_tiny_rd.msgpack (qps 20 / 40,
+    128 px, 2 images) on host EC and on device EC, then 1080x1920 at qp
+    20; measure_dmc at full width (the port's random DMC, 128 px, 2
+    pairs) on device EC; train_tiny for 20 steps.  Returns the K1 / K2
+    launches."""
+    from opendcvc_tpu_torch.eval import rd_evidence as R
+    from opendcvc_tpu_torch.models.dmc import dmc_init
+    from opendcvc_tpu_torch.utils import checkpoint as ckpt
+    tiny = os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs",
+                        "dmci_tiny_rd.msgpack")
+    total = [0, 0]
+    prev = os.environ.pop("OPENDCVC_TPU_DEVICE_EC", None)
+    try:
+        points = {}
+        for mode in ("host EC", "device EC"):
+            if mode == "device EC":
+                os.environ["OPENDCVC_TPU_DEVICE_EC"] = "1"
+            for size, width, qps, n in ((128, None, RD_QPS, 2),
+                                        (1080, 1920, (20,), 1)):
+                LR.encode_scan.launches = 0
+                LR.decode_scan.launches = 0
+                t0 = time.perf_counter()
+                pts = R.measure(tiny, qps=qps, size=size, n_images=n,
+                                width=width, device=dev)
+                k = [LR.encode_scan.launches, LR.decode_scan.launches]
+                total = [total[0] + k[0], total[1] + k[1]]
+                points[mode, size] = pts
+                _log(f"phase 21 (f) measure, {mode}, {width or size}x{size}"
+                     f": {time.perf_counter() - t0:.2f} s, K1 / K2 {k}; "
+                     + "; ".join(
+                         f"qp {p['qp']}: bpp {p['bpp_stream']:.5f} stream / "
+                         f"{p['bpp_estimate']:.5f} estimate = "
+                         f"{p['stream_vs_estimate']:.4f}, PSNR "
+                         f"{p['psnr']:.3f}" for p in pts))
+                if (mode == "device EC") != (k[0] > 0) or k[1]:
+                    _fail(f"phase 21 (f) measure {mode}: launches {k}")
+        host = points["host EC", 128]
+        if not all(0.97 < p["stream_vs_estimate"] < 1.03 for p in
+                   host + points["host EC", 1080]) or \
+                not host[0]["bpp_stream"] > 1.2 * host[-1]["bpp_stream"]:
+            _fail("phase 21 (f): measure on host EC misses the JAX "
+                  "package's rate-consistency gate")
+        for size in (128, 1080):
+            for h, d in zip(points["host EC", size],
+                            points["device EC", size]):
+                if h["bpp_estimate"] != d["bpp_estimate"] or \
+                        h["psnr"] != d["psnr"]:
+                    _fail(f"phase 21 (f): device EC's estimate or PSNR "
+                          f"differs from host EC's at {size}")
+        _log("phase 21 (f): host EC within the JAX gate (0.97 < stream / "
+             "estimate < 1.03, qp 20's bpp > 1.2 x qp 40's); device EC's "
+             "estimate and PSNR equal host EC's, its stream longer by the "
+             "container's lane headers")
+
+        os.environ["OPENDCVC_TPU_DEVICE_EC"] = "1"
+        path = os.path.join(root, "dmc_random.msgpack")
+        ckpt.save_params(path, dmc_init(torch.Generator().manual_seed(1)))
+        LR.encode_scan.launches = 0
+        LR.decode_scan.launches = 0
+        t0 = time.perf_counter()
+        pts = R.measure_dmc(path, qps=RD_QPS, size=128, n_pairs=2,
+                            device=dev)
+        k = [LR.encode_scan.launches, LR.decode_scan.launches]
+        total = [total[0] + k[0], total[1] + k[1]]
+        _log(f"phase 21 (f) measure_dmc, device EC, 128x128: "
+             f"{time.perf_counter() - t0:.2f} s, K1 / K2 {k}; " + "; ".join(
+                 f"qp {p['qp']}: bpp {p['bpp_stream']:.5f} / "
+                 f"{p['bpp_estimate']:.5f}, PSNR {p['psnr']:.3f}, decoder "
+                 f"exact {p['decoder_exact']}" for p in pts))
+        if min(k) == 0 or not all(
+                p["decoder_exact"] and all(np.isfinite(
+                    [p["bpp_stream"], p["bpp_estimate"], p["psnr"]]))
+                for p in pts):
+            _fail("phase 21 (f): measure_dmc's points are not finite, its "
+                  "decoder not exact, or a kernel did not launch")
+    finally:
+        os.environ.pop("OPENDCVC_TPU_DEVICE_EC", None)
+        if prev is not None:
+            os.environ["OPENDCVC_TPU_DEVICE_EC"] = prev
+
+    t0 = time.perf_counter()
+    out = os.path.join(root, "tiny_trained.msgpack")
+    R.train_tiny(out, steps=20, log_every=10, device=dev)
+    extra = ckpt.load_checkpoint(out)["extra"]
+    if int(extra["steps"]) != 20:
+        _fail("phase 21 (f): train_tiny did not save step 20")
+    _log(f"phase 21 (f) train_tiny: 20 steps (TINY_KW, crop 96, batch 8) "
+         f"in {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+def phase_profiler(dev):
+    """Phase 21 (g): profile_dmc's stage table at 1080p and report_dmci at
+    768x512."""
+    from opendcvc_tpu_torch.eval import complexity, profiler
+    t0 = time.perf_counter()
+    res = profiler.profile_dmc(H, W, iters=10, device=dev)
+    profiler.print_table(res, f"phase 21 (g) DMC stages @ {W}x{H}, "
+                         f"float32, CUDA events, 10 calls after 2")
+    rep = complexity.report_dmci(768, 512, device=dev)
+    _log("phase 21 (g) report_dmci: " + ", ".join(
+        f"{k} {v}" for k, v in rep.items())
+        + f" ({time.perf_counter() - t0:.1f} s)")
+
+
+def phase_training_extras(dev, LR, root):
+    """Phase 21: (a) + (b) the campaigns, (c) the FM loss, (d) plateau, (e)
+    precompute_references, (f) rd_evidence, (g) the profiler and
+    complexity.  Returns the K1 / K2 launches of its device-EC runs."""
+    t0 = time.perf_counter()
+    torch.empty(0, device=dev)      # the allocator's stats need the context
+    dmci_ckpt = phase_campaign(dev, root)
+    phase_fm_training(dev)
+    phase_plateau(dev)
+    launches = phase_precompute(dev, LR, root, dmci_ckpt)
+    rd = phase_rd_evidence(dev, LR, root)
+    phase_profiler(dev)
+    total = [launches[0] + rd[0], launches[1] + rd[1]]
+    _log(f"phase 21 done in {time.perf_counter() - t0:.1f} s; K1 "
+         f"{total[0]}, K2 {total[1]} launches")
+    return total
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chip_smoke_out",
                     help="directory phase 13 writes its streams into")
     args = ap.parse_args()
+    # cuBLAS's deterministic workspace, for phase 21's deterministic runs;
+    # read when cuBLAS starts, so before any CUDA work
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         _fail("CUDA is not available")
     try:
@@ -3653,6 +4200,7 @@ def main():
         phase_evc(dev, LR, root)
         phase_dcvc(dev, LR, root)
         phase_zoo(dev, LR)
+        runs["phase 21"] = phase_training_extras(dev, LR, root)
     for i, k in enumerate(kernels):
         k["launches_by_run"] = {"phases 3-4": k["launches"]}
         for name, n in runs.items():

@@ -1,8 +1,8 @@
-"""Differentiable training forwards of DCVC-RT (DMCI and DMC), DCVC-TCM
-and DCVC.
+"""Differentiable training forwards of DCVC-RT (DMCI and DMC), DCVC-TCM,
+DCVC-FM and DCVC.
 
-Counterpart of the JAX package's `training/forward.py`, cut to the RT
-pair, TCM and DCVC (with DCVC's four-stage loss): straight-through
+Counterpart of the JAX package's `training/forward.py` (the RT pair, TCM,
+FM and DCVC with its four-stage loss): straight-through
 rounding (or additive uniform noise) for the quantizers, the factorized
 prior's and the conditional Gaussian's or Laplace's rate terms (always
 float32), the same stages the codecs run.  Frames are NHWC (B, H, W, 3)
@@ -16,10 +16,12 @@ import torch
 
 from ..entropy.models import bit_estimator_bits, gaussian_bits
 from ..layers import blocks as L
+from ..layers.blocks_fm import spynet_apply as fm_spynet_apply
 from ..layers.blocks_hem import hem_spynet_apply
 from ..models import common as C
 from ..models import dcvc as D
 from ..models import dmc as MV
+from ..models import dmc_fm as FMM
 from ..models import dmc_tcm as T
 from ..models import dmci as MI
 from ..ops import fused as F
@@ -220,6 +222,102 @@ def dmc_tcm_forward_one_frame(params, x, ref_frame, ref_feature, rng=None,
             "bpp_y": bpp_y, "bpp_z": bpp_z, "bpp_mv_y": bpp_mv_y,
             "bpp_mv_z": bpp_mv_z,
             "bpp": bpp_y + bpp_z + bpp_mv_y + bpp_mv_z}
+
+
+# ---------------------------------------------------------------------------
+# DCVC-FM: one model over the whole q_index range (the quant pairs
+# log-interpolated between learned anchors), straight-through four-pass
+# quadtree rates on the motion latent and y, factorized z planes
+# ---------------------------------------------------------------------------
+
+def _fm_masked_4x(y_div, scales, means, spatial_fn, params_prior):
+    """The four quadtree passes of a latent (NCHW) with the coder's
+    rounding replaced by the straight-through estimator and its table rate
+    by the Gaussian bits of the quantized residual.  Returns (the summed
+    y_hat before the dequantization, its bits)."""
+    _, c, h, w = y_div.shape
+    masks = F.checkerboard_masks_4x(h, w, c, y_div.dtype, y_div.device)
+    bits = 0.0
+    so_far = torch.zeros_like(y_div)
+    for k in range(4):
+        if k > 0:
+            scales, means = spatial_fn(k, so_far, params_prior)
+        mask = masks[k]
+        y_q = ste_round((y_div - means * mask) * mask)
+        so_far = so_far + y_q + means * mask
+        bits = bits + torch.sum(gaussian_bits(y_q, scales * mask) * mask)
+    return so_far, bits
+
+
+def dmc_fm_forward_one_frame(params, x, ref_frame, ref_feature,
+                             ref_mv_feature, ref_y, ref_mv_y, q_index,
+                             rng=None, quant_mode="ste", fa_idx=0):
+    """One P-frame RD forward of DMCFM at q_index in [0, 64): x and
+    ref_frame (B, H, W, 3) NHWC; ref_feature, ref_mv_feature, ref_y and
+    ref_mv_y the propagated DPB entries (NCHW), None on the first P-frame
+    after an intra frame (the adaptor-I and fusion-adaptor-0 path).  The
+    motion z and z quantizers round through the STE, or add uniform noise
+    in quant_mode "noise", drawn from the Generator `rng` or taken from
+    `rng`, a sequence of the two noise tensors (NCHW) in that order; the
+    latents' passes always round through the STE.  Rates are bits over H
+    * W, summed over the batch, as in the JAX package.  Returns {x_hat
+    (NHWC), feature, mv_feature, y_hat, mv_y_hat (NCHW), mse, warp_mse,
+    bpp, bpp_y, bpp_z, bpp_mv_y, bpp_mv_z}."""
+    p = params
+    n_pix = x.shape[1] * x.shape[2]
+    xc, rf = _nchw(x), _nchw(ref_frame)
+    steady = ref_feature is not None
+
+    def quant(v, k):
+        r = rng[k] if isinstance(rng, (list, tuple)) else rng
+        return _quant(v, r, quant_mode)
+
+    # the motion branch
+    q_mv_enc = FMM.get_curr_q(p["mv_y_q_enc"], q_index).to(xc.dtype)
+    est_mv = fm_spynet_apply(p["optic_flow"], xc, rf)
+    mv_y = FMM.mv_encoder(p, est_mv, ref_mv_feature if steady else None,
+                          q_mv_enc)
+    mv_z_hat = quant(FMM.hyper_enc_apply(p["mv_hyper_enc"],
+                                         C.pad_for_y(mv_y)), 0)
+    bits_mv_z = torch.sum(bit_estimator_bits(p["bit_estimator_z_mv"],
+                                             mv_z_hat, 0))
+    mv_params = FMM._stage_mv_prior(p, mv_z_hat.to(xc.dtype),
+                                    ref_mv_y if steady else None,
+                                    mv_y.shape[2], mv_y.shape[3])
+    mv_y_div, mv_q_dec, mv_scales, mv_means = \
+        C.separate_prior_video_encoding(mv_params, mv_y)
+    mv_so_far, bits_mv_y = _fm_masked_4x(
+        mv_y_div, mv_scales, mv_means,
+        lambda k, sf, prm: FMM._stage_mv_spatial(p, k, sf, prm), mv_params)
+    mv_y_hat = mv_so_far * mv_q_dec
+    mv_hat, mv_feature = FMM._stage_mv_dec(p, mv_y_hat, q_index)
+    c1, c2, c3, warpframe = FMM._stage_motion_comp(
+        p, mv_hat, rf, ref_feature if steady else None, fa_idx)
+
+    # the contextual branch
+    q_y_enc = FMM.get_curr_q(p["y_q_enc"], q_index).to(xc.dtype)
+    y = FMM.contextual_encoder(p, xc, c1, c2, c3, q_y_enc)
+    z_hat = quant(FMM.hyper_enc_apply(p["hyper_enc"], C.pad_for_y(y)), 1)
+    bits_z = torch.sum(bit_estimator_bits(p["bit_estimator_z"], z_hat, 0))
+    y_params = FMM._stage_ctx_prior(p, z_hat.to(xc.dtype), c3,
+                                    ref_y if steady else None, y.shape[2],
+                                    y.shape[3])
+    y_div, q_dec, scales, means = C.separate_prior_video_encoding(y_params,
+                                                                  y)
+    y_so_far, bits_y = _fm_masked_4x(
+        y_div, scales, means,
+        lambda k, sf, prm: FMM._stage_y_spatial(p, k, sf, prm), y_params)
+    y_hat = y_so_far * q_dec
+    x_hat, feature = FMM._stage_recon(p, y_hat, c1, c2, c3, q_index)
+    x_hat = C.frame_to_nhwc(x_hat)
+    return {"x_hat": x_hat, "feature": feature, "mv_feature": mv_feature,
+            "y_hat": y_hat, "mv_y_hat": mv_y_hat,
+            "mse": torch.mean(torch.square(x_hat - x)),
+            "warp_mse": torch.mean(torch.square(
+                C.frame_to_nhwc(warpframe) - x)),
+            "bpp_y": bits_y / n_pix, "bpp_z": bits_z / n_pix,
+            "bpp_mv_y": bits_mv_y / n_pix, "bpp_mv_z": bits_mv_z / n_pix,
+            "bpp": (bits_y + bits_z + bits_mv_y + bits_mv_z) / n_pix}
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,9 @@
-"""RD training of DCVC-RT on one device: losses, optax's schedules and
-optimizer rules, the train step.
+"""RD training on one device: losses, optax's schedules and optimizer
+rules, reduce-on-plateau, the train step.
 
-Counterpart of the JAX package's `training/train.py`, cut to DMCI, DMC,
-DCVC-TCM and DCVC (its staged loss and the stage-dependent freeze of its
-motion branch).
+Counterpart of the JAX package's `training/train.py`: the losses of DMCI,
+DMC, DCVC-TCM, DCVC-FM and DCVC (its staged loss and the stage-dependent
+freeze of its motion branch).
 optax is re-expressed by hand, rule for rule, so the port steps as the JAX
 package does:
   * a schedule is evaluated at the update count before the update (so
@@ -14,14 +14,20 @@ package does:
     only when norm >= max_norm (torch's `clip_grad_norm_` adds 1e-6 and
     always scales, so it is not used);
   * `optax.adam`: m and v moments, bias-corrected, m_hat / (sqrt(v_hat) +
-    1e-8), times -lr.
+    1e-8), times -lr;
+  * `optax.contrib.reduce_on_plateau` (optax 0.2.6), after Adam when
+    make_optimizer gets `plateau=dict(...)`: a float32 running mean of the
+    monitored loss over `accumulation_size` steps, then the plateau count,
+    the cooldown and the scale (times `factor`, never below `min_scale`)
+    updated, and the updates multiplied by the new scale.  Its state is
+    device tensors and its branches torch.where, so a step never waits
+    on the host for the loss.
 Parameter trees are the codecs' nested dicts and lists of tensors; the
 optimizer and the step work on their trainable leaves in one fixed order.
 A leaf keyed "mask" (a masked convolution's causal mask) is not trained:
 it takes no gradient, no Adam update and no part in the clip's norm, as
 the reference keeps it a buffer.  The JAX package trains it like any
-leaf, so there its zeros move (ROADMAP Queue 3).  The reduce-on-plateau
-option is not ported yet.
+leaf, so there its zeros move (ROADMAP Queue 3).
 """
 
 import math
@@ -30,11 +36,10 @@ import numpy as np
 import torch
 
 from .forward import (DCVC_MOTION_SUBTREES, dcvc_forward,
-                      dmc_forward_one_frame, dmc_tcm_forward_one_frame,
-                      dmci_forward, stage_loss_dcvc)
+                      dmc_fm_forward_one_frame, dmc_forward_one_frame,
+                      dmc_tcm_forward_one_frame, dmci_forward,
+                      stage_loss_dcvc)
 
-PLATEAU_NOT_PORTED = ("reduce-on-plateau (optax.contrib.reduce_on_plateau) "
-                      "is not ported yet (ROADMAP Queue 1 item 6)")
 #: the keys of leaves the step never trains
 FIXED_LEAVES = ("mask",)
 
@@ -183,6 +188,42 @@ def make_tcm_loss(lmbda, quant_mode="ste"):
     return loss_fn
 
 
+def make_fm_loss(lmbda_min, lmbda_max, quant_mode="ste"):
+    """Cascaded DCVC-FM loss: one model over the whole q_index range 0-63.
+    The caller samples q_index per step and passes it as `qp`; the loss
+    weight is lmbda_for_qp(63 - qp): FM's q_index runs from low to high
+    rate, the reverse of the banked models' qp ladder.  frames (B, T, H,
+    W, 3): frame 0 is the pixel reference; each later frame is coded from
+    the previous frame's full DPB (x_hat, feature, mv_feature, y_hat,
+    mv_y_hat), none detached, with fa_idx = t % 3 as the codec cycles it.
+    rng: a torch.Generator, or a sequence of T - 1 per-frame pairs of the
+    noise tensors `dmc_fm_forward_one_frame` takes."""
+    def loss_fn(params, frames, qp, rng):
+        lmbda_q = lmbda_for_qp(63 - qp, lmbda_min, lmbda_max, qp_num=64)
+        ref = frames[:, 0]
+        feature = mv_feature = ref_y = ref_mv_y = None
+        n_frames = frames.shape[1] - 1
+        total = 0.0
+        metrics = {"mse": 0.0, "bpp": 0.0, "warp_mse": 0.0}
+        for t in range(n_frames):
+            r = rng[t] if isinstance(rng, (list, tuple)) else rng
+            out = dmc_fm_forward_one_frame(
+                params, frames[:, t + 1], ref, feature, mv_feature, ref_y,
+                ref_mv_y, qp, r, quant_mode, fa_idx=t % 3)
+            total = total + rd_loss(out, lmbda_q)
+            for k in metrics:
+                metrics[k] = metrics[k] + out[k] / n_frames
+            ref = out["x_hat"]
+            feature = out["feature"]
+            mv_feature = out["mv_feature"]
+            ref_y = out["y_hat"]
+            ref_mv_y = out["mv_y_hat"]
+        loss = total / n_frames
+        metrics["loss"] = loss
+        return loss, metrics
+    return loss_fn
+
+
 def make_dcvc_loss(lmbda, stage=4, quant_mode="noise"):
     """DCVC's staged loss over cascaded frames (B, T, H, W, 3): frame 0 is
     the pixel reference; in stages 1-3 each later frame is coded from the
@@ -299,26 +340,115 @@ def make_schedule(kind, base_lr, total_steps, warmup_steps=0, **kw):
 
 
 # ---------------------------------------------------------------------------
-# optimizer: clip_by_global_norm, then adam
+# optimizer: clip_by_global_norm, then adam, then reduce-on-plateau
 # ---------------------------------------------------------------------------
 
+_INT32_MAX = 2 ** 31 - 1
+
+
+class ReduceOnPlateau:
+    """optax.contrib.reduce_on_plateau (optax 0.2.6) on device tensors.
+    `init(device)` -> the state {"avg_value", "best_value",
+    "cooldown_count", "count", "plateau_count", "scale"} (float32 and
+    int32 0-dim tensors, as optax's); `update(state, value)` -> (the new
+    scale, the new state).  Every comparison is a torch.where, so the host
+    never reads the loss."""
+
+    def __init__(self, factor=0.1, patience=10, rtol=1e-4, atol=0.0,
+                 cooldown=0, accumulation_size=1, min_scale=0.0):
+        if not 0.0 < factor < 1.0:
+            raise ValueError(f"Factor must be in the range (0, 1), got "
+                             f"factor = {factor}.")
+        if rtol < 0.0 or atol < 0.0:
+            raise ValueError(f"Both rtol and atol must be non-negative, got "
+                             f"rtol = {rtol} and atol = {atol}.")
+        if rtol == 0.0 and atol == 0.0:
+            raise ValueError(f"At least one of rtol or atol must be "
+                             f"positive, got rtol = {rtol} and atol = "
+                             f"{atol}.")
+        if rtol > 1.0:
+            raise ValueError(f"rtol must be less than or equal to 1.0, got "
+                             f"rtol = {rtol}.")
+        # optax multiplies float32 arrays by these Python floats, which
+        # JAX rounds to float32 first
+        self.factor = float(np.float32(factor))
+        self.keep = float(np.float32(1 - rtol))
+        self.atol = float(np.float32(atol))
+        self.min_scale = float(np.float32(min_scale))
+        self.patience = patience
+        self.cooldown = cooldown
+        self.accumulation_size = accumulation_size
+
+    def init(self, device):
+        def f32(v):
+            return torch.tensor(v, dtype=torch.float32, device=device)
+
+        def i32(v):
+            return torch.tensor(v, dtype=torch.int32, device=device)
+
+        return {"avg_value": f32(0.0), "best_value": f32(float("inf")),
+                "cooldown_count": i32(0), "count": i32(0),
+                "plateau_count": i32(0), "scale": f32(1.0)}
+
+    def update(self, state, value):
+        f32 = torch.float32
+        count = state["count"]
+        new_count = torch.where(count < _INT32_MAX, count + 1, count)
+        avg = (count.to(f32) * state["avg_value"] + value.detach().to(f32)) \
+            / new_count.to(f32)
+        best = state["best_value"]
+        zero = torch.zeros_like(count)
+        # _update_scale, taken when new_count reaches accumulation_size
+        improved = avg < best * self.keep - self.atol
+        new_best = torch.where(improved, avg, best)
+        plateau = state["plateau_count"]
+        curr = torch.where(improved, zero, torch.where(
+            plateau < _INT32_MAX, plateau + 1, plateau))
+        hit = curr == self.patience
+        cooling = state["cooldown_count"] > 0
+        scale = state["scale"]
+        hot_scale = torch.clamp_min(
+            torch.where(hit, scale * self.factor, scale), self.min_scale)
+        new_plateau = torch.where(cooling, zero,
+                                  torch.where(hit, zero, curr))
+        new_scale = torch.where(cooling, scale, hot_scale)
+        new_cool = torch.where(
+            cooling, state["cooldown_count"] - 1,
+            torch.where(hit, torch.full_like(count, self.cooldown), zero))
+        fire = new_count == self.accumulation_size
+        out = {"avg_value": torch.where(fire, torch.zeros_like(avg), avg),
+               "best_value": torch.where(fire, new_best, best),
+               "cooldown_count": torch.where(fire, new_cool,
+                                             state["cooldown_count"]),
+               "count": torch.where(fire, zero, new_count),
+               "plateau_count": torch.where(fire, new_plateau, plateau),
+               "scale": torch.where(fire, new_scale, scale)}
+        return out["scale"], out
+
+
 class Optimizer:
-    """optax.chain(clip_by_global_norm(grad_clip), adam(schedule)) on
-    lists of leaves.  `init(leaves)` -> state {"count", "mu", "nu"};
-    `update(grads, state)` -> (updates, state); the caller adds the
-    updates to the parameters."""
+    """optax.chain(clip_by_global_norm(grad_clip), adam(schedule)[,
+    reduce_on_plateau(**plateau)]) on lists of leaves.  `init(leaves)` ->
+    state {"count", "mu", "nu"[, "plateau"]}; `update(grads, state,
+    value=None)` -> (updates, state), `value` the monitored loss (a
+    tensor), which the plateau needs; the caller adds the updates to the
+    parameters."""
 
     def __init__(self, schedule, grad_clip=1.0, b1=0.9, b2=0.999,
-                 eps=1e-8):
+                 eps=1e-8, plateau=None):
         self.schedule = schedule
         self.grad_clip = grad_clip
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.plateau = None if plateau is None else ReduceOnPlateau(**plateau)
 
     def init(self, leaves):
-        return {"count": 0, "mu": [torch.zeros_like(t) for t in leaves],
-                "nu": [torch.zeros_like(t) for t in leaves]}
+        state = {"count": 0, "mu": [torch.zeros_like(t) for t in leaves],
+                 "nu": [torch.zeros_like(t) for t in leaves]}
+        if self.plateau is not None:
+            state["plateau"] = self.plateau.init(leaves[0].device)
+        return state
 
-    def update(self, grads, state):
+    def update(self, grads, state, value=None):
         grads = list(grads)
         # optax's select(norm < clip, g, (g / norm) * clip), on the device
         # so the host never waits for the backward: below the clip the
@@ -344,16 +474,26 @@ class Optimizer:
         torch._foreach_add_(den, self.eps)
         updates = torch._foreach_div(torch._foreach_div(mu, c1), den)
         torch._foreach_mul_(updates, -float(np.float32(self.schedule(count))))
-        return updates, {"count": count + 1, "mu": mu, "nu": nu}
+        out = {"count": count + 1, "mu": mu, "nu": nu}
+        if self.plateau is not None:
+            if value is None:
+                raise ValueError("reduce-on-plateau needs the monitored "
+                                 "loss: update(grads, state, value=loss)")
+            scale, out["plateau"] = self.plateau.update(state["plateau"],
+                                                        value)
+            torch._foreach_mul_(updates, scale)
+        return updates, out
 
 
 def make_optimizer(base_lr=1e-4, schedule="constant", total_steps=1_000_000,
                    warmup_steps=0, grad_clip=1.0, plateau=None, **kw):
-    """Global-norm clipping, then Adam on make_schedule's learning rate."""
-    if plateau is not None:
-        raise NotImplementedError(PLATEAU_NOT_PORTED)
+    """Global-norm clipping, then Adam on make_schedule's learning rate,
+    then, with plateau=dict(factor=..., patience=..., ...), the
+    reduce-on-plateau scale (whose update needs the monitored loss: pass
+    plateau=True to make_train_step)."""
     return Optimizer(make_schedule(schedule, base_lr, total_steps,
-                                   warmup_steps, **kw), grad_clip)
+                                   warmup_steps, **kw), grad_clip,
+                     plateau=plateau)
 
 
 # ---------------------------------------------------------------------------
@@ -377,9 +517,9 @@ def make_train_step(loss_fn, tx, compute_dtype=None, grad_transform=None,
     grad_transform edits the gradient tree before the optimizer (the
     parameter-freeze hook, e.g. freeze_subtree); a fixed leaf's gradient
     in that tree is zero.  The optimizer state is over
-    trainable_leaves(params)."""
-    if plateau:
-        raise NotImplementedError(PLATEAU_NOT_PORTED)
+    trainable_leaves(params).  plateau=True passes the loss to the
+    optimizer as the monitored value (float32, as optax's astype makes
+    it), for make_optimizer(plateau=...)."""
 
     def step(params, opt_state, batch, qp, rng):
         all_leaves = tree_leaves(params)
@@ -405,7 +545,11 @@ def make_train_step(loss_fn, tx, compute_dtype=None, grad_transform=None,
                     for t, k in zip(all_leaves, keep)]
             full = tree_leaves(grad_transform(tree_unflatten(params, full)))
             grads = [g for g, k in zip(full, keep) if k]
-        updates, opt_state = tx.update(grads, opt_state)
+        if plateau:
+            updates, opt_state = tx.update(grads, opt_state,
+                                           value=loss.detach())
+        else:
+            updates, opt_state = tx.update(grads, opt_state)
         with torch.no_grad():
             torch._foreach_add_(leaves, updates)
         metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v

@@ -25,6 +25,18 @@ dict keys sorted as JAX's tree utilities sort them, every leaf an ndarray
 ext (code 1), msgpack's smallest encoding of each object, so the JAX
 package's `load_params` reads it and the bytes equal its `save_params`'s
 for the same tree.
+
+`save_train_state` / `load_train_state` write and read the JAX package's
+full training state: {"params", "opt_state", "step" (int64), "extra"},
+`opt_state` being flax's `to_state_dict` of the JAX optimizer's state
+(optax 0.2.6): {"0": {} (the clip), "1": {"0": {"count": int32, "mu",
+"nu"} (Adam), "1": {"count": int32} (the schedule)}[, "2": the
+reduce-on-plateau state]}, with mu and nu in the params' layout and their
+lists written as {"0": ..., "1": ...}.  The port's optimizer keeps its
+moments over the trainable leaves only (`training/train.py`): a fixed
+leaf's moments (a masked convolution's "mask") are written as zeros and
+dropped on load, since the JAX package trains that leaf and the port does
+not.  Each package resumes the other's state.
 """
 
 import os
@@ -33,7 +45,8 @@ import struct
 import numpy as np
 import torch
 
-from .params import jax_layout
+from ..training.train import _trainable, tree_leaves, tree_unflatten
+from .params import from_jax, jax_layout
 
 _CHUNKED = "__msgpack_chunked_array__"
 
@@ -257,53 +270,74 @@ def _pack_str(v):
                                       (0xDB, ">I", 0xFFFFFFFF))) + raw
 
 
-def _pack_bin(raw):
-    return _head(len(raw), None, 0, ((0xC4, ">B", 0xFF),
-                                     (0xC5, ">H", 0xFFFF),
-                                     (0xC6, ">I", 0xFFFFFFFF))) + raw
-
-
 _FIXEXT = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
 
 
-def _pack_ndarray(a):
-    """flax's ndarray ext: code 1 over msgpack (shape, dtype name, raw
-    C-order bytes)."""
+def _ndarray_parts(a):
+    """flax's ndarray ext, code 1 over msgpack (shape, dtype name, raw
+    C-order bytes), as [its header, the raw bytes (a view)]."""
     if isinstance(a, torch.Tensor):        # a bfloat16 leaf
         shape, name = tuple(a.shape), "bfloat16"
-        raw = a.detach().cpu().contiguous().view(torch.int16).numpy() \
-            .tobytes()
+        a = a.detach().cpu().contiguous().view(torch.int16).numpy()
     else:
         a = np.asarray(a)
         if a.dtype.hasobject:
             raise ValueError("object arrays have no checkpoint encoding")
-        shape, name, raw = a.shape, a.dtype.name, a.tobytes("C")
-    if len(raw) > _MAX_LEAF_BYTES:
-        raise ValueError(f"a leaf of {len(raw)} bytes needs flax's chunked "
-                         f"layout, which this writer does not write")
+        shape, name = a.shape, a.dtype.name
+    raw = memoryview(np.ascontiguousarray(a)).cast("B")
+    if raw.nbytes > _MAX_LEAF_BYTES:
+        raise ValueError(f"a leaf of {raw.nbytes} bytes needs flax's "
+                         f"chunked layout, which this writer does not "
+                         f"write")
     inner = _head(3, 0x90, 15, ()) + _head(len(shape), 0x90, 15, (
         (0xDC, ">H", 0xFFFF), (0xDD, ">I", 0xFFFFFFFF))) \
         + b"".join(_pack_int(int(d)) for d in shape) + _pack_str(name) \
-        + _pack_bin(raw)
-    n = len(inner)
+        + _head(raw.nbytes, None, 0, ((0xC4, ">B", 0xFF),
+                                      (0xC5, ">H", 0xFFFF),
+                                      (0xC6, ">I", 0xFFFFFFFF)))
+    n = len(inner) + raw.nbytes
     head = bytes([_FIXEXT[n]]) if n in _FIXEXT else _head(
         n, None, 0, ((0xC7, ">B", 0xFF), (0xC8, ">H", 0xFFFF),
                      (0xC9, ">I", 0xFFFFFFFF)))
-    return head + struct.pack(">b", 1) + inner
+    return [head + struct.pack(">b", 1) + inner, raw]
+
+
+def _pack_into(node, out):
+    """Append the encoding of `node` to the list `out`, piece by piece (a
+    leaf's raw bytes as a view, so a large tree is never copied whole)."""
+    if isinstance(node, dict):
+        out.append(_head(len(node), 0x80, 15, ((0xDE, ">H", 0xFFFF),
+                                               (0xDF, ">I", 0xFFFFFFFF))))
+        for k in sorted(node):
+            out.append(_pack_str(k))
+            _pack_into(node[k], out)
+    elif isinstance(node, (list, tuple)):
+        out.append(_head(len(node), 0x90, 15, ((0xDC, ">H", 0xFFFF),
+                                               (0xDD, ">I", 0xFFFFFFFF))))
+        for v in node:
+            _pack_into(v, out)
+    else:
+        out.extend(_ndarray_parts(node))
 
 
 def packb(node):
     """Encode a tree of dicts (str keys, sorted), lists and array leaves
     as flax's msgpack_serialize does."""
-    if isinstance(node, dict):
-        return _head(len(node), 0x80, 15, ((0xDE, ">H", 0xFFFF),
-                                           (0xDF, ">I", 0xFFFFFFFF))) \
-            + b"".join(_pack_str(k) + packb(node[k]) for k in sorted(node))
-    if isinstance(node, (list, tuple)):
-        return _head(len(node), 0x90, 15, ((0xDC, ">H", 0xFFFF),
-                                           (0xDD, ">I", 0xFFFFFFFF))) \
-            + b"".join(packb(v) for v in node)
-    return _pack_ndarray(node)
+    out = []
+    _pack_into(node, out)
+    return b"".join(out)
+
+
+def _write(path, payload):
+    """Encode `payload` into a temporary file beside `path`, then rename
+    it into place."""
+    out = []
+    _pack_into(payload, out)
+    tmp = path + ".tmp"
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(tmp, "wb") as f:
+        f.writelines(out)
+    os.replace(tmp, path)
 
 
 def _leaves_as_arrays(tree):
@@ -328,9 +362,128 @@ def save_params(path, params, extra=None):
     payload = {"params": _leaves_as_arrays(jax_layout(params))}
     if extra is not None:
         payload["extra"] = _leaves_as_arrays(extra)
-    data = packb(payload)
-    tmp = path + ".tmp"
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(tmp, "wb") as f:
-        f.write(data)
-    os.replace(tmp, path)
+    _write(path, payload)
+
+
+# ---------------------------------------------------------------------------
+# full training state
+# ---------------------------------------------------------------------------
+
+def _state_dict(tree):
+    """flax's to_state_dict of a params-shaped tree: each list becomes a
+    dict keyed "0", "1", ..."""
+    if isinstance(tree, dict):
+        return {k: _state_dict(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return {str(i): _state_dict(v) for i, v in enumerate(tree)}
+    return tree
+
+
+def _from_state_dict(like, node, path="opt_state"):
+    """The inverse of _state_dict on the structure of `like`, its dict keys
+    in like's order; a node that does not fit raises ValueError."""
+    if isinstance(like, (dict, list, tuple)):
+        keys = list(like) if isinstance(like, dict) else \
+            [str(i) for i in range(len(like))]
+        if not isinstance(node, dict) or set(node) != set(keys):
+            raise ValueError(f"{path} does not have the parameters' layout")
+        out = [_from_state_dict(v, node[k], f"{path}/{k}")
+               for k, v in zip(keys, like.values() if isinstance(like, dict)
+                               else like)]
+        return dict(zip(keys, out)) if isinstance(like, dict) else out
+    return node
+
+
+def _moments_tree(params, moments):
+    """The trainable leaves' moments as a tree shaped as `params`, a fixed
+    leaf's zeros."""
+    it = iter(moments)
+    return tree_unflatten(params, [
+        next(it) if keep else torch.zeros_like(t)
+        for t, keep in zip(tree_leaves(params), _trainable(params))])
+
+
+def save_train_state(path, params, opt_state, step, extra=None):
+    """Write params, the optimizer state (`Optimizer.init`'s dict, over
+    trainable_leaves(params)) and the step as the JAX package's
+    `save_train_state` writes them: equal arrays give equal bytes."""
+    count = np.asarray(opt_state["count"], np.int32)
+    adam = {"count": count}
+    for k in ("mu", "nu"):
+        adam[k] = _state_dict(jax_layout(_moments_tree(params,
+                                                       opt_state[k])))
+    state = {"0": {}, "1": {"0": adam, "1": {"count": count}}}
+    if "plateau" in opt_state:
+        state["2"] = dict(opt_state["plateau"])
+    payload = {"params": _leaves_as_arrays(jax_layout(params)),
+               "opt_state": _leaves_as_arrays(state),
+               "step": np.asarray(step, np.int64)}
+    if extra is not None:
+        payload["extra"] = _leaves_as_arrays(extra)
+    _write(path, payload)
+
+
+def load_train_state(path, params_like, opt_state_template):
+    """(params, opt_state, step, extra) of a file save_train_state wrote
+    (by either package).  params_like: the run's parameter tree, whose
+    structure, key order and device the loaded params take (so the leaves
+    come back in the order the run's optimizer state has them);
+    opt_state_template: `tx.init(trainable_leaves(params_like))` of the
+    same optimizer, which says whether a plateau state is expected.  A
+    params-only checkpoint, or a state of another layout, raises
+    ValueError."""
+    payload = load_checkpoint(path)
+    if "opt_state" not in payload:
+        raise ValueError(f"{path} is a params-only checkpoint; use "
+                         f"load_checkpoint/load_params")
+    device = tree_leaves(params_like)[0].device
+    params = from_jax(_from_state_dict(params_like, _state_dict(
+        payload["params"]), "params"), device)
+    st = payload["opt_state"]
+    want = {"0", "1", "2"} if "plateau" in opt_state_template else {"0", "1"}
+    if not isinstance(st, dict) or set(st) != want:
+        raise ValueError(f"{path}: the optimizer state's parts "
+                         f"{sorted(st) if isinstance(st, dict) else st} are "
+                         f"not this optimizer's {sorted(want)}")
+    adam = st["1"]["0"]
+    keep = _trainable(params)
+    opt_state = {"count": int(adam["count"])}
+    for k in ("mu", "nu"):
+        full = tree_leaves(from_jax(_from_state_dict(params_like, adam[k],
+                                                     f"opt_state/{k}"),
+                                    device))
+        opt_state[k] = [t for t, kept in zip(full, keep) if kept]
+    if "2" in st:
+        tmpl = opt_state_template["plateau"]
+        if set(st["2"]) != set(tmpl):
+            raise ValueError(f"{path}: the plateau state has keys "
+                             f"{sorted(st['2'])}")
+        opt_state["plateau"] = {
+            k: torch.tensor(np.array(st["2"][k]), dtype=tmpl[k].dtype,
+                               device=device) for k in tmpl}
+    return params, opt_state, int(payload["step"]), payload.get("extra")
+
+
+def _same(saved, want):
+    if isinstance(want, dict):
+        return isinstance(saved, dict) and set(saved) == set(want) and \
+            all(_same(saved[k], v) for k, v in want.items())
+    if isinstance(want, (list, tuple)):
+        return isinstance(saved, (list, tuple)) and \
+            len(saved) == len(want) and \
+            all(_same(a, b) for a, b in zip(saved, want))
+    a, b = np.asarray(saved), np.asarray(want)
+    return a.shape == b.shape and bool(np.all(a == b))
+
+
+def check_train_extra(path, saved, want):
+    """Raise ValueError unless the `extra` saved with a train state holds
+    every entry of `want` (the resuming run's settings) with equal
+    values."""
+    if not isinstance(saved, dict):
+        raise ValueError(f"{path} carries no run settings to resume "
+                         f"against")
+    for k, v in want.items():
+        if k not in saved or not _same(saved[k], v):
+            raise ValueError(f"{path} was saved by another run: its {k} "
+                             f"is {saved.get(k)!r}, this run's {v!r}")
