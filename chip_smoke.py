@@ -262,6 +262,25 @@ Phases (any failure exits nonzero and prints no result):
      random full-width DMC at 128 px on device EC (K1 + K2), decoder
      exact; train_tiny for 20 steps; (g) profile_dmc's stage table at
      1080p and report_dmci at 768x512.
+ 22. Multi-GPU training (`opendcvc_tpu_torch/parallel/`), by the cards
+     visible (the branches run are printed): (a) always: `train_video
+     --data_axis -1` (DMC at its defaults, 3 steps) under
+     OPENDCVC_TPU_DIST on one NCCL rank against the same run without a
+     process group, under deterministic algorithms: parameters, Adam's
+     state, metrics and the checkpoint's bytes equal bit for bit; (b)
+     with 2 cards: one step of DMC on clips (8, 2, 256, 256, 3) at data 2
+     against one process on the whole batch within the JAX dryrun's
+     bounds (|dloss| < 5e-4 max(1, |loss|), max|dparam| < 5e-5), the
+     parameters bit-identical on both ranks; then train_video on one card
+     at batch 8 and 2 and with --data_axis 2 at batch 8 and 16 (7
+     steps, spawned NCCL ranks): ms a step, samples/s against one card,
+     one all-reduce of the step's buffer (ms, bytes), peak memory; (c)
+     with 4 cards: dryrun_multichip(4) over NCCL under the same bounds,
+     --data_axis 4 at batch 8 and 32, and the full-width {data 2,
+     spatial 2} DMC step at 1152x1920 (1080p padded so each shard is a
+     multiple of 64 rows): step ms, the halo exchanges' calls, bytes and
+     ms in one counted step, parameters bit-identical on every rank.  A
+     branch that runs and fails fails the script.
 The kernel launch counters are zeroed before phase 3 and read after
 phase 4, so the counts are the main path's (the device-EC path); they are
 zeroed again before phase 6 and must read 0 after it, again before each
@@ -270,7 +289,8 @@ zeroed before phase 11 and must read 0 after it, zeroed before phase
 12, whose runs hold them exact, before phase 14, whose device-EC run
 holds them exact and whose host-EC runs launch none, and before each of
 phases 15-20, after which they must read 0, and before each device-EC
-run of phase 21; `launches` adds the device-EC runs of phases 7 (b), 8,
+run of phase 21, and before phase 22, after which they must read 0;
+`launches` adds the device-EC runs of phases 7 (b), 8,
 9, 10 (a, and the checkpoints' coding in b), 12, 14 and 21 (e, f) to
 phases 3-4's, and `launches_by_run` splits it.
 Then it
@@ -4122,6 +4142,304 @@ def phase_training_extras(dev, LR, root):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 22: multi-GPU training
+# ---------------------------------------------------------------------------
+
+DIST_ENV = ("OPENDCVC_TPU_DIST", "OPENDCVC_TPU_COORDINATOR",
+            "OPENDCVC_TPU_NUM_PROCS", "OPENDCVC_TPU_PROC_ID", "MASTER_ADDR",
+            "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
+            "SLURM_NTASKS", "SLURM_PROCID", "SLURM_LOCALID")
+N_DIST_STEPS = 3     # (a): train_video on one NCCL rank against one device
+N_SCALE_STEPS = 7    # a timing run: median of steps 3-7
+PARITY_SHAPE = (8, 2, 256, 256, 3)   # train_video's defaults, --frames 2
+# 1080p padded so each of two shards is a multiple of 64 rows (9 x 64);
+# 1088 rows would leave two shards of 8.5 x 64
+HALO_H, HALO_W = 1152, 1920
+N_HALO_STEPS = 3
+
+
+def _dist_argv(save_dir, batch=8, steps=N_SCALE_STEPS):
+    """train_video at its defaults (DMC, crop 256, --frames 2, float32)
+    but the batch, the steps and the save directory."""
+    return ["--model", "dmc", "--batch_size", str(batch), "--steps",
+            str(steps), "--log_every", str(steps), "--save_dir", save_dir]
+
+
+def _ms_line(ms):
+    return (f"{float(np.median(ms[2:])):.1f} ms a step (median of steps "
+            f"3-{len(ms)}; all " + " ".join(f"{t:.1f}" for t in ms) + ")")
+
+
+def _allreduce_ms(dev, n):
+    """Median of 20 all-reduces (sum, NCCL) of n float32, CUDA events,
+    after 3 warm-up calls; every rank calls it."""
+    import torch.distributed as dist
+    buf = torch.zeros(n, device=dev)
+    times = []
+    for i in range(23):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        dist.all_reduce(buf)
+        b.record()
+        b.synchronize()
+        if i >= 3:
+            times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def _scale_rank(dev, argvs, halo_steps=0):
+    """A rank of multi-card train_video runs (OPENDCVC_TPU_DIST; the
+    group is joined), one for each of `argvs`: each run's step times,
+    losses and peak memory, then the time of one all-reduce of the
+    step's buffer (the trainable leaves, the loss and the metrics); with
+    halo_steps, then _halo_rank's run (4 ranks)."""
+    from opendcvc_tpu_torch import train_video
+    from opendcvc_tpu_torch.training.train import trainable_leaves
+    os.environ["OPENDCVC_TPU_DIST"] = "1"
+    runs = []
+    for argv in argvs:
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = train_video.main(argv)
+        n = sum(t.numel() for t in trainable_leaves(out["params"])) \
+            + 1 + len(out["metrics"][0])
+        runs.append({"step_ms": out["step_ms"],
+                     "loss": [m["loss"] for m in out["metrics"]],
+                     "peak": torch.cuda.max_memory_allocated(dev)})
+        del out
+    ms = _allreduce_ms(dev, n)
+    for r in runs:
+        r.update(allreduce_ms=ms, allreduce_bytes=4 * n)
+    return {"runs": runs,
+            "halo": _halo_rank(dev, halo_steps) if halo_steps else None}
+
+
+def _halo_rank(dev, steps):
+    """A rank of the full-width {data 2, spatial 2} DMC step at HALO_H x
+    HALO_W (port init seed 0, Adam at 1e-4, lambda 256, qp 21, one
+    P-frame a clip, a clip a data rank): `steps` timed steps (CUDA
+    events), then one step whose exchanges are counted and timed on the
+    host around a synchronize each; whether the parameters stay
+    bit-identical on every rank."""
+    from opendcvc_tpu_torch.models import common as C
+    from opendcvc_tpu_torch.models.dmc import dmc_init
+    from opendcvc_tpu_torch.parallel import spatial as S
+    from opendcvc_tpu_torch.parallel.mesh import (batch_sharding, make_mesh,
+                                                  replicate_sharding)
+    from opendcvc_tpu_torch.training import train as T
+    from opendcvc_tpu_torch.utils.params import to_device
+    mesh = make_mesh((2, 2))
+    params = to_device(dmc_init(torch.Generator().manual_seed(0)), dev)
+    tx = T.make_optimizer(1e-4)
+    state = tx.init(T.trainable_leaves(params))
+    step = T.make_train_step(T.make_dmc_loss(256.0), tx, mesh=mesh,
+                             spatial=True)
+    frames = np.random.default_rng(0).random(
+        (2, 2, HALO_H, HALO_W, 3)).astype(np.float32)
+    batch = C.upload(np.ascontiguousarray(
+        batch_sharding(mesh, frames, spatial_dim=2)), dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms, losses = [], []
+    for _ in range(steps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        params, state, m = step(params, state, batch, QP, None)
+        b.record()
+        losses.append(m["loss"])
+        ms.append((a, b))
+    torch.cuda.synchronize(dev)
+    ms = [a.elapsed_time(b) for a, b in ms]
+    swap, seen = S._swap, {"bytes": 0, "calls": 0, "s": 0.0}
+
+    def counted(sends, recvs, group):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        swap(sends, recvs, group)
+        torch.cuda.synchronize(dev)
+        seen["s"] += time.perf_counter() - t0
+        seen["calls"] += 1
+        seen["bytes"] += sum(t.numel() * t.element_size()
+                             for _, t in sends)
+    S._swap = counted
+    try:
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch, QP, None)
+        torch.cuda.synchronize(dev)
+        counted_s = time.perf_counter() - t0
+    finally:
+        S._swap = swap
+    return {"step_ms": ms, "loss": [float(v) for v in losses],
+            "peak": torch.cuda.max_memory_allocated(dev),
+            "halo_bytes": seen["bytes"], "halo_calls": seen["calls"],
+            "halo_ms": seen["s"] * 1e3, "counted_step_ms": counted_s * 1e3,
+            "same": replicate_sharding(mesh, params)}
+
+
+def _one_card(root, batch):
+    """train_video on card 0 alone (no process group) at `batch`."""
+    from opendcvc_tpu_torch import train_video
+    out = train_video.main(_dist_argv(os.path.join(root, f"one_{batch}"),
+                                      batch))
+    return out["step_ms"]
+
+
+def _log_ranks(label, ranks, batch, ref_ms):
+    """A multi-card run's line: rank 0's step times, samples/s against
+    one card's at batch 8 (`ref_ms` a step), every rank's median, the
+    all-reduce, peak memory and the losses."""
+    r0 = ranks[0]
+    ms = float(np.median(r0["step_ms"][2:]))
+    rate, ref = batch * 1e3 / ms, 8e3 / ref_ms
+    _log(f"{label}: rank 0 {_ms_line(r0['step_ms'])}, {rate:.1f} "
+         f"samples/s ({ref:.1f} on one card at batch 8: "
+         f"{rate / ref:.2f}x); ranks' medians "
+         + " ".join(f"{float(np.median(r['step_ms'][2:])):.1f}"
+                    for r in ranks)
+         + f"; one all-reduce of {r0['allreduce_bytes']} B (the gradients, "
+         f"loss and metrics) {r0['allreduce_ms']:.3f} ms (median of 20, "
+         f"CUDA events); peak {max(r['peak'] for r in ranks) / 2 ** 30:.2f}"
+         f" GiB a rank; losses " + " ".join(f"{v:.3f}" for v in r0["loss"]))
+    if not all(np.isfinite(r["loss"]).all() for r in ranks):
+        _fail(f"{label}: a loss is not finite")
+
+
+def _log_scaling(label, dp, batches, ref_ms, ranks):
+    for i, batch in enumerate(batches):
+        _log_ranks(f"phase 22 {label} train_video --data_axis {dp}, batch "
+                   f"{batch}", [r["runs"][i] for r in ranks], batch, ref_ms)
+
+
+def phase_dist_one_rank(root):
+    """Phase 22 (a): train_video --data_axis -1 under OPENDCVC_TPU_DIST on
+    one NCCL rank against the same run without a process group, 3 steps
+    under deterministic algorithms: parameters, Adam's state, metrics and
+    the checkpoint's bytes equal."""
+    import torch.distributed as dist
+    from opendcvc_tpu_torch import train_video
+    from opendcvc_tpu_torch.parallel.dryrun import free_port
+    from opendcvc_tpu_torch.training.train import tree_leaves
+    runs = {}
+    for name in ("one rank", "one device"):
+        saved = {k: os.environ.pop(k, None) for k in DIST_ENV}
+        if name == "one rank":
+            os.environ.update(
+                OPENDCVC_TPU_DIST="1", OPENDCVC_TPU_NUM_PROCS="1",
+                OPENDCVC_TPU_PROC_ID="0",
+                OPENDCVC_TPU_COORDINATOR=f"localhost:{free_port()}")
+        try:
+            with _Deterministic():
+                out = train_video.main(
+                    _dist_argv(os.path.join(root, name), steps=N_DIST_STEPS)
+                    + ["--data_axis", "-1"])
+            if name == "one rank" and (
+                    not dist.is_initialized()
+                    or dist.get_backend() != "nccl"):
+                _fail("phase 22 (a): train_video joined no NCCL group")
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            for k, v in saved.items():
+                os.environ.pop(k, None)
+                if v is not None:
+                    os.environ[k] = v
+        with open(os.path.join(root, name, "dmc_latest.msgpack"),
+                  "rb") as f:
+            runs[name] = (out, f.read())
+    (a, fa), (b, fb) = runs["one rank"], runs["one device"]
+    same = all(torch.equal(x, y) for x, y in zip(
+        tree_leaves(a["params"]) + a["opt_state"]["mu"]
+        + a["opt_state"]["nu"],
+        tree_leaves(b["params"]) + b["opt_state"]["mu"]
+        + b["opt_state"]["nu"]))
+    _log(f"phase 22 (a): train_video under OPENDCVC_TPU_DIST on one NCCL "
+         f"rank, {N_DIST_STEPS} steps: losses "
+         + " ".join(f"{m['loss']:.6f}" for m in a["metrics"])
+         + "; without a process group " + " ".join(
+             f"{m['loss']:.6f}" for m in b["metrics"])
+         + f"; ms a step " + " ".join(f"{t:.1f}" for t in a["step_ms"])
+         + " / " + " ".join(f"{t:.1f}" for t in b["step_ms"]))
+    if not (same and a["metrics"] == b["metrics"] and fa == fb):
+        _fail("phase 22 (a): one NCCL rank does not equal one device bit "
+              "for bit")
+    _log("phase 22 (a): parameters, Adam's state, metrics and the "
+         "checkpoint's bytes equal bit for bit")
+
+
+def _parity(label, res):
+    from opendcvc_tpu_torch.parallel.dryrun import check_parity
+    _log(f"{label}: mesh {res['mesh']}, loss {res['loss']:.6f} against one "
+         f"process {res['ref_loss']:.6f} (|dloss| {res['dloss']:.3e}), "
+         f"max|dparam| {res['max_dparam']:.3e}, parameters bit-identical "
+         f"on every rank: {res['same']}; first step {res['ms']:.1f} ms "
+         f"sharded, {res['ref_ms']:.1f} in one process")
+    try:
+        check_parity(res)
+    except AssertionError as e:
+        _fail(f"{label}: {e}")
+
+
+def phase_multi_gpu(root):
+    """Phase 22: multi-GPU training.  (a) always; (b) with 2 cards: a
+    2-rank data-axis step against one process at train_video's defaults
+    (the JAX dryrun's bounds), then train_video --data_axis 2 at batch 8
+    and 16 timed against one card at batch 8 and 2; (c) with 4 cards:
+    dryrun_multichip(4) over NCCL, train_video --data_axis 4 at batch 8
+    and 32 timed, and the {data 2, spatial 2} DMC step at 1152x1920 with
+    its halo bytes and ms."""
+    from opendcvc_tpu_torch.parallel.dryrun import (dryrun_multichip,
+                                                    run_ranks, step_parity)
+    t0 = time.perf_counter()
+    n = torch.cuda.device_count()
+    ran = {"a": True, "b": n >= 2, "c": n >= 4}
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    _log(f"phase 22: {n} card(s) visible ({'; '.join(cards)}); branches: "
+         f"(a) runs, (b) "
+         f"{'runs' if ran['b'] else 'skipped (needs 2 cards)'}, (c) "
+         f"{'runs' if ran['c'] else 'skipped (needs 4 cards)'}")
+    phase_dist_one_rank(root)
+    if ran["b"]:
+        _parity("phase 22 (b) data 2, DMC, clips (8, 2, 256, 256, 3)",
+                step_parity(2, "cuda", "dmc", (2, 1), shape=PARITY_SHAPE))
+        ref = {}
+        for batch in (8, 2):
+            ms = _one_card(root, batch)
+            ref[batch] = float(np.median(ms[2:]))
+            _log(f"phase 22 (b) one card, batch {batch}: {_ms_line(ms)}, "
+                 f"{batch * 1e3 / ref[batch]:.1f} samples/s")
+        _log_scaling("(b)", 2, (8, 16), ref[8], run_ranks(
+            2, _scale_rank, ([_dist_argv(os.path.join(root, f"d2_{b}"), b)
+                              for b in (8, 16)],), device="cuda"))
+    if ran["c"]:
+        res = dryrun_multichip(4, "cuda")
+        _parity("phase 22 (c) dryrun_multichip(4)", res)
+        ranks = run_ranks(4, _scale_rank, (
+            [_dist_argv(os.path.join(root, f"d4_{b}"), b) for b in (8, 32)],
+            N_HALO_STEPS), device="cuda")
+        _log_scaling("(c)", 4, (8, 32), ref[8], ranks)
+        ranks = [r["halo"] for r in ranks]
+        r0 = ranks[0]
+        _log(f"phase 22 (c) DMC {{data 2, spatial 2}} at {HALO_W}x{HALO_H}"
+             f", a clip of 2 frames a data rank: rank 0 step ms "
+             + " ".join(f"{t:.1f}" for t in r0["step_ms"])
+             + f"; the halo exchanges of a step: {r0['halo_calls']} calls, "
+             f"{r0['halo_bytes']} B sent a rank, {r0['halo_ms']:.1f} ms of "
+             f"a {r0['counted_step_ms']:.1f} ms step (host clock, a "
+             f"synchronize around each); peak "
+             f"{max(r['peak'] for r in ranks) / 2 ** 30:.2f} GiB a rank; "
+             f"losses " + " ".join(f"{v:.3f}" for v in r0["loss"]))
+        if not (all(r["same"] for r in ranks)
+                and all(np.isfinite(r["loss"]).all() for r in ranks)):
+            _fail("phase 22 (c): the 1152x1920 sharded step's parameters "
+                  "differ between ranks or a loss is not finite")
+    _log(f"phase 22 done in {time.perf_counter() - t0:.1f} s")
+    return ran
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chip_smoke_out",
@@ -4201,6 +4519,12 @@ def main():
         phase_dcvc(dev, LR, root)
         phase_zoo(dev, LR)
         runs["phase 21"] = phase_training_extras(dev, LR, root)
+        torch.cuda.empty_cache()
+        LR.encode_scan.launches = 0
+        LR.decode_scan.launches = 0
+        phase_multi_gpu(root)
+        if LR.encode_scan.launches or LR.decode_scan.launches:
+            _fail("phase 22 (training) launched a lane rANS kernel")
     for i, k in enumerate(kernels):
         k["launches_by_run"] = {"phases 3-4": k["launches"]}
         for name, n in runs.items():

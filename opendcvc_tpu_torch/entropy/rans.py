@@ -20,7 +20,13 @@ from ..ops._build import load_host_rans
 
 
 def _threaded_default():
-    """A worker thread per coder only helps when there is a spare core."""
+    """OPENDCVC_TPU_RANS_THREADS forces the worker thread off ("0",
+    "false", "False") or on (any other value), as in the JAX package;
+    unset, a worker thread per coder is used only when there is a spare
+    core."""
+    v = os.environ.get("OPENDCVC_TPU_RANS_THREADS")
+    if v is not None:
+        return v not in ("0", "false", "False")
     return (os.cpu_count() or 1) > 1
 
 

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.fused import depth_to_space
+from ..parallel.spatial import halo_exchange, split_rows
 
 
 def _uniform(gen, shape, bound):
@@ -33,7 +34,14 @@ def conv_apply(p, x, stride=1, padding=0, groups=1):
     """The JAX package's `conv_apply`: the weights cast to x's dtype, the
     convolution rounded to that dtype, then the bias added and rounded
     again.  A bias fused into the convolution (oneDNN, ATen's depthwise
-    CUDA kernel) rounds once and differs in bfloat16."""
+    CUDA kernel) rounds once and differs in bfloat16.  With the frame
+    split in height (`parallel/spatial.py`), the `padding` rows above and
+    below come from the neighbouring shards, and only the width is
+    zero-padded here."""
+    sh = split_rows() if padding else None
+    if sh is not None:
+        x = halo_exchange(x, padding, sh)
+        padding = (0, padding)
     out = F.conv2d(x, p["w"].to(x.dtype), None, stride=stride,
                    padding=padding, groups=groups)
     return out.add_(p["b"].to(x.dtype)[:, None, None])

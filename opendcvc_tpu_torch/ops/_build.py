@@ -2,7 +2,9 @@
 
 Each `csrc/*.cu` is compiled at first use by its own `nvcc` (all started
 together) into a shared library with a plain C interface, under
-`opendcvc_tpu_torch/_build/`, and loaded with ctypes.  A library is named
+OPENDCVC_TPU_BUILD_DIR when it is set (read at each build, as the JAX
+package's `native/build.py` reads it), else `opendcvc_tpu_torch/_build/`,
+and loaded with ctypes.  A library is named
 by a hash of the sources, so an edited source builds anew.  A build or load
 failure raises: there is no fallback.
 
@@ -22,6 +24,7 @@ import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
+#: the build directory when OPENDCVC_TPU_BUILD_DIR is unset
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -64,18 +67,25 @@ def _nvcc():
     return path
 
 
+def _build_dir():
+    """OPENDCVC_TPU_BUILD_DIR, else BUILD_DIR; created if missing."""
+    d = os.environ.get("OPENDCVC_TPU_BUILD_DIR") or BUILD_DIR
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
 def _headers():
     return glob.glob(os.path.join(CSRC, "*.cuh"))
 
 
 def build_kernels():
     """Compile every csrc/*.cu not yet built; returns {name: .so path}."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    build_dir = _build_dir()
     headers = _headers()
     outs, procs = {}, {}
     for src in sorted(glob.glob(os.path.join(CSRC, "*.cu"))):
         name = os.path.splitext(os.path.basename(src))[0]
-        out = os.path.join(BUILD_DIR,
+        out = os.path.join(build_dir,
                            f"lib{name}_{_tag([src] + headers)}.so")
         outs[name] = out
         if not os.path.exists(out):
@@ -113,11 +123,10 @@ def load_kernels():
 
 
 def _gxx_build(name, srcs, flags):
-    """Compile `srcs` with CXX into BUILD_DIR/lib<name>_<hash>.so unless it
-    is there; each process writes its own temporary name and renames it,
-    so concurrent builds never share a file.  Returns the path."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    out = os.path.join(BUILD_DIR, f"lib{name}_{_tag(srcs)}.so")
+    """Compile `srcs` with CXX into <build dir>/lib<name>_<hash>.so unless
+    it is there; each process writes its own temporary name and renames
+    it, so concurrent builds never share a file.  Returns the path."""
+    out = os.path.join(_build_dir(), f"lib{name}_{_tag(srcs)}.so")
     if not os.path.exists(out):
         tmp = f"{out[:-3]}.{os.getpid()}.tmp.so"
         cmd = [CXX] + flags + [srcs[0], "-o", tmp]

@@ -1,7 +1,9 @@
 """RD training CLI of the port: DCVC-RT's DMCI or DMC, DCVC-TCM or DCVC,
-on one device.
+on one device or on every rank of a process group.
 
     python -m opendcvc_tpu_torch.train_video --model dmci|dmc|tcm|dcvc [...]
+    OPENDCVC_TPU_DIST=1 torchrun --nproc_per_node 4 \
+        -m opendcvc_tpu_torch.train_video [...]
 
 Counterpart of the JAX package's root `train_video.py`: the same options,
 defaults, log line and checkpoint (`{save_dir}/{model}_latest.msgpack` in
@@ -14,10 +16,19 @@ the JAX package).  The qp of each step is drawn from
 np.random.default_rng(seed + 1), as the JAX package draws it.
 
 It runs on --device (default cuda; without CUDA that raises, and the CPU
-runs only with --device cpu) and on one card: --data_axis other than -1 or
-1 raises.  --model tcm trains on the cascaded TCM loss (the propagated
-feature carries the context from frame to frame; --frames 3 gives two
-P-frames).  --model dcvc trains on DCVC's staged loss, --stage 1-4: 1 the
+runs only with --device cpu).  With OPENDCVC_TPU_DIST set it first joins
+the process group (`parallel/mesh.py::maybe_init_distributed`: torchrun's
+or SLURM's env, or OPENDCVC_TPU_COORDINATOR / _NUM_PROCS / _PROC_ID; NCCL
+on the cards, gloo with --device cpu) and trains on a (d, world // d)
+grid of ranks, d = --data_axis (-1: every rank): every rank draws the same
+global batch and keeps its rows on "data" (the second axis holds
+replicas, as in the JAX package), the gradients are summed over the ranks
+once a step, and rank 0 alone logs and saves while the others wait.
+Without OPENDCVC_TPU_DIST it trains on one device, and --data_axis must
+be -1 or 1.  A --data_axis that does not split the ranks, or a
+--batch_size it does not divide, raises ValueError.  --model tcm trains
+on the cascaded TCM loss (the propagated feature carries the context
+from frame to frame; --frames 3 gives two P-frames).  --model dcvc trains on DCVC's staged loss, --stage 1-4: 1 the
 motion warm-up, 2 reconstruction and 3 reconstruction + y's rate with the
 motion branch frozen, 4 end to end; the masked convolutions' causal masks
 are never trained.
@@ -29,12 +40,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .models import common as C
 from .models.dcvc import dcvc_init
 from .models.dmc import dmc_init
 from .models.dmc_tcm import dmc_tcm_init
 from .models.dmci import dmci_init
+from .parallel.mesh import batch_sharding, make_mesh, maybe_init_distributed
 from .training.data import SyntheticVideoDataset, Vimeo90kSeptupletDataset
 from .training.train import (dcvc_stage_grad_transform, make_dcvc_loss,
                              make_dmc_loss, make_dmci_loss, make_optimizer,
@@ -84,7 +97,8 @@ def parse_args(argv=None):
     p.add_argument("--log_every", type=int, default=50)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--data_axis", type=int, default=-1,
-                   help="devices on the data axis: one card (-1 or 1)")
+                   help="ranks on the data axis (-1 = all; without "
+                        "OPENDCVC_TPU_DIST one)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda; cpu runs the CPU "
                         "path)")
@@ -113,49 +127,78 @@ def _host_metrics(ms):
     return [dict(zip(keys, v)) for v in vals]
 
 
-def main(argv=None):
-    """Train; returns {"params", "opt_state", "step_ms", "metrics"} (the
-    final params and Adam state, each step's ms from its start to its end
-    in the device's queue, each step's metrics as floats).  The host waits
-    for the device only to log, to save and at the end, so it queues the
-    next step while the device runs this one."""
-    args = parse_args(argv)
-    if args.data_axis not in (-1, 1):
-        raise ValueError(f"--data_axis {args.data_axis}: the port trains on "
-                         f"one card (multi-GPU is ROADMAP Queue 1 item 9)")
-    device = C.resolve_device(args.device)
-    print(f"devices: 1, device: {device}")
-
-    gen = torch.Generator().manual_seed(args.seed)
+def build_model(model, seed=0, lmbda=256.0, quant_mode="ste",
+                lmbda_max=None, stage=4):
+    """(params, loss_fn, grad_transform) of `--model`: the port's init
+    drawn by torch.Generator(seed) on the CPU, the loss over clips (B, T,
+    H, W, 3) and DCVC's stage freeze (else None)."""
+    gen = torch.Generator().manual_seed(seed)
     grad_transform = None
-    if args.model == "dmci":
+    if model == "dmci":
         params = dmci_init(gen)
-        loss_img = make_dmci_loss(args.lmbda, quant_mode=args.quant_mode,
-                                  lmbda_max=args.lmbda_max)
+        loss_img = make_dmci_loss(lmbda, quant_mode=quant_mode,
+                                  lmbda_max=lmbda_max)
 
         def loss_fn(params, frames, qp, rng):
             # the first frame of each clip, as an image
             return loss_img(params, frames[:, 0], qp, rng)
-    elif args.model == "tcm":
+    elif model == "tcm":
         params = dmc_tcm_init(gen)
-        loss_fn = make_tcm_loss(args.lmbda, quant_mode=args.quant_mode)
-    elif args.model == "dcvc":
+        loss_fn = make_tcm_loss(lmbda, quant_mode=quant_mode)
+    elif model == "dcvc":
         params = dcvc_init(gen)
-        loss_fn = make_dcvc_loss(args.lmbda, stage=args.stage,
-                                 quant_mode=args.quant_mode)
-        grad_transform = dcvc_stage_grad_transform(args.stage)
+        loss_fn = make_dcvc_loss(lmbda, stage=stage, quant_mode=quant_mode)
+        grad_transform = dcvc_stage_grad_transform(stage)
     else:
         params = dmc_init(gen)
-        loss_fn = make_dmc_loss(args.lmbda, quant_mode=args.quant_mode,
-                                lmbda_max=args.lmbda_max)
+        loss_fn = make_dmc_loss(lmbda, quant_mode=quant_mode,
+                                lmbda_max=lmbda_max)
+    return params, loss_fn, grad_transform
 
+
+def _barrier(device):
+    if device.type == "cuda":
+        dist.barrier(device_ids=[device.index])
+    else:
+        dist.barrier()
+
+
+def main(argv=None):
+    """Train; returns {"params", "opt_state", "step_ms", "metrics"} (the
+    final params and Adam state, each step's ms from its start to its end
+    in the device's queue, each step's global metrics as floats), on
+    every rank.  The host waits for the device only to log, to save and
+    at the end, so it queues the next step while the device runs this
+    one."""
+    args = parse_args(argv)
+    device = maybe_init_distributed(args.device)
+    joined = device is not None
+    if not joined:
+        device = C.resolve_device(args.device)
+    world = dist.get_world_size() if joined else 1
+    lead = not joined or dist.get_rank() == 0
+    dp = world if args.data_axis < 0 else args.data_axis
+    if dp < 1 or world % dp:
+        raise ValueError(f"--data_axis {args.data_axis}: {world} rank(s) do "
+                         f"not split into a data axis of {dp}")
+    mesh = make_mesh((dp, world // dp)) if joined else None
+    if args.batch_size % dp:
+        raise ValueError(f"--batch_size {args.batch_size} does not split "
+                         f"over a data axis of {dp}")
+    log = print if lead else (lambda *a, **k: None)
+    log(f"devices: {world}, mesh: {{'data': {dp}, 'spatial': "
+        f"{world // dp}}}, device: {device}")
+
+    params, loss_fn, grad_transform = build_model(
+        args.model, args.seed, args.lmbda, args.quant_mode, args.lmbda_max,
+        args.stage)
     start_step = 0
     if args.resume:
         payload = ckpt.load_checkpoint(args.resume)
         params = from_jax(payload["params"])
         if "extra" in payload and "step" in payload["extra"]:
             start_step = int(payload["extra"]["step"])
-        print(f"resumed from {args.resume} at step {start_step}")
+        log(f"resumed from {args.resume} at step {start_step}")
     params = to_device(params, device)
 
     tx = make_optimizer(args.lr, args.schedule, args.steps,
@@ -163,7 +206,7 @@ def main(argv=None):
     opt_state = tx.init(trainable_leaves(params))
     step_fn = make_train_step(
         loss_fn, tx, compute_dtype=torch.bfloat16 if args.amp else None,
-        grad_transform=grad_transform)
+        grad_transform=grad_transform, mesh=mesh)
 
     if args.dataset_root:
         ds = Vimeo90kSeptupletDataset(
@@ -174,7 +217,7 @@ def main(argv=None):
             rng=np.random.default_rng(args.seed),
             use_precomputed_refs=args.use_precomputed_refs)
     else:
-        print("no dataset_root given: training on synthetic data")
+        log("no dataset_root given: training on synthetic data")
         ds = SyntheticVideoDataset(frames_per_sample=args.frames,
                                    size=args.crop, seed=args.seed)
 
@@ -197,6 +240,8 @@ def main(argv=None):
             ds.batches(args.batch_size, args.steps - start_step),
             start=start_step):
         qp = int(qp_rng.integers(args.qp_min, args.qp_max + 1))
+        if mesh is not None:
+            batch = np.ascontiguousarray(batch_sharding(mesh, batch))
         batch = C.upload(batch, device)
         start = _mark(device)
         params, opt_state, metrics = step_fn(params, opt_state, batch, qp,
@@ -208,18 +253,21 @@ def main(argv=None):
             avg = {k: sum(m[k] for m in logged) / len(logged)
                    for k in logged[0]}
             rate = args.log_every * args.batch_size / (time.time() - t0)
-            print(f"step {step + 1}: loss={avg['loss']:.4f} "
-                  f"mse={avg['mse']:.5f} bpp={avg['bpp']:.4f} "
-                  f"({rate:.1f} samples/s)")
+            log(f"step {step + 1}: loss={avg['loss']:.4f} "
+                f"mse={avg['mse']:.5f} bpp={avg['bpp']:.4f} "
+                f"({rate:.1f} samples/s)")
             t0 = time.time()
         if (step + 1) % args.save_every == 0 or step + 1 == args.steps:
-            path = os.path.join(args.save_dir,
-                                f"{args.model}_latest.msgpack")
-            ckpt.save_params(path, params,
-                             extra={"step": np.int64(step + 1)})
-            print(f"saved {path}")
+            if lead:
+                path = os.path.join(args.save_dir,
+                                    f"{args.model}_latest.msgpack")
+                ckpt.save_params(path, params,
+                                 extra={"step": np.int64(step + 1)})
+                print(f"saved {path}")
+            if joined:
+                _barrier(device)
 
-    print("training done")
+    log("training done")
     if running:
         flush()
     return {"params": params, "opt_state": opt_state, "step_ms": step_ms,

@@ -10,6 +10,15 @@ at the edges, as the codecs take them; inside everything is NCHW, and the
 propagated feature DMC returns and takes is NCHW, as the codecs' DPB
 holds it.  Rates are bits over the frame's pixel count H * W, summed over
 the batch, as in the JAX package (TCM's and DCVC's over B * H * W).
+
+Under `parallel/mesh.py::sharded` a rank computes its share of the global
+batch's loss: every mean divides by the global element count and every
+rate by the global pixel count, so each term adds up over the ranks; a
+noise draw takes the global shape and keeps this rank's block.  DMCI and
+DMC also run on a frame split in height (each shard a multiple of 64
+rows, so padding, the prior's crop and the checkerboard parity act as on
+the whole frame); TCM, FM and DCVC raise there, as their warps gather
+across shards.
 """
 
 import torch
@@ -26,6 +35,7 @@ from ..models import dmc_tcm as T
 from ..models import dmci as MI
 from ..ops import fused as F
 from ..ops.warp import flow_warp
+from ..parallel.mesh import active_shard
 
 
 def ste_round(x):
@@ -36,11 +46,17 @@ def ste_round(x):
 
 def quant_noise(x, rng):
     """Additive uniform noise in [-0.5, 0.5): `rng` is a torch.Generator on
-    x's device, or the noise tensor itself (a test passes JAX's draw)."""
+    x's device, or the noise tensor itself (a test passes JAX's draw).
+    Sharded, the generator draws the global batch's noise (every rank the
+    same) and x takes its block, so the run equals one process's."""
     if isinstance(rng, torch.Tensor):
         return x + rng.to(x.dtype)
-    noise = torch.rand(x.shape, generator=rng, device=x.device,
+    sh = active_shard()
+    shape = x.shape if sh is None else sh.global_shape(x.shape)
+    noise = torch.rand(shape, generator=rng, device=x.device,
                        dtype=torch.float32) - 0.5
+    if sh is not None:
+        noise = sh.block(noise)
     return x + noise.to(x.dtype)
 
 
@@ -54,6 +70,38 @@ def _nchw(x):
     return x.permute(0, 3, 1, 2).contiguous()
 
 
+def _mean(v):
+    """torch.mean; sharded, this rank's share of the global mean."""
+    sh = active_shard()
+    m = torch.mean(v)
+    return m if sh is None else m / (sh.dp * sh.sp)
+
+
+def _pixels(x, batch=False):
+    """H * W of the (global) frame of x (B, H, W, 3); B * H * W with
+    batch."""
+    sh = active_shard()
+    dp, sp = (1, 1) if sh is None else (sh.dp, sh.sp)
+    n = x.shape[1] * sp * x.shape[2]
+    return n * x.shape[0] * dp if batch else n
+
+
+def _split_ok(x, what):
+    """Raise unless a frame split in height suits `what` (DMCI, DMC): each
+    shard a multiple of 64 rows."""
+    sh = active_shard()
+    if sh is not None and sh.sp > 1 and x.shape[1] % 64:
+        raise ValueError(f"{what}: a shard of {x.shape[1]} rows; a frame "
+                         f"split in height needs multiples of 64")
+
+
+def _not_split(what):
+    sh = active_shard()
+    if sh is not None and sh.sp > 1:
+        raise ValueError(f"{what} does not train on a frame split in "
+                         f"height: its flow warps gather across shards")
+
+
 def _rates(bits_y, bits_z, n_pix):
     bpp_y = bits_y / n_pix
     bpp_z = torch.sum(bits_z) / n_pix
@@ -64,7 +112,8 @@ def dmci_forward(params, x, qp, rng=None, quant_mode="ste"):
     """One-image RD forward of DMCI: x (B, H, W, 3) NHWC in [0, 1], H and W
     multiples of 16.  Returns {x_hat (NHWC), mse, bpp, bpp_y, bpp_z}."""
     p = params
-    n_pix = x.shape[1] * x.shape[2]
+    _split_ok(x, "DMCI")
+    n_pix = _pixels(x)
     xc = _nchw(x)
     y = MI.intra_encoder(p, xc, C.q_vec(p["q_scale_enc"], qp, xc.dtype))
     z = MI.hyper_encoder(p, C.pad_for_y(y))
@@ -97,7 +146,7 @@ def dmci_forward(params, x, qp, rng=None, quant_mode="ste"):
     x_hat = torch.clamp(MI.intra_decoder(
         p, y_hat, C.q_vec(p["q_scale_dec"], qp, y_hat.dtype)), 0.0, 1.0)
     x_hat = C.frame_to_nhwc(x_hat)
-    out = {"x_hat": x_hat, "mse": torch.mean(torch.square(x_hat - x))}
+    out = {"x_hat": x_hat, "mse": _mean(torch.square(x_hat - x))}
     out.update(_rates(bits_y, bits_z, n_pix))
     return out
 
@@ -108,7 +157,8 @@ def dmc_forward_one_frame(params, x, ref_frame, ref_feature, qp, rng=None,
     is the NHWC pixel frame `ref_frame` when `ref_feature` (NCHW) is None.
     Returns {x_hat (NHWC), feature (NCHW), mse, bpp, bpp_y, bpp_z}."""
     p = params
-    n_pix = x.shape[1] * x.shape[2]
+    _split_ok(x, "DMC")
+    n_pix = _pixels(x)
     xc = _nchw(x)
     if ref_feature is None:
         feature = MV._stage_adaptor_i(p, _nchw(ref_frame))
@@ -147,7 +197,7 @@ def dmc_forward_one_frame(params, x, ref_frame, ref_feature, qp, rng=None,
                                     qp)
     x_hat = C.frame_to_nhwc(MV._stage_recon_x(p, feature_out, qp))
     out = {"x_hat": x_hat, "feature": feature_out,
-           "mse": torch.mean(torch.square(x_hat - x))}
+           "mse": _mean(torch.square(x_hat - x))}
     out.update(_rates(bits_y, bits_z, n_pix))
     return out
 
@@ -183,7 +233,8 @@ def dmc_tcm_forward_one_frame(params, x, ref_frame, ref_feature, rng=None,
     package's TCM forward.  Returns {x_hat (NHWC), feature (NCHW), mse,
     warp_mse, bpp, bpp_y, bpp_z, bpp_mv_y, bpp_mv_z}."""
     p = params
-    n_pix = x.shape[0] * x.shape[1] * x.shape[2]
+    _not_split("TCM")
+    n_pix = _pixels(x, batch=True)
     xc, rf = _nchw(x), _nchw(ref_frame)
 
     def quant(v, k):
@@ -216,8 +267,8 @@ def dmc_tcm_forward_one_frame(params, x, ref_frame, ref_feature, rng=None,
     bpp_mv_z = torch.sum(bit_estimator_bits(p["bit_estimator_z_mv"],
                                             mv_z_hat, 0)) / n_pix
     return {"x_hat": x_hat, "feature": feature,
-            "mse": torch.mean(torch.square(x_hat - x)),
-            "warp_mse": torch.mean(torch.square(
+            "mse": _mean(torch.square(x_hat - x)),
+            "warp_mse": _mean(torch.square(
                 C.frame_to_nhwc(warp_frame) - x)),
             "bpp_y": bpp_y, "bpp_z": bpp_z, "bpp_mv_y": bpp_mv_y,
             "bpp_mv_z": bpp_mv_z,
@@ -264,7 +315,8 @@ def dmc_fm_forward_one_frame(params, x, ref_frame, ref_feature,
     (NHWC), feature, mv_feature, y_hat, mv_y_hat (NCHW), mse, warp_mse,
     bpp, bpp_y, bpp_z, bpp_mv_y, bpp_mv_z}."""
     p = params
-    n_pix = x.shape[1] * x.shape[2]
+    _not_split("FM")
+    n_pix = _pixels(x)
     xc, rf = _nchw(x), _nchw(ref_frame)
     steady = ref_feature is not None
 
@@ -312,8 +364,8 @@ def dmc_fm_forward_one_frame(params, x, ref_frame, ref_feature,
     x_hat = C.frame_to_nhwc(x_hat)
     return {"x_hat": x_hat, "feature": feature, "mv_feature": mv_feature,
             "y_hat": y_hat, "mv_y_hat": mv_y_hat,
-            "mse": torch.mean(torch.square(x_hat - x)),
-            "warp_mse": torch.mean(torch.square(
+            "mse": _mean(torch.square(x_hat - x)),
+            "warp_mse": _mean(torch.square(
                 C.frame_to_nhwc(warpframe) - x)),
             "bpp_y": bits_y / n_pix, "bpp_z": bits_z / n_pix,
             "bpp_mv_y": bits_mv_y / n_pix, "bpp_mv_z": bits_mv_z / n_pix,
@@ -351,7 +403,8 @@ def dcvc_forward(params, x, ref_frame, rng=None, stage=4, quant_mode="noise"):
     bpp_mv_z}; `stage` is taken for the JAX package's signature."""
     del stage
     p = params
-    n_pix = x.shape[0] * x.shape[1] * x.shape[2]
+    _not_split("DCVC")
+    n_pix = _pixels(x, batch=True)
     xc, rf = _nchw(x), _nchw(ref_frame)
 
     def quant(v, k):
@@ -392,8 +445,8 @@ def dcvc_forward(params, x, ref_frame, rng=None, stage=4, quant_mode="noise"):
     bpp_mv_z = torch.sum(bit_estimator_bits(p["bit_estimator_z_mv"],
                                             mv_z_hat, 0)) / n_pix
     return {"x_hat": x_hat, "pixel_rec": pixel_rec,
-            "mse": torch.mean(torch.square(x_hat - x)),
-            "warp_mse": torch.mean(torch.square(pixel_rec - x)),
+            "mse": _mean(torch.square(x_hat - x)),
+            "warp_mse": _mean(torch.square(pixel_rec - x)),
             "bpp_y": bpp_y, "bpp_z": bpp_z, "bpp_mv_y": bpp_mv_y,
             "bpp_mv_z": bpp_mv_z,
             "bpp": bpp_y + bpp_z + bpp_mv_y + bpp_mv_z}

@@ -1,5 +1,5 @@
-"""RD training on one device: losses, optax's schedules and optimizer
-rules, reduce-on-plateau, the train step.
+"""RD training on one device or a grid of ranks: losses, optax's
+schedules and optimizer rules, reduce-on-plateau, the train step.
 
 Counterpart of the JAX package's `training/train.py`: the losses of DMCI,
 DMC, DCVC-TCM, DCVC-FM and DCVC (its staged loss and the stage-dependent
@@ -30,15 +30,18 @@ the reference keeps it a buffer.  The JAX package trains it like any
 leaf, so there its zeros move (ROADMAP Queue 3).
 """
 
+import contextlib
 import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .forward import (DCVC_MOTION_SUBTREES, dcvc_forward,
                       dmc_fm_forward_one_frame, dmc_forward_one_frame,
                       dmc_tcm_forward_one_frame, dmci_forward,
                       stage_loss_dcvc)
+from ..parallel.mesh import Shard, sharded
 
 #: the keys of leaves the step never trains
 FIXED_LEAVES = ("mask",)
@@ -504,11 +507,44 @@ def _cast(t, dtype):
     return t.to(dtype) if t.is_floating_point() else t
 
 
+def _all_reduce(loss, metrics, grads, zero):
+    """One all-reduce, a sum over every rank, of the loss, the metrics and
+    the gradients packed into one float32 buffer (a rank with `zero`
+    adds zeros); returns them unpacked, each scalar in its dtype."""
+    keys = list(metrics)
+    scalars = [loss] + [metrics[k] for k in keys]
+    flat = torch.cat([torch.as_tensor(v).detach().float().reshape(1)
+                      .to(grads[0].device) for v in scalars]
+                     + [g.reshape(-1) for g in grads])
+    if zero:
+        flat.zero_()
+    dist.all_reduce(flat)
+    out = torch.split(flat, [1] * len(scalars) + [g.numel() for g in grads])
+    vals = [o.reshape(()).to(v.dtype) if isinstance(v, torch.Tensor)
+            else o.reshape(()) for o, v in zip(out, scalars)]
+    # each gradient in a tensor of its own, as the optimizer reads them on
+    # one device
+    grads = [o.view(g.shape).clone() for o, g in
+             zip(out[len(scalars):], grads)]
+    return vals[0], dict(zip(keys, vals[1:])), grads
+
+
 def make_train_step(loss_fn, tx, compute_dtype=None, grad_transform=None,
-                    plateau=False):
+                    plateau=False, mesh=None, spatial=False):
     """step(params, opt_state, batch, qp, rng) -> (params, opt_state,
     metrics) on one device; the parameters are updated in place (the step
     makes their leaves require grad) and returned.
+
+    With a mesh (`parallel/mesh.py::make_mesh`), `batch` is this rank's
+    block of the global batch (`batch_sharding`): rows over "data", and
+    with spatial=True the frames' rows over "spatial" (DMCI and DMC only),
+    else the spatial axis holds replicas, which add nothing.  Each rank
+    runs the loss as its share of the global one (`sharded`), then the
+    loss, the metrics and the gradients are summed over the ranks in one
+    all-reduce before the clip's global norm, so the plateau sees the
+    global loss, the metrics are global and every rank applies the same
+    update: the parameters stay replicated.  The noise generator `rng`
+    must be seeded alike on every rank.
 
     compute_dtype=torch.bfloat16 is the JAX package's AMP policy: the
     parameters and the batch are cast inside the differentiated function,
@@ -521,6 +557,10 @@ def make_train_step(loss_fn, tx, compute_dtype=None, grad_transform=None,
     optimizer as the monitored value (float32, as optax's astype makes
     it), for make_optimizer(plateau=...)."""
 
+    shard = None if mesh is None else Shard(mesh, spatial)
+    replica = shard is not None and not spatial and \
+        mesh.index("spatial") > 0
+
     def step(params, opt_state, batch, qp, rng):
         all_leaves = tree_leaves(params)
         keep = _trainable(params)
@@ -528,7 +568,9 @@ def make_train_step(loss_fn, tx, compute_dtype=None, grad_transform=None,
         for t in leaves:
             if not t.requires_grad:
                 t.requires_grad_(True)
-        with torch.enable_grad():
+        scope = contextlib.nullcontext() if shard is None else \
+            sharded(shard)
+        with torch.enable_grad(), scope:
             if compute_dtype is not None:
                 use = tree_unflatten(params, [_cast(t, compute_dtype)
                                               for t in all_leaves])
@@ -545,6 +587,9 @@ def make_train_step(loss_fn, tx, compute_dtype=None, grad_transform=None,
                     for t, k in zip(all_leaves, keep)]
             full = tree_leaves(grad_transform(tree_unflatten(params, full)))
             grads = [g for g, k in zip(full, keep) if k]
+        if shard is not None:
+            loss, metrics, grads = _all_reduce(loss, metrics, grads,
+                                               replica)
         if plateau:
             updates, opt_state = tx.update(grads, opt_state,
                                            value=loss.detach())

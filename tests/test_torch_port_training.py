@@ -484,12 +484,14 @@ def test_train_video_cpu_saves_and_resumes(tmp_path):
 @pytest.mark.parametrize("argv,err", [
     ([], RuntimeError), (["--model", "tcm"], RuntimeError),
     (["--model", "dcvc"], RuntimeError),
-    (["--device", "cpu", "--data_axis", "2"], ValueError)],
+    (["--device", "cpu", "--data_axis", "3", "--batch_size", "8"],
+     ValueError)],
     ids=["cuda_without_cuda", "tcm", "dcvc", "data_axis"])
 def test_train_video_refuses(argv, err, tmp_path):
     """The default --device cuda raises without CUDA (no silent CPU run),
-    for DMC, TCM and DCVC (which train now); more than one card
-    raises."""
+    for DMC, TCM and DCVC (which train now); a data axis of 3 raises,
+    as in the JAX package: one process does not split into it, nor does
+    a batch of 8."""
     with pytest.raises(err):
         train_video.main(argv + ["--steps", "1", "--save_dir",
                                  str(tmp_path)])
