@@ -18,12 +18,15 @@ of its full K_y; kyc = 0 codes the full planes, skipped positions at zero
 rate.
 """
 
+import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..models.common import fetch_async
 from ..ops.lane_rans import DEC_SKIP, ENC_SKIP
+from ..utils.common import env_flag
 
 #: the JAX package's sentinel local row id of a force_zero_thres-skipped
 #: symbol: its scans pass it through at zero rate and decode it as 0.  The
@@ -318,15 +321,19 @@ def parse_frame_parts(stream, offset=0):
     return meta, dense, lens, states, off
 
 
-def staging_from_parts(dense, lens, states, cap):
+def staging_from_parts(dense, lens, states, cap, width=None):
     """Host-side staging vector [dense padded to cap | lens | st_hi |
-    st_lo] (u16): the layout densify_segment produced on the encoder."""
+    st_lo] (u16): the layout densify_segment produced on the encoder.  A
+    smaller `width` (at least the payload) pads the dense section to it
+    in place of cap: the bucketed upload form, which expand_staging
+    zero-extends to cap on the device."""
     L = lens.shape[0]
-    staging = np.zeros(cap + 3 * L, np.uint16)
+    w = cap if width is None else width
+    staging = np.zeros(w + 3 * L, np.uint16)
     staging[:dense.shape[0]] = dense
-    staging[cap:cap + L] = lens
-    staging[cap + L:cap + 2 * L] = (states >> 16).astype(np.uint16)
-    staging[cap + 2 * L:] = (states & 0xFFFF).astype(np.uint16)
+    staging[w:w + L] = lens
+    staging[w + L:w + 2 * L] = (states >> 16).astype(np.uint16)
+    staging[w + 2 * L:] = (states & 0xFFFF).astype(np.uint16)
     return staging
 
 
@@ -340,6 +347,148 @@ def parse_frame(stream, offset=0):
     return meta, staging, off
 
 
+# ---------------------------------------------------------------------------
+# transfer slimming (the JAX package's, under its names; on unless
+# OPENDCVC_TPU_EC_SLIM is set off)
+#
+# A staging's dense section is sized for hard content (cap), but a frame's
+# payload (`total`, the sum of the lane lengths) is usually far smaller, so
+# each direction moves only a quantized window around it:
+#   decode: upload [dense padded to a bucket | lens | hi | lo] and
+#           zero-extend it to cap on the device (expand_staging); exact,
+#           since the host knows total;
+#   encode: copy [dense window w | tail] (fetch_window) and rebuild the
+#           cap layout on the host (restore_window).  sum(lens) > w shows
+#           in the copied lens; the staging, kept alive on the device,
+#           then crosses once in full, and the window grows to the
+#           batch's largest payload + 25 %.
+# Windows and buckets are multiples of WINDOW_STEP words.  The streams do
+# not depend on any of it: the restored staging equals the full one up to
+# total, and nothing reads a staging's dense words past total.
+# ---------------------------------------------------------------------------
+
+WINDOW_STEP = 8192  # u16 words = 16 KiB
+
+#: fetches: windowed encode copies; misses: of those, the ones whose
+#: payload overran the window (each cost one full copy more); d2h_bytes /
+#: h2d_bytes: the bytes every staging copy and upload of this module
+#: moved, windowed or not.  Updated under _SLIM_LOCK: GOP chunks settle
+#: on pool threads.
+SLIM_STATS = {"fetches": 0, "misses": 0, "d2h_bytes": 0, "h2d_bytes": 0}
+_SLIM_LOCK = threading.Lock()
+
+
+def _count(key, n):
+    with _SLIM_LOCK:
+        SLIM_STATS[key] += n
+
+
+def quantize_window(words, cap, step=None):
+    step = WINDOW_STEP if step is None else step
+    return int(min(-(-max(int(words), 1) // step) * step, cap))
+
+
+def expand_staging(win, bucket, cap):
+    """(..., bucket + tail) -> (..., cap + tail): zero-extend the dense
+    section to cap on the device, so the decoder keeps one staging shape
+    while the upload scales with the payload."""
+    pad = win.new_zeros(win.shape[:-1] + (cap - bucket,))
+    return torch.cat([win[..., :bucket], pad, win[..., bucket:]], dim=-1)
+
+
+def fetch_window(packed, w, cap, tail):
+    """[dense(cap) | tail] -> [dense(:w) | tail] along the last axis
+    (leading batch dims kept): the encode copy's form, cut on the
+    device."""
+    return torch.cat([packed[..., :w], packed[..., cap:cap + tail]], dim=-1)
+
+
+def restore_window(arr_w, w, cap, L, tail):
+    """The host's inverse of fetch_window for ONE frame: the [dense(cap) |
+    tail] vector, zeros in [w:cap].  None when sum(lens) > w: the window
+    missed payload."""
+    lens = arr_w[w:w + L]
+    if int(lens.astype(np.int64).sum()) > w:
+        return None
+    out = np.zeros(cap + tail, np.uint16)
+    out[:w] = arr_w[:w]
+    out[cap:] = arr_w[w:]
+    return out
+
+
+def slim_enabled():
+    return env_flag("OPENDCVC_TPU_EC_SLIM", default=True)
+
+
+def fetch_w_for(windows, cap):
+    """The encode copy's window for a staging capacity: cap/4 (quantized)
+    at first, grown to fit observed payloads (grow_fetch_w), never shrunk;
+    cap with slimming off.  `windows` is the codec's own {cap: w}."""
+    if not slim_enabled():
+        return cap
+    with _SLIM_LOCK:
+        w = windows.get(cap)
+        if w is None:
+            w = windows[cap] = quantize_window(cap // 4, cap)
+    return w
+
+
+def grow_fetch_w(windows, cap, total):
+    """Grow the window to an observed payload + 25 %."""
+    want = quantize_window(total + total // 4, cap)
+    with _SLIM_LOCK:
+        if want > windows.get(cap, 0):
+            windows[cap] = want
+
+
+def fetch_staging(staging):
+    """Start the copy of a staging, or of a stack of them, to the host as
+    u16 words (half the bytes of the int32 on the device) in one pinned
+    copy (models/common.py::fetch_async); returns the callable that waits
+    for it and gives the numpy u16 array."""
+    _count("d2h_bytes", 2 * staging.numel())
+    wait = fetch_async(staging.to(torch.int16))
+    return lambda: wait().view(np.uint16)
+
+
+def slim_fetch(windows, packed, lanes, cap):
+    """Start the (windowed) copy of encode staging(s) `packed` ((cap +
+    tail) or (N, cap + tail) on the device; the tail is [lens | hi | lo]
+    and, under skip compaction, the survivor count's two words: the JAX
+    package's tail_extra, read here off the staging's length) and return
+    the callable that gives the full [dense(cap) | tail] host array(s).
+    With slimming on only the window crosses; if a frame's payload
+    overran it, `packed` crosses once more in full (the batch's every
+    frame taken from that copy), the miss is counted and the codec's
+    window grows, all before the caller's ladder check sees the
+    staging."""
+    tail = packed.shape[-1] - cap
+    w = fetch_w_for(windows, cap)
+    if w >= cap:
+        return fetch_staging(packed)
+    wait = fetch_staging(fetch_window(packed, w, cap, tail))
+
+    def finish():
+        arr = wait()
+        rows = arr if arr.ndim == 2 else arr[None]
+        _count("fetches", 1)
+        out, full = [], None
+        for i, row in enumerate(rows):
+            got = restore_window(row, w, cap, lanes, tail)
+            if got is None:
+                if full is None:
+                    full = fetch_staging(packed)().reshape(rows.shape[0], -1)
+                    _count("misses", 1)
+                    grow_fetch_w(windows, cap, int(
+                        full[:, cap:cap + lanes].astype(np.int64)
+                        .sum(axis=1).max()))
+                got = full[i]
+            out.append(got)
+        return np.stack(out) if arr.ndim == 2 else out[0]
+
+    return finish
+
+
 def upload_stagings(bit_streams, device):
     """Parse a chunk's containers and upload their compact decode
     stagings to `device`.
@@ -347,19 +496,29 @@ def upload_stagings(bit_streams, device):
     Returns (metas, stagings): stagings is one (N, cap + 3L) int32 tensor
     of u16 values, or None when the containers disagree on (L, MW, cap,
     kyc), a chunk of mixed ladder rungs that the caller decodes frame by
-    frame.  The u16 words cross in one copy (pinned and non-blocking on a
-    CUDA device) and are widened on the device.  No transfer slimming: the
-    dense part always spans cap, as the JAX package's with
-    OPENDCVC_TPU_EC_SLIM=0."""
-    parsed = [parse_frame(s) for s in bit_streams]
-    metas = [meta for meta, _, _ in parsed]
+    frame.  With slimming on, the dense sections cross padded only to a
+    quantized bucket around the chunk's largest payload and are
+    zero-extended to cap on the device (expand_staging); off, they span
+    cap.  The u16 words cross in one copy (pinned and non-blocking on a
+    CUDA device) and are widened on the device."""
+    parts = [parse_frame_parts(s) for s in bit_streams]
+    metas = [pp[0] for pp in parts]
     if len({(m["L"], m["MW"], m["cap"], m["kyc"]) for m in metas}) != 1:
         return metas, None
-    host = torch.from_numpy(np.stack([st for _, st, _ in parsed])
-                            .view(np.int16))
+    cap = metas[0]["cap"]
+    bucket = cap
+    if slim_enabled():
+        bucket = quantize_window(max(m["total"] for m in metas), cap)
+    host = torch.from_numpy(np.stack(
+        [staging_from_parts(d, ln, st, cap, width=bucket)
+         for _, d, ln, st, _ in parts]).view(np.int16))
+    _count("h2d_bytes", 2 * host.numel())
     if device.type == "cuda":
         host = host.pin_memory()
-    return metas, host.to(device, non_blocking=True).to(torch.int32) & 0xFFFF
+    dev = host.to(device, non_blocking=True).to(torch.int32) & 0xFFFF
+    if bucket < cap:
+        dev = expand_staging(dev, bucket, cap)
+    return metas, dev
 
 
 # ---------------------------------------------------------------------------

@@ -43,8 +43,9 @@ import torch
 from ..entropy.device_rans import (StagingPlan, _undensify_device,
                                    compact_skip_dec, compact_skip_enc,
                                    densify_segment, effective_lanes,
-                                   expand_compact_syms, full_range_cdf_rows,
-                                   settle_staging, staging_width,
+                                   expand_compact_syms, fetch_staging,
+                                   full_range_cdf_rows, settle_staging,
+                                   slim_fetch, staging_width,
                                    upload_stagings)
 from ..entropy.coder import EntropyCoder
 from ..entropy.models import (BitEstimator, GaussianEncoder,
@@ -417,15 +418,6 @@ def _launcher(operand, enc_table, n_y_rows, qp, c_z):
     return launch
 
 
-def _fetch_stagings(staging):
-    """Start the copy of a staging, or of a stack of them, to the host as
-    u16 words (half the bytes of the int32 on the device); returns a
-    callable that waits for the copy and gives the numpy u16 array that
-    the ladder checks."""
-    wait = C.fetch_async(staging.to(torch.int16))
-    return lambda: wait().view(np.uint16)
-
-
 def _settle(net, arr, key, plan, bps, rerun):
     """settle_staging for a DMC or DMCI codec `net`: serialize a fetched
     staging launched by the StagingPlan `plan` at `bps` bytes per symbol
@@ -636,6 +628,9 @@ class DMC:
         self._ec_learned = {}
         self._ec_rerun_count = 0
         self._ec_lock = threading.Lock()
+        # the encode copy's window for each staging capacity
+        # (entropy/device_rans.py::slim_fetch)
+        self._fetch_windows = {}
 
     # -- setup ---------------------------------------------------------------
 
@@ -768,13 +763,14 @@ class DMC:
             self.n_y_rows, self.force_zero_thres, plan.kyc)
         launch = _launcher(operand, self.enc_table, self.n_y_rows, qp,
                            G_CH_Z)
-        fetch = _fetch_stagings(launch(
-            *self._rung(plan.lanes, plan.steps(), bps), plan.kyc))
+        mw, cap = self._rung(plan.lanes, plan.steps(), bps)
+        fetch = slim_fetch(self._fetch_windows, launch(mw, cap, plan.kyc),
+                           plan.lanes, cap)
         self.add_ref_frame(feature_out, None)
 
         def finish():
             return _settle(self, fetch(), (H, W), plan, bps,
-                           lambda mw, cap, kyc: _fetch_stagings(
+                           lambda mw, cap, kyc: fetch_staging(
                                launch(mw, cap, kyc))())
 
         return finish
@@ -824,11 +820,11 @@ class DMC:
         H, W = xs[0].shape[2], xs[0].shape[3]
         plan = self._plan_device_ec(H, W)
         bps = max(self.bytes_per_symbol, self._ec_learned.get((H, W), 0.0))
+        mw, cap = self._rung(plan.lanes, plan.steps(), bps)
         feat_last, stagings, feats_in = _compress_gop(
             p, xs, self.dpb[0].feature, qps, plan.lanes, self.n_y_rows,
-            self.enc_table, *self._rung(plan.lanes, plan.steps(), bps), fz,
-            plan.kyc)
-        fetch = _fetch_stagings(stagings)
+            self.enc_table, mw, cap, fz, plan.kyc)
+        fetch = slim_fetch(self._fetch_windows, stagings, plan.lanes, cap)
         self.add_ref_frame(feat_last, None, increase_poc=False)
         self.curr_poc += len(xs)
 
@@ -836,7 +832,7 @@ class DMC:
             _, operand = _compress_frame_core(
                 p, xs[i], _stage_adaptor_p(p, feats_in[i]), qps[i],
                 plan.lanes, self.n_y_rows, fz, kyc)
-            return _fetch_stagings(_launcher(
+            return fetch_staging(_launcher(
                 operand, self.enc_table, self.n_y_rows, qps[i], G_CH_Z)(
                     mw, cap, kyc))()
 

@@ -519,6 +519,8 @@ class DMCFM:
             scale_levels=256, support=50)
         self.transfers = {"d2h": 0, "h2d": 0}
         self.ec_reruns = 0
+        # the encode copy's window for each staging capacity
+        self._fetch_windows = {}
         self.enc_table = None
         self.dec_tables = None
         self._stages = make_pass_stages(gaussian_cfg(self.gaussian_encoder),
@@ -674,7 +676,8 @@ class DMCFM:
             + [z_operand(mv_z_int8, n_y + G_CH_Z)])
         bps = self.bytes_per_symbol
         mw, cap = fm_rung(lanes, k_total, bps)
-        first = launch_staging(operand, self.enc_table, mw, cap)
+        first = launch_staging(operand, self.enc_table, mw, cap,
+                               self._fetch_windows, lanes)
 
         def finish():
             stream, reruns = fm_settle_staging(

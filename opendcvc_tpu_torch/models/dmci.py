@@ -15,6 +15,7 @@ Stages both sides evaluate are shared functions (see models/dmc.py for
 the bit-exactness contract).
 """
 
+import functools
 import math
 import threading
 
@@ -22,7 +23,8 @@ import numpy as np
 import torch
 
 from ..entropy.device_rans import (StagingPlan, _undensify_device,
-                                   effective_lanes, full_range_cdf_rows,
+                                   effective_lanes, fetch_staging,
+                                   full_range_cdf_rows, slim_fetch,
                                    staging_width, upload_stagings)
 from ..entropy.coder import EntropyCoder
 from ..entropy.models import (BitEstimator, GaussianEncoder,
@@ -35,7 +37,7 @@ from ..utils.common import env_flag
 from ..utils.params import cast_floating, to_device
 from . import common as C
 from .dmc import (_cm_unflat, _dcb_seq, _dec_plane, _dec_y_plane,
-                  _fetch_stagings, _indexes_of, _kyc_for, _launcher,
+                  _indexes_of, _kyc_for, _launcher,
                   _operand, _pack_host, _settle, _z_rows)
 
 G_CH_SRC = 3 * 8 * 8
@@ -290,6 +292,9 @@ class DMCI:
         self._ec_learned = {}
         self._ec_rerun_count = 0
         self._ec_lock = threading.Lock()
+        # the encode copy's window for each staging capacity
+        # (entropy/device_rans.py::slim_fetch)
+        self._fetch_windows = {}
 
     # -- setup ---------------------------------------------------------------
 
@@ -358,9 +363,12 @@ class DMCI:
 
     def _launch_i(self, x, qp):
         """Device EC: queue a frame's (NCHW) stages and its K1 launch.
-        Returns (x_hat NHWC, the staging on the device, settle), where
-        settle(host staging) serializes the frame's stream, re-running its
-        K1 alone at a grown rung when the staging overflowed."""
+        Returns (x_hat NHWC, the staging on the device, start_fetch,
+        settle): start_fetch(staging, or a stack of stagings of this rung)
+        starts their windowed copy to the host (slim_fetch) and returns
+        its finisher; settle(host staging) serializes the frame's stream,
+        re-running its K1 alone at a grown rung when the staging
+        overflowed."""
         H, W = x.shape[2], x.shape[3]
         bps = max(self.bytes_per_symbol, self._ec_learned.get((H, W), 0.0))
         plan = self._plan(H, W)
@@ -372,11 +380,13 @@ class DMCI:
 
         def settle(arr):
             return _settle(self, arr, (H, W), plan, bps,
-                           lambda mw, cap, kyc: _fetch_stagings(
+                           lambda mw, cap, kyc: fetch_staging(
                                launch(mw, cap, kyc))())
 
-        return (C.frame_to_nhwc(x_hat),
-                launch(*self._rung(plan.lanes, plan.steps(), bps), plan.kyc),
+        mw, cap = self._rung(plan.lanes, plan.steps(), bps)
+        return (C.frame_to_nhwc(x_hat), launch(mw, cap, plan.kyc),
+                functools.partial(slim_fetch, self._fetch_windows,
+                                  lanes=plan.lanes, cap=cap),
                 settle)
 
     def compress_async(self, x, qp):
@@ -386,9 +396,9 @@ class DMCI:
         finish() returns the bit stream."""
         if not self.device_ec:
             raise ValueError("compress_async requires device-EC mode")
-        x_hat, staging, settle = self._launch_i(
+        x_hat, staging, start_fetch, settle = self._launch_i(
             C.frame_to_nchw(x, self.device, self.dtype), int(qp))
-        fetch = _fetch_stagings(staging)
+        fetch = start_fetch(staging)
         return x_hat, lambda: settle(fetch())
 
     def compress_batch_async(self, xs, qps):
@@ -408,14 +418,15 @@ class DMCI:
         launched = [self._launch_i(C.frame_to_nchw(x, self.device,
                                                    self.dtype), qp)
                     for x, qp in zip(frames, qps)]
-        fetch = _fetch_stagings(torch.stack([s for _, s, _ in launched]))
+        # one plan and rung for frames of one size: one windowed copy
+        fetch = launched[0][2](torch.stack([s for _, s, _, _ in launched]))
 
         def finish():
             arr = fetch()
-            return [settle(arr[i]) for i, (_, _, settle) in
+            return [settle(arr[i]) for i, (_, _, _, settle) in
                     enumerate(launched)]
 
-        return torch.stack([x_hat for x_hat, _, _ in launched]), finish
+        return torch.stack([x_hat for x_hat, _, _, _ in launched]), finish
 
     def compress_batch(self, xs, qps):
         x_hats, finish = self.compress_batch_async(xs, qps)

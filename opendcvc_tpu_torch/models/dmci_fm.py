@@ -40,9 +40,9 @@ import torch
 
 from ..entropy.coder import EntropyCoder
 from ..entropy.device_rans import (_undensify_device, densify_segment,
-                                   effective_lanes, fm_rung,
+                                   effective_lanes, fetch_staging, fm_rung,
                                    fm_settle_staging, full_range_cdf_rows,
-                                   upload_stagings)
+                                   slim_fetch, upload_stagings)
 from ..entropy.models import (BitEstimator, GaussianEncoder,
                               bit_estimator_init)
 from ..layers import blocks_fm as FM
@@ -53,7 +53,7 @@ from ..ops.lane_rans import (encode_scan, pack_operand, prepare_decode_table,
 from ..utils.common import env_flag
 from ..utils.params import to_device
 from . import common as C
-from .dmc import _dec_plane, _fetch_stagings, _lane_layout_t, _z_rows
+from .dmc import _dec_plane, _lane_layout_t, _z_rows
 from .prior_stages import make_pass_stages
 
 QP_NUM = 64
@@ -244,12 +244,16 @@ def decode_carry(bit_stream, device):
                                       device=device)), m["L"]
 
 
-def launch_staging(packed, enc_table, mw, cap):
+def launch_staging(packed, enc_table, mw, cap, windows=None, lanes=0):
     """K1 over a frame's operand, compacted on the device and its copy to
     the host started; returns the callable that waits for the host's
-    u16 staging."""
-    return _fetch_stagings(densify_segment(*encode_scan(packed, enc_table,
-                                                        mw), cap))
+    u16 staging.  With the codec's `windows` (and the staging's `lanes`)
+    the copy is windowed (slim_fetch); a ladder's rerun passes none and
+    copies the whole staging, as the JAX package's reruns do."""
+    staging = densify_segment(*encode_scan(packed, enc_table, mw), cap)
+    if windows is None:
+        return fetch_staging(staging)
+    return slim_fetch(windows, staging, lanes, cap)
 
 
 # ---------------------------------------------------------------------------
@@ -284,6 +288,8 @@ class DMCIFM:
             scale_levels=256, support=50)
         self.transfers = {"d2h": 0, "h2d": 0}
         self.ec_reruns = 0
+        # the encode copy's window for each staging capacity
+        self._fetch_windows = {}
         self.enc_table = self.dec_table = None
         self.n_y_rows = 0
         self._stages = make_pass_stages(gaussian_cfg(self.gaussian_encoder),
@@ -376,7 +382,8 @@ class DMCIFM:
                            self.enc_table[z_base:z_base + Z_CH]])
         mw, cap = fm_rung(lanes, k_total, self.bytes_per_symbol)
         stream, reruns = fm_settle_staging(
-            launch_staging(operand, table, mw, cap)(), lanes, k_total,
+            launch_staging(operand, table, mw, cap, self._fetch_windows,
+                           lanes)(), lanes, k_total,
             self.bytes_per_symbol,
             lambda mw, cap: launch_staging(operand, table, mw, cap)())
         self.ec_reruns += reruns
