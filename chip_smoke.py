@@ -281,6 +281,25 @@ Phases (any failure exits nonzero and prints no result):
      multiple of 64 rows): step ms, the halo exchanges' calls, bytes and
      ms in one counted step, parameters bit-identical on every rank.  A
      branch that runs and fails fails the script.
+ 23. The last slice (run before phase 22): (a) transfer slimming at
+     1088x1920 (1080p padded), device EC, float32, with
+     OPENDCVC_TPU_EC_SLIM unset (on, the default) and at 0: DMCI (phase
+     3's), a DMC P-frame alone and a GOP chunk of 8 (phase 8's chunk),
+     compacted DMC (OPENDCVC_TPU_EC_SKIP_COMPACT, a P-frame and a chunk
+     of 3), DMCIFM + 3 DMCFM P-frames; streams and K1 / K2 launches equal
+     on and off, every decoder exact; a P-frame with the encode copy's
+     window forced to 8 words: one miss, the window grown, the same
+     bytes; each part's bytes each way, and the DMC chunk's copies timed
+     at the window / bucket and at the full staging; (b) the eight
+     mappers of utils/port_torch.py give back the port's init trees bit
+     for bit from the reference state dicts tests/torch_port_reference_sd.py
+     writes, and DMCI + DMC loaded through port_dmci / port_dmc code (a)'s
+     I-frame and first 2 P-frames to (a)'s bytes; (c)
+     tools/make_synth_dataset_torch.py at 1088x1920 (1 sequence, 3
+     frames), coded by the port's harness on device EC, decoder exact;
+     tools/bd_r5_torch.py on docs/dmci_tiny_rd.msgpack at 512x768 (4 QPs,
+     2 images), its BD-rate reported only; (d) phase 8's bench again with
+     OPENDCVC_TPU_EC_SLIM=0, its line beside phase 8's (the same bpp).
 The kernel launch counters are zeroed before phase 3 and read after
 phase 4, so the counts are the main path's (the device-EC path); they are
 zeroed again before phase 6 and must read 0 after it, again before each
@@ -289,9 +308,10 @@ zeroed before phase 11 and must read 0 after it, zeroed before phase
 12, whose runs hold them exact, before phase 14, whose device-EC run
 holds them exact and whose host-EC runs launch none, and before each of
 phases 15-20, after which they must read 0, and before each device-EC
-run of phase 21, and before phase 22, after which they must read 0;
+run of phase 21, before each of phase 23's parts, and before phase 22,
+after which they must read 0;
 `launches` adds the device-EC runs of phases 7 (b), 8,
-9, 10 (a, and the checkpoints' coding in b), 12, 14 and 21 (e, f) to
+9, 10 (a, and the checkpoints' coding in b), 12, 14, 21 (e, f) and 23 to
 phases 3-4's, and `launches_by_run` splits it.
 Then it
 prints the card's name and power limit, one JSON line describing each
@@ -1515,6 +1535,9 @@ def _bench_checks(st, dev, label):
     return len(per_x) + n
 
 
+BENCH_LINES = {}        # each phase_bench run's line, by label
+
+
 def phase_bench(dev, LR, label="phase 8", env=None):
     """Phase 8 (and 9 (b) with env BENCH_DTYPE=bfloat16):
     `opendcvc_tpu_torch.bench` in process at bench.py's defaults (BENCH_*
@@ -1548,6 +1571,7 @@ def phase_bench(dev, LR, label="phase 8", env=None):
         _fail(f"{label}: K1/K2 launched {launches} times, the frames coded "
               f"and decoded need {want}")
     line = st["result"]
+    BENCH_LINES[label] = line
     _log(f"{label}: {_card()}")
     _log(f"{label}: bench line " + json.dumps(line))
     _log(f"{label}: " + st["verbose"])
@@ -2507,7 +2531,8 @@ def _fm_chain(dev, LR, xs, h, w, device_ec, dtype=torch.float32,
                      "enc_coder_ms": clocks[id(enc_net)][0] - c0[0],
                      "dec_coder_ms": clocks[id(dec_net)][0] - c0[1],
                      "reruns": reruns, "bytes": len(out["bit_stream"]),
-                     "launches": launches, "enc": enc_dpb, "dec": dec_dpb})
+                     "stream": out["bit_stream"], "launches": launches,
+                     "enc": enc_dpb, "dec": dec_dpb})
 
     coded("I", lambda: i_enc.compress(xs[0], QP),
           lambda s: i_dec.decompress(s, sps), i_enc, i_dec)
@@ -4440,6 +4465,384 @@ def phase_multi_gpu(root):
     return ran
 
 
+# ---------------------------------------------------------------------------
+# phase 23: transfer slimming, reference state dicts, the RD-artifact tools
+# ---------------------------------------------------------------------------
+
+N_SLIM_GOP = 8          # (a)'s GOP chunk, phase 8's (bench.py's BENCH_GOP_N)
+N_SLIM_COMPACT = 3      # (a)'s compacted chunk, after a P-frame alone
+N_SLIM_FM = 4           # (a)'s DMCIFM I-frame and three DMCFM P-frames
+SLIM_MISS_W = 8         # (a)'s forced miss: the encode copy's window
+SYN_H = 1088            # (c): make_synth_dataset_torch's frames, 1080p padded
+BD_QPS = "16,26,36,46"  # (c): bd_r5_torch's sweep (bd_rate fits a cubic)
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _slim_bytes():
+    from opendcvc_tpu_torch.entropy import device_rans as D
+    return D.SLIM_STATS["d2h_bytes"], D.SLIM_STATS["h2d_bytes"]
+
+
+def _moved(since):
+    d2h, h2d = _slim_bytes()
+    return d2h - since[0], h2d - since[1]
+
+
+def _dmc_params(dev):
+    """Phase 4's DMC: the port's init (seed 1), flat q banks."""
+    from opendcvc_tpu_torch.models.dmc import DMC
+    net = DMC(device=dev, device_ec=True)
+    net.init_params(seed=1)
+    net.params["q_encoder"] = torch.ones_like(net.params["q_encoder"]) * 0.25
+    net.params["q_decoder"] = torch.ones_like(net.params["q_decoder"])
+    return net.params
+
+
+def _slim_dmc(dev, params, x_ref, xs, label, moved):
+    """A P-frame alone, then a GOP chunk of the rest, encoded and decoded;
+    fails unless the decoder ends at the encoder's feature and frame.
+    Records each call's bytes in `moved`; returns the streams, the
+    encoder and the decoder."""
+    from opendcvc_tpu_torch.models import common as C
+    from opendcvc_tpu_torch.models.dmc import DMC, _stage_recon_x
+    enc, dec = (DMC(device=dev, device_ec=True) for _ in range(2))
+    for net in (enc, dec):
+        net.load_params(params)
+        net.update(force_zero_thres=FZ)
+        net.add_ref_frame(None, x_ref)
+    n = len(xs) - 1
+    sps = {"height": xs[0].shape[1], "width": xs[0].shape[2]}
+    t = _slim_bytes()
+    first = enc.compress(xs[0], QP)["bit_stream"]
+    d2h, t = _moved(t)[0], _slim_bytes()
+    chunk = enc.compress_gop(xs[1:], [QP] * n)["bit_streams"]
+    d2h_chunk, t = _moved(t)[0], _slim_bytes()
+    dec.decompress(first, sps, QP)
+    moved["frame"], t = (d2h, _moved(t)[1]), _slim_bytes()
+    x_gop = dec.decompress_gop(chunk, sps, [QP] * n)["x_hat"]
+    moved["chunk"] = (d2h_chunk, _moved(t)[1])
+    want = C.frame_to_nhwc(_stage_recon_x(params, enc.dpb[0].feature, QP))
+    if not (torch.equal(dec.dpb[0].feature, enc.dpb[0].feature)
+            and torch.equal(x_gop[-1], want)
+            and bool(torch.isfinite(x_gop).all())):
+        _fail(f"{label}: the decoder's feature or frame differs from the "
+              f"encoder's")
+    return [first] + chunk, enc, dec
+
+
+def _slim_pass(dev, LR, xs, p_params, on):
+    """Phase 23 (a), one pass with OPENDCVC_TPU_EC_SLIM unset (on, the
+    default) or 0 (off): DMCI (phase 3's, its two passes), DMC's P-frame
+    alone and a GOP chunk of N_SLIM_GOP, compacted DMC's
+    (OPENDCVC_TPU_EC_SKIP_COMPACT) P-frame alone and a chunk of
+    N_SLIM_COMPACT, then DMCIFM + DMCFM on N_SLIM_FM frames
+    (`_fm_chain`'s checks); every decoder exact.  Returns the streams,
+    the bytes each part moved each way, the K1 / K2 launches, and the
+    shapes of the DMC chunk's copies."""
+    from opendcvc_tpu_torch.entropy import device_rans as D
+    label = f"phase 23 (a) slim {'on' if on else 'off'}"
+    saved = {k: os.environ.pop(k) for k in list(os.environ)
+             if k.startswith("OPENDCVC_TPU_EC_")}
+    if not on:
+        os.environ["OPENDCVC_TPU_EC_SLIM"] = "0"
+    for k in D.SLIM_STATS:
+        D.SLIM_STATS[k] = 0
+    LR.encode_scan.launches = 0
+    LR.decode_scan.launches = 0
+    streams, moved = {}, {}
+    t0 = time.perf_counter()
+    try:
+        t = _slim_bytes()
+        intra = phase_intra(dev, xs[0], QP, FZ, label=label)
+        moved["DMCI frame"] = [v / 2 for v in _moved(t)]
+        streams["DMCI"] = intra["streams"]
+        parts = {}
+        streams["DMC"], enc, _ = _slim_dmc(
+            dev, p_params, intra["x_hat"], xs[1:2 + N_SLIM_GOP], label,
+            parts)
+        moved["DMC frame"] = parts["frame"]
+        moved[f"DMC chunk of {N_SLIM_GOP}"] = parts["chunk"]
+        plan = enc._plan_device_ec(xs[0].shape[1], xs[0].shape[2])
+        mw, cap = enc._rung(plan.lanes, plan.steps(), enc.bytes_per_symbol)
+        shapes = {"lanes": plan.lanes, "cap": cap,
+                  "window": enc._fetch_windows.get(cap, cap),
+                  "bucket": D.quantize_window(max(
+                      D.parse_frame_parts(s)[0]["total"]
+                      for s in streams["DMC"][1:]), cap) if on else cap}
+        os.environ["OPENDCVC_TPU_EC_SKIP_COMPACT"] = "1"
+        try:
+            parts = {}
+            streams["compacted DMC"], _, _ = _slim_dmc(
+                dev, p_params, intra["x_hat"],
+                xs[2 + N_SLIM_GOP:3 + N_SLIM_GOP + N_SLIM_COMPACT], label,
+                parts)
+        finally:
+            os.environ.pop("OPENDCVC_TPU_EC_SKIP_COMPACT")
+        moved["compacted DMC frame"] = parts["frame"]
+        moved[f"compacted DMC chunk of {N_SLIM_COMPACT}"] = parts["chunk"]
+        t = _slim_bytes()
+        rows = _fm_chain(dev, LR, xs[:N_SLIM_FM], xs[0].shape[1],
+                         xs[0].shape[2], True, label=label)
+        moved[f"FM {N_SLIM_FM} frames"] = _moved(t)
+        streams["FM"] = [r["stream"] for r in rows]
+    finally:
+        os.environ.pop("OPENDCVC_TPU_EC_SLIM", None)
+        os.environ.update(saved)
+    launches = [LR.encode_scan.launches, LR.decode_scan.launches]
+    _log(f"{label}: bytes moved device->host / host->device: " + "; ".join(
+        f"{k} {int(a)} / {int(b)}" for k, (a, b) in moved.items())
+        + f"; windowed fetches {D.SLIM_STATS['fetches']}, misses "
+        f"{D.SLIM_STATS['misses']}; K1 {launches[0]}, K2 {launches[1]} "
+        f"launches; every decoder exact; {time.perf_counter() - t0:.1f} s")
+    return {"streams": streams, "moved": moved, "launches": launches,
+            "shapes": shapes, "x_ref": intra["x_hat"],
+            "i_params": intra["params"]}
+
+
+def _forced_miss(dev, p_params, x_ref, x, want):
+    """(a)'s forced miss: a P-frame with the encode copy's window at
+    SLIM_MISS_W words: one miss, the window grown, the same bytes."""
+    from opendcvc_tpu_torch.entropy import device_rans as D
+    from opendcvc_tpu_torch.models.dmc import DMC
+    net = DMC(device=dev, device_ec=True)
+    net.load_params(p_params)
+    net.update(force_zero_thres=FZ)
+    net.add_ref_frame(None, x_ref)
+    plan = net._plan_device_ec(x.shape[1], x.shape[2])
+    cap = net._rung(plan.lanes, plan.steps(), net.bytes_per_symbol)[1]
+    net._fetch_windows[cap] = SLIM_MISS_W
+    misses = D.SLIM_STATS["misses"]
+    got = net.compress(x, QP)["bit_stream"]
+    grown = net._fetch_windows[cap]
+    if D.SLIM_STATS["misses"] != misses + 1 or grown <= SLIM_MISS_W or \
+            got != want:
+        _fail(f"phase 23 (a): the forced miss counted "
+              f"{D.SLIM_STATS['misses'] - misses} misses, left the window "
+              f"at {grown} words, streams equal: {got == want}")
+    return grown, cap
+
+
+def phase_slim(dev, LR):
+    """Phase 23 (a): transfer slimming at 1088x1920 (1080p padded),
+    device EC, float32: `_slim_pass` with slim on and off, the streams
+    and launches equal, a forced miss, and the DMC chunk's copies timed
+    at the window and at the full staging.  Returns the launches, the
+    pass's streams, reference frame and parameters."""
+    xs = synthetic_frames(H, W, 3 + N_SLIM_GOP + N_SLIM_COMPACT)
+    p_params = _dmc_params(dev)
+    runs = {on: _slim_pass(dev, LR, xs, p_params, on) for on in (True,
+                                                                  False)}
+    on, off = runs[True], runs[False]
+    if on["streams"] != off["streams"]:
+        bad = [k for k in on["streams"] if on["streams"][k] !=
+               off["streams"][k]]
+        _fail(f"phase 23 (a): streams differ with slim on and off: {bad}")
+    if on["launches"] != off["launches"]:
+        _fail(f"phase 23 (a): K1 / K2 launched {on['launches']} times with "
+              f"slim on, {off['launches']} off")
+    grown, cap = _forced_miss(dev, p_params, on["x_ref"], xs[1],
+                              on["streams"]["DMC"][0])
+    sh = on["shapes"]
+    tail = 3 * sh["lanes"]
+    win = _copy_ms((N_SLIM_GOP, sh["window"] + tail), dev)
+    bucket = _copy_ms((N_SLIM_GOP, sh["bucket"] + tail), dev)
+    full = _copy_ms((N_SLIM_GOP, sh["cap"] + tail), dev)
+    _log(f"phase 23 (a): {_card()}")
+    _log(f"phase 23 (a): the DMC chunk of {N_SLIM_GOP}: cap {sh['cap']} "
+         f"words, lanes {sh['lanes']}; encode copy {N_SLIM_GOP} x "
+         f"{sh['window'] + tail} u16 (window {sh['window']}) "
+         f"{win[0]:.4f} ms against {N_SLIM_GOP} x {sh['cap'] + tail} "
+         f"{full[0]:.4f} ms device->host; decode upload {N_SLIM_GOP} x "
+         f"{sh['bucket'] + tail} (bucket {sh['bucket']}) {bucket[1]:.4f} ms "
+         f"against {full[1]:.4f} ms host->device (pinned, median of "
+         f"{REPS}, CUDA events)")
+    _log(f"phase 23 (a): streams byte-equal with slim on and off (DMCI, "
+         f"DMC frame + chunk, compacted DMC frame + chunk, FM I + 3 P), K1 "
+         f"/ K2 launches equal ({on['launches']}); forced miss (window "
+         f"{SLIM_MISS_W}): 1 miss, window grown to {grown} of {cap}, the "
+         f"same bytes")
+    total = [a + b for a, b in zip(on["launches"], off["launches"])]
+    return total, on
+
+
+def _tree_equal(a, b):
+    """Two parameter trees: the same keys and list lengths, each leaf the
+    same dtype, shape and bits."""
+    if isinstance(b, dict):
+        return sorted(a) == sorted(b) and all(_tree_equal(a[k], b[k])
+                                              for k in b)
+    if isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(_tree_equal(x, y)
+                                        for x, y in zip(a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.cpu(), b.cpu())
+
+
+def phase_port_torch(dev, slim):
+    """Phase 23 (b): `utils/port_torch.py` on this machine: each of the
+    eight mappers gives back, bit for bit, the port's init tree that
+    tests/torch_port_reference_sd.py wrote as a reference state dict;
+    then DMCI + DMC loaded through port_dmci / port_dmc (from (a)'s
+    trees) code (a)'s I-frame and its first 2 P-frames at 1088x1920 on
+    device EC, byte-equal to (a)'s codecs, loaded directly."""
+    import importlib
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_port_reference_sd import REFERENCE_SD
+    from opendcvc_tpu_torch.models.dmc import DMC
+    from opendcvc_tpu_torch.models.dmci import DMCI
+    from opendcvc_tpu_torch.utils import port_torch as PT
+    from opendcvc_tpu_torch.utils.params import to_jax
+    t0 = time.perf_counter()
+    inits = {"dmci": "dmci_init", "dmc": "dmc_init",
+             "dmc_hem": "dmc_hem_init", "dmc_tcm": "dmc_tcm_init",
+             "dmc_fm": "dmc_fm_init", "dcvc": "dcvc_init",
+             "dmc_dc": "dmc_dc_init", "evc": "evc_init"}
+    n_keys = {}
+    for model, fn in inits.items():
+        mod = importlib.import_module(f"opendcvc_tpu_torch.models.{model}")
+        tree = getattr(mod, fn)(torch.Generator().manual_seed(0))
+        sd = REFERENCE_SD[model](to_jax(tree))
+        if not _tree_equal(getattr(PT, "port_" + model)(sd), tree):
+            _fail(f"phase 23 (b): port_{model} does not give back the "
+                  f"tree its reference state dict was written from")
+        n_keys[model] = len(sd)
+    x_ref, xs = slim["x_ref"], synthetic_frames(H, W, 3)
+    want = slim["streams"]
+    i_net = DMCI(device=dev, device_ec=True)
+    i_net.load_params(PT.port_dmci(REFERENCE_SD["dmci"](
+        to_jax(slim["i_params"]))))
+    i_net.update(force_zero_thres=FZ)
+    enc = i_net.compress(xs[0], QP)
+    p_net = DMC(device=dev, device_ec=True)
+    p_net.load_params(PT.port_dmc(REFERENCE_SD["dmc"](
+        to_jax(_dmc_params(dev)))))
+    p_net.update(force_zero_thres=FZ)
+    p_net.add_ref_frame(None, x_ref)
+    got = [p_net.compress(x, QP)["bit_stream"] for x in xs[1:3]]
+    if enc["bit_stream"] != want["DMCI"][-1] or \
+            not torch.equal(enc["x_hat"], x_ref) or got != want["DMC"][:2]:
+        _fail("phase 23 (b): the codecs loaded through port_dmci / port_dmc "
+              "code other bytes than the codecs loaded directly")
+    _log("phase 23 (b): port_torch's eight mappers give back the port's "
+         "init trees bit for bit from reference state dicts of "
+         + ", ".join(f"{m} {n}" for m, n in n_keys.items())
+         + " keys; DMCI + DMC loaded through port_dmci / port_dmc code the "
+         "I-frame and 2 P-frames at 1088x1920 (device EC) to the bytes of "
+         f"the codecs loaded directly; {time.perf_counter() - t0:.1f} s")
+
+
+def _find_key(node, key):
+    """The first dict under `node` (a JSON tree) that holds `key`."""
+    if isinstance(node, dict):
+        if key in node:
+            return node
+        node = list(node.values())
+    if isinstance(node, list):
+        for v in node:
+            found = _find_key(v, key)
+            if found is not None:
+                return found
+    return None
+
+
+def phase_tools(dev, LR, root):
+    """Phase 23 (c): tools/make_synth_dataset_torch.py at 1088x1920 (1
+    sequence, 3 frames) into `root`, then the port's harness codes its
+    config.json on device EC, every decoded frame equal to the encoder's;
+    tools/bd_r5_torch.py on docs/dmci_tiny_rd.msgpack at 512x768 (4 QPs,
+    2 images) on the card, its BD-rate reported only (tiny weights trained
+    on synthetic content).  Returns the K1 / K2 launches."""
+    import contextlib
+    from opendcvc_tpu_torch.eval import harness
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import bd_r5_torch
+    import make_synth_dataset_torch
+    t0 = time.perf_counter()
+    syn = os.path.join(root, "synth_ds")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        cfg = make_synth_dataset_torch.main([
+            "--root", syn, "--seqs", "1", "--frames", "3", "--height",
+            str(SYN_H), "--width", str(W)])
+    t_make = time.perf_counter() - t0
+    log = {"enc": [], "dec": [], "codec_s": 0.0, "calls": []}
+    saved = os.environ.pop("OPENDCVC_TPU_DEVICE_EC", None)
+    os.environ["OPENDCVC_TPU_DEVICE_EC"] = "1"
+    undo = _record_codecs(harness, log)
+    LR.encode_scan.launches = 0
+    LR.decode_scan.launches = 0
+    try:
+        harness.main([
+            "--test_config", cfg,
+            "--output_path", os.path.join(syn, "rd.json"),
+            "--stream_path", os.path.join(syn, "streams"),
+            "--rate_num", "1", "--qp_i", str(QP), "--qp_p", str(QP),
+            "--force_zero_thres", str(FZ), "--seed", "0",
+            "--device", dev.type])
+    finally:
+        undo()
+        os.environ.pop("OPENDCVC_TPU_DEVICE_EC")
+        if saved is not None:
+            os.environ["OPENDCVC_TPU_DEVICE_EC"] = saved
+    _check_decoder_exact(log, "phase 23 (c) harness", 3)
+    with open(os.path.join(syn, "rd.json")) as f:
+        job = _find_key(json.load(f), "ave_all_frame_bpp")
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        bd = bd_r5_torch.main([
+            "--ckpt", os.path.join(ROOT, "docs", "dmci_tiny_rd.msgpack"),
+            "--out", os.path.join(root, "bd_rate_r5.json"), "--qps", BD_QPS,
+            "--size", "512", "--width", "768", "--n_images", "2",
+            "--device", dev.type])
+    launches = [LR.encode_scan.launches, LR.decode_scan.launches]
+    if not all(np.isfinite([p["bpp_stream"], p["psnr"]]).all()
+               for p in bd["points"]) or len(bd["points"]) != 4:
+        _fail("phase 23 (c): bd_r5_torch's points are not finite")
+    _log(f"phase 23 (c): make_synth_dataset_torch wrote 3 {W}x{SYN_H} PNGs "
+         f"and config.json in {t_make:.1f} s; the harness coded them on "
+         f"device EC, decoder exact on all 3 frames, bpp "
+         f"{job['ave_all_frame_bpp']:.4f}, PSNR "
+         f"{job['ave_all_frame_psnr']:.4f} dB")
+    _log("phase 23 (c): bd_r5_torch on docs/dmci_tiny_rd.msgpack, 512x768, "
+         f"qps {BD_QPS}, 2 images: points " + json.dumps(
+             [{k: p[k] for k in ("qp", "bpp_stream", "psnr")}
+              for p in bd["points"]])
+         + f"; BD-rate vs the EVC EncL anchor {bd['bd_rate_vs_anchor_pct']}"
+         f" % (reported only: tiny weights, synthetic content, PSNRs below "
+         f"the anchor's range); {time.perf_counter() - t1:.1f} s; K1 "
+         f"{launches[0]}, K2 {launches[1]} launches in (c)")
+    for line in printed.getvalue().splitlines():
+        _log(f"phase 23 (c) tool: {line}")
+    return launches
+
+
+def phase_slice15(dev, LR, root):
+    """Phase 23: (a) transfer slimming, (b) reference state dicts, (c) the
+    RD-artifact tools, (d) phase 8's bench again with slim off.  Returns
+    the K1 / K2 launches of its device-EC runs."""
+    t0 = time.perf_counter()
+    launches, slim = phase_slim(dev, LR)
+    LR.encode_scan.launches = 0
+    LR.decode_scan.launches = 0
+    phase_port_torch(dev, slim)
+    launches = [a + b for a, b in zip(launches, [
+        LR.encode_scan.launches, LR.decode_scan.launches])]
+    launches = [a + b for a, b in zip(launches, phase_tools(dev, LR, root))]
+    launches = [a + b for a, b in zip(launches, phase_bench(
+        dev, LR, "phase 23 (d)", env={"OPENDCVC_TPU_EC_SLIM": "0"}))]
+    on, off = BENCH_LINES["phase 8"], BENCH_LINES["phase 23 (d)"]
+    _log("phase 23 (d): the bench line with slim on (phase 8, the default) "
+         "/ off (OPENDCVC_TPU_EC_SLIM=0, this run): " + ", ".join(
+             f"{k} {on[k]} / {off[k]}" for k in (
+                 "enc_fps", "dec_fps", "intra_enc_fps", "intra_dec_fps",
+                 "bpp")))
+    if on["bpp"] != off["bpp"]:
+        _fail("phase 23 (d): the bench's bpp differs with slim on and off")
+    _log(f"phase 23 done in {time.perf_counter() - t0:.1f} s; K1 "
+         f"{launches[0]}, K2 {launches[1]} launches")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chip_smoke_out",
@@ -4519,6 +4922,8 @@ def main():
         phase_dcvc(dev, LR, root)
         phase_zoo(dev, LR)
         runs["phase 21"] = phase_training_extras(dev, LR, root)
+        torch.cuda.empty_cache()
+        runs["phase 23"] = phase_slice15(dev, LR, root)
         torch.cuda.empty_cache()
         LR.encode_scan.launches = 0
         LR.decode_scan.launches = 0

@@ -995,13 +995,9 @@ def port_evc(sd):
         "he_dcb": _evc_hp_dcb(sd, "hyper_enc.0"),
         "he_c1": _conv(sd, "hyper_enc.1"),
         "he_c2": _conv(sd, "hyper_enc.3"),
-        "hd_up1": {"dcb": {"dc": _evc_hp_dc(sd, "hyper_dec.0.block.0"),
-                           "ffn": {"c1": _conv(sd, "hyper_dec.0.block.1.conv.0"),
-                                   "c2": _conv(sd, "hyper_dec.0.block.1.conv.2")}},
+        "hd_up1": {"dcb": _evc_hp_dcb(sd, "hyper_dec.0"),
                    "subpel": _conv(sd, "hyper_dec.0.block.2")},
-        "hd_up2": {"dcb": {"dc": _evc_hp_dc(sd, "hyper_dec.1.block.0"),
-                           "ffn": {"c1": _conv(sd, "hyper_dec.1.block.1.conv.0"),
-                                   "c2": _conv(sd, "hyper_dec.1.block.1.conv.2")}},
+        "hd_up2": {"dcb": _evc_hp_dcb(sd, "hyper_dec.1"),
                    "subpel": _conv(sd, "hyper_dec.1.block.2")},
         "hd_dcb": _evc_hp_dcb(sd, "hyper_dec.2"),
         "fusion1": _evc_hp_dcb(sd, "y_prior_fusion.0"),

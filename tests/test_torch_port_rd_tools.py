@@ -27,9 +27,6 @@ import os
 import subprocess
 import sys
 
-import numpy as np
-import pytest
-
 from opendcvc_tpu_torch.eval.published_results import EVC_KODAK, bd_rate
 from test_torch_port_eval_extras import _psnr_tol
 from test_torch_port_lane_rans import _one_thread  # noqa: F401  (fixture)

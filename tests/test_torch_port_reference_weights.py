@@ -10,6 +10,8 @@ in `torch_port_reference_sd.py`.  Held:
   * the port's mapper equals `from_jax` of the JAX mapper's tree bit for
     bit, dtypes included, for numpy and torch values, float32 and float64
     (both packages give float32), each leaf a fresh contiguous tensor;
+  * bfloat16 tensors map to bfloat16 leaves in the port (the JAX
+    mapper raises TypeError on them);
   * a missing key raises KeyError in both; extra keys are ignored;
   * DMCI (narrow: N 64, z 32, 64 channels at full resolution) and DMC
     (its one width) loaded through each package's mapper code a 64x64
@@ -117,6 +119,22 @@ def test_port_mapper_equals_jax_mapper(model, flavour, sources):
             v.add_(1.0)
         for path, leaf in got.items():
             assert torch.equal(leaf, before[path]), path
+
+
+@pytest.mark.parametrize("model", MODELS)
+def test_bfloat16_torch_values_keep_their_dtype(model, sources):
+    """bfloat16 tensors: the port's leaves are the float32 mapping's,
+    rounded to bfloat16 (the mapping only moves values); the JAX mapper
+    cannot read them (ROADMAP, faults of the JAX package)."""
+    sd = sources[model][1]
+    bf = {k: torch.from_numpy(v).to(torch.bfloat16) for k, v in sd.items()}
+    got = dict(_leaves(getattr(PP, "port_" + model)(bf)))
+    want = dict(_leaves(getattr(PP, "port_" + model)(sd)))
+    for path, leaf in got.items():
+        assert leaf.dtype == torch.bfloat16, path
+        assert torch.equal(leaf, want[path].to(torch.bfloat16)), path
+    with pytest.raises(TypeError):
+        getattr(JP, "port_" + model)(bf)
 
 
 @pytest.mark.parametrize("model", MODELS)
