@@ -4640,8 +4640,11 @@ def phase_slim(dev, LR):
     if on["launches"] != off["launches"]:
         _fail(f"phase 23 (a): K1 / K2 launched {on['launches']} times with "
               f"slim on, {off['launches']} off")
+    LR.encode_scan.launches = 0
+    LR.decode_scan.launches = 0
     grown, cap = _forced_miss(dev, p_params, on["x_ref"], xs[1],
                               on["streams"]["DMC"][0])
+    miss = [LR.encode_scan.launches, LR.decode_scan.launches]
     sh = on["shapes"]
     tail = 3 * sh["lanes"]
     win = _copy_ms((N_SLIM_GOP, sh["window"] + tail), dev)
@@ -4661,7 +4664,8 @@ def phase_slim(dev, LR):
          f"/ K2 launches equal ({on['launches']}); forced miss (window "
          f"{SLIM_MISS_W}): 1 miss, window grown to {grown} of {cap}, the "
          f"same bytes")
-    total = [a + b for a, b in zip(on["launches"], off["launches"])]
+    total = [a + b + c for a, b, c in zip(on["launches"], off["launches"],
+                                          miss)]
     return total, on
 
 
