@@ -1,0 +1,8 @@
+"""Frames decoded on the host coder a second over the whole window (host
+clock)."""
+
+from core import readers
+
+
+def read(r):
+    return readers.rate(r)
