@@ -300,7 +300,11 @@ Phases (any failure exits nonzero and prints no result):
      tools/bd_r5_torch.py on docs/dmci_tiny_rd.msgpack at 512x768 (4 QPs,
      2 images), its BD-rate reported only; (d) phase 8's bench again with
      OPENDCVC_TPU_EC_SLIM=0, its line beside phase 8's (the same bpp).
-The kernel launch counters are zeroed before phase 3 and read after
+The host coder's ms, the device->host waits' and the uploads' come from
+the port's trace (opendcvc_tpu_torch/utils/trace.py): a session around
+each timed call, summing its `coder.*`, `wait.fetch` and `upload` spans.
+The kernel launch counts (the trace's `k1.launch` and `k2.launch`
+counters) are zeroed before phase 3 and read after
 phase 4, so the counts are the main path's (the device-EC path); they are
 zeroed again before phase 6 and must read 0 after it, again before each
 run of phases 7, 9 and 10, and before phase 8; they are
@@ -352,6 +356,50 @@ def _log(msg):
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+_LAUNCH_BASE = [0, 0]
+
+
+def _launch_totals():
+    from opendcvc_tpu_torch.utils import trace
+    c = trace.counters()
+    return [c.get("k1.launch", 0), c.get("k2.launch", 0)]
+
+
+def _reset_launches():
+    """Count K1 / K2 launches (the port's trace counters `k1.launch` /
+    `k2.launch`, opendcvc_tpu_torch/utils/trace.py) from here on."""
+    _LAUNCH_BASE[:] = _launch_totals()
+
+
+def _launches():
+    """[K1, K2] launches since the last _reset_launches()."""
+    return [a - b for a, b in zip(_launch_totals(), _LAUNCH_BASE)]
+
+
+def _traced(fn, dev=None):
+    """fn() in a session of the port's trace (opendcvc_tpu_torch/utils/
+    trace.py), synchronized and timed on the host when `dev` is given:
+    (its result, its ms or None, the session's totals)."""
+    from opendcvc_tpu_torch.utils import trace
+    trace.enable()
+    try:
+        out, ms = (fn(), None) if dev is None else _timed(fn, dev)
+    finally:
+        trace.disable()
+    return out, ms, trace.last_session()
+
+
+def _span_ms(session, prefix):
+    """Host ms of a trace session's spans named `prefix`*."""
+    return sum(v["ms"] for k, v in session["spans"].items()
+               if k.startswith(prefix))
+
+
+def _coder_ms(session):
+    """Host ms of a trace session in the host coder's calls."""
+    return _span_ms(session, "coder.")
 
 
 def median_ms(fn, dev, reps=REPS, queued=False):
@@ -1005,67 +1053,17 @@ def _reference_chain(dev, qp, fz):
                   f"(x_hat {x_err:g}, feature {feat_err:g})")
 
 
-CODER_CALLS = ("reset", "encode_y", "encode_z", "flush",
-               "get_encoded_stream", "set_stream", "decode_y", "decode_z",
-               "get_decoded_tensor")
-
-
-def _clock_coder(coder):
-    """Wrap the host coder's calls so each adds its host time to the
-    returned one-element list (ms)."""
-    spent = [0.0]
-    for name in CODER_CALLS:
-        def timed(*args, _fn=getattr(coder, name), **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return _fn(*args, **kwargs)
-            finally:
-                spent[0] += (time.perf_counter() - t0) * 1e3
-        setattr(coder, name, timed)
-    return spent
-
-
-def _clock_transfers(common):
-    """Wrap the codecs' host transfers (models/common.py) so the host's
-    waits for device->host copies and its upload calls add their host
-    time (ms) to the returned dict; returns (dict, undo)."""
-    spent = {"wait_ms": 0.0, "upload_ms": 0.0}
-    fetch_async, upload = common.fetch_async, common.upload
-
-    def timed_fetch_async(t):
-        wait = fetch_async(t)
-
-        def timed_wait():
-            t0 = time.perf_counter()
-            try:
-                return wait()
-            finally:
-                spent["wait_ms"] += (time.perf_counter() - t0) * 1e3
-        return timed_wait
-
-    def timed_upload(a, device):
-        t0 = time.perf_counter()
-        try:
-            return upload(a, device)
-        finally:
-            spent["upload_ms"] += (time.perf_counter() - t0) * 1e3
-
-    common.fetch_async, common.upload = timed_fetch_async, timed_upload
-
-    def undo():
-        common.fetch_async, common.upload = fetch_async, upload
-    return spent, undo
-
-
-def _frame_record(net, spent, moves, fn, dev):
-    """Run one frame's call, synchronized; returns (its result, {ms, the
-    host coder's ms, device->host waits and their ms, uploads and their
-    ms})."""
-    before = (spent[0], dict(net.transfers), dict(moves))
-    out, ms = _timed(fn, dev)
-    rec = {"ms": ms, "coder_ms": spent[0] - before[0]}
-    rec.update({k: net.transfers[k] - before[1][k] for k in net.transfers})
-    rec.update({k: moves[k] - before[2][k] for k in moves})
+def _frame_record(net, fn, dev):
+    """Run one frame's call, synchronized, in a session of the port's
+    trace; returns (its result, {ms, the host coder's ms (`coder.*`
+    spans), device->host waits and their ms (`wait.fetch`), uploads and
+    their ms (`upload`)})."""
+    before = dict(net.transfers)
+    out, ms, session = _traced(fn, dev)
+    rec = {"ms": ms, "coder_ms": _coder_ms(session),
+           "wait_ms": _span_ms(session, "wait.fetch"),
+           "upload_ms": _span_ms(session, "upload")}
+    rec.update({k: net.transfers[k] - before[k] for k in net.transfers})
     return out, rec
 
 
@@ -1074,7 +1072,6 @@ def phase_host(dev, frames, qp, fz, intra, p_run, dtype=torch.float32,
     """Phase 6 (and 9 (a) in bfloat16): the host-EC sequence at 1080p,
     written to and decoded from one NAL stream; held bit for bit against
     the device-EC run (phases 3-4)."""
-    from opendcvc_tpu_torch.models import common
     from opendcvc_tpu_torch.models.dmc import DMC
     from opendcvc_tpu_torch.models.dmci import DMCI
     from opendcvc_tpu_torch.utils import stream_helper as S
@@ -1083,27 +1080,21 @@ def phase_host(dev, frames, qp, fz, intra, p_run, dtype=torch.float32,
     p_net = DMC(device=dev, dtype=dtype)
     p_net.load_params(p_run["params"])
     use_two = H * W > 1280 * 720      # the harness's rule, source size
-    clocks = {}
-    for name, net in (("I", i_net), ("P", p_net)):
+    for net in (i_net, p_net):
         net.update(force_zero_thres=fz)
         net.set_use_two_entropy_coders(use_two)
-        clocks[name] = _clock_coder(net.entropy_coder)
     sps = {"sps_id": -1, "height": H, "width": W,
            "ec_part": int(use_two), "use_ada_i": 0}
 
     # the first pass warms the host path; the sequence is the second
     warm = i_net.compress(frames[0], qp)
     i_net.decompress(warm["bit_stream"], dict(sps), qp)
-    moves, undo = _clock_transfers(common)
-    try:
-        return _host_sequence(dev, frames, qp, intra, p_run, i_net, p_net,
-                              clocks, moves, sps, S, label)
-    finally:
-        undo()
+    return _host_sequence(dev, frames, qp, intra, p_run, i_net, p_net, sps,
+                          S, label)
 
 
-def _host_sequence(dev, frames, qp, intra, p_run, i_net, p_net, clocks,
-                   moves, sps, S, label):
+def _host_sequence(dev, frames, qp, intra, p_run, i_net, p_net, sps, S,
+                   label):
     """Encode the sequence into one NAL stream, then decode it from the
     bytes; fails on any difference from the device-EC run."""
     use_two = bool(sps["ec_part"])
@@ -1112,8 +1103,8 @@ def _host_sequence(dev, frames, qp, intra, p_run, i_net, p_net, clocks,
     enc_recs, streams, feats, sps_bytes = [], [], [], 0
     for t, x in enumerate(frames):
         if t == 0:
-            enc, rec = _frame_record(i_net, clocks["I"], moves,
-                                     lambda: i_net.compress(x, qp), dev)
+            enc, rec = _frame_record(i_net, lambda: i_net.compress(x, qp),
+                                     dev)
             if not torch.equal(enc["x_hat"], intra["x_hat"]):
                 _fail(f"{label}: host-EC I-frame x_hat differs from the "
                       f"device-EC run's")
@@ -1122,8 +1113,7 @@ def _host_sequence(dev, frames, qp, intra, p_run, i_net, p_net, clocks,
             x_i, stream = enc["x_hat"], enc["bit_stream"]
         else:
             stream, rec = _frame_record(
-                p_net, clocks["P"], moves,
-                lambda: p_net.compress(x, qp)["bit_stream"], dev)
+                p_net, lambda: p_net.compress(x, qp)["bit_stream"], dev)
             feats.append(p_net.dpb[0].feature.clone())
             if not torch.equal(feats[-1], p_run["feats"][t - 1]):
                 _fail(f"{label}: host-EC P-frame {t - 1} feature differs "
@@ -1152,8 +1142,7 @@ def _host_sequence(dev, frames, qp, intra, p_run, i_net, p_net, clocks,
                   f"stream")
         if header["nal_type"] == S.NalType.NAL_I:
             dec, rec = _frame_record(
-                i_net, clocks["I"], moves,
-                lambda: i_net.decompress(stream, f_sps, f_qp), dev)
+                i_net, lambda: i_net.decompress(stream, f_sps, f_qp), dev)
             if not torch.equal(dec["x_hat"], x_i):
                 _fail(f"{label}: host-EC decoded I-frame differs from the "
                       f"encoder's")
@@ -1161,8 +1150,7 @@ def _host_sequence(dev, frames, qp, intra, p_run, i_net, p_net, clocks,
             p_net.add_ref_frame(None, dec["x_hat"])
         else:
             dec, rec = _frame_record(
-                p_net, clocks["P"], moves,
-                lambda: p_net.decompress(stream, f_sps, f_qp), dev)
+                p_net, lambda: p_net.decompress(stream, f_sps, f_qp), dev)
             if not torch.equal(p_net.dpb[0].feature, feats[t - 1]):
                 _fail(f"{label}: host-EC enc/dec feature chain diverged "
                       f"at P-frame {t - 1}")
@@ -1351,7 +1339,7 @@ def _clock_harness(harness):
     return spent, undo
 
 
-def _harness_run(harness, LR, root, seq, device_ec, n=N_HARNESS,
+def _harness_run(harness, root, seq, device_ec, n=N_HARNESS,
                  dtype="float32", phase="phase 7"):
     """One harness run on the first n frames of the sequence, in process,
     through the port's CLI entry point; returns its per-job log, .bin
@@ -1367,8 +1355,7 @@ def _harness_run(harness, LR, root, seq, device_ec, n=N_HARNESS,
         os.environ["OPENDCVC_TPU_DEVICE_EC"] = "1"
     undo = _record_codecs(harness, log)
     steps, undo_steps = _clock_harness(harness)
-    LR.encode_scan.launches = 0
-    LR.decode_scan.launches = 0
+    _reset_launches()
     try:
         harness.main([
             "--test_config", cfg,
@@ -1385,7 +1372,7 @@ def _harness_run(harness, LR, root, seq, device_ec, n=N_HARNESS,
         os.environ.pop("OPENDCVC_TPU_DEVICE_EC", None)
         if saved is not None:
             os.environ["OPENDCVC_TPU_DEVICE_EC"] = saved
-    launches = [LR.encode_scan.launches, LR.decode_scan.launches]
+    launches = _launches()
     out_dir = os.path.join(root, tag, "synthetic")
     with open(os.path.join(out_dir, f"seq1080_q{QP}.json")) as f:
         job = json.load(f)
@@ -1434,10 +1421,9 @@ def phase_harness(root, seq):
     sequence from a dataset config, host EC then device EC; returns the
     device-EC run's K1 and K2 launches."""
     from opendcvc_tpu_torch.eval import harness
-    from opendcvc_tpu_torch.ops import lane_rans as LR
     pil_before = "PIL" in sys.modules
-    host = _harness_run(harness, LR, root, seq, device_ec=False)
-    dev = _harness_run(harness, LR, root, seq, device_ec=True)
+    host = _harness_run(harness, root, seq, device_ec=False)
+    dev = _harness_run(harness, root, seq, device_ec=True)
     if max(host["launches"]):
         _fail("phase 7: the host-EC harness run launched a lane rANS kernel")
     if min(dev["launches"]) == 0:
@@ -1538,7 +1524,7 @@ def _bench_checks(st, dev, label):
 BENCH_LINES = {}        # each phase_bench run's line, by label
 
 
-def phase_bench(dev, LR, label="phase 8", env=None):
+def phase_bench(dev, label="phase 8", env=None):
     """Phase 8 (and 9 (b) with env BENCH_DTYPE=bfloat16):
     `opendcvc_tpu_torch.bench` in process at bench.py's defaults (BENCH_*
     and OPENDCVC_TPU_EC_* unset but for `env`), then its holds; returns
@@ -1548,8 +1534,7 @@ def phase_bench(dev, LR, label="phase 8", env=None):
     saved = {k: os.environ.pop(k) for k in list(os.environ)
              if k.startswith(("BENCH_", "OPENDCVC_TPU_EC_"))}
     os.environ.update(env or {})
-    LR.encode_scan.launches = 0
-    LR.decode_scan.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     try:
         st = bench.run()
@@ -1557,7 +1542,7 @@ def phase_bench(dev, LR, label="phase 8", env=None):
         for k in env or {}:
             os.environ.pop(k)
         os.environ.update(saved)
-    launches = [LR.encode_scan.launches, LR.decode_scan.launches]
+    launches = _launches()
     bench_s = time.perf_counter() - t0
     coded, decoded, n, gop_n = (st["coded"], st["decoded"], st["n_frames"],
                                 st["gop_n"])
@@ -1620,7 +1605,7 @@ def _times(intra, p_run):
             "dec_ms": p_run["dec_ms"], "bpp": p_run["bpp"]}
 
 
-def phase_bf16(dev, LR, frames, f32, root, seq):
+def phase_bf16(dev, frames, f32, root, seq):
     """Phase 9: DCVC-RT in bfloat16 at 1080p full width, phases 3-8's
     configuration.  (a) DMCI + 4 DMC P-frames through device EC, then
     through host EC (two coders, one NAL stream), each exact within
@@ -1633,22 +1618,19 @@ def phase_bf16(dev, LR, frames, f32, root, seq):
     bf16 = torch.bfloat16
     runs = {}
 
-    LR.encode_scan.launches = 0
-    LR.decode_scan.launches = 0
+    _reset_launches()
     intra = phase_intra(dev, frames[0], QP, FZ, bf16, "phase 9 (a)")
     p_run = phase_p(dev, intra["x_hat"], frames[1:], QP, FZ, bf16,
                     "phase 9 (a)")
-    runs["phase 9 (a) device EC"] = [LR.encode_scan.launches,
-                                     LR.decode_scan.launches]
+    runs["phase 9 (a) device EC"] = _launches()
     if min(runs["phase 9 (a) device EC"]) == 0:
         _fail("phase 9 (a): the device-EC run did not launch K1 and K2")
     if intra["x_hat"].dtype != bf16 or p_run["feats"][0].dtype != bf16:
         _fail("phase 9 (a): the codecs did not run in bfloat16")
-    LR.encode_scan.launches = 0
-    LR.decode_scan.launches = 0
+    _reset_launches()
     phase_host(dev, frames, QP, FZ, intra, p_run, bf16,
                "phase 9 (a) host EC")
-    if max(LR.encode_scan.launches, LR.decode_scan.launches):
+    if max(_launches()):
         _fail("phase 9 (a): the host-EC run launched a lane rANS kernel")
     for name, r in (("float32 (phases 3-4)", f32),
                     ("bfloat16 (phase 9 a)", _times(intra, p_run))):
@@ -1659,9 +1641,9 @@ def phase_bf16(dev, LR, frames, f32, root, seq):
              + " ".join(f"{t:.1f}" for t in r["dec_ms"]) + " | bpp "
              + " ".join(f"{b:.4f}" for b in r["bpp"]))
 
-    runs["phase 9 (b)"] = phase_bench(dev, LR, "phase 9 (b)",
+    runs["phase 9 (b)"] = phase_bench(dev, "phase 9 (b)",
                                       {"BENCH_DTYPE": "bfloat16"})
-    run_c = _harness_run(harness, LR, root, seq, device_ec=True,
+    run_c = _harness_run(harness, root, seq, device_ec=True,
                          n=N_BF16_HARNESS, dtype="bfloat16",
                          phase="phase 9 (c)")
     runs["phase 9 (c)"] = run_c["launches"]
@@ -1749,7 +1731,7 @@ def _skip_gop(dev, params, x_ref, xs, qp, fz):
             "staging_kyc0": (n, cap0 + 3 * plan.lanes)}
 
 
-def phase_skip(dev, LR, f32):
+def phase_skip(dev, f32):
     """Phase 10 (a): phases 3-4 with OPENDCVC_TPU_EC_SKIP_COMPACT=1 (first
     rung at the default survivor share 0.5), then a GOP chunk of
     N_SKIP_GOP P-frames; returns the K1 and K2 launches."""
@@ -1761,8 +1743,7 @@ def phase_skip(dev, LR, f32):
              if k.startswith("OPENDCVC_TPU_EC_")}
     os.environ["OPENDCVC_TPU_EC_SKIP_COMPACT"] = "1"
     steps, undo = _record_k1_steps()
-    LR.encode_scan.launches = 0
-    LR.decode_scan.launches = 0
+    _reset_launches()
     try:
         intra = phase_intra(dev, frames[0], QP, FZ, label=label)
         p_run = phase_p(dev, intra["x_hat"], frames[1:5], QP, FZ,
@@ -1776,7 +1757,7 @@ def phase_skip(dev, LR, f32):
         undo()
         os.environ.pop("OPENDCVC_TPU_EC_SKIP_COMPACT")
         os.environ.update(saved)
-    launches = [LR.encode_scan.launches, LR.decode_scan.launches]
+    launches = _launches()
     p_plan = g["plan"]
     coded = [("I", s) for s in intra["streams"]] + \
         [("P", s) for s in p_run["streams"] + g["streams"] + g["streams"]]
@@ -1914,7 +1895,7 @@ def _descent(dev, model, label="phase 10 (b)"):
          f"1e-4: loss " + " ".join(f"{v:.3f}" for v in losses))
 
 
-def _code_checkpoints(dev, LR, save_dir):
+def _code_checkpoints(dev, save_dir):
     """The saved dmci_latest / dmc_latest checkpoints load in the port's
     DMCI and DMC, which code a 1080p I-frame and a P-frame with device EC,
     the decoder exact.  Returns the K1 and K2 launches."""
@@ -1924,8 +1905,7 @@ def _code_checkpoints(dev, LR, save_dir):
     from opendcvc_tpu_torch.utils.params import from_jax
     x0, x1 = synthetic_frames(H, W, 2)
     sps = {"height": x0.shape[1], "width": x0.shape[2]}
-    LR.encode_scan.launches = 0
-    LR.decode_scan.launches = 0
+    _reset_launches()
     nets = {}
     for name, make in (("dmci", DMCI), ("dmc", DMC)):
         for role in ("enc", "dec"):
@@ -1947,7 +1927,7 @@ def _code_checkpoints(dev, LR, save_dir):
             not bool(torch.isfinite(out["x_hat"]).all()):
         _fail("phase 10 (b): the trained DMC's decoder feature differs")
     bpp = [len(b) * 8 / (H * W) for b in (enc["bit_stream"], s)]
-    launches = [LR.encode_scan.launches, LR.decode_scan.launches]
+    launches = _launches()
     _log(f"phase 10 (b): the saved checkpoints load in DMCI and DMC and "
          f"code a {W}x{H} I-frame and P-frame (bpp {bpp[0]:.4f} / "
          f"{bpp[1]:.4f}), decoder exact; K1 {launches[0]}, K2 "
@@ -1988,11 +1968,11 @@ def phase_estimate(root, stream_job):
          "stream mode shifts qp by the frame's index and refreshes)")
 
 
-def phase_training_slice(dev, LR, f32, root, stream_job):
+def phase_training_slice(dev, f32, root, stream_job):
     """Phase 10: (a) skip compaction; (b) training in float32 and (c) with
     --amp, each of dmci and dmc --frames 3; (d) estimate mode.  Returns
     the K1 and K2 launches of its device-EC runs."""
-    runs = {"phase 10 (a)": phase_skip(dev, LR, f32)}
+    runs = {"phase 10 (a)": phase_skip(dev, f32)}
     save_dir = os.path.join(root, "ckpt")
     for amp in (False, True):
         for model in ("dmci", "dmc"):
@@ -2000,8 +1980,7 @@ def phase_training_slice(dev, LR, f32, root, stream_job):
             if not amp:
                 _descent(dev, model)
         if not amp:
-            runs["phase 10 (b) codecs"] = _code_checkpoints(dev, LR,
-                                                            save_dir)
+            runs["phase 10 (b) codecs"] = _code_checkpoints(dev, save_dir)
     phase_estimate(root, stream_job)
     return runs
 
@@ -2015,22 +1994,19 @@ FM_RESET = 5     # refreshes at frames 1 and 6; frame 9 takes fa_idx 1
 N_FM_PARTS = 5   # (b)'s frames
 FM_DPB = ("ref_frame", "ref_feature", "ref_mv_feature", "ref_y",
           "ref_mv_y")
-def _fm_wrap(net, kind, log, coder_ms):
+def _fm_wrap(net, kind, log):
     """Wrap an FM codec's compress / decompress: each call synchronized,
-    timed, and logged with the host coder's ms within it, the device-EC
-    ladder's reruns and the DPB (an I-frame's x_hat) it produced."""
+    timed, and logged with the host coder's ms within it (the port's
+    trace), the device-EC ladder's reruns and the DPB (an I-frame's
+    x_hat) it produced."""
     compress, decompress = net.compress, net.decompress
 
     def timed(side, fn, *args):
-        c0, r0 = coder_ms[0], net.ec_reruns
-        _sync(net.device)
-        t0 = time.perf_counter()
-        out = fn(*args)
-        _sync(net.device)
-        ms = (time.perf_counter() - t0) * 1e3
+        r0 = net.ec_reruns
+        out, ms, session = _traced(lambda: fn(*args), net.device)
         dpb = out["dpb"] if kind == "P" else {"ref_frame": out["x_hat"]}
         log[side].append({"kind": kind, "ms": ms,
-                          "coder_ms": coder_ms[0] - c0,
+                          "coder_ms": _coder_ms(session),
                           "reruns": net.ec_reruns - r0, "dpb": dpb})
         return out
 
@@ -2077,8 +2053,7 @@ def _fm_harness_run(dev, root, h, w, n, device_ec=False):
         for kind, net in (("I", i_net), ("P", p_net)):
             if net.device_ec != device_ec:
                 _fail(f"the FM harness built {kind} on the wrong coder")
-            _fm_wrap(net, kind, log, [0.0] if device_ec else
-                     _clock_coder(net.entropy_coder))
+            _fm_wrap(net, kind, log)
         return i_net, p_net
 
     def measured(*args):
@@ -2380,17 +2355,16 @@ def phase_fm_reference(dev, device_ec=False, label="phase 11 (c)",
             ref = g["dpb"] if t else dict.fromkeys(FM_DPB[1:]) | g_dpb
 
 
-def phase_fm(dev, LR, root, h=H, w=W):
+def phase_fm(dev, root, h=H, w=W):
     """Phase 11: DCVC-FM at h x w, (a) the FM harness, (b) the N-part
     split, (c) GPU -> CPU; K1 and K2 must not launch.  Returns (a)'s
     per-frame log."""
-    LR.encode_scan.launches = 0
-    LR.decode_scan.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     recs, log = phase_fm_harness(dev, root, h, w)
     phase_fm_parts(dev, root, h, w, recs)
     phase_fm_reference(dev)
-    launches = [LR.encode_scan.launches, LR.decode_scan.launches]
+    launches = _launches()
     if max(launches):
         _fail(f"phase 11: FM (host EC) launched K1 / K2 {launches}")
     _log(f"phase 11: DCVC-FM done in {time.perf_counter() - t0:.1f} s; K1 "
@@ -2444,7 +2418,7 @@ def _fm_same(got, want, what, ref="host EC's"):
             _fail(f"{what}: {k} differs from {ref}")
 
 
-def phase_fm_device_harness(dev, LR, root, host, h, w, n=N_FM):
+def phase_fm_device_harness(dev, root, host, h, w, n=N_FM):
     """Phase 12 (a): the FM harness with OPENDCVC_TPU_DEVICE_EC=1 under
     phase 11 (a)'s checks, then: every frame's encoder and decoder DPB
     (x_hat on an I-frame) equal to phase 11 (a)'s host-EC ones and the
@@ -2452,13 +2426,12 @@ def phase_fm_device_harness(dev, LR, root, host, h, w, n=N_FM):
     5 times a decoded I-frame and 10 a P-frame.  Returns the log."""
     mode = "phase 12 (a) FM harness, device EC"
     counts, undo = _count_top_index()
-    LR.encode_scan.launches = 0
-    LR.decode_scan.launches = 0
+    _reset_launches()
     try:
         recs, log = phase_fm_harness(dev, root, h, w, n, True, mode)
     finally:
         undo()
-    launches = [LR.encode_scan.launches, LR.decode_scan.launches]
+    launches = _launches()
     kinds = [e["kind"] for e in log["enc"]]
     reruns = sum(e["reruns"] for e in log["enc"])
     want = [n + reruns, sum(FM_K2[k] for k in kinds)]
@@ -2484,7 +2457,7 @@ def phase_fm_device_harness(dev, LR, root, host, h, w, n=N_FM):
     return log, launches
 
 
-def _fm_chain(dev, LR, xs, h, w, device_ec, dtype=torch.float32,
+def _fm_chain(dev, xs, h, w, device_ec, dtype=torch.float32,
               stream_part=1, label="phase 12 (b)"):
     """DMCIFM (seed 0) and DMCFM (seed 1), built and called directly on
     xs (the I-frame, then P-frames with phase 11 (a)'s schedule), each
@@ -2503,23 +2476,18 @@ def _fm_chain(dev, LR, xs, h, w, device_ec, dtype=torch.float32,
     p_enc.init_params(seed=1)
     i_dec.load_params(i_enc.params)
     p_dec.load_params(p_enc.params)
-    clocks = {}
     for net in (i_enc, i_dec, p_enc, p_dec):
         net.update()
-        clocks[id(net)] = [0.0] if device_ec else \
-            _clock_coder(net.entropy_coder)
     sps = {"height": h, "width": w, "qp": QP}
     rows = []
 
     def coded(kind, enc_fn, dec_fn, enc_net, dec_net):
-        k0 = [LR.encode_scan.launches, LR.decode_scan.launches]
+        k0 = _launches()
         r0 = enc_net.ec_reruns
-        c0 = [clocks[id(enc_net)][0], clocks[id(dec_net)][0]]
-        out, ms_e = _timed(enc_fn, dev)
-        dec, ms_d = _timed(lambda: dec_fn(out["bit_stream"]), dev)
+        out, ms_e, se = _traced(enc_fn, dev)
+        dec, ms_d, sd = _traced(lambda: dec_fn(out["bit_stream"]), dev)
         reruns = enc_net.ec_reruns - r0
-        launches = (LR.encode_scan.launches - k0[0],
-                    LR.decode_scan.launches - k0[1])
+        launches = tuple(a - b for a, b in zip(_launches(), k0))
         want = (1 + reruns, FM_K2[kind]) if device_ec else (0, 0)
         if launches != want:
             _fail(f"{label}: frame {len(rows)} launched K1 / K2 "
@@ -2528,9 +2496,9 @@ def _fm_chain(dev, LR, xs, h, w, device_ec, dtype=torch.float32,
         dec_dpb = dec.get("dpb", {"ref_frame": dec.get("x_hat")})
         _fm_exact(enc_dpb, dec_dpb, f"{label} frame {len(rows)} ({kind})")
         rows.append({"kind": kind, "enc_ms": ms_e, "dec_ms": ms_d,
-                     "enc_coder_ms": clocks[id(enc_net)][0] - c0[0],
-                     "dec_coder_ms": clocks[id(dec_net)][0] - c0[1],
-                     "reruns": reruns, "bytes": len(out["bit_stream"]),
+                     "enc_coder_ms": _coder_ms(se),
+                     "dec_coder_ms": _coder_ms(sd), "reruns": reruns,
+                     "bytes": len(out["bit_stream"]),
                      "stream": out["bit_stream"], "launches": launches,
                      "enc": enc_dpb, "dec": dec_dpb})
 
@@ -2556,13 +2524,13 @@ def _launch_total(rows):
     return [sum(r["launches"][i] for r in rows) for i in (0, 1)]
 
 
-def phase_fm_device_alone(dev, LR, root, ref, h, w, n=N_FM_ALONE):
+def phase_fm_device_alone(dev, root, ref, h, w, n=N_FM_ALONE):
     """Phase 12 (b): DMCIFM and DMCFM on device EC, built and called
     directly, on (a)'s first n frames with (a)'s schedule (`_fm_chain`'s
     checks), the encoder's DPB (a)'s.  Prints each frame's enc / dec ms,
     reruns and bytes.  Returns the rows."""
     mode = "phase 12 (b) device EC alone"
-    rows = _fm_chain(dev, LR, _fm_src_frames(root, h, w, n, dev), h, w,
+    rows = _fm_chain(dev, _fm_src_frames(root, h, w, n, dev), h, w,
                      True, label=mode)
     for t, r in enumerate(rows):
         _fm_same(r["enc"], ref["enc"][t]["dpb"], f"{mode} frame {t}")
@@ -2575,13 +2543,13 @@ def phase_fm_device_alone(dev, LR, root, ref, h, w, n=N_FM_ALONE):
     return rows
 
 
-def phase_fm_device(dev, LR, root, host, h=H, w=W):
+def phase_fm_device(dev, root, host, h=H, w=W):
     """Phase 12: DCVC-FM on device EC at h x w, phase 11's frames, weights
     and schedule: (a) the FM harness, (b) the codecs alone, (c) GPU ->
     CPU.  Returns the K1 / K2 launches of the phase and (b)'s rows."""
     t0 = time.perf_counter()
-    log, launches = phase_fm_device_harness(dev, LR, root, host, h, w)
-    alone = phase_fm_device_alone(dev, LR, root, log, h, w)
+    log, launches = phase_fm_device_harness(dev, root, host, h, w)
+    alone = phase_fm_device_alone(dev, root, log, h, w)
     phase_fm_reference(dev, True, "phase 12 (c)")
     total = [a + b for a, b in zip(launches, _launch_total(alone))]
     _log(f"phase 12: DCVC-FM device EC done in "
@@ -2651,7 +2619,7 @@ def phase_h100_streams(dev, out_dir):
 # phase 14: DCVC-FM in bfloat16
 # ---------------------------------------------------------------------------
 
-def phase_fm_bf16(dev, LR, root, f32_rows, h=H, w=W, n=N_FM_ALONE):
+def phase_fm_bf16(dev, root, f32_rows, h=H, w=W, n=N_FM_ALONE):
     """Phase 14: phase 12 (b)'s I-frame and four P-frames through DMCIFM /
     DMCFM(dtype=torch.bfloat16), seeds 0 / 1, qp 21, on host EC and on
     device EC (`_fm_chain`'s checks: decoder exact, launches), and on host
@@ -2665,17 +2633,16 @@ def phase_fm_bf16(dev, LR, root, f32_rows, h=H, w=W, n=N_FM_ALONE):
     bf16, label = torch.bfloat16, "phase 14 FM bfloat16"
     t0 = time.perf_counter()
     xs = _fm_src_frames(root, h, w, n, dev)
-    LR.encode_scan.launches = 0
-    LR.decode_scan.launches = 0
-    host = _fm_chain(dev, LR, xs, h, w, False, bf16,
+    _reset_launches()
+    host = _fm_chain(dev, xs, h, w, False, bf16,
                      label=f"{label} (a) host EC")
     counts, undo = _count_top_index()
     try:
-        device = _fm_chain(dev, LR, xs, h, w, True, bf16,
+        device = _fm_chain(dev, xs, h, w, True, bf16,
                            label=f"{label} (a) device EC")
     finally:
         undo()
-    parts = _fm_chain(dev, LR, xs, h, w, False, bf16, stream_part=2,
+    parts = _fm_chain(dev, xs, h, w, False, bf16, stream_part=2,
                       label=f"{label} (b) stream_part 2")
     kinds = [r["kind"] for r in host]
     tops = _fm_top_by_frame(counts, kinds)
@@ -2728,17 +2695,14 @@ def _dc_chain(dev, xs, h, w, dtype, stream_part, label, params=None):
     else:
         enc.load_params(params)
     dec.load_params(enc.params)
-    clocks = {}
     for net in (enc, dec):
         net.update()
-        clocks[id(net)] = _clock_coder(net.entropy_coder)
     enc_dpb = dec_dpb = dict.fromkeys(FM_DPB[1:]) | {"ref_frame": xs[0]}
     rows = []
     for t in range(1, len(xs)):
-        c0 = clocks[id(enc)][0], clocks[id(dec)][0]
-        out, ms_e = _timed(lambda: enc.compress(
+        out, ms_e, se = _traced(lambda: enc.compress(
             xs[t], enc_dpb, q_in_ckpt=False, q_index=DC_Q, frame_idx=t), dev)
-        d, ms_d = _timed(lambda: dec.decompress(
+        d, ms_d, sd = _traced(lambda: dec.decompress(
             out["bit_stream"], dec_dpb, h, w, q_in_ckpt=False, q_index=DC_Q,
             frame_idx=t), dev)
         enc_dpb, dec_dpb = out["dpb"], d["dpb"]
@@ -2746,8 +2710,8 @@ def _dc_chain(dev, xs, h, w, dtype, stream_part, label, params=None):
         if any(v.dtype != dtype for v in enc_dpb.values()):
             _fail(f"{label}: frame {t}'s DPB is not {dtype}")
         rows.append({"enc_ms": ms_e, "dec_ms": ms_d,
-                     "enc_coder_ms": clocks[id(enc)][0] - c0[0],
-                     "dec_coder_ms": clocks[id(dec)][0] - c0[1],
+                     "enc_coder_ms": _coder_ms(se),
+                     "dec_coder_ms": _coder_ms(sd),
                      "bytes": len(out["bit_stream"]),
                      "stream": out["bit_stream"], "enc": enc_dpb})
     return rows, enc.params
@@ -2827,7 +2791,7 @@ def _family_row(dev, name, label, hw=(DC_H, DC_W)):
     _log(f"{label} family_bench: {name} {json.dumps(row)}")
 
 
-def phase_dc(dev, LR):
+def phase_dc(dev):
     """Phase 15: DCVC-DC at tools/family_bench.py's operating point
     (704x1280, 3 P-frames after a raw reference, q_index 30 on the fine
     ladder, frame_idx t; family_bench's frames, seed 3), host EC: (a)
@@ -2838,8 +2802,7 @@ def phase_dc(dev, LR):
     printed; (c) `_dc_reference`.  Neither kernel may launch."""
     from opendcvc_tpu_torch import family_bench
     t0 = time.perf_counter()
-    LR.encode_scan.launches = 0
-    LR.decode_scan.launches = 0
+    _reset_launches()
     xs = family_bench._frames(DC_H, DC_W, DC_FRAMES, dev, seed=3)
     params = None
     for dtype in (torch.float32, torch.bfloat16):
@@ -2862,7 +2825,7 @@ def phase_dc(dev, LR):
                 _fail(f"phase 15 (a): frame {t} is not a 2-part stream")
     _family_row(dev, "dc", "phase 15 (b)")
     _dc_reference(dev)
-    launches = [LR.encode_scan.launches, LR.decode_scan.launches]
+    launches = _launches()
     if max(launches):
         _fail(f"phase 15: DCVC-DC (host EC) launched K1 / K2 {launches}")
     _log(f"phase 15: DCVC-DC done in {time.perf_counter() - t0:.1f} s; K1 "
@@ -2877,21 +2840,25 @@ HEM_SEED, TCM_SEED = 2, 1   # family_bench's frame seeds
 
 
 def _codec_pair(cls, dev, dtype, tree):
-    """An encoder and a decoder of `cls` on `tree`'s weights, update()d,
-    with their host coders' clocks."""
+    """An encoder and a decoder of `cls` on `tree`'s weights, update()d."""
     nets = []
     for _ in range(2):
         net = cls(device=dev, dtype=dtype)
         net.load_params(tree)
         net.update()
         nets.append(net)
-    return nets, [_clock_coder(net.entropy_coder) for net in nets]
+    return nets
 
 
-def _coded(kind, clocks, c0, ms_e, ms_d, stream):
-    return {"kind": kind, "enc_ms": ms_e, "dec_ms": ms_d,
-            "enc_coder_ms": clocks[0][0] - c0[0],
-            "dec_coder_ms": clocks[1][0] - c0[1], "bytes": len(stream)}
+def _pair_coded(kind, enc_fn, dec_fn, dev):
+    """enc_fn() then dec_fn(its result), each timed in a trace session:
+    (the encoder's and the decoder's results, the frame's row)."""
+    out, ms_e, se = _traced(enc_fn, dev)
+    d, ms_d, sd = _traced(lambda: dec_fn(out), dev)
+    return out, d, {"kind": kind, "enc_ms": ms_e, "dec_ms": ms_d,
+                    "enc_coder_ms": _coder_ms(se),
+                    "dec_coder_ms": _coder_ms(sd),
+                    "bytes": len(out["bit_stream"])}
 
 
 def _hem_trees(dev):
@@ -2917,35 +2884,34 @@ def _hem_chain(dev, xs, h, w, dtype, label, trees):
     dec ms, the host coder's ms within them, bytes}."""
     from opendcvc_tpu_torch.models.dmc_hem import DMCHEM
     from opendcvc_tpu_torch.models.intra_no_ar import IntraNoAR
-    (ie, idec), iclk = _codec_pair(IntraNoAR, dev, dtype, trees[0])
-    (pe, pdec), pclk = _codec_pair(DMCHEM, dev, dtype, trees[1])
+    ie, idec = _codec_pair(IntraNoAR, dev, dtype, trees[0])
+    pe, pdec = _codec_pair(DMCHEM, dev, dtype, trees[1])
     y_l, mv_l = pe.get_interpolated_q_scales(4)
     yq, mvq = float(y_l[1]), float(mv_l[1])
     # a warm-up I-frame, untimed: the dtype's first convolutions set up
     # cuDNN (over 1 s on the card)
     idec.decompress(ie.compress(xs[0], 1.0)["bit_stream"], h, w, 1.0)
-    c0 = iclk[0][0], iclk[1][0]
-    out, ms_e = _timed(lambda: ie.compress(xs[0], 1.0), dev)
-    d, ms_d = _timed(lambda: idec.decompress(out["bit_stream"], h, w, 1.0),
-                     dev)
+    out, d, row = _pair_coded(
+        "I", lambda: ie.compress(xs[0], 1.0),
+        lambda o: idec.decompress(o["bit_stream"], h, w, 1.0), dev)
     if not torch.equal(d["x_hat"], out["x_hat"]) \
             or out["x_hat"].dtype != dtype:
         _fail(f"{label}: the decoded I-frame differs from the encoder's "
               f"x_hat (or is not {dtype})")
-    rows = [_coded("I", iclk, c0, ms_e, ms_d, out["bit_stream"])]
+    rows = [row]
     enc_dpb = {"ref_frame": out["x_hat"], "ref_feature": None,
                "ref_y": None, "ref_mv_y": None}
     dec_dpb = dict(enc_dpb, ref_frame=d["x_hat"])
     for t in range(1, len(xs)):
-        c0 = pclk[0][0], pclk[1][0]
-        out, ms_e = _timed(lambda: pe.compress(xs[t], enc_dpb, mvq, yq), dev)
-        d, ms_d = _timed(lambda: pdec.decompress(
-            dec_dpb, out["bit_stream"], h, w, mvq, yq), dev)
+        out, d, row = _pair_coded(
+            "P", lambda: pe.compress(xs[t], enc_dpb, mvq, yq),
+            lambda o: pdec.decompress(dec_dpb, o["bit_stream"], h, w, mvq,
+                                      yq), dev)
         enc_dpb, dec_dpb = out["dpb"], d["dpb"]
         _fm_exact(enc_dpb, dec_dpb, f"{label} P-frame {t}")
         if any(v.dtype != dtype for v in enc_dpb.values()):
             _fail(f"{label}: P-frame {t}'s DPB is not {dtype}")
-        rows.append(_coded("P", pclk, c0, ms_e, ms_d, out["bit_stream"]))
+        rows.append(row)
     return rows
 
 
@@ -2955,21 +2921,21 @@ def _tcm_chain(dev, xs, h, w, dtype, label, tree):
     feature equal the encoder's, of `dtype`.  Returns per frame as
     _hem_chain."""
     from opendcvc_tpu_torch.models.dmc_tcm import DMCTCM
-    (enc, dec), clk = _codec_pair(DMCTCM, dev, dtype, tree)
+    enc, dec = _codec_pair(DMCTCM, dev, dtype, tree)
     refs = {"enc": (xs[0], None), "dec": (xs[0], None)}
     rows = []
     for t in range(1, len(xs)):
-        c0 = clk[0][0], clk[1][0]
-        out, ms_e = _timed(lambda: enc.compress(xs[t], *refs["enc"]), dev)
-        d, ms_d = _timed(lambda: dec.decompress(
-            *refs["dec"], out["bit_stream"], h, w), dev)
+        out, d, row = _pair_coded(
+            "P", lambda: enc.compress(xs[t], *refs["enc"]),
+            lambda o: dec.decompress(*refs["dec"], o["bit_stream"], h, w),
+            dev)
         for k in ("x_hat", "feature"):
             if not torch.equal(out[k], d[k]) or out[k].dtype != dtype:
                 _fail(f"{label}: P-frame {t}'s decoded {k} differs from "
                       f"the encoder's (or is not {dtype})")
         refs = {"enc": (out["x_hat"], out["feature"]),
                 "dec": (d["x_hat"], d["feature"])}
-        rows.append(_coded("P", clk, c0, ms_e, ms_d, out["bit_stream"]))
+        rows.append(row)
     return rows
 
 
@@ -3000,7 +2966,7 @@ def _hem_reference(dev, label="phase 16 (c)"):
     trees = _hem_trees(cpu)
 
     def codecs(d):
-        return tuple(_codec_pair(cls, d, torch.float32, tree)[0][0]
+        return tuple(_codec_pair(cls, d, torch.float32, tree)[0]
                      for cls, tree in zip((IntraNoAR, DMCHEM), trees))
 
     enc = {dev.type: codecs(dev), "cpu": codecs(cpu)}
@@ -3049,9 +3015,9 @@ def _tcm_reference(dev, label="phase 17 (c)"):
     cpu = torch.device("cpu")
     xs = _small_frames(8, 4)
     tree = DMCTCM(device=cpu).init_params(seed=0)
-    enc = {d.type: _codec_pair(DMCTCM, d, torch.float32, tree)[0][0]
+    enc = {d.type: _codec_pair(DMCTCM, d, torch.float32, tree)[0]
            for d in (dev, cpu)}
-    dec = _codec_pair(DMCTCM, cpu, torch.float32, tree)[0][0]
+    dec = _codec_pair(DMCTCM, cpu, torch.float32, tree)[0]
     coded = {k: [] for k in enc}
     for k, net in enc.items():
         TIES.record_coded(net, coded[k])
@@ -3074,15 +3040,15 @@ def _tcm_reference(dev, label="phase 17 (c)"):
             ref, feat = g["x_hat"], g["feature"]
 
 
-def _no_launches(LR, label, t0):
-    launches = [LR.encode_scan.launches, LR.decode_scan.launches]
+def _no_launches(label, t0):
+    launches = _launches()
     if max(launches):
         _fail(f"{label} (host EC) launched K1 / K2 {launches}")
     _log(f"{label} done in {time.perf_counter() - t0:.1f} s; K1 "
          f"{launches[0]}, K2 {launches[1]} launches")
 
 
-def phase_hem(dev, LR):
+def phase_hem(dev):
     """Phase 16: DCVC-HEM at tools/family_bench.py's operating point
     (704x1280, family_bench's frames, seed 2; HEM's anchors spread, its
     rung get_interpolated_q_scales(4)[1]), host EC: (a) an IntraNoAR
@@ -3092,8 +3058,7 @@ def phase_hem(dev, LR):
     hem row; (c) `_hem_reference`.  Neither kernel may launch."""
     from opendcvc_tpu_torch import family_bench
     t0 = time.perf_counter()
-    LR.encode_scan.launches = 0
-    LR.decode_scan.launches = 0
+    _reset_launches()
     xs = family_bench._frames(DC_H, DC_W, DC_FRAMES, dev, seed=HEM_SEED)
     trees = _hem_trees(dev)
     for dtype in (torch.float32, torch.bfloat16):
@@ -3102,10 +3067,10 @@ def phase_hem(dev, LR):
                                     trees), DC_H, DC_W)
     _family_row(dev, "hem", "phase 16 (b)")
     _hem_reference(dev)
-    _no_launches(LR, "phase 16: DCVC-HEM", t0)
+    _no_launches("phase 16: DCVC-HEM", t0)
 
 
-def phase_tcm(dev, LR, root):
+def phase_tcm(dev, root):
     """Phase 17: DCVC-TCM at tools/family_bench.py's operating point
     (704x1280, 3 P-frames after family_bench's raw reference, seed 1),
     host EC: (a) float32 and bfloat16, the decoders exact
@@ -3117,8 +3082,7 @@ def phase_tcm(dev, LR, root):
     from opendcvc_tpu_torch import family_bench
     from opendcvc_tpu_torch.models.dmc_tcm import DMCTCM
     t0 = time.perf_counter()
-    LR.encode_scan.launches = 0
-    LR.decode_scan.launches = 0
+    _reset_launches()
     xs = family_bench._frames(DC_H, DC_W, DC_FRAMES, dev, seed=TCM_SEED)
     tree = DMCTCM(device=dev).init_params(seed=0)
     for dtype in (torch.float32, torch.bfloat16):
@@ -3130,7 +3094,7 @@ def phase_tcm(dev, LR, root):
     _train_run(dev, "tcm", False, os.path.join(root, "ckpt"),
                label="phase 17 (d) tcm")
     _descent(dev, "tcm", label="phase 17 (d)")
-    _no_launches(LR, "phase 17: DCVC-TCM", t0)
+    _no_launches("phase 17: DCVC-TCM", t0)
 
 
 # ---------------------------------------------------------------------------
@@ -3143,7 +3107,7 @@ KODAK_H, KODAK_W = 512, 768  # Kodak's landscape shape
 LIVE = 20.0                 # the live trees' scale
 
 
-def _evc_images(dev, label, enc, dec, clk, xs, h, w, q, warm=True):
+def _evc_images(dev, label, enc, dec, xs, h, w, q, warm=True):
     """Each image of xs coded by enc at q and decoded by dec: fails unless
     the decoded x_hat equals the encoder's, bit for bit.  Returns per
     image {kind, enc / dec ms, coder ms, bytes}; one untimed warm-up
@@ -3152,14 +3116,13 @@ def _evc_images(dev, label, enc, dec, clk, xs, h, w, q, warm=True):
         dec.decompress(enc.compress(xs[0], q)["bit_stream"], h, w, q)
     rows = []
     for t, x in enumerate(xs):
-        c0 = clk[0][0], clk[1][0]
-        out, ms_e = _timed(lambda: enc.compress(x, q), dev)
-        d, ms_d = _timed(lambda: dec.decompress(out["bit_stream"], h, w, q),
-                         dev)
+        out, d, row = _pair_coded(
+            "I", lambda: enc.compress(x, q),
+            lambda o: dec.decompress(o["bit_stream"], h, w, q), dev)
         if not torch.equal(d["x_hat"], out["x_hat"]):
             _fail(f"{label}: image {t}'s decoded x_hat differs from the "
                   f"encoder's")
-        rows.append(_coded("I", clk, c0, ms_e, ms_d, out["bit_stream"]))
+        rows.append(row)
     return rows
 
 
@@ -3176,32 +3139,32 @@ def phase_evc_codecs(dev):
     tree = PE.EVC_LL(device=dev).init_params(seed=0)
     for dtype in (torch.float32, torch.bfloat16):
         label = f"phase 18 (a) EVC_LL {str(dtype)[6:]}"
-        (enc, dec), clk = _codec_pair(PE.EVC_LL, dev, dtype,
-                                    cast_floating(tree, dtype))
-        rows = _evc_images(dev, label, enc, dec, clk, xs, DC_H, DC_W, 1.0)
+        enc, dec = _codec_pair(PE.EVC_LL, dev, dtype,
+                               cast_floating(tree, dtype))
+        rows = _evc_images(dev, label, enc, dec, xs, DC_H, DC_W, 1.0)
         _log_rows(label, rows, DC_H, DC_W)
     spread = dict(tree)
     spread["q_basic"] = torch.from_numpy(np.random.default_rng(9).uniform(
         0.6, 3.0, 192).astype(np.float32)).to(dev)
     label = "phase 18 (a) EVC_LL bfloat16, q_basic U(0.6, 3.0), q 0.37"
-    (enc, dec), clk = _codec_pair(PE.EVC_LL, dev, torch.bfloat16,
-                                cast_floating(spread, torch.bfloat16))
-    _log_rows(label, _evc_images(dev, label, enc, dec, clk, xs[:1], DC_H,
+    enc, dec = _codec_pair(PE.EVC_LL, dev, torch.bfloat16,
+                           cast_floating(spread, torch.bfloat16))
+    _log_rows(label, _evc_images(dev, label, enc, dec, xs[:1], DC_H,
                                  DC_W, 0.37, warm=False), DC_H, DC_W)
     for name in ("EVC_LM", "EVC_LS", "EVC_ML", "EVC_SL", "EVC_MM", "EVC_MS",
                  "EVC_SS"):
         cls = getattr(PE, name)
         label = f"phase 18 (a) {name} float32"
-        (enc, dec), clk = _codec_pair(cls, dev, torch.float32,
-                                    cls(device=dev).init_params(seed=0))
-        _log_rows(label, _evc_images(dev, label, enc, dec, clk, xs[:1],
+        enc, dec = _codec_pair(cls, dev, torch.float32,
+                               cls(device=dev).init_params(seed=0))
+        _log_rows(label, _evc_images(dev, label, enc, dec, xs[:1],
                                      DC_H, DC_W, 1.0), DC_H, DC_W)
     stree = PE.ScalableEVC(device=dev).init_params(seed=0)
-    (enc, dec), clk = _codec_pair(PE.ScalableEVC, dev, torch.float32, stree)
+    enc, dec = _codec_pair(PE.ScalableEVC, dev, torch.float32, stree)
     for rate in range(4):
         enc.set_rate(rate)
         label = f"phase 18 (a) ScalableEVC float32 rate {rate}"
-        _log_rows(label, _evc_images(dev, label, enc, dec, clk, xs[:1],
+        _log_rows(label, _evc_images(dev, label, enc, dec, xs[:1],
                                      DC_H, DC_W, 1.0, warm=rate == 0),
                   DC_H, DC_W)
 
@@ -3237,11 +3200,8 @@ def phase_image_harness(dev, root):
     enc_fn, dec_fn = cls.compress, cls.decompress
 
     def clocked(self, side, fn, *args):
-        if not hasattr(self, "_coder_ms"):
-            self._coder_ms = _clock_coder(self.entropy_coder)
-        c0 = self._coder_ms[0]
-        out = fn(self, *args)
-        seen.append([side, out["x_hat"], self._coder_ms[0] - c0])
+        out, _, session = _traced(lambda: fn(self, *args))
+        seen.append([side, out["x_hat"], _coder_ms(session)])
         return out
 
     def compress(self, x, q):
@@ -3317,7 +3277,7 @@ def phase_evc_reference(dev):
     cpu = torch.device("cpu")
     x = _small_frames(12, 1)[0]
     tree = PE.EVC_LL(device=cpu).init_params(seed=0)
-    nets = {k: _codec_pair(PE.EVC_LL, d, torch.float32, tree)[0]
+    nets = {k: _codec_pair(PE.EVC_LL, d, torch.float32, tree)
             for k, d in ((dev.type, dev), ("cpu", cpu))}
     coded = {k: [] for k in nets}
     for k, (enc, _) in nets.items():
@@ -3335,18 +3295,17 @@ def phase_evc_reference(dev):
                        {"x_hat": g["x_hat"]})
 
 
-def phase_evc(dev, LR, root):
+def phase_evc(dev, root):
     """Phase 18: EVC, host EC: (a) `phase_evc_codecs`, (b)
     `phase_image_harness`, (c) `phase_evc_reference`.  Neither kernel may
     launch."""
     t0 = time.perf_counter()
-    LR.encode_scan.launches = 0
-    LR.decode_scan.launches = 0
+    _reset_launches()
     phase_evc_codecs(dev)
     _family_row(dev, "evc", "phase 18 (a)")
     phase_image_harness(dev, root)
     phase_evc_reference(dev)
-    _no_launches(LR, "phase 18: EVC", t0)
+    _no_launches("phase 18: EVC", t0)
 
 
 def live_dcvc_tree(tree, scale=LIVE):
@@ -3403,16 +3362,15 @@ def _dcvc_frames(dev, label, tree, xs, hw, dtype, count=False):
         nets.append(net)
     enc, dec = nets
     dec.decompress(xs[0], *_dcvc_args(enc.compress(xs[0], xs[1])), hw, hw)
-    clk = [_clock_coder(n.entropy_coder) for n in nets]
     ar = [_clock_ar(n) for n in nets]
     coded = []
     TIES.record_coded(enc, coded)
     for t in range(1, len(xs)):
         coded.clear()
-        c0 = clk[0][0], clk[1][0], ar[0][0], ar[1][0]
-        out, ms_e = _timed(lambda: enc.compress(xs[0], xs[t]), dev)
-        d, ms_d = _timed(lambda: dec.decompress(xs[0], *_dcvc_args(out), hw,
-                                                hw), dev)
+        c0 = ar[0][0], ar[1][0]
+        out, ms_e, se = _traced(lambda: enc.compress(xs[0], xs[t]), dev)
+        d, ms_d, sd = _traced(lambda: dec.decompress(
+            xs[0], *_dcvc_args(out), hw, hw), dev)
         if not torch.equal(d, out["recon_image"]) or d.dtype != dtype:
             _fail(f"{label}: P-frame {t}'s decoded frame differs from "
                   f"recon_image (or is not {dtype})")
@@ -3428,9 +3386,9 @@ def _dcvc_frames(dev, label, tree, xs, hw, dtype, count=False):
                       f"non-zero symbol: {counts}")
             nz = f"; non-zero symbols {counts}"
         _log(f"{label}: P-frame {t}: enc {ms_e:.2f} ms (coder "
-             f"{clk[0][0] - c0[0]:.2f}, AR loop {ar[0][0] - c0[2]:.2f}) / "
-             f"dec {ms_d:.2f} ms (coder {clk[1][0] - c0[1]:.2f}, AR loop "
-             f"{ar[1][0] - c0[3]:.2f}), mv_z / mv_y / z / y {sizes} B, bpp "
+             f"{_coder_ms(se):.2f}, AR loop {ar[0][0] - c0[0]:.2f}) / "
+             f"dec {ms_d:.2f} ms (coder {_coder_ms(sd):.2f}, AR loop "
+             f"{ar[1][0] - c0[1]:.2f}), mv_z / mv_y / z / y {sizes} B, bpp "
              f"{8 * sum(sizes) / (hw * hw):.4f}; decoder exact{nz}")
 
 
@@ -3510,7 +3468,7 @@ def phase_dcvc_training(dev, root):
          f" B), the decoder exact")
 
 
-def phase_dcvc(dev, LR, root):
+def phase_dcvc(dev, root):
     """Phase 19: DCVC at family_bench's point (256x256, its frames, seed
     5, 3 P-frames against the raw frame 0), host EC: (a) the init (seed 0)
     and the live tree, float32 and bfloat16, every decoder exact, the live
@@ -3520,8 +3478,7 @@ def phase_dcvc(dev, LR, root):
     from opendcvc_tpu_torch import family_bench
     from opendcvc_tpu_torch.models.dcvc import DCVCNet
     t0 = time.perf_counter()
-    LR.encode_scan.launches = 0
-    LR.decode_scan.launches = 0
+    _reset_launches()
     xs = family_bench._frames(DCVC_HW, DCVC_HW, DC_FRAMES, dev,
                               seed=DCVC_SEED)
     tree = DCVCNet(device=dev).init_params(seed=0)
@@ -3533,7 +3490,7 @@ def phase_dcvc(dev, LR, root):
     _family_row(dev, "dcvc", "phase 19 (a)", (DCVC_HW, DCVC_HW))
     phase_dcvc_reference(dev, live)
     phase_dcvc_training(dev, root)
-    _no_launches(LR, "phase 19: DCVC", t0)
+    _no_launches("phase 19: DCVC", t0)
 
 
 def _zoo_latent(net, x):
@@ -3587,7 +3544,7 @@ def _zoo_codec(cls, dev, dtype, tree):
     return net
 
 
-def phase_zoo(dev, LR):
+def phase_zoo(dev):
     """Phase 20: each zoo model at its default widths (the port's init,
     seed 0) on one 768x512 image, float32 and bfloat16, host EC: fails
     unless the decoded latent equals the encoder's (recomputed by
@@ -3598,8 +3555,7 @@ def phase_zoo(dev, LR):
     from opendcvc_tpu_torch.models import priors_zoo as PZ
     from opendcvc_tpu_torch.utils.params import to_device
     t0 = time.perf_counter()
-    LR.encode_scan.launches = 0
-    LR.decode_scan.launches = 0
+    _reset_launches()
     cpu = torch.device("cpu")
     x = textured_frames(KODAK_H, KODAK_W, 1, seed=14)[0][None] \
         .astype(np.float32) / 255
@@ -3612,11 +3568,10 @@ def phase_zoo(dev, LR):
             seen = []
             gs = dec._gs
             dec._gs = lambda y_hat: (seen.append(y_hat), gs(y_hat))[1]
-            clk = [_clock_coder(n.entropy_coder) for n in (enc, dec)]
-            out, ms_e = _timed(lambda: enc.compress(x), dev)
-            d1, ms_d = _timed(lambda: dec.decompress(out["strings"],
-                                                     out["shape"]), dev)
-            coder_ms = clk[0][0], clk[1][0]
+            out, ms_e, se = _traced(lambda: enc.compress(x), dev)
+            d1, ms_d, sd = _traced(lambda: dec.decompress(out["strings"],
+                                                          out["shape"]), dev)
+            coder_ms = _coder_ms(se), _coder_ms(sd)
             d2 = dec.decompress(out["strings"], out["shape"])
             want = _zoo_latent(enc, x)
             if not torch.equal(seen[0], want) or seen[0].dtype != dtype:
@@ -3649,7 +3604,7 @@ def phase_zoo(dev, LR):
         _log(f"phase 20 {name}: 64x64 image coded on the GPU, decoded by "
              f"the CPU: max |x_hat diff| {err:.3g}; GPU and CPU strings "
              f"identical: {same}")
-    _no_launches(LR, "phase 20: the CompressAI zoo", t0)
+    _no_launches("phase 20: the CompressAI zoo", t0)
 
 
 # ---------------------------------------------------------------------------
@@ -3989,7 +3944,7 @@ def _vimeo_tree(root, n=4):
     return names, lst
 
 
-def phase_precompute(dev, LR, root, dmci_ckpt):
+def phase_precompute(dev, root, dmci_ckpt):
     """Phase 21 (e): precompute_references on a Vimeo-layout tree of four
     448x256 im1.png with the campaign's DMCI at qp 21, on device EC (K1)
     and host EC: the PNGs equal, and equal to the uint8 rounding of
@@ -4010,11 +3965,10 @@ def phase_precompute(dev, LR, root, dmci_ckpt):
         net.load_params(params)
         net.update()
         nets[name] = net
-        LR.encode_scan.launches = 0
-        LR.decode_scan.launches = 0
+        _reset_launches()
         t0 = time.perf_counter()
         precompute_references(vroot, lst, net, QP, name)
-        launches[name] = [LR.encode_scan.launches, LR.decode_scan.launches]
+        launches[name] = _launches()
         _log(f"phase 21 (e) {name}: {len(names)} references in "
              f"{time.perf_counter() - t0:.2f} s, K1 / K2 launches "
              f"{launches[name]}")
@@ -4043,7 +3997,7 @@ def phase_precompute(dev, LR, root, dmci_ckpt):
     return launches["ref_dev"]
 
 
-def phase_rd_evidence(dev, LR, root):
+def phase_rd_evidence(dev, root):
     """Phase 21 (f): measure on docs/dmci_tiny_rd.msgpack (qps 20 / 40,
     128 px, 2 images) on host EC and on device EC, then 1080x1920 at qp
     20; measure_dmc at full width (the port's random DMC, 128 px, 2
@@ -4063,12 +4017,11 @@ def phase_rd_evidence(dev, LR, root):
                 os.environ["OPENDCVC_TPU_DEVICE_EC"] = "1"
             for size, width, qps, n in ((128, None, RD_QPS, 2),
                                         (1080, 1920, (20,), 1)):
-                LR.encode_scan.launches = 0
-                LR.decode_scan.launches = 0
+                _reset_launches()
                 t0 = time.perf_counter()
                 pts = R.measure(tiny, qps=qps, size=size, n_images=n,
                                 width=width, device=dev)
-                k = [LR.encode_scan.launches, LR.decode_scan.launches]
+                k = _launches()
                 total = [total[0] + k[0], total[1] + k[1]]
                 points[mode, size] = pts
                 _log(f"phase 21 (f) measure, {mode}, {width or size}x{size}"
@@ -4101,12 +4054,11 @@ def phase_rd_evidence(dev, LR, root):
         os.environ["OPENDCVC_TPU_DEVICE_EC"] = "1"
         path = os.path.join(root, "dmc_random.msgpack")
         ckpt.save_params(path, dmc_init(torch.Generator().manual_seed(1)))
-        LR.encode_scan.launches = 0
-        LR.decode_scan.launches = 0
+        _reset_launches()
         t0 = time.perf_counter()
         pts = R.measure_dmc(path, qps=RD_QPS, size=128, n_pairs=2,
                             device=dev)
-        k = [LR.encode_scan.launches, LR.decode_scan.launches]
+        k = _launches()
         total = [total[0] + k[0], total[1] + k[1]]
         _log(f"phase 21 (f) measure_dmc, device EC, 128x128: "
              f"{time.perf_counter() - t0:.2f} s, K1 / K2 {k}; " + "; ".join(
@@ -4149,7 +4101,7 @@ def phase_profiler(dev):
         + f" ({time.perf_counter() - t0:.1f} s)")
 
 
-def phase_training_extras(dev, LR, root):
+def phase_training_extras(dev, root):
     """Phase 21: (a) + (b) the campaigns, (c) the FM loss, (d) plateau, (e)
     precompute_references, (f) rd_evidence, (g) the profiler and
     complexity.  Returns the K1 / K2 launches of its device-EC runs."""
@@ -4158,8 +4110,8 @@ def phase_training_extras(dev, LR, root):
     dmci_ckpt = phase_campaign(dev, root)
     phase_fm_training(dev)
     phase_plateau(dev)
-    launches = phase_precompute(dev, LR, root, dmci_ckpt)
-    rd = phase_rd_evidence(dev, LR, root)
+    launches = phase_precompute(dev, root, dmci_ckpt)
+    rd = phase_rd_evidence(dev, root)
     phase_profiler(dev)
     total = [launches[0] + rd[0], launches[1] + rd[1]]
     _log(f"phase 21 done in {time.perf_counter() - t0:.1f} s; K1 "
@@ -4478,9 +4430,17 @@ BD_QPS = "16,26,36,46"  # (c): bd_r5_torch's sweep (bd_rate fits a cubic)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
+def _slim_counts():
+    """The port's trace counters of transfer slimming."""
+    from opendcvc_tpu_torch.utils import trace
+    c = trace.counters()
+    return {k: c.get(k, 0) for k in ("slim.fetch", "slim.miss", "d2h_bytes",
+                                     "h2d_bytes")}
+
+
 def _slim_bytes():
-    from opendcvc_tpu_torch.entropy import device_rans as D
-    return D.SLIM_STATS["d2h_bytes"], D.SLIM_STATS["h2d_bytes"]
+    c = _slim_counts()
+    return c["d2h_bytes"], c["h2d_bytes"]
 
 
 def _moved(since):
@@ -4530,7 +4490,7 @@ def _slim_dmc(dev, params, x_ref, xs, label, moved):
     return [first] + chunk, enc, dec
 
 
-def _slim_pass(dev, LR, xs, p_params, on):
+def _slim_pass(dev, xs, p_params, on):
     """Phase 23 (a), one pass with OPENDCVC_TPU_EC_SLIM unset (on, the
     default) or 0 (off): DMCI (phase 3's, its two passes), DMC's P-frame
     alone and a GOP chunk of N_SLIM_GOP, compacted DMC's
@@ -4540,15 +4500,14 @@ def _slim_pass(dev, LR, xs, p_params, on):
     the bytes each part moved each way, the K1 / K2 launches, and the
     shapes of the DMC chunk's copies."""
     from opendcvc_tpu_torch.entropy import device_rans as D
+    from opendcvc_tpu_torch.utils import trace
     label = f"phase 23 (a) slim {'on' if on else 'off'}"
     saved = {k: os.environ.pop(k) for k in list(os.environ)
              if k.startswith("OPENDCVC_TPU_EC_")}
     if not on:
         os.environ["OPENDCVC_TPU_EC_SLIM"] = "0"
-    for k in D.SLIM_STATS:
-        D.SLIM_STATS[k] = 0
-    LR.encode_scan.launches = 0
-    LR.decode_scan.launches = 0
+    trace.reset_counters()
+    _reset_launches()
     streams, moved = {}, {}
     t0 = time.perf_counter()
     try:
@@ -4581,18 +4540,18 @@ def _slim_pass(dev, LR, xs, p_params, on):
         moved["compacted DMC frame"] = parts["frame"]
         moved[f"compacted DMC chunk of {N_SLIM_COMPACT}"] = parts["chunk"]
         t = _slim_bytes()
-        rows = _fm_chain(dev, LR, xs[:N_SLIM_FM], xs[0].shape[1],
+        rows = _fm_chain(dev, xs[:N_SLIM_FM], xs[0].shape[1],
                          xs[0].shape[2], True, label=label)
         moved[f"FM {N_SLIM_FM} frames"] = _moved(t)
         streams["FM"] = [r["stream"] for r in rows]
     finally:
         os.environ.pop("OPENDCVC_TPU_EC_SLIM", None)
         os.environ.update(saved)
-    launches = [LR.encode_scan.launches, LR.decode_scan.launches]
+    launches, slim = _launches(), _slim_counts()
     _log(f"{label}: bytes moved device->host / host->device: " + "; ".join(
         f"{k} {int(a)} / {int(b)}" for k, (a, b) in moved.items())
-        + f"; windowed fetches {D.SLIM_STATS['fetches']}, misses "
-        f"{D.SLIM_STATS['misses']}; K1 {launches[0]}, K2 {launches[1]} "
+        + f"; windowed fetches {slim['slim.fetch']}, misses "
+        f"{slim['slim.miss']}; K1 {launches[0]}, K2 {launches[1]} "
         f"launches; every decoder exact; {time.perf_counter() - t0:.1f} s")
     return {"streams": streams, "moved": moved, "launches": launches,
             "shapes": shapes, "x_ref": intra["x_hat"],
@@ -4602,7 +4561,6 @@ def _slim_pass(dev, LR, xs, p_params, on):
 def _forced_miss(dev, p_params, x_ref, x, want):
     """(a)'s forced miss: a P-frame with the encode copy's window at
     SLIM_MISS_W words: one miss, the window grown, the same bytes."""
-    from opendcvc_tpu_torch.entropy import device_rans as D
     from opendcvc_tpu_torch.models.dmc import DMC
     net = DMC(device=dev, device_ec=True)
     net.load_params(p_params)
@@ -4611,18 +4569,18 @@ def _forced_miss(dev, p_params, x_ref, x, want):
     plan = net._plan_device_ec(x.shape[1], x.shape[2])
     cap = net._rung(plan.lanes, plan.steps(), net.bytes_per_symbol)[1]
     net._fetch_windows[cap] = SLIM_MISS_W
-    misses = D.SLIM_STATS["misses"]
+    misses = _slim_counts()["slim.miss"]
     got = net.compress(x, QP)["bit_stream"]
     grown = net._fetch_windows[cap]
-    if D.SLIM_STATS["misses"] != misses + 1 or grown <= SLIM_MISS_W or \
-            got != want:
+    missed = _slim_counts()["slim.miss"] - misses
+    if missed != 1 or grown <= SLIM_MISS_W or got != want:
         _fail(f"phase 23 (a): the forced miss counted "
-              f"{D.SLIM_STATS['misses'] - misses} misses, left the window "
+              f"{missed} misses, left the window "
               f"at {grown} words, streams equal: {got == want}")
     return grown, cap
 
 
-def phase_slim(dev, LR):
+def phase_slim(dev):
     """Phase 23 (a): transfer slimming at 1088x1920 (1080p padded),
     device EC, float32: `_slim_pass` with slim on and off, the streams
     and launches equal, a forced miss, and the DMC chunk's copies timed
@@ -4630,7 +4588,7 @@ def phase_slim(dev, LR):
     pass's streams, reference frame and parameters."""
     xs = synthetic_frames(H, W, 3 + N_SLIM_GOP + N_SLIM_COMPACT)
     p_params = _dmc_params(dev)
-    runs = {on: _slim_pass(dev, LR, xs, p_params, on) for on in (True,
+    runs = {on: _slim_pass(dev, xs, p_params, on) for on in (True,
                                                                   False)}
     on, off = runs[True], runs[False]
     if on["streams"] != off["streams"]:
@@ -4640,11 +4598,10 @@ def phase_slim(dev, LR):
     if on["launches"] != off["launches"]:
         _fail(f"phase 23 (a): K1 / K2 launched {on['launches']} times with "
               f"slim on, {off['launches']} off")
-    LR.encode_scan.launches = 0
-    LR.decode_scan.launches = 0
+    _reset_launches()
     grown, cap = _forced_miss(dev, p_params, on["x_ref"], xs[1],
                               on["streams"]["DMC"][0])
-    miss = [LR.encode_scan.launches, LR.decode_scan.launches]
+    miss = _launches()
     sh = on["shapes"]
     tail = 3 * sh["lanes"]
     win = _copy_ms((N_SLIM_GOP, sh["window"] + tail), dev)
@@ -4749,7 +4706,7 @@ def _find_key(node, key):
     return None
 
 
-def phase_tools(dev, LR, root):
+def phase_tools(dev, root):
     """Phase 23 (c): tools/make_synth_dataset_torch.py at 1088x1920 (1
     sequence, 3 frames) into `root`, then the port's harness codes its
     config.json on device EC, every decoded frame equal to the encoder's;
@@ -4773,8 +4730,7 @@ def phase_tools(dev, LR, root):
     saved = os.environ.pop("OPENDCVC_TPU_DEVICE_EC", None)
     os.environ["OPENDCVC_TPU_DEVICE_EC"] = "1"
     undo = _record_codecs(harness, log)
-    LR.encode_scan.launches = 0
-    LR.decode_scan.launches = 0
+    _reset_launches()
     try:
         harness.main([
             "--test_config", cfg,
@@ -4798,7 +4754,7 @@ def phase_tools(dev, LR, root):
             "--out", os.path.join(root, "bd_rate_r5.json"), "--qps", BD_QPS,
             "--size", "512", "--width", "768", "--n_images", "2",
             "--device", dev.type])
-    launches = [LR.encode_scan.launches, LR.decode_scan.launches]
+    launches = _launches()
     if not all(np.isfinite([p["bpp_stream"], p["psnr"]]).all()
                for p in bd["points"]) or len(bd["points"]) != 4:
         _fail("phase 23 (c): bd_r5_torch's points are not finite")
@@ -4820,20 +4776,18 @@ def phase_tools(dev, LR, root):
     return launches
 
 
-def phase_slice15(dev, LR, root):
+def phase_slice15(dev, root):
     """Phase 23: (a) transfer slimming, (b) reference state dicts, (c) the
     RD-artifact tools, (d) phase 8's bench again with slim off.  Returns
     the K1 / K2 launches of its device-EC runs."""
     t0 = time.perf_counter()
-    launches, slim = phase_slim(dev, LR)
-    LR.encode_scan.launches = 0
-    LR.decode_scan.launches = 0
+    launches, slim = phase_slim(dev)
+    _reset_launches()
     phase_port_torch(dev, slim)
-    launches = [a + b for a, b in zip(launches, [
-        LR.encode_scan.launches, LR.decode_scan.launches])]
-    launches = [a + b for a, b in zip(launches, phase_tools(dev, LR, root))]
+    launches = [a + b for a, b in zip(launches, _launches())]
+    launches = [a + b for a, b in zip(launches, phase_tools(dev, root))]
     launches = [a + b for a, b in zip(launches, phase_bench(
-        dev, LR, "phase 23 (d)", env={"OPENDCVC_TPU_EC_SLIM": "0"}))]
+        dev, "phase 23 (d)", env={"OPENDCVC_TPU_EC_SLIM": "0"}))]
     on, off = BENCH_LINES["phase 8"], BENCH_LINES["phase 23 (d)"]
     _log("phase 23 (d): the bench line with slim on (phase 8, the default) "
          "/ off (OPENDCVC_TPU_EC_SLIM=0, this run): " + ", ".join(
@@ -4860,7 +4814,6 @@ def main():
     try:
         import opendcvc_tpu_torch  # noqa: F401  (pins cuDNN determinism)
         from opendcvc_tpu_torch.ops import _build
-        from opendcvc_tpu_torch.ops import lane_rans as LR
     except ImportError as e:
         _fail(f"the port's package is missing: {e}")
     dev = torch.device("cuda", 0)
@@ -4878,12 +4831,11 @@ def main():
     kernels = phase_kernels(dev, L_MAIN, K_MAIN)
 
     frames = synthetic_frames(H, W, 5)
-    LR.encode_scan.launches = 0
-    LR.decode_scan.launches = 0
+    _reset_launches()
     intra = phase_intra(dev, frames[0], QP, FZ)
     p_run = phase_p(dev, intra["x_hat"], frames[1:], QP, FZ)
     f32 = _times(intra, p_run)
-    launches = [LR.encode_scan.launches, LR.decode_scan.launches]
+    launches = _launches()
     _log(f"main path launches: K1 {launches[0]}, K2 {launches[1]}")
     if min(launches) == 0:
         _fail("a kernel of the main path was never launched")
@@ -4892,10 +4844,9 @@ def main():
 
     phase_reference(dev, QP, FZ)
 
-    LR.encode_scan.launches = 0
-    LR.decode_scan.launches = 0
+    _reset_launches()
     phase_host(dev, frames, QP, FZ, intra, p_run)
-    host_launches = [LR.encode_scan.launches, LR.decode_scan.launches]
+    host_launches = _launches()
     _log(f"host-EC path launches: K1 {host_launches[0]}, K2 "
          f"{host_launches[1]}")
     if max(host_launches):
@@ -4908,31 +4859,30 @@ def main():
              f"{time.perf_counter() - t0:.1f} s")
         stream7 = phase_harness(root, seq)
         runs = {"phase 7 device EC": stream7["launches"],
-                "phase 8": phase_bench(dev, LR)}
-        runs.update(phase_bf16(dev, LR, frames, f32, root, seq))
-        runs.update(phase_training_slice(dev, LR, f32, root,
+                "phase 8": phase_bench(dev)}
+        runs.update(phase_bf16(dev, frames, f32, root, seq))
+        runs.update(phase_training_slice(dev, f32, root,
                                          stream7["job"]))
-        fm_host = phase_fm(dev, LR, root)
+        fm_host = phase_fm(dev, root)
         runs["phase 12 FM device EC"], fm_f32 = phase_fm_device(
-            dev, LR, root, fm_host)
+            dev, root, fm_host)
         del fm_host
         phase_h100_streams(dev, args.out)
-        runs["phase 14 FM bfloat16"] = phase_fm_bf16(dev, LR, root, fm_f32)
+        runs["phase 14 FM bfloat16"] = phase_fm_bf16(dev, root, fm_f32)
         del fm_f32
-        phase_dc(dev, LR)
-        phase_hem(dev, LR)
-        phase_tcm(dev, LR, root)
-        phase_evc(dev, LR, root)
-        phase_dcvc(dev, LR, root)
-        phase_zoo(dev, LR)
-        runs["phase 21"] = phase_training_extras(dev, LR, root)
+        phase_dc(dev)
+        phase_hem(dev)
+        phase_tcm(dev, root)
+        phase_evc(dev, root)
+        phase_dcvc(dev, root)
+        phase_zoo(dev)
+        runs["phase 21"] = phase_training_extras(dev, root)
         torch.cuda.empty_cache()
-        runs["phase 23"] = phase_slice15(dev, LR, root)
+        runs["phase 23"] = phase_slice15(dev, root)
         torch.cuda.empty_cache()
-        LR.encode_scan.launches = 0
-        LR.decode_scan.launches = 0
+        _reset_launches()
         phase_multi_gpu(root)
-        if LR.encode_scan.launches or LR.decode_scan.launches:
+        if max(_launches()):
             _fail("phase 22 (training) launched a lane rANS kernel")
     for i, k in enumerate(kernels):
         k["launches_by_run"] = {"phases 3-4": k["launches"]}

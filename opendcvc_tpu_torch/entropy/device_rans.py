@@ -26,6 +26,7 @@ import torch
 
 from ..models.common import fetch_async
 from ..ops.lane_rans import DEC_SKIP, ENC_SKIP
+from ..utils import trace
 from ..utils.common import env_flag
 
 #: the JAX package's sentinel local row id of a force_zero_thres-skipped
@@ -369,18 +370,12 @@ def parse_frame(stream, offset=0):
 
 WINDOW_STEP = 8192  # u16 words = 16 KiB
 
-#: fetches: windowed encode copies; misses: of those, the ones whose
-#: payload overran the window (each cost one full copy more); d2h_bytes /
-#: h2d_bytes: the bytes every staging copy and upload of this module
-#: moved, windowed or not.  Updated under _SLIM_LOCK: GOP chunks settle
-#: on pool threads.
-SLIM_STATS = {"fetches": 0, "misses": 0, "d2h_bytes": 0, "h2d_bytes": 0}
-_SLIM_LOCK = threading.Lock()
-
-
-def _count(key, n):
-    with _SLIM_LOCK:
-        SLIM_STATS[key] += n
+#: guards the codecs' window dicts: GOP chunks settle on pool threads.
+#: The trace counts the copies (utils/trace.py): slim.fetch the windowed
+#: encode copies, slim.miss those whose payload overran the window (each
+#: cost one full copy more), d2h_bytes / h2d_bytes the bytes every staging
+#: copy and upload of this module moved, windowed or not.
+_WINDOW_LOCK = threading.Lock()
 
 
 def quantize_window(words, cap, step=None):
@@ -426,7 +421,7 @@ def fetch_w_for(windows, cap):
     cap with slimming off.  `windows` is the codec's own {cap: w}."""
     if not slim_enabled():
         return cap
-    with _SLIM_LOCK:
+    with _WINDOW_LOCK:
         w = windows.get(cap)
         if w is None:
             w = windows[cap] = quantize_window(cap // 4, cap)
@@ -436,7 +431,7 @@ def fetch_w_for(windows, cap):
 def grow_fetch_w(windows, cap, total):
     """Grow the window to an observed payload + 25 %."""
     want = quantize_window(total + total // 4, cap)
-    with _SLIM_LOCK:
+    with _WINDOW_LOCK:
         if want > windows.get(cap, 0):
             windows[cap] = want
 
@@ -445,9 +440,9 @@ def fetch_staging(staging):
     """Start the copy of a staging, or of a stack of them, to the host as
     u16 words (half the bytes of the int32 on the device) in one pinned
     copy (models/common.py::fetch_async); returns the callable that waits
-    for it and gives the numpy u16 array."""
-    _count("d2h_bytes", 2 * staging.numel())
-    wait = fetch_async(staging.to(torch.int16))
+    for it (trace span `wait.staging`) and gives the numpy u16 array."""
+    trace.count("d2h_bytes", 2 * staging.numel())
+    wait = fetch_async(staging.to(torch.int16), "wait.staging")
     return lambda: wait().view(np.uint16)
 
 
@@ -471,14 +466,14 @@ def slim_fetch(windows, packed, lanes, cap):
     def finish():
         arr = wait()
         rows = arr if arr.ndim == 2 else arr[None]
-        _count("fetches", 1)
+        trace.count("slim.fetch")
         out, full = [], None
         for i, row in enumerate(rows):
             got = restore_window(row, w, cap, lanes, tail)
             if got is None:
                 if full is None:
                     full = fetch_staging(packed)().reshape(rows.shape[0], -1)
-                    _count("misses", 1)
+                    trace.count("slim.miss")
                     grow_fetch_w(windows, cap, int(
                         full[:, cap:cap + lanes].astype(np.int64)
                         .sum(axis=1).max()))
@@ -500,7 +495,7 @@ def upload_stagings(bit_streams, device):
     quantized bucket around the chunk's largest payload and are
     zero-extended to cap on the device (expand_staging); off, they span
     cap.  The u16 words cross in one copy (pinned and non-blocking on a
-    CUDA device) and are widened on the device."""
+    CUDA device; trace span `upload`) and are widened on the device."""
     parts = [parse_frame_parts(s) for s in bit_streams]
     metas = [pp[0] for pp in parts]
     if len({(m["L"], m["MW"], m["cap"], m["kyc"]) for m in metas}) != 1:
@@ -512,10 +507,12 @@ def upload_stagings(bit_streams, device):
     host = torch.from_numpy(np.stack(
         [staging_from_parts(d, ln, st, cap, width=bucket)
          for _, d, ln, st, _ in parts]).view(np.int16))
-    _count("h2d_bytes", 2 * host.numel())
-    if device.type == "cuda":
-        host = host.pin_memory()
-    dev = host.to(device, non_blocking=True).to(torch.int32) & 0xFFFF
+    trace.count("h2d_bytes", 2 * host.numel())
+    with trace.span("upload"):
+        if device.type == "cuda":
+            host = host.pin_memory()
+        dev = host.to(device, non_blocking=True)
+    dev = dev.to(torch.int32) & 0xFFFF
     if bucket < cap:
         dev = expand_staging(dev, bucket, cap)
     return metas, dev

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..ops.fused import replicate_pad
+from ..utils import trace
 
 QP_NUM = 64
 #: the codecs' activation dtypes, by the name the harness and bench take
@@ -61,26 +62,32 @@ def frame_to_nhwc(x):
     return x.permute(0, 2, 3, 1).contiguous()
 
 
-def fetch_async(t):
+def fetch_async(t, wait="wait.fetch"):
     """Start copying a tensor to the host; returns a callable that waits
-    for the copy and returns it as numpy.  A CUDA copy lands in pinned
-    memory behind an event, so the device queue runs on meanwhile; the
-    callable holds the pinned buffer, and the caching host allocator
-    keeps it from reuse until the copy's event has passed."""
+    for the copy and returns it as numpy, in the trace span `wait`.  A
+    CUDA copy lands in pinned memory behind an event, so the device queue
+    runs on meanwhile; the callable holds the pinned buffer, and the
+    caching host allocator keeps it from reuse until the copy's event has
+    passed."""
     if t.device.type != "cuda":
-        return t.numpy
+        def done():
+            with trace.wait(wait):
+                return t.numpy()
+        return done
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
+    event = torch.cuda.Event()
+    event.record()
 
-    def wait():
-        done.synchronize()
+    def done():
+        with trace.wait(wait):
+            event.synchronize()
         return host.numpy()
 
-    return wait
+    return done
 
 
+@trace.spanned("upload")
 def upload(a, device):
     """numpy -> tensor on `device`; a CUDA upload goes through pinned
     memory and does not wait for the device."""

@@ -55,6 +55,7 @@ from ..ops import fused as F
 from ..ops.lane_rans import (DEC_SKIP, ENC_SKIP, decode_scan, encode_scan,
                               pack_operand, prepare_decode_table,
                               prepare_encode_table)
+from ..utils import trace
 from ..utils.common import env_flag
 from ..utils.params import cast_floating, to_device
 from . import common as C
@@ -145,28 +146,33 @@ def spatial_prior(p, x):
     return L.conv_apply(p["y_spatial_prior"][2], h)
 
 
+@trace.spanned("nn.feature_adaptor_i")
 def _stage_adaptor_i(p, frame):
     """Shared: pixel reference (NCHW) -> feature."""
     return L.depth_conv_block_apply(p["feature_adaptor_i"],
                                     F.space_to_depth(frame, 8))
 
 
+@trace.spanned("nn.feature_adaptor_p")
 def _stage_adaptor_p(p, feature):
     """Shared: propagated feature -> adapted feature."""
     return L.conv_apply(p["feature_adaptor_p"], feature)
 
 
+@trace.spanned("nn.feature_extractor_part1")
 def _stage_fe_part1(p, feature, qp):
     """Shared: first 2 blocks + temporal context."""
     x1 = _dcb_seq(p["fe_conv1"], feature)
     return x1, x1 * C.q_vec(p["q_feature"], qp, x1.dtype)
 
 
+@trace.spanned("nn.feature_extractor_part2")
 def _stage_fe_part2(p, x1):
     """Shared: remaining 4 blocks -> ctx."""
     return _dcb_seq(p["fe_conv2"], x1)
 
 
+@trace.spanned("nn.encoder+hyper_enc")
 def _stage_encode_y(p, x, ctx, qp):
     """Encoder-only: frame -> latent y + rounded z."""
     feat = L.conv_apply(p["enc_conv1"], F.space_to_depth(x, 8))
@@ -182,6 +188,7 @@ def _stage_encode_y(p, x, ctx, qp):
     return y, z_hat.to(x.dtype), z_int8
 
 
+@trace.spanned("nn.hyper_dec+prior_fusion")
 def _stage_prior(p, z_hat, ctx_t):
     """Shared: hyper + temporal priors -> fused prior params."""
     hier = hyper_decoder(p, z_hat)
@@ -193,6 +200,7 @@ def _stage_prior(p, z_hat, ctx_t):
     return L.conv_apply(p["y_prior_fusion"][3], fused)
 
 
+@trace.spanned("nn.spatial_prior")
 def _stage_spatial(p, y_hat_0, common_params):
     """Shared: second-pass spatial prior -> (scales, means)."""
     out = spatial_prior(p, torch.cat((y_hat_0, common_params), dim=1))
@@ -218,6 +226,7 @@ def _masks_2x(t):
     return F.checkerboard_masks_2x(h, w, c, t.dtype, t.device)
 
 
+@trace.spanned("nn.fold_index_2x")
 def _stage_fold_index_2x(scales, k, force_zero_thres):
     """Shared: fold the active-half scales, build CDF indexes and the keep
     mask."""
@@ -235,6 +244,7 @@ def _enc_pass(y, scales, means, k, force_zero_thres):
     return F.fold_halves(y_q).to(torch.int32), idx, keep, y_hat_k
 
 
+@trace.spanned("nn.enc_pass0(fused)")
 def _stage_enc_pass0(y, params_prior, force_zero_thres):
     """Encoder-only pass 0: prior separation + masked quantization."""
     y, _, scales, means = C.separate_prior_video_encoding(params_prior, y)
@@ -243,11 +253,13 @@ def _stage_enc_pass0(y, params_prior, force_zero_thres):
     return y, sym, idx, keep, y_hat_0
 
 
+@trace.spanned("nn.enc_pass1(fused)")
 def _stage_enc_pass1(y, scales, means, force_zero_thres):
     """Encoder-only pass 1 (y already divided by q_dec in pass 0)."""
     return _enc_pass(y, scales, means, 1, force_zero_thres)
 
 
+@trace.spanned("nn.dec_index0")
 def _stage_dec_index0(params_prior, force_zero_thres):
     """Decoder-only: pass-0 indexes (elementwise, so bit-identical to the
     encoder's pass-0 index computation)."""
@@ -255,11 +267,13 @@ def _stage_dec_index0(params_prior, force_zero_thres):
     return _stage_fold_index_2x(scales, 0, force_zero_thres)
 
 
+@trace.spanned("nn.dec_restore_2x")
 def _stage_dec_restore_2x(y_q_r, means, k):
     """Decoder-only: scatter decoded symbols back through mask k."""
     return F.restore_y_2x(y_q_r, means, _masks_2x(means)[k])
 
 
+@trace.spanned("nn.latent_decoder(feature_out)")
 def _stage_feature_out(p, y_hat_0, y_hat_1, params_prior, ctx, qp):
     """Shared: dequantized latent -> next reference feature."""
     c3 = params_prior.shape[1] // 3
@@ -277,6 +291,7 @@ def _stage_feature(p, y_hat, ctx, qp):
     return feat * C.q_vec(p["q_decoder"], qp, feat.dtype)
 
 
+@trace.spanned("nn.recon_generation")
 def _stage_recon_x(p, feature, qp):
     """Shared: feature -> frame (NCHW)."""
     out = _dcb_seq(p["recon_conv"][:3], feature)
@@ -422,13 +437,16 @@ def _settle(net, arr, key, plan, bps, rerun):
     """settle_staging for a DMC or DMCI codec `net`: serialize a fetched
     staging launched by the StagingPlan `plan` at `bps` bytes per symbol
     (`rerun(mw, cap, kyc)` re-runs the frame at a grown rung and returns
-    its host staging), count the reruns in net._ec_rerun_count and learn
+    its host staging), count the reruns in net._ec_rerun_count (and the
+    trace's `ec.rerun`) and learn
     the settled rate for the frame size `key` in net._ec_learned.  Takes
     net._ec_lock for the bookkeeping, so chunks may settle on several
     threads."""
     stream, g_bps, reruns = settle_staging(
         arr, plan, functools.partial(net._rung, plan.lanes), bps,
         net.bytes_per_symbol, rerun)
+    if reruns:
+        trace.count("ec.rerun", reruns)
     with net._ec_lock:
         net._ec_rerun_count += reruns
         if g_bps > max(bps, net._ec_learned.get(key, 0.0)):
@@ -752,26 +770,30 @@ class DMC:
         the host, coded in the callable.  Device EC: the K1 launch and the
         start of its staging's copy, neither waited on; the callable waits
         for the copy and settles the staging ladder."""
-        x = C.frame_to_nchw(x, self.device, self.dtype)
-        if not self.device_ec:
-            return self._compress_async_host(x, qp)
-        H, W = x.shape[2], x.shape[3]
-        plan = self._plan_device_ec(H, W)
-        bps = max(self.bytes_per_symbol, self._ec_learned.get((H, W), 0.0))
-        feature_out, operand = _compress_frame_core(
-            self.params, x, self.apply_feature_adaptor(), qp, plan.lanes,
-            self.n_y_rows, self.force_zero_thres, plan.kyc)
-        launch = _launcher(operand, self.enc_table, self.n_y_rows, qp,
-                           G_CH_Z)
-        mw, cap = self._rung(plan.lanes, plan.steps(), bps)
-        fetch = slim_fetch(self._fetch_windows, launch(mw, cap, plan.kyc),
-                           plan.lanes, cap)
-        self.add_ref_frame(feature_out, None)
+        with trace.span("dmc.compress", 1):
+            x = C.frame_to_nchw(x, self.device, self.dtype)
+            if not self.device_ec:
+                return self._compress_async_host(x, qp)
+            H, W = x.shape[2], x.shape[3]
+            plan = self._plan_device_ec(H, W)
+            bps = max(self.bytes_per_symbol,
+                      self._ec_learned.get((H, W), 0.0))
+            feature_out, operand = _compress_frame_core(
+                self.params, x, self.apply_feature_adaptor(), qp, plan.lanes,
+                self.n_y_rows, self.force_zero_thres, plan.kyc)
+            launch = _launcher(operand, self.enc_table, self.n_y_rows, qp,
+                               G_CH_Z)
+            mw, cap = self._rung(plan.lanes, plan.steps(), bps)
+            fetch = slim_fetch(self._fetch_windows,
+                               launch(mw, cap, plan.kyc), plan.lanes, cap)
+            self.add_ref_frame(feature_out, None)
+            ids = trace.frame_ids()
 
         def finish():
-            return _settle(self, fetch(), (H, W), plan, bps,
-                           lambda mw, cap, kyc: fetch_staging(
-                               launch(mw, cap, kyc))())
+            with trace.span("dmc.finish", ids):
+                return _settle(self, fetch(), (H, W), plan, bps,
+                               lambda mw, cap, kyc: fetch_staging(
+                                   launch(mw, cap, kyc))())
 
         return finish
 
@@ -782,14 +804,16 @@ class DMC:
         n_z, n_y = z_int8.numel(), planes[0][0].numel()
         fetch = C.fetch_async(_pack_host(z_int8, planes, fz))
         self.add_ref_frame(feature_out, None)
+        ids = trace.frame_ids()
 
         def finish():
-            buf = fetch()
-            self.transfers["d2h"] += 1
-            return C.code_host(self.entropy_coder,
-                               [(self.bit_estimator_z, qp)],
-                               self.gaussian_encoder, buf, [n_z],
-                               [n_y] * len(planes), fz is not None)
+            with trace.span("dmc.finish", ids):
+                buf = fetch()
+                self.transfers["d2h"] += 1
+                return C.code_host(self.entropy_coder,
+                                   [(self.bit_estimator_z, qp)],
+                                   self.gaussian_encoder, buf, [n_z],
+                                   [n_y] * len(planes), fz is not None)
 
         return finish
 
@@ -816,17 +840,22 @@ class DMC:
         self._check_gop("compress_gop_async")
         p, fz = self.params, self.force_zero_thres
         qps = [int(q) for q in qps]
-        xs = [C.frame_to_nchw(x, self.device, self.dtype) for x in frames]
-        H, W = xs[0].shape[2], xs[0].shape[3]
-        plan = self._plan_device_ec(H, W)
-        bps = max(self.bytes_per_symbol, self._ec_learned.get((H, W), 0.0))
-        mw, cap = self._rung(plan.lanes, plan.steps(), bps)
-        feat_last, stagings, feats_in = _compress_gop(
-            p, xs, self.dpb[0].feature, qps, plan.lanes, self.n_y_rows,
-            self.enc_table, mw, cap, fz, plan.kyc)
-        fetch = slim_fetch(self._fetch_windows, stagings, plan.lanes, cap)
-        self.add_ref_frame(feat_last, None, increase_poc=False)
-        self.curr_poc += len(xs)
+        with trace.span("dmc.compress_gop", len(frames)):
+            xs = [C.frame_to_nchw(x, self.device, self.dtype)
+                  for x in frames]
+            H, W = xs[0].shape[2], xs[0].shape[3]
+            plan = self._plan_device_ec(H, W)
+            bps = max(self.bytes_per_symbol,
+                      self._ec_learned.get((H, W), 0.0))
+            mw, cap = self._rung(plan.lanes, plan.steps(), bps)
+            feat_last, stagings, feats_in = _compress_gop(
+                p, xs, self.dpb[0].feature, qps, plan.lanes, self.n_y_rows,
+                self.enc_table, mw, cap, fz, plan.kyc)
+            fetch = slim_fetch(self._fetch_windows, stagings, plan.lanes,
+                               cap)
+            self.add_ref_frame(feat_last, None, increase_poc=False)
+            self.curr_poc += len(xs)
+            ids = trace.frame_ids()
 
         def rerun(i, mw, cap, kyc):
             _, operand = _compress_frame_core(
@@ -837,10 +866,11 @@ class DMC:
                     mw, cap, kyc))()
 
         def finish():
-            arr = fetch()
-            return [_settle(self, arr[i], (H, W), plan, bps,
-                            functools.partial(rerun, i))
-                    for i in range(len(xs))]
+            with trace.span("dmc.finish", ids):
+                arr = fetch()
+                return [_settle(self, arr[i], (H, W), plan, bps,
+                                functools.partial(rerun, i))
+                        for i in range(len(xs))]
 
         return finish
 
@@ -863,6 +893,7 @@ class DMC:
         return self._decode_staged(metas[0], stagings[0],
                                    self.apply_feature_adaptor(), sps, qp)
 
+    @trace.spanned("dmc.upload_gop")
     def upload_gop(self, bit_streams, sps):
         """Parse a chunk's device-EC streams and start their upload (one
         pinned, non-blocking copy), so a decoder can upload chunk k + 1
@@ -883,27 +914,29 @@ class DMC:
         meta, stagings, n = uploaded
         if len(qps) != n:
             raise ValueError(f"{len(qps)} qps for a chunk of {n} frames")
-        feat, x_hats = self.dpb[0].feature, []
-        for staging, qp in zip(stagings, qps):
-            feat, x_hat = self._decode_staged(
-                meta, staging, _stage_adaptor_p(self.params, feat), sps,
-                int(qp))
-            x_hats.append(C.frame_to_nhwc(x_hat))
-        self.add_ref_frame(feat, x_hats[-1], increase_poc=False)
-        self.curr_poc += n
-        return {"x_hat": torch.stack(x_hats)}
+        with trace.span("dmc.decompress_gop", n):
+            feat, x_hats = self.dpb[0].feature, []
+            for staging, qp in zip(stagings, qps):
+                feat, x_hat = self._decode_staged(
+                    meta, staging, _stage_adaptor_p(self.params, feat), sps,
+                    int(qp))
+                x_hats.append(C.frame_to_nhwc(x_hat))
+            self.add_ref_frame(feat, x_hats[-1], increase_poc=False)
+            self.curr_poc += n
+            return {"x_hat": torch.stack(x_hats)}
 
     def decompress_gop(self, bit_streams, sps, qps):
         """GOP decode (device EC) of N streams at `qps`; a chunk of mixed
         ladder rungs decodes frame by frame.  Returns {"x_hat": (N, 1, H,
         W, 3)} NHWC, the DPB advanced past the chunk."""
         self._check_gop("decompress_gop")
-        uploaded = self.upload_gop(bit_streams, sps)
-        if uploaded is None:
-            return {"x_hat": torch.stack(
-                [self.decompress(s, sps, q)["x_hat"]
-                 for s, q in zip(bit_streams, qps)])}
-        return self.decompress_gop_uploaded(uploaded, sps, qps)
+        with trace.span("dmc.decompress_gop", len(bit_streams)):
+            uploaded = self.upload_gop(bit_streams, sps)
+            if uploaded is None:
+                return {"x_hat": torch.stack(
+                    [self.decompress(s, sps, q)["x_hat"]
+                     for s, q in zip(bit_streams, qps)])}
+            return self.decompress_gop_uploaded(uploaded, sps, qps)
 
     def _decompress_host(self, bit_stream, sps, qp):
         """Host-EC decode: the host decodes z on the coder's worker thread
@@ -948,6 +981,7 @@ class DMC:
                                          ctx, qp)
         return feature_out, _stage_recon_x(p, feature_out, qp)
 
+    @trace.spanned("dmc.decompress", 1)
     def decompress(self, bit_stream, sps, qp):
         """Decode one P-frame; returns {"x_hat": NHWC (1, H, W, 3)}.  Host
         EC reads the coder split from sps["ec_part"]."""

@@ -56,6 +56,7 @@ from ..ops.fused import depth_to_space
 from ..ops.lane_rans import (pack_operand, prepare_decode_table,
                              prepare_encode_table)
 from ..ops.warp import bilinear_resize_2x, flow_warp
+from ..utils import trace
 from ..utils.params import to_device
 from . import common as C
 from .dmc import _dec_plane, _lane_layout_t, _z_rows
@@ -339,6 +340,7 @@ def _spatial_pass(adaptor_p, prior_list, y_hat_so_far, common_params):
 # stages (shared = evaluated by both encoder and decoder)
 # ---------------------------------------------------------------------------
 
+@trace.spanned("nn.mv_enc")
 def _stage_mv_enc(p, x, ref_frame, ref_mv_feature, q_index):
     """Encoder-only: flow -> motion latent, rounded motion z."""
     q = get_curr_q(p["mv_y_q_enc"], q_index).to(x.dtype)
@@ -349,6 +351,7 @@ def _stage_mv_enc(p, x, ref_frame, ref_mv_feature, q_index):
     return mv_y, mv_z_hat.to(x.dtype), mv_z_int8
 
 
+@trace.spanned("nn.mv_prior")
 def _stage_mv_prior(p, mv_z_hat, ref_mv_y, y_h, y_w):
     """Shared: motion z (+ ref_mv_y) -> the motion latent's chunk-3
     prior."""
@@ -364,12 +367,14 @@ def _stage_mv_prior(p, mv_z_hat, ref_mv_y, y_h, y_w):
     return _seq(FM.dcb_apply, p["mv_fusion"], mv_params)
 
 
+@trace.spanned("nn.mv_dec")
 def _stage_mv_dec(p, mv_y_hat, q_index):
     """Shared: motion latent -> (flow, next ref_mv_feature)."""
     q = get_curr_q(p["mv_y_q_dec"], q_index).to(mv_y_hat.dtype)
     return mv_decoder(p, mv_y_hat, q)
 
 
+@trace.spanned("nn.motion_comp")
 def _stage_motion_comp(p, mv_hat, ref_frame, ref_feature, fa_idx):
     """Shared: flow + references -> contexts (c1, c2, c3) and the warped
     frame."""
@@ -390,6 +395,7 @@ def _stage_motion_comp(p, mv_hat, ref_frame, ref_feature, fa_idx):
     return c1, c2, c3, warpframe
 
 
+@trace.spanned("nn.ctx_enc")
 def _stage_ctx_enc(p, x, c1, c2, c3, q_index):
     """Encoder-only: frame + contexts -> y, rounded z."""
     q = get_curr_q(p["y_q_enc"], q_index).to(x.dtype)
@@ -399,6 +405,7 @@ def _stage_ctx_enc(p, x, c1, c2, c3, q_index):
     return y, z_hat.to(x.dtype), z_int8
 
 
+@trace.spanned("nn.ctx_prior")
 def _stage_ctx_prior(p, z_hat, c3, ref_y, y_h, y_w):
     """Shared: z (+ temporal context, ref_y) -> y's chunk-3 prior."""
     hier = _seq(FM.res_block_upsample_apply, p["hyper_dec"][:2], z_hat)
@@ -415,6 +422,7 @@ def _stage_ctx_prior(p, z_hat, c3, ref_y, y_h, y_w):
     return _seq(FM.dcb_apply, p["y_fusion"], params)
 
 
+@trace.spanned("nn.recon")
 def _stage_recon(p, y_hat, c1, c2, c3, q_index):
     """Shared: y_hat + contexts -> (x_hat, next ref_feature)."""
     q = get_curr_q(p["y_q_dec"], q_index).to(y_hat.dtype)
@@ -423,11 +431,13 @@ def _stage_recon(p, y_hat, c1, c2, c3, q_index):
     return x_hat, feature
 
 
+@trace.spanned("nn.mv_spatial")
 def _stage_mv_spatial(p, k, y_hat_so_far, common_params):
     return _spatial_pass(p[f"mv_sp_adaptor_{k}"], p["mv_spatial_prior"],
                          y_hat_so_far, common_params)
 
 
+@trace.spanned("nn.y_spatial")
 def _stage_y_spatial(p, k, y_hat_so_far, common_params):
     return _spatial_pass(p[f"y_sp_adaptor_{k}"], p["y_spatial_prior"],
                          y_hat_so_far, common_params)
@@ -605,6 +615,7 @@ class DMCFM:
 
     # -- compress / decompress -----------------------------------------------
 
+    @trace.spanned("dmc_fm.compress", 1)
     def compress(self, x, dpb, q_index, fa_idx):
         """x: (1, H, W, 3) NHWC in [0, 1], H and W multiples of 16; dpb the
         DPB dict; fa_idx in {0, 1, 2}.  Returns {"dpb": the next DPB,
@@ -685,10 +696,13 @@ class DMCFM:
                 lambda mw, cap: launch_staging(operand, self.enc_table, mw,
                                                cap)())
             self.ec_reruns += reruns
+            if reruns:
+                trace.count("ec.rerun", reruns)
             return stream
 
         return finish
 
+    @trace.spanned("dmc_fm.decompress", 1)
     def decompress(self, bit_stream, dpb, sps):
         """sps: {"height", "width", "qp", "fa_idx" in {0, 1, 2}}.  Returns
         {"dpb": the next DPB}; its "ref_frame" is the decoded frame.  A

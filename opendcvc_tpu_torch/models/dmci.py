@@ -33,6 +33,7 @@ from ..layers import blocks as L
 from ..ops import fused as F
 from ..ops.lane_rans import (prepare_decode_table,
                               prepare_encode_table)
+from ..utils import trace
 from ..utils.common import env_flag
 from ..utils.params import cast_floating, to_device
 from . import common as C
@@ -119,6 +120,7 @@ def spatial_prior(p, adaptor_p, x):
     return L.conv_apply(p["y_spatial_prior"][3], h)
 
 
+@trace.spanned("nn.enc_front")
 def _stage_enc_front(p, x, qp):
     """Encoder-only: frame -> y, rounded z."""
     y = intra_encoder(p, x, C.q_vec(p["q_scale_enc"], qp, x.dtype))
@@ -127,6 +129,7 @@ def _stage_enc_front(p, x, qp):
     return y, z_hat.to(x.dtype), z_int8
 
 
+@trace.spanned("nn.prior")
 def _stage_prior(p, z_hat, y_h, y_w):
     """Shared: z_hat -> separated prior + reduced context."""
     params = prior_fusion(p, hyper_decoder(p, z_hat))
@@ -136,6 +139,7 @@ def _stage_prior(p, z_hat, y_h, y_w):
     return q_enc, q_dec, scales, means, reduced
 
 
+@trace.spanned("nn.spatial")
 def _stage_spatial(p, k, y_hat_so_far, reduced):
     """Shared: spatial-prior pass k in {1, 2, 3} -> (scales, means)."""
     out = spatial_prior(p, p[f"adaptor_{k}"],
@@ -149,12 +153,14 @@ def _masks_4x(t):
     return F.checkerboard_masks_4x(h, w, c, t.dtype, t.device)
 
 
+@trace.spanned("nn.fold_index")
 def _stage_fold_index(scales, k, force_zero_thres):
     """Shared: fold the active-quarter scales, build CDF indexes."""
     return _indexes_of(F.fold_quarters(scales * _masks_4x(scales)[k]),
                        force_zero_thres)
 
 
+@trace.spanned("nn.enc_pass")
 def _stage_enc_pass(y_s, scales, means, y_hat_so_far, k, force_zero_thres):
     """Encoder-only pass k: masked quantization -> (folded symbols int32,
     indexes, keep mask, running y_hat)."""
@@ -167,12 +173,14 @@ def _stage_enc_pass(y_s, scales, means, y_hat_so_far, k, force_zero_thres):
     return F.fold_quarters(y_q).to(torch.int32), idx, keep, so_far
 
 
+@trace.spanned("nn.dec_restore")
 def _stage_dec_restore(y_q_r, means, y_hat_so_far, k):
     """Decoder-only: scatter decoded symbols through mask k, accumulate."""
     y_hat_k = F.restore_y_4x(y_q_r, means, _masks_4x(means)[k])
     return y_hat_k if y_hat_so_far is None else y_hat_so_far + y_hat_k
 
 
+@trace.spanned("nn.recon")
 def _stage_recon(p, y_hat_so_far, q_dec_prior, qp):
     """Shared: final dequant + intra decoder + clamp."""
     y_hat = y_hat_so_far * q_dec_prior
@@ -396,10 +404,17 @@ class DMCI:
         finish() returns the bit stream."""
         if not self.device_ec:
             raise ValueError("compress_async requires device-EC mode")
-        x_hat, staging, start_fetch, settle = self._launch_i(
-            C.frame_to_nchw(x, self.device, self.dtype), int(qp))
-        fetch = start_fetch(staging)
-        return x_hat, lambda: settle(fetch())
+        with trace.span("dmci.compress", 1):
+            x_hat, staging, start_fetch, settle = self._launch_i(
+                C.frame_to_nchw(x, self.device, self.dtype), int(qp))
+            fetch = start_fetch(staging)
+            ids = trace.frame_ids()
+
+        def finish():
+            with trace.span("dmci.finish", ids):
+                return settle(fetch())
+
+        return x_hat, finish
 
     def compress_batch_async(self, xs, qps):
         """Batched device-EC encode of B independent frames: xs a list of
@@ -441,6 +456,7 @@ class DMCI:
         x_hat, finish = self.compress_async(x, qp)
         return {"bit_stream": finish(), "x_hat": x_hat}
 
+    @trace.spanned("dmci.compress", 1)
     def _compress_host(self, x, qp):
         """Host EC: one copy of z, the four packed planes and (with
         force_zero_thres) their skip masks, then the host coder."""
@@ -483,6 +499,7 @@ class DMCI:
         coder.check_stream_end()
         return _stage_recon(p, so_far, q_dec_prior, qp)
 
+    @trace.spanned("dmci.decompress", 1)
     def decompress(self, bit_stream, sps, qp):
         """Returns {"x_hat": NHWC (1, H, W, 3)}.  Host EC reads the coder
         split from sps["ec_part"]."""

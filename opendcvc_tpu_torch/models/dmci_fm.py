@@ -50,6 +50,7 @@ from ..layers.blocks import conv_apply, conv_init
 from ..ops import fused as F
 from ..ops.lane_rans import (encode_scan, pack_operand, prepare_decode_table,
                              prepare_encode_table)
+from ..utils import trace
 from ..utils.common import env_flag
 from ..utils.params import to_device
 from . import common as C
@@ -157,6 +158,7 @@ def hyper_enc_apply(hp, y_pad):
     return conv_apply(hp["c2"], out, stride=2, padding=1)
 
 
+@trace.spanned("nn.enc_front")
 def _stage_enc_front(p, x, qp):
     """Encoder-only: frame -> y, rounded z."""
     y = intra_encoder(p, x, C.q_vec(p["q_scale_enc"], qp, x.dtype))
@@ -165,6 +167,7 @@ def _stage_enc_front(p, x, qp):
     return y, z_hat.to(x.dtype), z_int8
 
 
+@trace.spanned("nn.prior")
 def _stage_prior(p, z_hat, y_h, y_w):
     """Shared: z_hat -> separated prior + reduced context."""
     params = FM.res_block_upsample_apply(p["hyper_dec"][0], z_hat)
@@ -178,6 +181,7 @@ def _stage_prior(p, z_hat, y_h, y_w):
     return q_enc, q_dec, scales, means, reduced
 
 
+@trace.spanned("nn.spatial")
 def _stage_spatial(p, k, y_hat_so_far, reduced):
     """Shared: spatial-prior pass k in {1, 2, 3} -> (scales, means)."""
     h = FM.dcb2_apply(p[f"adaptor_{k}"],
@@ -188,6 +192,7 @@ def _stage_spatial(p, k, y_hat_so_far, reduced):
     return h[:, :c], h[:, c:]
 
 
+@trace.spanned("nn.recon")
 def _stage_recon(p, y_hat_so_far, q_dec_prior, qp):
     """Shared: final dequant + intra decoder + refinement + clamp."""
     y_hat = y_hat_so_far * q_dec_prior
@@ -346,6 +351,7 @@ class DMCIFM:
         lanes = effective_lanes(self.lanes, 4 * n_y + n_z)
         return lanes, 4 * (-(-n_y // lanes)) + (-(-n_z // lanes))
 
+    @trace.spanned("dmci_fm.compress", 1)
     def compress(self, x, q_index):
         """x: (1, H, W, 3) NHWC in [0, 1], H and W multiples of 16.
         Returns {"bit_stream": bytes, "x_hat": NHWC tensor}."""
@@ -387,8 +393,11 @@ class DMCIFM:
             self.bytes_per_symbol,
             lambda mw, cap: launch_staging(operand, table, mw, cap)())
         self.ec_reruns += reruns
+        if reruns:
+            trace.count("ec.rerun", reruns)
         return stream
 
+    @trace.spanned("dmci_fm.decompress", 1)
     def decompress(self, bit_stream, sps):
         """sps: {"height", "width", "qp"}.  Returns {"x_hat": NHWC (1, H,
         W, 3)}.  A host-EC stream that is not exactly the frame's symbols

@@ -14,17 +14,15 @@ entries of `prepare_encode_table`, K2 the compact rows of
 
 A wrapper runs the plain version for tensors on the CPU and launches its
 kernel for tensors on a CUDA device (raising if the launch fails); each
-wrapper counts its kernel launches in its `launches` attribute (under a
-lock: a codec may launch from several threads).  The plain
+wrapper counts its kernel launches in the trace's counters `k1.launch`
+and `k2.launch` (utils/trace.py).  The plain
 versions loop over steps with vectorised lane ops in int64, because
 PyTorch's uint32 lacks most arithmetic.
 """
 
-import threading
-
 import torch
 
-_LAUNCHES_LOCK = threading.Lock()
+from ..utils import trace
 
 #: the packed encode operand is (sym + 128) << ENC_ROW_BITS | row; rows
 #: take 9 bits because a combined per-frame table reaches 384 rows (DCVC-FM),
@@ -156,12 +154,8 @@ def encode_scan(packed, enc_table, mw):
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"lane rANS encode launch failed: cudaError {err}")
-    with _LAUNCHES_LOCK:
-        encode_scan.launches += 1
+    trace.count("k1.launch")
     return staging, lens, states
-
-
-encode_scan.launches = 0
 
 
 def encode_scan_plain(packed, enc_table, mw):
@@ -281,12 +275,8 @@ def decode_scan(data, rows, dec_table, state, ptr):
         MW, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"lane rANS decode launch failed: cudaError {err}")
-    with _LAUNCHES_LOCK:
-        decode_scan.launches += 1
+    trace.count("k2.launch")
     return syms, state_out, ptr_out
-
-
-decode_scan.launches = 0
 
 
 def decode_scan_plain(data, rows, dec_table, state, ptr):

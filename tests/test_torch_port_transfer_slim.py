@@ -41,6 +41,7 @@ from opendcvc_tpu_torch.models import dmc as PDMC
 from opendcvc_tpu_torch.models import dmc_fm as PDMCFM
 from opendcvc_tpu_torch.models import dmci as PDMCI
 from opendcvc_tpu_torch.models import dmci_fm as PDMCIFM
+from opendcvc_tpu_torch.utils import trace
 from opendcvc_tpu_torch.utils.params import to_jax
 from test_torch_port_lane_rans import _one_thread  # noqa: F401  (fixture)
 
@@ -81,15 +82,22 @@ def _jax_tree(tree):
 
 
 def _slim(mp, mode):
-    """Slim on with SMALL_STEP words, or OPENDCVC_TPU_EC_SLIM=0; zeroed
-    SLIM_STATS."""
+    """Slim on with SMALL_STEP words, or OPENDCVC_TPU_EC_SLIM=0; the
+    trace's counters zeroed."""
     if mode == "on":
         mp.delenv("OPENDCVC_TPU_EC_SLIM", raising=False)
         mp.setattr(PD, "WINDOW_STEP", SMALL_STEP)
     else:
         mp.setenv("OPENDCVC_TPU_EC_SLIM", "0")
-    for k in PD.SLIM_STATS:
-        PD.SLIM_STATS[k] = 0
+    trace.reset_counters()
+
+
+def _stats():
+    """The slimming counters of the trace: windowed fetches, misses, and
+    the bytes moved each way."""
+    c = trace.counters()
+    return {k: c.get(k, 0) for k in ("slim.fetch", "slim.miss", "d2h_bytes",
+                                     "h2d_bytes")}
 
 
 def _env(mp, compact=False, fm=False):
@@ -227,7 +235,8 @@ def test_quantize_window_and_flag_match_jax(monkeypatch):
 
 def _run_port(trees, mode):
     """Every device-EC path of the port with slim on or off: streams,
-    decoded frames, the encoders' frames, SLIM_STATS after each part, and
+    decoded frames, the encoders' frames, the slimming counters after each
+    part, and
     whether each stream's upload bucket is below its capacity."""
     xs, cs, fs = _frames(H, W, 4), _frames(CH, CW, 1), _frames(H, W, 1, 3)
     out, stats = {}, {}
@@ -238,7 +247,7 @@ def _run_port(trees, mode):
         out["i"] = e["bit_stream"]
         out["i_pair"] = (net.decompress(e["bit_stream"], SPS, QP)["x_hat"],
                          e["x_hat"])
-        stats["i"] = dict(PD.SLIM_STATS)
+        stats["i"] = _stats()
 
         enc = _port_dmc(trees["p"], xs[0])
         first = enc.compress(xs[1], QPS[0])["bit_stream"]
@@ -249,7 +258,7 @@ def _run_port(trees, mode):
         out["p_dec"] += list(dec.decompress_gop(out["p"][1:], SPS, QPS[1:])
                              ["x_hat"])
         out["p_pair"] = (dec.dpb[0].feature, enc.dpb[0].feature)
-        stats["p"] = dict(PD.SLIM_STATS)
+        stats["p"] = _stats()
 
         enc = _port_dmc(trees["p"], cs[0], C_FZ, compact=True)
         out["compact"] = enc.compress(cs[1], QP)["bit_stream"]
@@ -271,7 +280,7 @@ def _run_port(trees, mode):
             po["bit_stream"], _fm_dpb(e["x_hat"]),
             {"height": H, "width": W, "qp": FM_QP, "fa_idx": 0})["dpb"][
                 "ref_frame"], po["dpb"]["ref_frame"])
-        stats["all"] = dict(PD.SLIM_STATS)
+        stats["all"] = _stats()
         metas = [PD.parse_frame_parts(st)[0] for st in
                  [out["i"], out["compact"], out["ifm"], out["pfm"]]
                  + out["p"]]
@@ -338,15 +347,15 @@ def test_windows_are_cut_only_with_slim_on(mode, ports):
     stats = ports[mode]["stats"]
     print(mode, stats)
     if mode == "on":
-        assert stats["i"]["fetches"] == 1
-        assert stats["p"]["fetches"] == 3      # + the P-frame and the chunk
-        assert stats["all"]["fetches"] == 6    # + compacted DMC, FM I and P
+        assert stats["i"]["slim.fetch"] == 1
+        assert stats["p"]["slim.fetch"] == 3   # + the P-frame and the chunk
+        assert stats["all"]["slim.fetch"] == 6  # + compacted DMC, FM I, P
         assert all(ports[mode]["bucketed"]), ports[mode]["bucketed"]
         off = ports["off"]["stats"]["all"]
         assert stats["all"]["d2h_bytes"] < off["d2h_bytes"]
         assert stats["all"]["h2d_bytes"] < off["h2d_bytes"]
     else:
-        assert stats["all"]["fetches"] == stats["all"]["misses"] == 0
+        assert stats["all"]["slim.fetch"] == stats["all"]["slim.miss"] == 0
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -388,11 +397,11 @@ def test_forced_miss_falls_back_once_and_grows(trees, monkeypatch):
     cap = _cap(net)
     net._fetch_windows[cap] = 8
     got = [net.compress(xs[1], QPS[0])["bit_stream"]]
-    assert PD.SLIM_STATS["misses"] == 1 and PD.SLIM_STATS["fetches"] == 1
+    assert _stats()["slim.miss"] == 1 and _stats()["slim.fetch"] == 1
     assert net._fetch_windows[cap] > 8
     net._fetch_windows[cap] = 8               # the chunk misses once too
     got += net.compress_gop(xs[2:], QPS[1:])["bit_streams"]
-    assert PD.SLIM_STATS["misses"] == 2 and PD.SLIM_STATS["fetches"] == 2
+    assert _stats()["slim.miss"] == 2 and _stats()["slim.fetch"] == 2
     total = max(PD.parse_frame_parts(s)[0]["total"] for s in got[1:])
     assert net._fetch_windows[cap] == PD.quantize_window(
         total + total // 4, cap)

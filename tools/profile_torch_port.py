@@ -29,8 +29,12 @@ host-clock times, the device kernels launched a pair, the device time
 by kernel (top 15) and by class
 (convolutions, the depthwise 3x3, the layout transposes around
 convolutions, elementwise, gathers (FM's warps), host->device uploads,
-device->host copies, lane rANS K1/K2, other), and the device busy and
-idle shares of the window; writes the Chrome trace to --trace.  The profiler slows the
+device->host copies, lane rANS K1/K2, other), the device time a frame of
+each entry point by the port's innermost `nn.*` / `wait.*` span around
+the launch (the port's trace, opendcvc_tpu_torch/utils/trace.py: each
+device operation goes to the host range that launched it by kineto's
+correlation ids), and the device busy and idle shares of the window;
+writes the Chrome trace to --trace.  The profiler slows the
 host's launches, so the window's idle share overstates the idle of an
 unprofiled frame: the same number of frames is first timed without the
 profiler, and the device time an enc + dec pair took under it is also
@@ -78,6 +82,57 @@ def _kernel_class(name):
     if "elementwise" in n or "vectorized" in n or "unrolled" in n:
         return "elementwise"
     return "other (copies, cat, scatter, reductions, ...)"
+
+
+#: the port's span names (opendcvc_tpu_torch/utils/trace.py)
+PORT_SPANS = ("nn.", "wait.", "coder.", "upload", "dmc.", "dmci.",
+              "dmc_fm.", "dmci_fm.")
+
+
+def _ns(ev, what):
+    fn = getattr(ev, f"{what}_ns", None)
+    return fn() if fn is not None else getattr(ev, f"{what}_us")() * 1000
+
+
+def _open_spans(spans, t):
+    """The port spans of `spans` ((start, end, name), sorted by start) that
+    cover time t, outermost first."""
+    return [n for s, e, n in spans if s <= t <= e]
+
+
+def port_span_table(prof):
+    """{entry point: {innermost nn.* / wait.* span: device ns}} of a
+    profile: each device operation goes to the host event that launched it
+    (its linked correlation id), and from there to the port spans open on
+    that thread at that time; the outermost names the entry point, the
+    innermost nn.* or wait.* one (else the innermost port span) the row."""
+    spans, launched = {}, {}
+    device = []
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            if not ev.is_user_annotation():
+                device.append(ev)
+            continue
+        start = _ns(ev, "start")
+        if ev.is_user_annotation() and ev.name().startswith(PORT_SPANS):
+            spans.setdefault(ev.start_thread_id(), []).append(
+                (start, start + _ns(ev, "duration"), ev.name()))
+        if ev.correlation_id() and not ev.name().startswith("cuda"):
+            launched.setdefault(ev.correlation_id(),
+                                (ev.start_thread_id(), start))
+    for v in spans.values():
+        v.sort()
+    table = {}
+    for ev in device:
+        host = launched.get(ev.linked_correlation_id())
+        open_ = _open_spans(spans.get(host[0], []), host[1]) if host else []
+        entry = open_[0] if open_ else "(no port span)"
+        inner = [n for n in open_ if n.startswith(("nn.", "wait."))]
+        row = inner[-1] if inner else open_[-1] if open_ else \
+            "(no port span)"
+        by = table.setdefault(entry, {})
+        by[row] = by.get(row, 0) + _ns(ev, "duration")
+    return table
 
 
 def _rt_codec(dev, dtype, frames, H, W):
@@ -351,7 +406,9 @@ def main():
 
     kernels, launched = {}, 0
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        # a port span's copy on the device's timeline is no device work
+        if ev.device_type == torch.autograd.DeviceType.CUDA and \
+                not ev.is_user_annotation:
             launched += 1
             kernels[ev.name] = kernels.get(ev.name, 0.0) + ev.time_range \
                 .elapsed_us()
@@ -381,6 +438,15 @@ def main():
     for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {100 * us / busy_us:5.1f} %  {us / 1e3:9.3f} ms  "
               f"{name[:100]}")
+    n = len(enc_ms)
+    print("device ms a frame by entry point and the port's innermost "
+          "nn.* / wait.* span:")
+    for entry, rows in sorted(port_span_table(prof).items()):
+        total = sum(rows.values())
+        print(f"  {entry}: {total / 1e6 / n:.3f} ms")
+        for row, ns in sorted(rows.items(), key=lambda kv: -kv[1]):
+            print(f"    {100 * ns / total:5.1f} %  {ns / 1e6 / n:9.3f} ms  "
+                  f"{row}")
     os.makedirs(os.path.dirname(args.trace) or ".", exist_ok=True)
     prof.export_chrome_trace(args.trace)
     print(f"trace: {args.trace}")
