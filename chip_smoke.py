@@ -300,6 +300,27 @@ Phases (any failure exits nonzero and prints no result):
      tools/bd_r5_torch.py on docs/dmci_tiny_rd.msgpack at 512x768 (4 QPs,
      2 images), its BD-rate reported only; (d) phase 8's bench again with
      OPENDCVC_TPU_EC_SLIM=0, its line beside phase 8's (the same bpp).
+ 24. The DepthConvBlock's epilogue kernels (csrc/dcb_epilogue.cu, run
+     after phase 23): (a) bias + WSiLU with a -0.0 bias against x *
+     torch.sigmoid(4.0 * x) on every float32 bit pattern (chunks of
+     2^28) and every bfloat16 one, 0 differing elements (a NaN matches a
+     NaN); (c) DMCI's I-frame, a DMC P-frame and a GOP chunk of 4 at
+     1080p, device EC, encoded and decoded on the kernels, on the unfused
+     chain (`ops/dcb_epilogue.py::epilogues` held to the plain twins)
+     and on the kernels again: streams and decoded frames equal byte for
+     byte, `dcb.fused` equal to `dcb.block` on the kernels and 0 on the
+     chain, the launches by kernel; (b) every distinct block call of (c)
+     (adaptor, shortcut, quant step, widths, planes) on the kernels
+     against the chain in float32 and bfloat16, 0 differing elements,
+     and under autograd (training) its output and every gradient (x,
+     each weight and bias, the quant step) 0 differing bits; (d) each
+     kernel at the main path's shapes (C 256 / 320 at 136x240, 368 at
+     68x120, both dtypes): median ms (the host's call inside the events,
+     and the device's time alone), its bound (bytes at 3.35 TB/s) and
+     the chain's ms, printed as one {"dcb_kernels": [...]} line; (e) the
+     host's ms of each distinct block call of (c) with a sleep kernel
+     holding the card (so the host never waits for it), on the kernels
+     and on the chain, summed over (c)'s calls into host ms a frame.
 The host coder's ms, the device->host waits' and the uploads' come from
 the port's trace (opendcvc_tpu_torch/utils/trace.py): a session around
 each timed call, summing its `coder.*`, `wait.fetch` and `upload` spans.
@@ -312,10 +333,10 @@ zeroed before phase 11 and must read 0 after it, zeroed before phase
 12, whose runs hold them exact, before phase 14, whose device-EC run
 holds them exact and whose host-EC runs launch none, and before each of
 phases 15-20, after which they must read 0, and before each device-EC
-run of phase 21, before each of phase 23's parts, and before phase 22,
-after which they must read 0;
+run of phase 21, before each of phase 23's parts, before phase 24 (c),
+and before phase 22, after which they must read 0;
 `launches` adds the device-EC runs of phases 7 (b), 8,
-9, 10 (a, and the checkpoints' coding in b), 12, 14, 21 (e, f) and 23 to
+9, 10 (a, and the checkpoints' coding in b), 12, 14, 21 (e, f), 23 and 24 to
 phases 3-4's, and `launches_by_run` splits it.
 Then it
 prints the card's name and power limit, one JSON line describing each
@@ -323,6 +344,7 @@ kernel, and, last, {"ok": true, "device": {...}}.
 """
 
 import argparse
+import contextlib
 import io
 import json
 import os
@@ -4801,6 +4823,374 @@ def phase_slice15(dev, root):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the DepthConvBlock's epilogue kernels
+# ---------------------------------------------------------------------------
+
+N_DCB_GOP = 4           # (c)'s GOP chunk, after the I-frame and a P-frame
+WSILU_CHUNK = 1 << 28   # (a): float32 bit patterns a launch
+DCB_KERNELS = ("bias", "bias_wsilu", "chunk_add", "residual")
+#: (d)'s shapes: (C, (H, W)) of the 1080p main path
+DCB_SHAPES = ((256, (136, 240)), (320, (136, 240)), (368, (68, 120)))
+
+
+def _dcb_counts():
+    """The block and launch counters of the port's trace."""
+    from opendcvc_tpu_torch.utils import trace
+    c = trace.counters()
+    return {k: c.get(k, 0) for k in ("dcb.block", "dcb.fused") + tuple(
+        "dcb.launch." + k for k in DCB_KERNELS)}
+
+
+def _dcb_delta(a, b):
+    return {k: b[k] - a[k] for k in a}
+
+
+@contextlib.contextmanager
+def _plain_blocks():
+    """Every DepthConvBlock on the unfused chain, whatever its inputs."""
+    from opendcvc_tpu_torch.ops import dcb_epilogue as E
+    epilogues = E.epilogues
+    E.epilogues = lambda x: E.PLAIN
+    try:
+        yield
+    finally:
+        E.epilogues = epilogues
+
+
+@contextlib.contextmanager
+def _recorded_blocks(store):
+    """Keep each distinct block call (its parameters' shapes, x's shape,
+    the quant step's, the shortcut) in `store`, with a copy of x and the
+    number of such calls."""
+    from opendcvc_tpu_torch.layers import blocks as L
+    apply = L.depth_conv_block_apply
+
+    def rec(p, x, quant_step=None, shortcut=False):
+        key = (tuple((k, tuple(v["w"].shape)) for k, v in p.items()),
+               tuple(x.shape), None if quant_step is None
+               else tuple(quant_step.shape), shortcut)
+        if key not in store:
+            store[key] = [p, x.clone(), quant_step, shortcut, 0]
+        store[key][4] += 1
+        return apply(p, x, quant_step=quant_step, shortcut=shortcut)
+    L.depth_conv_block_apply = rec
+    try:
+        yield
+    finally:
+        L.depth_conv_block_apply = apply
+
+
+def _diff_count(got, want):
+    """(elements that differ: neither the same bits nor both NaN, NaNs
+    whose bits differ)."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    same = got.view(ints[got.dtype]) == want.view(ints[want.dtype])
+    nan = got.isnan() & want.isnan()
+    return int((~(same | nan)).sum()), int((nan & ~same).sum())
+
+
+def _dcb_wsilu_patterns(dev):
+    """(a) bias_wsilu with a -0.0 bias (x + -0.0 is x for every x but a
+    NaN) against x * sigmoid(4x) on every float32 bit pattern, in chunks,
+    and on every bfloat16 one."""
+    from opendcvc_tpu_torch.ops import dcb_epilogue as E
+    for dtype, ints, lo, hi, step in (
+            (torch.float32, torch.int32, -2 ** 31, 2 ** 31, WSILU_CHUNK),
+            (torch.bfloat16, torch.int16, -2 ** 15, 2 ** 15, 2 ** 16)):
+        t0 = time.perf_counter()
+        b = torch.full((1,), -0.0, dtype=dtype, device=dev)
+        bad = nan_bits = n = 0
+        for s in range(lo, hi, step):
+            x = torch.arange(s, s + step, dtype=torch.int64, device=dev).to(
+                ints).view(dtype).view(1, 1, 1, -1)
+            want = x * torch.sigmoid(4.0 * x)
+            got = E.bias_wsilu(x.clone(), b)
+            d, nb = _diff_count(got, want)
+            bad, nan_bits, n = bad + d, nan_bits + nb, n + x.numel()
+            del x, want, got
+        _log(f"phase 24 (a): WSiLU on all {n} {str(dtype)[6:]} bit "
+             f"patterns: {bad} differing elements ({nan_bits} NaNs whose "
+             f"payload bits differ) in {time.perf_counter() - t0:.1f} s")
+        if bad:
+            _fail(f"phase 24 (a): the {str(dtype)[6:]} WSiLU differs from "
+                  f"the chain on {bad} patterns")
+
+
+def _dcb_nets(dev):
+    """Phase 3's DMCI and phase 4's DMC encoder and decoder."""
+    from opendcvc_tpu_torch.models.dmc import DMC
+    from opendcvc_tpu_torch.models.dmci import DMCI
+    i_net = DMCI(device=dev, device_ec=True)
+    i_net.init_params(seed=0)
+    i_net.params["q_scale_enc"] = torch.ones_like(
+        i_net.params["q_scale_enc"]) * 0.2
+    i_net.params["q_scale_dec"] = torch.ones_like(i_net.params["q_scale_dec"])
+    i_net.update(force_zero_thres=FZ)
+    enc = DMC(device=dev, device_ec=True)
+    enc.init_params(seed=1)
+    enc.params["q_encoder"] = torch.ones_like(enc.params["q_encoder"]) * 0.25
+    enc.params["q_decoder"] = torch.ones_like(enc.params["q_decoder"])
+    enc.update(force_zero_thres=FZ)
+    dec = DMC(device=dev, device_ec=True)
+    dec.load_params(enc.params)
+    dec.update(force_zero_thres=FZ)
+    return i_net, enc, dec
+
+
+def _dcb_chain(dev, nets, frames):
+    """DMCI's I-frame, a DMC P-frame alone and a GOP chunk of N_DCB_GOP,
+    each encoded (K1) and decoded (K2): (streams, decoded frames, the
+    chunk's encode and decode ms)."""
+    i_net, enc, dec = nets
+    sps = {"height": frames[0].shape[1], "width": frames[0].shape[2]}
+    s_i = i_net.compress(frames[0], QP)["bit_stream"]
+    x_i = i_net.decompress(s_i, sps, QP)["x_hat"]
+    for net in (enc, dec):
+        net.clear_dpb()
+        net.add_ref_frame(None, x_i)
+    s_p = enc.compress(frames[1], QP)["bit_stream"]
+    x_p = dec.decompress(s_p, sps, QP)["x_hat"]
+    qps = [QP] * N_DCB_GOP
+    out, enc_ms = _timed(lambda: enc.compress_gop(frames[2:], qps), dev)
+    x_gop, dec_ms = _timed(
+        lambda: dec.decompress_gop(out["bit_streams"], sps, qps)["x_hat"],
+        dev)
+    return [s_i, s_p] + out["bit_streams"], [x_i, x_p, x_gop], enc_ms, dec_ms
+
+
+def _dcb_same(label, a, b):
+    if a[0] != b[0]:
+        _fail(f"phase 24 (c): {label}: the streams differ")
+    for i, (x, y) in enumerate(zip(a[1], b[1])):
+        if not torch.equal(x, y):
+            _fail(f"phase 24 (c): {label}: decoded frame set {i} differs")
+
+
+def _dcb_codecs(dev, store):
+    """(c) the codec chain on the kernels, then on the unfused chain, then
+    on the kernels again: streams and frames equal byte for byte; the
+    blocks' calls recorded into `store` for (b)."""
+    frames = synthetic_frames(H, W, 2 + N_DCB_GOP)
+    nets = _dcb_nets(dev)
+    c0 = _dcb_counts()
+    with _recorded_blocks(store):
+        fused = _dcb_chain(dev, nets, frames)
+    c1 = _dcb_counts()
+    with _plain_blocks():
+        plain = _dcb_chain(dev, nets, frames)
+    c2 = _dcb_counts()
+    again = _dcb_chain(dev, nets, frames)
+    on, off = _dcb_delta(c0, c1), _dcb_delta(c1, c2)
+    if not on["dcb.block"] or on["dcb.fused"] != on["dcb.block"] \
+            or off["dcb.fused"] or off["dcb.block"] != on["dcb.block"] \
+            or any(off["dcb.launch." + k] for k in DCB_KERNELS):
+        _fail(f"phase 24 (c): the blocks' counters are off: kernels {on}, "
+              f"chain {off}")
+    _dcb_same("kernels / chain", fused, plain)
+    _dcb_same("kernels / kernels again", fused, again)
+    n = sum(len(s) for s in fused[0])
+    _log(f"phase 24 (c): DMCI I-frame, a DMC P-frame and a GOP chunk of "
+         f"{N_DCB_GOP} at {W}x{H}: {len(fused[0])} streams ({n} B) and "
+         f"every decoded frame equal byte for byte on the kernels and on "
+         f"the chain; {on['dcb.block']} blocks, launches " + ", ".join(
+             f"{k} {on['dcb.launch.' + k]}" for k in DCB_KERNELS)
+         + f"; the chunk's encode / decode ms {again[2]:.1f} / "
+         f"{again[3]:.1f} on the kernels, {plain[2]:.1f} / {plain[3]:.1f} "
+         f"on the chain")
+    return on
+
+
+def _dcb_grads(p, x, q, shortcut):
+    """The block's output and the gradients of sum(out^2) for x, each
+    weight and bias and the quant step, on fresh leaves."""
+    from opendcvc_tpu_torch.layers import blocks as L
+    pp = {k: {n: t.detach().clone().requires_grad_() for n, t in v.items()}
+          for k, v in p.items()}
+    xx = x.detach().clone().requires_grad_()
+    qq = None if q is None else q.detach().clone().requires_grad_()
+    out = L.depth_conv_block_apply(pp, xx, qq, shortcut)
+    (out.float() * out.float()).sum().backward()
+    return [out.detach(), xx.grad] + [t.grad for v in pp.values()
+                                      for t in v.values()] + (
+        [] if q is None else [qq.grad])
+
+
+def _dcb_variants(store):
+    """(b) each recorded block call on the kernels against the chain, in
+    float32 and in bfloat16, without autograd and under it."""
+    from opendcvc_tpu_torch.layers import blocks as L
+    rows, grad_rows = [], []
+    for (shapes, x_shape, q_shape, shortcut), (p, x, q, _, _) in \
+            store.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            pp = {k: {n: t.to(dtype) for n, t in v.items()}
+                  for k, v in p.items()}
+            xx = x.to(dtype)
+            qq = None if q is None else q.to(dtype)
+            with torch.no_grad():
+                got = L.depth_conv_block_apply(pp, xx, qq, shortcut)
+                with _plain_blocks():
+                    want = L.depth_conv_block_apply(pp, xx, qq, shortcut)
+            bad, _ = _diff_count(got, want)
+            rows.append(bad)
+            got = _dcb_grads(pp, xx, qq, shortcut)
+            with _plain_blocks():
+                want = _dcb_grads(pp, xx, qq, shortcut)
+            bad_grad = sum(int((g.view(torch.int16 if g.dtype ==
+                                        torch.bfloat16 else torch.int32) !=
+                                w.view(torch.int16 if w.dtype ==
+                                       torch.bfloat16 else torch.int32))
+                               .sum()) for g, w in zip(got, want))
+            grad_rows.append(bad_grad)
+            del got, want
+            if bad or bad_grad:
+                _fail(f"phase 24 (b): block {shapes} on {x_shape} "
+                      f"(quant {q_shape}, shortcut {shortcut}) in "
+                      f"{str(dtype)[6:]}: {bad} elements differ, "
+                      f"{bad_grad} under autograd")
+    _log(f"phase 24 (b): {len(store)} distinct DCVC-RT block calls at "
+         f"1080p (adaptor {sum('adaptor' in dict(k[0]) for k in store)}, "
+         f"shortcut {sum(k[3] for k in store)}, quant_step "
+         f"{sum(k[2] is not None for k in store)}), float32 and bfloat16: "
+         f"{sum(rows)} differing elements; under autograd (output and "
+         f"every gradient) {sum(grad_rows)} differing bits")
+
+
+def _host_ms(fn, calls=8, reps=REPS):
+    """Median host ms of one call of fn while a sleep kernel holds the
+    card, so the host's time is its own (its launches only queue)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(40 * SLEEP_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / calls)
+        torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def _dcb_host(store, frames):
+    """(e) each recorded block call's host ms on the kernels and on the
+    chain, summed over (c)'s calls and divided by its frames."""
+    from opendcvc_tpu_torch.layers import blocks as L
+    sums = {"kernels": 0.0, "chain": 0.0}
+    calls = 0
+    for p, x, q, shortcut, n in store.values():
+        with torch.no_grad():
+            def run():
+                L.depth_conv_block_apply(p, x, q, shortcut)
+            run()
+            k = _host_ms(run)
+            with _plain_blocks():
+                run()
+                c = _host_ms(run)
+        sums["kernels"] += n * k
+        sums["chain"] += n * c
+        calls += n
+    _log(f"phase 24 (e): host ms with the card held, {calls} block calls "
+         f"over {frames} frames: kernels {sums['kernels']:.2f} "
+         f"({sums['kernels'] * 1e3 / calls:.1f} us a call, "
+         f"{sums['kernels'] / frames:.2f} ms a frame), chain "
+         f"{sums['chain']:.2f} ({sums['chain'] * 1e3 / calls:.1f} us a "
+         f"call, {sums['chain'] / frames:.2f} ms a frame)")
+    return {"calls": calls, "frames": frames,
+            "kernels_ms_a_frame": sums["kernels"] / frames,
+            "chain_ms_a_frame": sums["chain"] / frames}
+
+
+def _dcb_bytes(kind, c, hw, itemsize):
+    """Least bytes of one launch: each input read once, each output
+    written once (kind: bias, bias_wsilu, chunk_add on 4C -> 2C,
+    residual, residual_shortcut_quant)."""
+    plane = c * hw[0] * hw[1] * itemsize
+    units = {"bias": 2, "bias_wsilu": 2, "chunk_add": 6, "residual": 3,
+             "residual_shortcut_quant": 4}[kind]
+    rows = {"chunk_add": 4, "residual_shortcut_quant": 2}.get(kind, 1)
+    return units * plane + rows * c * itemsize
+
+
+def _dcb_timings(dev):
+    """(d) each kernel's median ms (host call inside the events, and the
+    device's time alone) against its bound and the chain's ms."""
+    from opendcvc_tpu_torch.ops import dcb_epilogue as E
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for c, hw in DCB_SHAPES:
+            g = torch.Generator(device=dev).manual_seed(c)
+            conv, r, x = (torch.randn((1, c) + hw, generator=g, device=dev)
+                          .to(dtype) for _ in range(3))
+            wide = torch.randn((1, 4 * c) + hw, generator=g,
+                               device=dev).to(dtype)
+            b, b4 = (torch.randn((n,), generator=g, device=dev).to(dtype)
+                     for n in (c, 4 * c))
+            q = torch.rand((1, c, 1, 1), generator=g, device=dev).to(dtype)
+            cases = {
+                "bias": (lambda: E.bias(conv, b),
+                         lambda: E.bias_plain(conv, b)),
+                "bias_wsilu": (lambda: E.bias_wsilu(conv, b),
+                               lambda: E.bias_wsilu_plain(conv, b)),
+                "chunk_add": (lambda: E.bias_wsilu_chunk_add(wide, b4),
+                              lambda: E.bias_wsilu_chunk_add_plain(wide,
+                                                                   b4)),
+                "residual": (lambda: E.bias_residual(conv, b, r),
+                             lambda: E.bias_residual_plain(conv, b, r)),
+                "residual_shortcut_quant": (
+                    lambda: E.bias_residual(conv, b, r, x, q),
+                    lambda: E.bias_residual_plain(conv, b, r, x, q)),
+            }
+            for kind, (kern, plain) in cases.items():
+                with torch.no_grad():
+                    for fn in (kern, plain):
+                        fn()
+                    row = {"kernel": "dcb_elementwise_" + (
+                        "bias_residual" if kind.startswith("residual")
+                        else "bias_wsilu_chunk_add" if kind == "chunk_add"
+                        else kind), "case": kind, "dtype": str(dtype)[6:],
+                        "C": c, "hw": list(hw),
+                        "ms": median_ms(kern, dev),
+                        "device_ms": median_ms(kern, dev, queued=True),
+                        "plain_ms": median_ms(plain, dev, queued=True)}
+                row["bound_ms"], _ = _bound_ms(
+                    _dcb_bytes(kind, c, hw, conv.element_size()), 0)
+                out.append(row)
+    for row in out:
+        _log(f"phase 24 (d): {row['case']} {row['dtype']} C {row['C']} "
+             f"{row['hw'][0]}x{row['hw'][1]}: {row['ms']:.4f} ms (device "
+             f"{row['device_ms']:.4f}), bound {row['bound_ms']:.4f}, chain "
+             f"{row['plain_ms']:.4f}")
+    return out
+
+
+def phase_dcb(dev):
+    """Phase 24: the DepthConvBlock's epilogue kernels (a) on every WSiLU
+    input pattern, (c) in the codecs' chain against the unfused chain,
+    (b) on every block call that chain made, (e) their host's ms, (d)
+    timed.  Returns the K1 / K2 launches."""
+    t0 = time.perf_counter()
+    _dcb_wsilu_patterns(dev)
+    torch.cuda.empty_cache()
+    store = {}
+    _reset_launches()
+    on = _dcb_codecs(dev, store)
+    launches = _launches()
+    _dcb_variants(store)
+    torch.cuda.empty_cache()
+    # (c) codes each of its 2 + N_DCB_GOP frames once and decodes it once
+    host = _dcb_host(store, 2 * (2 + N_DCB_GOP))
+    del store
+    torch.cuda.empty_cache()
+    rows = _dcb_timings(dev)
+    for row in rows:
+        row["launches_c"] = on["dcb.launch." + (
+            "residual" if row["case"].startswith("residual")
+            else row["case"])]
+    print(json.dumps({"dcb_kernels": rows, "dcb_host": host}), flush=True)
+    _log(f"phase 24 done in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chip_smoke_out",
@@ -4879,6 +5269,8 @@ def main():
         runs["phase 21"] = phase_training_extras(dev, root)
         torch.cuda.empty_cache()
         runs["phase 23"] = phase_slice15(dev, root)
+        torch.cuda.empty_cache()
+        runs["phase 24"] = phase_dcb(dev)
         torch.cuda.empty_cache()
         _reset_launches()
         phase_multi_gpu(root)

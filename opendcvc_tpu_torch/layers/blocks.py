@@ -14,8 +14,11 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..ops import dcb_epilogue as E
+from ..ops.dcb_epilogue import wsilu, wsilu_chunk_add  # noqa: F401
 from ..ops.fused import depth_to_space
 from ..parallel.spatial import halo_exchange, split_rows
+from ..utils import trace
 
 
 def _uniform(gen, shape, bound):
@@ -30,21 +33,24 @@ def conv_init(gen, in_ch, out_ch, ksize=1, groups=1):
             "b": _uniform(gen, (out_ch,), bound)}
 
 
-def conv_apply(p, x, stride=1, padding=0, groups=1):
-    """The JAX package's `conv_apply`: the weights cast to x's dtype, the
-    convolution rounded to that dtype, then the bias added and rounded
-    again.  A bias fused into the convolution (oneDNN, ATen's depthwise
-    CUDA kernel) rounds once and differs in bfloat16.  With the frame
-    split in height (`parallel/spatial.py`), the `padding` rows above and
-    below come from the neighbouring shards, and only the width is
-    zero-padded here."""
+def conv_nobias(p, x, stride=1, padding=0, groups=1):
+    """`conv_apply` without its bias: the weights cast to x's dtype, the
+    convolution rounded to that dtype.  With the frame split in height
+    (`parallel/spatial.py`), the `padding` rows above and below come from
+    the neighbouring shards, and only the width is zero-padded here."""
     sh = split_rows() if padding else None
     if sh is not None:
         x = halo_exchange(x, padding, sh)
         padding = (0, padding)
-    out = F.conv2d(x, p["w"].to(x.dtype), None, stride=stride,
-                   padding=padding, groups=groups)
-    return out.add_(p["b"].to(x.dtype)[:, None, None])
+    return F.conv2d(x, p["w"].to(x.dtype), None, stride=stride,
+                    padding=padding, groups=groups)
+
+
+def conv_apply(p, x, stride=1, padding=0, groups=1):
+    """The JAX package's `conv_apply`: `conv_nobias`, then the bias added
+    and rounded again.  A bias fused into the convolution (oneDNN, ATen's
+    depthwise CUDA kernel) rounds once and differs in bfloat16."""
+    return E.bias_plain(conv_nobias(p, x, stride, padding, groups), p["b"])
 
 
 def conv_transpose2x_apply(p, x, torch_padding=None):
@@ -62,18 +68,6 @@ def conv_transpose2x_apply(p, x, torch_padding=None):
     out = F.conv_transpose2d(x, w.flip(2, 3).transpose(0, 1), None,
                              stride=2, padding=tp, output_padding=1)
     return out.add_(p["b"].to(x.dtype)[:, None, None])
-
-
-def wsilu(x):
-    """WSiLU(x) = x * sigmoid(4x)."""
-    return x * torch.sigmoid(4.0 * x)
-
-
-def wsilu_chunk_add(x):
-    """WSiLU then the sum of the two channel halves."""
-    y = wsilu(x)
-    c = y.shape[1]
-    return y[:, :c // 2] + y[:, c // 2:]
 
 
 def subpel_conv2x_init(gen, in_ch, out_ch, ksize):
@@ -99,20 +93,31 @@ def depth_conv_block_init(gen, in_ch, out_ch, force_adaptor=False):
 
 def depth_conv_block_apply(p, x, quant_step=None, shortcut=False):
     """[adaptor] ; dc = [1x1, WSiLU, 3x3 dw, 1x1] + x ;
-    ffn = [1x1 -> 4C, WSiLUChunkAdd, 1x1] + out ; [+ x] ; [* quant_step]."""
+    ffn = [1x1 -> 4C, WSiLUChunkAdd, 1x1] + out ; [+ x] ; [* quant_step].
+
+    Each convolution runs without its bias, and its epilogue (the bias and
+    what follows it up to the next convolution) is one call of the set
+    `ops/dcb_epilogue.py::epilogues` picks from x: the CUDA kernels for a
+    tensor on a CUDA device, under autograd too, and the unfused chain
+    elsewhere; the two are equal bit for bit, gradients included.  The
+    kernels write only into the convolutions' own outputs, never into
+    `x`, which callers reuse.  Counts `dcb.block`, and `dcb.fused` on the
+    kernels."""
+    trace.count("dcb.block")
+    ep = E.epilogues(x)
+    if ep is not E.PLAIN:
+        trace.count("dcb.fused")
+        x = x.contiguous()
     if "adaptor" in p:
-        x = conv_apply(p["adaptor"], x)
+        x = ep.bias(conv_nobias(p["adaptor"], x), p["adaptor"]["b"])
     c = x.shape[1]
-    h = wsilu(conv_apply(p["dc1"], x))
-    h = conv_apply(p["dc_dw"], h, padding=1, groups=c)
-    out = conv_apply(p["dc2"], h) + x
-    f = conv_apply(p["ffn2"], wsilu_chunk_add(conv_apply(p["ffn1"], out)))
-    out = f + out
-    if shortcut:
-        out = out + x
-    if quant_step is not None:
-        out = out * quant_step
-    return out
+    h = ep.bias_wsilu(conv_nobias(p["dc1"], x), p["dc1"]["b"])
+    h = ep.bias(conv_nobias(p["dc_dw"], h, padding=1, groups=c),
+                p["dc_dw"]["b"])
+    out = ep.bias_residual(conv_nobias(p["dc2"], h), p["dc2"]["b"], x)
+    f = ep.bias_wsilu_chunk_add(conv_nobias(p["ffn1"], out), p["ffn1"]["b"])
+    return ep.bias_residual(conv_nobias(p["ffn2"], f), p["ffn2"]["b"], out,
+                            x if shortcut else None, quant_step)
 
 
 def res_block_stride2_init(gen, in_ch, out_ch):

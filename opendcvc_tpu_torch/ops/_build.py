@@ -40,7 +40,16 @@ BUILD_LOG = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 _SIGNATURES = {
+    "dcb_epilogue": {
+        # c, b, out, N, C, hw, wsilu, dtype, stream
+        "dcb_bias_launch": [_P, _P, _P, _L, _L, _L, _I, _I, _P],
+        # c, b, out, N, K, hw, dtype, stream
+        "dcb_chunk_add_launch": [_P, _P, _P, _L, _L, _L, _I, _P],
+        # c, b, r, x, q, out, N, C, hw, q_stride, dtype, stream
+        "dcb_residual_launch": [_P] * 6 + [_L] * 4 + [_I, _P],
+    },
     "lane_rans": {
         # packed, enc_table, staging, lens, states, K, L, nr, mw, stream
         "lr_encode_launch": [_P] * 5 + [_I] * 4 + [_P],

@@ -10,9 +10,9 @@ with padding 1 lines up when the shard heights are even.  The exchange
 is one `batch_isend_irecv` of both directions; its backward sends each
 halo's gradient to the rank that owns those rows, which adds it.
 
-The hook is `layers/blocks.py::conv_apply`, which every DCVC-RT (DMC,
-DMCI) convolution goes through, under `parallel/mesh.py::sharded` with a
-Shard whose `sp` is above 1.
+The hook is `layers/blocks.py::conv_nobias` (the convolution half of
+`conv_apply`), which every DCVC-RT (DMC, DMCI) convolution goes through,
+under `parallel/mesh.py::sharded` with a Shard whose `sp` is above 1.
 """
 
 import torch

@@ -72,3 +72,5 @@ def pytest_configure(config):
         "slow: multi-second end-to-end roundtrips; deselect with "
         "-m 'not slow' for a fast gate (the full suite stays the "
         "default)")
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card (skips without one)")
