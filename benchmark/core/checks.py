@@ -19,19 +19,27 @@ def frame_gaps(got, want):
     return widest, mean
 
 
-def decoded_frames(cell, ref, weights, frames, samples):
+def decoded_frames(cell, ref, weights, frames, samples, features=None):
     """Checks of a decoding cell: its decoded frames against the
-    reference's reconstructions."""
+    reference's reconstructions, and where `features` ({pos: the
+    decoder's propagated feature}) is given, those against the
+    reference's features at the same positions.  Each gap is a check
+    where the workload lists its limit."""
+    kw = {} if features is None else {"features": dict.fromkeys(features)}
     with torch.no_grad():
         want = ref.reference_sequence(weights, frames, cell.config,
-                                      cell.workload, keep=set(samples))
-    widest, mean = frame_gaps(samples, want)
+                                      cell.workload, keep=set(samples), **kw)
     lim = cell.workload["check"]["limits"]
     n = sum(len(v) for v in samples.values())
-    return [{"name": "x_hat_max_gap", "value": widest,
-             "limit": lim["x_hat_max_gap"], "compared": n},
-            {"name": "x_hat_mean_gap", "value": mean,
-             "limit": lim["x_hat_mean_gap"], "compared": n}]
+    gaps = dict(zip(("x_hat_max_gap", "x_hat_mean_gap"),
+                    frame_gaps(samples, want)))
+    if features is not None:
+        gaps.update(zip(("feature_max_gap", "feature_mean_gap"),
+                        frame_gaps({p: [f] for p, f in features.items()},
+                                   kw["features"])))
+    return [{"name": k, "value": v, "limit": lim[k],
+             "compared": len(features) if k.startswith("feature") else n}
+            for k, v in gaps.items() if k in lim]
 
 
 def _fold(x, parts):

@@ -40,13 +40,14 @@ def idle_pct(r):
     return 100.0 * (1.0 - t.busy_s / t.window_s)
 
 
-def mfu_pct(r):
+def mfu_pct(r, peak="float32_flops_per_s"):
     """NN FLOPs of the window's frames over the window, against one card's
-    float32 peak outside the tensor cores."""
+    `peak` in counts/peaks.json (by default float32 outside the tensor
+    cores)."""
     f = r.counts.get("window_flops")
     if not f or not r.window_s:
         return None
-    return 100.0 * f / r.window_s / r.counts["peaks"]["float32_flops_per_s"]
+    return 100.0 * f / r.window_s / r.counts["peaks"][peak]
 
 
 def k2_roofline_pct(r):

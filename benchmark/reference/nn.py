@@ -1,4 +1,5 @@
-"""Plain building blocks of the reference codecs (NCHW, float32).
+"""Plain building blocks of the reference codecs (NCHW, in float32 or
+the configuration's precision, `dtype_of`).
 
 A frozen copy of the DCVC-RT blocks, masks, quantization and prior
 helpers, written from the measured package's `layers/blocks.py`,
@@ -15,6 +16,12 @@ import torch
 import torch.nn.functional as F
 
 QP_NUM = 64
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def dtype_of(cfg):
+    """The activations' type a configuration states (`precision`)."""
+    return DTYPES[cfg.get("precision", "float32")]
 
 
 def pin_precision(tf32=False):

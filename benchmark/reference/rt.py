@@ -1,5 +1,5 @@
 """Plain reference of DCVC-RT (Jia et al., CVPR 2025): the intra codec
-DMCI and the P-frame codec DMC, float32, NCHW.
+DMCI and the P-frame codec DMC, NCHW, in the configuration's precision.
 
 A frozen copy of the measured package's `models/dmci.py` and
 `models/dmc.py` stages, without entropy coding: the encoder's
@@ -7,6 +7,14 @@ quantization decides every symbol, and the decoder rebuilds a frame from
 the same symbols, so the encoder's own y_hat, feature and reconstruction
 are what any decoder of its streams must give.  `encode_sequence` codes
 one intra period and returns each frame's reconstruction.
+
+In bfloat16 the activations are bfloat16 from the frames on: each frame
+is cast to it where the measured package casts its input, each
+convolution casts its float32 weight and bias to the activations' type
+(`nn.conv_apply`, round to nearest even, as the package's load-time cast
+of its float32 leaves gives them) and each qp bank its row (`nn.q_vec`);
+quantization rounds in float32 as the package does.  The float32 path
+casts nothing.
 """
 
 import math
@@ -271,34 +279,43 @@ def i_recon(p, y_hat, qp):
 # a period
 # ---------------------------------------------------------------------------
 
-def encode_sequence(p_i, p_p, frames, qp, fz, keep=None, symbols=False):
+def encode_sequence(p_i, p_p, frames, qp, fz, keep=None, symbols=False,
+                    dtype=torch.float32, features=None):
     """Code frames[0] as an I-frame and the rest as P-frames, each
-    predicted from the last; frames are NHWC on the device.  Returns {t:
-    reconstruction NHWC} (with `symbols`, {t: the frame's symbols}) for
-    each t in `keep` (all when None), computed one frame at a time."""
+    predicted from the last; frames are NHWC on the device, cast to
+    `dtype`, the activations' type.  Returns {t: reconstruction NHWC}
+    (with `symbols`, {t: the frame's symbols}) for each t in `keep` (all
+    when None), computed one frame at a time.  `features`, a dict keyed
+    by P-frame positions, gets the propagated feature (NCHW) each of those
+    frames leaves."""
     out = {}
-    x_hat, syms = i_frame(p_i, N.to_nchw(frames[0]), qp, fz)
+    x_hat, syms = i_frame(p_i, N.to_nchw(frames[0].to(dtype)), qp, fz)
     ref_frame, feature = x_hat, None
     if keep is None or 0 in keep:
         out[0] = syms if symbols else N.to_nhwc(x_hat)
     for t in range(1, len(frames)):
         adapted = p_adapt(p_p, frame=ref_frame, feature=feature)
-        feature, x_hat, syms = p_frame(p_p, N.to_nchw(frames[t]), adapted,
-                                       qp, fz)
+        feature, x_hat, syms = p_frame(p_p, N.to_nchw(frames[t].to(dtype)),
+                                       adapted, qp, fz)
         if keep is None or t in keep:
             out[t] = syms if symbols else N.to_nhwc(x_hat)
+        if features is not None and t in features:
+            features[t] = feature
     return out
 
 
 INIT = {"intra": dmci_init, "inter": dmc_init}
 
 
-def reference_sequence(weights, frames, cfg, workload, keep=None):
+def reference_sequence(weights, frames, cfg, workload, keep=None,
+                       features=None):
     """The reconstructions of one intra period of `frames` at the
     configuration's qp and force_zero_thres (DCVC-RT codes every P-frame
-    at one qp, and the cells refresh no feature inside a period)."""
+    at one qp, and the cells refresh no feature inside a period); with
+    `features`, the propagated features at its positions too."""
     return encode_sequence(weights["intra"], weights["inter"], frames,
-                           cfg["qp"], cfg.get("force_zero_thres"), keep)
+                           cfg["qp"], cfg.get("force_zero_thres"), keep,
+                           dtype=N.dtype_of(cfg), features=features)
 
 
 def reference_symbols(weights, frames, cfg, workload, keep=None):
@@ -306,7 +323,7 @@ def reference_symbols(weights, frames, cfg, workload, keep=None):
     intra period (the I-frame has 4 passes, a P-frame 2)."""
     return encode_sequence(weights["intra"], weights["inter"], frames,
                            cfg["qp"], cfg.get("force_zero_thres"), keep,
-                           symbols=True)
+                           symbols=True, dtype=N.dtype_of(cfg))
 
 
 def _meta(*shape):

@@ -3,6 +3,8 @@
 TINY = {
     "rt_gop_dec": {"workload": {"gop_n": 2, "gop_chunks": 2,
                                 "intra_period": 6}},
+    "rt_gop_dec_bf16": {"workload": {"gop_n": 2, "gop_chunks": 2,
+                                     "intra_period": 6}},
     "rt_gop_enc": {"workload": {"gop_n": 2, "gop_chunks": 2,
                                 "intra_period": 6}},
     "fm_dec_host_ec": {"workload": {"intra_period": 4}},

@@ -2,18 +2,19 @@
 at a small size.  Run with `python3 -m pytest benchmark/tests -q -m card`.
 
 The control is the plain reference in the measured package's place,
-computed in the precision below the configurations' (TF32 in place of
-float32 without it), judged by the cell's own comparison against the
-float32 reference at the sampled positions of a period: one of the
-cell's numbers has to exceed its limit, so a package that slipped into
-TF32 would be caught.  At 1080p the same
-reading is taken by `control.py` (PERF.md holds both)."""
+computed in the precision below the configuration's (TF32 in place of
+float32 without it; bfloat16 with each convolution's output rounded
+through float8), judged by the cell's own comparison against the
+reference in the configuration's precision at the sampled positions of a
+period: one of the cell's numbers has to exceed its limit, so a package
+that slipped into the lower precision would be caught.  At 1080p the
+same reading is taken by `control.py` (PERF.md holds both)."""
 
 import pytest
 
 from bench_tiny import overrides
 
-CELLS = ["rt_gop_dec", "fm_dec_host_ec", "rt_gop_enc"]
+CELLS = ["rt_gop_dec", "fm_dec_host_ec", "rt_gop_enc", "rt_gop_dec_bf16"]
 SEEDS = [101, 202, 303]
 
 
@@ -21,11 +22,15 @@ SEEDS = [101, 202, 303]
 @pytest.mark.parametrize("cell", CELLS)
 @pytest.mark.parametrize("seed", SEEDS)
 def test_tf32_control_fails_the_check(card, cell, seed):
+    """The configuration's control (TF32 for float32, float8 convolution
+    outputs for bfloat16) fails the cell's check."""
     import control
-    got, compared, _ = control.readings(cell, seed, "cuda",
-                                        overrides(cell, 256, 256))
+    from core.spec import Cell
+    got, compared, _, _ = control.readings(cell, seed, "cuda",
+                                           overrides(cell, 256, 256))
     assert compared >= 4
-    assert any(c["value"] > c["limit"] for c in got["tf32"]), \
+    ctl = control.control_of(Cell(cell).config)
+    assert any(c["value"] > c["limit"] for c in got[ctl]), \
         (cell, seed, got)
 
 

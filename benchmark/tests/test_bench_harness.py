@@ -376,6 +376,8 @@ FAULTS = {
                    _fault_enc_symbol],
     "rt_gop_dec": [_fault_state_unchanged, _fault_half_chunk,
                    _fault_device_symbol],
+    "rt_gop_dec_bf16": [_fault_state_unchanged, _fault_half_chunk,
+                        _fault_device_symbol],
     "fm_dec_host_ec": [_fault_fm_state_unchanged, _fault_host_symbol],
 }
 

@@ -192,16 +192,25 @@ def test_fm_codecs_on_both_coders(h, w, device_ec):
 
 @pytest.mark.parametrize("h,w", SIZES)
 @pytest.mark.parametrize("cell", ["rt_gop_dec", "rt_gop_enc",
-                                  "fm_dec_host_ec"])
+                                  "fm_dec_host_ec", "rt_gop_dec_bf16"])
 def test_cells_are_correct_on_the_cpu(cell, h, w):
     """Each cell's run, driven on the CPU at a tiny size (device EC on the
     kernels' plain versions), compares its sampled outputs with the
-    reference and finds them equal."""
+    reference and finds them equal; in bfloat16 the reference computes in
+    bfloat16, and the decoder also equals the set-up encoder at the
+    I-frame and at the features after the first P-frame and the last
+    chunk (`dec_enc_max_gap` 0)."""
     import run
     out, checks = run.execute(cell, 4294967311 + h, 0.2, 0, "cpu",
                               overrides(cell, h, w))
     assert out["correct"], checks
     assert checks[0]["value"] == 0.0 and checks[0]["compared"] >= 4
+    by_name = {c["name"]: c for c in checks}
+    if "dec_enc_max_gap" in by_name:
+        assert {c["name"]: c["value"] for c in checks} == dict.fromkeys(
+            ("x_hat_max_gap", "x_hat_mean_gap", "feature_max_gap",
+             "feature_mean_gap", "dec_enc_max_gap"), 0.0)
+        assert by_name["dec_enc_max_gap"]["compared"] >= 6
 
 
 # the package's FLOPs a pixel at 256x256 (FlopCounterMode over its calls
