@@ -49,6 +49,7 @@ from ..layers.blocks import conv_apply, conv_init
 from ..ops import fused as F
 from ..ops.fused import depth_to_space
 from ..ops.warp import bilinear_resize_2x, flow_warp
+from ..utils import trace
 from ..utils.params import to_device
 from ..utils.stream_helper import interpolate_log
 from . import common as C
@@ -228,6 +229,7 @@ def _or_zeros(ref, like, channels):
 # passes are `make_pass_stages(cfg, 2)`'s
 # ---------------------------------------------------------------------------
 
+@trace.spanned("nn.mv_enc")
 def _stage_mv_enc(p, x, ref_frame, mv_q):
     """Encoder-only: flow -> motion latent / mv_q, rounded motion z."""
     est_mv = H.hem_spynet_apply(p["optic_flow"], x, ref_frame)
@@ -237,6 +239,7 @@ def _stage_mv_enc(p, x, ref_frame, mv_q):
     return mv_y, mv_z_hat.to(x.dtype), mv_z_int8
 
 
+@trace.spanned("nn.mv_prior")
 def _stage_mv_prior(p, mv_z_hat, ref_mv_y):
     """Shared: motion z + ref_mv_y (zeros when None) -> (q_step, scales,
     means)."""
@@ -247,6 +250,7 @@ def _stage_mv_prior(p, mv_z_hat, ref_mv_y):
                                                   mv_params))
 
 
+@trace.spanned("nn.motion_comp")
 def _stage_motion_comp(p, mv_hat, ref_frame, ref_feature):
     """Shared: the decoded flow warps the reference's features at three
     scales -> the fused contexts (c1, c2, c3) and the warped frame."""
@@ -265,6 +269,7 @@ def _stage_motion_comp(p, mv_hat, ref_frame, ref_feature):
     return c1, c2, c3, warpframe
 
 
+@trace.spanned("nn.ctx_enc")
 def _stage_ctx_enc(p, x, c1, c2, c3, y_q):
     """Encoder-only: frame + contexts -> y / y_q, rounded z."""
     y = contextual_encoder(p, x, c1, c2, c3) / y_q
@@ -276,6 +281,7 @@ def _stage_ctx_enc(p, x, c1, c2, c3, y_q):
     return y, z_hat.to(x.dtype), z_int8
 
 
+@trace.spanned("nn.ctx_prior")
 def _stage_ctx_prior(p, z_hat, c3, ref_y):
     """Shared: z + the temporal prior of c3 + ref_y (zeros when None) ->
     (q_step, scales, means)."""
@@ -289,6 +295,7 @@ def _stage_ctx_prior(p, z_hat, c3, ref_y):
                                                   params))
 
 
+@trace.spanned("nn.spatial")
 def _stage_spatial(plist, y_hat_0, means, scales, q_step):
     """Shared: pass 0's y_hat and the prior -> pass 1's (scales, means)
     from the conv stack `plist` (its output quarters: scales, means,
@@ -301,11 +308,13 @@ def _stage_spatial(plist, y_hat_0, means, scales, q_step):
     return scales1, means1
 
 
+@trace.spanned("nn.mv_dec")
 def _stage_mv_dec(p, mv_y_hat):
     """Shared: motion latent -> flow."""
     return H.dec_tower_apply(p["mv_decoder"], mv_y_hat)
 
 
+@trace.spanned("nn.recon")
 def _stage_recon(p, y_hat, c1, c2, c3):
     """Shared: y_hat + contexts -> (next ref_feature, x_hat)."""
     res = contextual_decoder(p, y_hat, c2, c3)
@@ -419,6 +428,7 @@ class DMCHEM:
 
     # -- compress / decompress -----------------------------------------------
 
+    @trace.spanned("dmc_hem.compress", 1)
     def compress(self, x, dpb, mv_y_q_scale, y_q_scale):
         """x: (1, H, W, 3) NHWC in [0, 1], H and W multiples of 64; dpb the
         DPB dict.  Returns {"dpb": the next DPB, "bit_stream": bytes}."""
@@ -455,6 +465,7 @@ class DMCHEM:
             "bit_stream": stream,
         }
 
+    @trace.spanned("dmc_hem.decompress", 1)
     def decompress(self, dpb, bit_stream, height, width, mv_y_q_scale,
                    y_q_scale):
         """Returns {"dpb": the next DPB}; its "ref_frame" is the decoded

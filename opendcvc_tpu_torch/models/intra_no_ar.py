@@ -31,6 +31,7 @@ from ..entropy.models import (BitEstimator, GaussianEncoder,
 from ..layers import blocks_hem as H
 from ..layers.blocks import conv_apply, conv_init
 from ..ops import fused as F
+from ..utils import trace
 from ..utils.params import to_device
 from . import common as C
 from .dmc_hem import _stage_spatial as _spatial_stack
@@ -61,6 +62,7 @@ def intra_no_ar_init(gen, N=192, anchor_num=4):
 # passes are `make_pass_stages(cfg, 2)`'s
 # ---------------------------------------------------------------------------
 
+@trace.spanned("nn.enc_front")
 def _stage_enc_front(p, x, q):
     """Encoder-only: frame -> y / q, rounded z."""
     y = H.enc_tower_apply(p["enc"], x) / q
@@ -69,6 +71,7 @@ def _stage_enc_front(p, x, q):
     return y, z_hat.to(x.dtype), z_int8
 
 
+@trace.spanned("nn.prior")
 def _stage_prior(p, z_hat):
     """Shared: z -> (q_step clamped >= 0.5, scales, means)."""
     params = H.hyper_dec_apply(p["hyper_dec"], z_hat)
@@ -84,6 +87,7 @@ def _stage_spatial(p, y_hat_0, means, scales, q_step):
                           q_step)
 
 
+@trace.spanned("nn.recon")
 def _stage_recon(p, y_hat, q):
     """Shared: y_hat -> the frame in [0, 1]."""
     out = H.dec_tower_apply(p["dec"], y_hat * q)
@@ -152,6 +156,7 @@ class IntraNoAR:
                                C.fetch_async(C.index_buf(idx)), idx.shape,
                                self.device, self.dtype, self.transfers)
 
+    @trace.spanned("intra_no_ar.compress", 1)
     def compress(self, x, q_scale):
         """x: (1, H, W, 3) NHWC in [0, 1], H and W multiples of 64.
         Returns {"bit_stream": bytes, "x_hat": NHWC tensor}."""
@@ -175,6 +180,7 @@ class IntraNoAR:
                              [packed0.numel(), packed1.numel()])
         return {"bit_stream": stream, "x_hat": x_hat}
 
+    @trace.spanned("intra_no_ar.decompress", 1)
     def decompress(self, bit_stream, height, width, q_scale):
         """Returns {"x_hat": NHWC (1, H, W, 3)}.  A stream that is not
         exactly the frame's symbols raises ValueError."""

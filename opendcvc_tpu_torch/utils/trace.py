@@ -37,8 +37,9 @@ Names (PERF.md's contract):
   * entry points `dmci.compress`, `dmci.decompress`, `dmc.compress`,
     `dmc.compress_gop`, `dmc.upload_gop`, `dmc.decompress_gop`,
     `dmc.decompress`, `dmci_fm.compress`, `dmci_fm.decompress`,
-    `dmc_fm.compress`, `dmc_fm.decompress`; the settle of a queued stream
-    `dmc.finish`, `dmci.finish`;
+    `dmc_fm.compress`, `dmc_fm.decompress`, `intra_no_ar.compress`,
+    `intra_no_ar.decompress`, `dmc_hem.compress`, `dmc_hem.decompress`;
+    the settle of a queued stream `dmc.finish`, `dmci.finish`;
   * `nn.<stage>` around the codecs' NN stages (`spanned()`);
   * `wait.<what>` where the host waits for the device (`wait()`):
     `wait.fetch` (models/common.py::fetch_async), `wait.staging` (a

@@ -86,7 +86,7 @@ def _kernel_class(name):
 
 #: the port's span names (opendcvc_tpu_torch/utils/trace.py)
 PORT_SPANS = ("nn.", "wait.", "coder.", "upload", "dmc.", "dmci.",
-              "dmc_fm.", "dmci_fm.")
+              "dmc_fm.", "dmci_fm.", "intra_no_ar.", "dmc_hem.")
 
 
 def _ns(ev, what):
