@@ -321,6 +321,19 @@ Phases (any failure exits nonzero and prints no result):
      host's ms of each distinct block call of (c) with a sleep kernel
      holding the card (so the host never waits for it), on the kernels
      and on the chain, summed over (c)'s calls into host ms a frame.
+ 25. The bilinear warp W1 (csrc/flow_warp.cu, run after phase 24): at
+     DCVC-FM's five 1080p calls of `flow_warp` (the reference frame, 3
+     channels; c1_init, 48; offset diversity, 32 units of 3 with the
+     mask; c2, 64 at half size; c3, 96 at quarter size) and DCVC-HEM's
+     three 64-channel contexts, in float32 and bfloat16, flows uniform
+     in +-8 px (the offset diversity's also in +-40, and as a smooth
+     field of reach 40, like a motion field): W1 equal to the
+     plain twin bit for bit, then the median of 20 calls of W1 (the
+     host's call inside the events, and the device's time alone), its
+     bound (bytes at 3.35 TB/s: image, flow and mask read once, output
+     written once), the twin's ms and `F.grid_sample`'s (border padding,
+     corners aligned, times the mask; the library yardstick, which the
+     port never calls), printed as one {"warp_kernels": [...]} line.
 The host coder's ms, the device->host waits' and the uploads' come from
 the port's trace (opendcvc_tpu_torch/utils/trace.py): a session around
 each timed call, summing its `coder.*`, `wait.fetch` and `upload` spans.
@@ -338,6 +351,12 @@ and before phase 22, after which they must read 0;
 `launches` adds the device-EC runs of phases 7 (b), 8,
 9, 10 (a, and the checkpoints' coding in b), 12, 14, 21 (e, f), 23 and 24 to
 phases 3-4's, and `launches_by_run` splits it.
+W1's launches (`ops/warp.py::launches`) are held exact a frame wherever
+DCVC-FM or DCVC-HEM codes one in phases 11 (a), 12 (a, b), 14, 16 (a)
+and 23: FM_W1 / HEM_W1's (encoder, decoder) counts, 8 / 5 a P-frame,
+8 / 4 in HEM, none an I-frame.  W1's record in the `kernels` line adds
+its launches in phases 11, 12, 14, 15, 16, 17, 19, 21, 23 and 25, and
+`launches_by_run` splits them; each FM and HEM phase must have some.
 Then it
 prints the card's name and power limit, one JSON line describing each
 kernel, and, last, {"ok": true, "device": {...}}.
@@ -398,6 +417,20 @@ def _reset_launches():
 def _launches():
     """[K1, K2] launches since the last _reset_launches()."""
     return [a - b for a, b in zip(_launch_totals(), _LAUNCH_BASE)]
+
+
+def _w1_launches():
+    """W1's launches in this process (`ops/warp.py::launches`)."""
+    from opendcvc_tpu_torch.ops import warp
+    return warp.launches
+
+
+def _w1_counted(runs, name, fn, *args):
+    """fn(*args), its W1 launches stored as runs[name]; its result."""
+    n0 = _w1_launches()
+    out = fn(*args)
+    runs[name] = _w1_launches() - n0
+    return out
 
 
 def _traced(fn, dev=None):
@@ -2016,20 +2049,33 @@ FM_RESET = 5     # refreshes at frames 1 and 6; frame 9 takes fa_idx 1
 N_FM_PARTS = 5   # (b)'s frames
 FM_DPB = ("ref_frame", "ref_feature", "ref_mv_feature", "ref_y",
           "ref_mv_y")
+#: W1 launches (encoder, decoder) a frame on the card: a P-frame's motion
+#: compensation warps 5 times in DMCFM (the reference frame, c1_init, the
+#: offset diversity, c2, c3) and 4 in DMCHEM, and the encoder's SpyNet 3
+#: (FM) or 4 (HEM) times more; an I-frame never
+FM_W1 = {"I": (0, 0), "P": (8, 5)}
+HEM_W1 = {"I": (0, 0), "P": (8, 4)}
+
+
+def _w1_check(got, want, what):
+    if tuple(got) != want:
+        _fail(f"{what}: W1 launched {tuple(got)} times (encoder, decoder), "
+              f"not {want}")
 def _fm_wrap(net, kind, log):
     """Wrap an FM codec's compress / decompress: each call synchronized,
     timed, and logged with the host coder's ms within it (the port's
-    trace), the device-EC ladder's reruns and the DPB (an I-frame's
-    x_hat) it produced."""
+    trace), the device-EC ladder's reruns, the DPB (an I-frame's x_hat) it
+    produced and W1's launches within it."""
     compress, decompress = net.compress, net.decompress
 
     def timed(side, fn, *args):
-        r0 = net.ec_reruns
+        r0, w0 = net.ec_reruns, _w1_launches()
         out, ms, session = _traced(lambda: fn(*args), net.device)
         dpb = out["dpb"] if kind == "P" else {"ref_frame": out["x_hat"]}
         log[side].append({"kind": kind, "ms": ms,
                           "coder_ms": _coder_ms(session),
-                          "reruns": net.ec_reruns - r0, "dpb": dpb})
+                          "reruns": net.ec_reruns - r0, "dpb": dpb,
+                          "w1": _w1_launches() - w0})
         return out
 
     net.compress = lambda *a: timed("enc", compress, *a)
@@ -2114,7 +2160,8 @@ def phase_fm_harness(dev, root, h, w, n=N_FM, device_ec=False,
                      mode="phase 11 (a) FM harness"):
     """Phase 11 (a) (host EC) and 12 (a) (device EC): the FM harness as a
     user runs it; fails unless every decoded frame's DPB equals the
-    encoder's, the JSON's bits are 8 x the .bin and every PSNR is finite.
+    encoder's, W1 launched FM_W1's times a frame, the JSON's bits are 8 x
+    the .bin and every PSNR is finite.
     Returns (the frame records, the per-frame log)."""
     log, job, data = _fm_harness_run(dev, root, h, w, n, device_ec)
     if not len(log["enc"]) == len(log["dec"]) == len(log["psnr"]) == n:
@@ -2122,6 +2169,7 @@ def phase_fm_harness(dev, root, h, w, n=N_FM, device_ec=False,
               f"{len(log['dec'])} decoded, {len(log['psnr'])} measured")
     for t, (e, d) in enumerate(zip(log["enc"], log["dec"])):
         _fm_exact(e["dpb"], d["dpb"], f"{mode} frame {t} ({e['kind']})")
+        _w1_check((e["w1"], d["w1"]), FM_W1[e["kind"]], f"{mode} frame {t}")
     bits = job["ave_all_frame_bpp"] * n * job["frame_pixel_num"]
     if round(bits) != 8 * len(data):
         _fail(f"{mode}: the JSON's {bits} bits are not 8 x the .bin's "
@@ -2486,7 +2534,7 @@ def _fm_chain(dev, xs, h, w, device_ec, dtype=torch.float32,
     frame decoded by a second pair: fails unless every decoded frame's
     DPB (all five entries) equals the encoder's and, per frame, K1
     launched once plus once a rerun and K2 5 / 10 times on device EC, not
-    at all on host EC.  Returns per frame {kind, enc / dec ms, the host
+    at all on host EC, and W1 FM_W1's times.  Returns per frame {kind, enc / dec ms, the host
     coder's ms within them (host EC), reruns, bytes, launches, enc / dec
     DPB}."""
     from opendcvc_tpu_torch.models.dmc_fm import DMCFM
@@ -2505,9 +2553,12 @@ def _fm_chain(dev, xs, h, w, device_ec, dtype=torch.float32,
 
     def coded(kind, enc_fn, dec_fn, enc_net, dec_net):
         k0 = _launches()
-        r0 = enc_net.ec_reruns
+        r0, w0 = enc_net.ec_reruns, _w1_launches()
         out, ms_e, se = _traced(enc_fn, dev)
+        w1 = _w1_launches()
         dec, ms_d, sd = _traced(lambda: dec_fn(out["bit_stream"]), dev)
+        _w1_check((w1 - w0, _w1_launches() - w1), FM_W1[kind],
+                  f"{label} frame {len(rows)}")
         reruns = enc_net.ec_reruns - r0
         launches = tuple(a - b for a, b in zip(_launches(), k0))
         want = (1 + reruns, FM_K2[kind]) if device_ec else (0, 0)
@@ -2874,13 +2925,17 @@ def _codec_pair(cls, dev, dtype, tree):
 
 def _pair_coded(kind, enc_fn, dec_fn, dev):
     """enc_fn() then dec_fn(its result), each timed in a trace session:
-    (the encoder's and the decoder's results, the frame's row)."""
+    (the encoder's and the decoder's results, the frame's row, with W1's
+    launches in each)."""
+    w0 = _w1_launches()
     out, ms_e, se = _traced(enc_fn, dev)
+    w1 = _w1_launches()
     d, ms_d, sd = _traced(lambda: dec_fn(out), dev)
     return out, d, {"kind": kind, "enc_ms": ms_e, "dec_ms": ms_d,
                     "enc_coder_ms": _coder_ms(se),
                     "dec_coder_ms": _coder_ms(sd),
-                    "bytes": len(out["bit_stream"])}
+                    "bytes": len(out["bit_stream"]),
+                    "w1": (w1 - w0, _w1_launches() - w1)}
 
 
 def _hem_trees(dev):
@@ -2902,7 +2957,8 @@ def _hem_chain(dev, xs, h, w, dtype, label, trees):
     rung get_interpolated_q_scales(4)[1], host EC, each frame decoded by
     a second codec: fails unless the
     decoded I-frame equals the encoder's x_hat and every decoded DPB
-    entry the encoder's, all of `dtype`.  Returns per frame {kind, enc /
+    entry the encoder's, all of `dtype`, and W1 launched HEM_W1's times
+    a frame.  Returns per frame {kind, enc /
     dec ms, the host coder's ms within them, bytes}."""
     from opendcvc_tpu_torch.models.dmc_hem import DMCHEM
     from opendcvc_tpu_torch.models.intra_no_ar import IntraNoAR
@@ -2920,6 +2976,7 @@ def _hem_chain(dev, xs, h, w, dtype, label, trees):
             or out["x_hat"].dtype != dtype:
         _fail(f"{label}: the decoded I-frame differs from the encoder's "
               f"x_hat (or is not {dtype})")
+    _w1_check(row["w1"], HEM_W1["I"], f"{label} I-frame")
     rows = [row]
     enc_dpb = {"ref_frame": out["x_hat"], "ref_feature": None,
                "ref_y": None, "ref_mv_y": None}
@@ -2931,6 +2988,7 @@ def _hem_chain(dev, xs, h, w, dtype, label, trees):
                                       yq), dev)
         enc_dpb, dec_dpb = out["dpb"], d["dpb"]
         _fm_exact(enc_dpb, dec_dpb, f"{label} P-frame {t}")
+        _w1_check(row["w1"], HEM_W1["P"], f"{label} P-frame {t}")
         if any(v.dtype != dtype for v in enc_dpb.values()):
             _fail(f"{label}: P-frame {t}'s DPB is not {dtype}")
         rows.append(row)
@@ -5191,6 +5249,140 @@ def phase_dcb(dev):
     return launches
 
 
+#: phase 25's calls at 1080p: (name, units, C, H, W, masked, flow px);
+#: a negative flow px: a smooth field of that reach (see `_warp_flow`)
+WARP_SHAPES = (("fm_ref_frame", 1, 3, 1088, 1920, False, 8.0),
+               ("fm_c1_init", 1, 48, 1088, 1920, False, 8.0),
+               ("fm_offset_diversity", 32, 3, 1088, 1920, True, 8.0),
+               ("fm_offset_diversity_wide", 32, 3, 1088, 1920, True, 40.0),
+               ("fm_offset_diversity_smooth", 32, 3, 1088, 1920, True,
+                -40.0),
+               ("fm_c2", 1, 64, 544, 960, False, 8.0),
+               ("fm_c3", 1, 96, 272, 480, False, 8.0),
+               ("hem_c1", 1, 64, 1088, 1920, False, 8.0),
+               ("hem_c2", 1, 64, 544, 960, False, 8.0),
+               ("hem_c3", 1, 64, 272, 480, False, 8.0))
+
+
+def _warp_bytes(units, c, h, w, masked, itemsize):
+    """Least bytes of one W1 call: image, flow and mask read once, the
+    output written once."""
+    return units * h * w * itemsize * (2 * c + 2 + (1 if masked else 0))
+
+
+def _warp_flow(g, units, h, w, mag, dev):
+    """Flows uniform in +-mag px, each pixel its own; for a negative mag a
+    smooth field of reach |mag| (a random field on a grid 32 px apart,
+    upsampled bilinearly), whose neighbouring pixels sample neighbouring
+    taps, as a motion field's do."""
+    if mag >= 0:
+        return (torch.rand((units, 2, h, w), generator=g, device=dev)
+                * 2 - 1) * mag
+    low = torch.rand((units, 2, -(-h // 32), -(-w // 32)), generator=g,
+                     device=dev) * 2 - 1
+    return torch.nn.functional.interpolate(
+        low, size=(h, w), mode="bilinear", align_corners=False) * -mag
+
+
+def _grid(flow):
+    """flow_warp's sample positions as `F.grid_sample`'s grid (corners
+    aligned), in flow's dtype."""
+    _, _, h, w = flow.shape
+    ys = torch.arange(h, dtype=torch.float32, device=flow.device)[:, None]
+    xs = torch.arange(w, dtype=torch.float32, device=flow.device)[None, :]
+    gx = (xs + flow[:, 0].float()) * (2.0 / max(w - 1, 1)) - 1.0
+    gy = (ys + flow[:, 1].float()) * (2.0 / max(h - 1, 1)) - 1.0
+    return torch.stack((gx, gy), -1).to(flow.dtype)
+
+
+def phase_warp(dev):
+    """Phase 25: W1 against the plain twin at the main path's 1080p
+    calls, bit for bit, and timed beside its bound, the twin and
+    `F.grid_sample`.  Returns the rows."""
+    import torch.nn.functional as TF
+    from opendcvc_tpu_torch.ops import warp as W
+    t0 = time.perf_counter()
+    n0 = W.launches
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, units, c, h, w, masked, mag in WARP_SHAPES:
+            g = torch.Generator(device=dev).manual_seed(units * c + h)
+            im = torch.randn((units, c, h, w), generator=g,
+                             device=dev).to(dtype)
+            flow = _warp_flow(g, units, h, w, mag, dev).to(dtype)
+            mask = torch.rand((units, 1, h, w), generator=g,
+                              device=dev).to(dtype) if masked else None
+            grid = _grid(flow)
+            with torch.no_grad():
+                got = W.flow_warp(im, flow, mask)
+                want = W.flow_warp_plain(im, flow, mask)
+                _sync(dev)
+                iv = torch.int32 if dtype == torch.float32 else torch.int16
+                n_diff = int((got.view(iv) != want.view(iv)).sum())
+                del got, want
+                if n_diff:
+                    _fail(f"phase 25: W1 differs from the twin at {name} "
+                          f"{dtype} in {n_diff} elements")
+
+                def kern():
+                    W.flow_warp(im, flow, mask)
+
+                def plain():
+                    W.flow_warp_plain(im, flow, mask)
+
+                def library():
+                    out = TF.grid_sample(im, grid, mode="bilinear",
+                                         padding_mode="border",
+                                         align_corners=True)
+                    if mask is not None:
+                        out.mul_(mask)
+
+                row = {"kernel": "flow_warp_kernel", "case": name,
+                       "dtype": str(dtype)[6:], "units": units, "C": c,
+                       "hw": [h, w], "masked": masked, "flow_px": mag,
+                       "ms": median_ms(kern, dev),
+                       "device_ms": median_ms(kern, dev, queued=True),
+                       "plain_ms": median_ms(plain, dev, queued=True),
+                       "library_ms": median_ms(library, dev, queued=True)}
+            row["bound_ms"], _ = _bound_ms(
+                _warp_bytes(units, c, h, w, masked, im.element_size()), 0)
+            row["x_bound"] = row["device_ms"] / row["bound_ms"]
+            rows.append(row)
+            del im, flow, mask, grid
+            torch.cuda.empty_cache()
+            _log(f"phase 25: {name} {row['dtype']} ({units}, {c}, {h}, {w})"
+                 f"{' masked' if masked else ''} "
+                 f"{'smooth ' if mag < 0 else ''}+-{abs(mag):g} px: "
+                 f"{row['ms']:.4f} ms (device {row['device_ms']:.4f}), "
+                 f"bound {row['bound_ms']:.4f} ({row['x_bound']:.2f}x), "
+                 f"twin {row['plain_ms']:.4f}, grid_sample "
+                 f"{row['library_ms']:.4f}")
+    print(json.dumps({"warp_kernels": rows,
+                      "warp_launches": W.launches - n0}), flush=True)
+    _log(f"phase 25 done in {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def _w1_record(rows, runs):
+    """W1's record of the `kernels` line: phase 25's float32 offset
+    diversity call (the largest) as its head, every row as its shapes,
+    and its launches by run, which must be more than 0 in each FM and
+    HEM run."""
+    for name in ("phase 11 FM host EC", "phase 12 FM device EC",
+                 "phase 14 FM bfloat16", "phase 16 HEM"):
+        if not runs[name]:
+            _fail(f"{name} never launched W1")
+    head = next(r for r in rows if r["case"] == "fm_offset_diversity"
+                and r["dtype"] == "float32")
+    return {"name": "flow_warp (W1)", "route": "cuda",
+            "source": "opendcvc_tpu_torch/csrc/flow_warp.cu",
+            "replaces": None, "max_abs_err": 0, "ms": head["ms"],
+            "device_ms": head["device_ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": "bytes",
+            "library_ms": head["library_ms"], "shapes": rows,
+            "launches": sum(runs.values()), "launches_by_run": runs}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chip_smoke_out",
@@ -5253,24 +5445,33 @@ def main():
         runs.update(phase_bf16(dev, frames, f32, root, seq))
         runs.update(phase_training_slice(dev, f32, root,
                                          stream7["job"]))
-        fm_host = phase_fm(dev, root)
-        runs["phase 12 FM device EC"], fm_f32 = phase_fm_device(
-            dev, root, fm_host)
+        w1_runs = {}
+        fm_host = _w1_counted(w1_runs, "phase 11 FM host EC", phase_fm,
+                              dev, root)
+        runs["phase 12 FM device EC"], fm_f32 = _w1_counted(
+            w1_runs, "phase 12 FM device EC", phase_fm_device, dev, root,
+            fm_host)
         del fm_host
         phase_h100_streams(dev, args.out)
-        runs["phase 14 FM bfloat16"] = phase_fm_bf16(dev, root, fm_f32)
+        runs["phase 14 FM bfloat16"] = _w1_counted(
+            w1_runs, "phase 14 FM bfloat16", phase_fm_bf16, dev, root,
+            fm_f32)
         del fm_f32
-        phase_dc(dev)
-        phase_hem(dev)
-        phase_tcm(dev, root)
+        _w1_counted(w1_runs, "phase 15 DC", phase_dc, dev)
+        _w1_counted(w1_runs, "phase 16 HEM", phase_hem, dev)
+        _w1_counted(w1_runs, "phase 17 TCM", phase_tcm, dev, root)
         phase_evc(dev, root)
-        phase_dcvc(dev, root)
+        _w1_counted(w1_runs, "phase 19 DCVC", phase_dcvc, dev, root)
         phase_zoo(dev)
-        runs["phase 21"] = phase_training_extras(dev, root)
+        runs["phase 21"] = _w1_counted(w1_runs, "phase 21",
+                                       phase_training_extras, dev, root)
         torch.cuda.empty_cache()
-        runs["phase 23"] = phase_slice15(dev, root)
+        runs["phase 23"] = _w1_counted(w1_runs, "phase 23", phase_slice15,
+                                       dev, root)
         torch.cuda.empty_cache()
         runs["phase 24"] = phase_dcb(dev)
+        torch.cuda.empty_cache()
+        warp_rows = _w1_counted(w1_runs, "phase 25", phase_warp, dev)
         torch.cuda.empty_cache()
         _reset_launches()
         phase_multi_gpu(root)
@@ -5281,6 +5482,7 @@ def main():
         for name, n in runs.items():
             k["launches_by_run"][name] = n[i]
             k["launches"] += n[i]
+    kernels.append(_w1_record(warp_rows, w1_runs))
 
     card = _card()
     _log(f"total {time.perf_counter() - t_start:.1f} s")

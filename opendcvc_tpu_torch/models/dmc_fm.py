@@ -291,7 +291,7 @@ def offset_diversity(p, x, aux, flow, group_num=16, offset_num=2,
     mask = torch.sigmoid(out[:, 2 * go:]).reshape(b * go, 1, h, w)
     xg = x.reshape(b, 1, group_num, cg, h, w).expand(
         b, offset_num, group_num, cg, h, w).reshape(b * go, cg, h, w)
-    warped = flow_warp(xg, flows) * mask
+    warped = flow_warp(xg, flows, mask)
     return conv_apply(a["fusion"], warped.reshape(b, go * cg, h, w),
                       groups=group_num)
 

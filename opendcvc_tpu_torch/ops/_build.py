@@ -50,6 +50,10 @@ _SIGNATURES = {
         # c, b, r, x, q, out, N, C, hw, q_stride, dtype, stream
         "dcb_residual_launch": [_P] * 6 + [_L] * 4 + [_I, _P],
     },
+    "flow_warp": {
+        # im, flow, mask, out, units, C, H, W, dtype, flow_dtype, stream
+        "flow_warp_launch": [_P] * 4 + [_L] * 4 + [_I, _I, _P],
+    },
     "lane_rans": {
         # packed, enc_table, staging, lens, states, K, L, nr, mw, stream
         "lr_encode_launch": [_P] * 5 + [_I] * 4 + [_P],
@@ -91,15 +95,16 @@ def build_kernels():
     """Compile every csrc/*.cu not yet built; returns {name: .so path}."""
     build_dir = _build_dir()
     headers = _headers()
-    outs, procs = {}, {}
+    outs, procs, nvcc = {}, {}, None
     for src in sorted(glob.glob(os.path.join(CSRC, "*.cu"))):
         name = os.path.splitext(os.path.basename(src))[0]
         out = os.path.join(build_dir,
                            f"lib{name}_{_tag([src] + headers)}.so")
         outs[name] = out
         if not os.path.exists(out):
+            nvcc = nvcc or _nvcc()     # looked up once for all the builds
             tmp = f"{out[:-3]}.{os.getpid()}.tmp.so"
-            cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp, src]
+            cmd = [nvcc] + NVCC_FLAGS + ["-o", tmp, src]
             procs[name] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), tmp, out)

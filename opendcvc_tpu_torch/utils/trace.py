@@ -47,7 +47,9 @@ Names (PERF.md's contract):
   * `upload` (the host's part of an upload), `coder.<call>` (the host rANS
     coder's calls, entropy/coder.py);
   * counters `k1.launch`, `k2.launch`, `slim.fetch`, `slim.miss`,
-    `d2h_bytes`, `h2d_bytes`, `ec.rerun`, `wait`.
+    `d2h_bytes`, `h2d_bytes`, `ec.rerun`, `wait`; `warp.call` (every
+    `ops/warp.py::flow_warp` call), `warp.fused` (those on the CUDA
+    kernel W1), `warp.launch` (W1's launches).
 """
 
 import contextlib

@@ -28,8 +28,9 @@ torch.profiler.  Prints the card's name and power limit, the per-frame
 host-clock times, the device kernels launched a pair, the device time
 by kernel (top 15) and by class
 (convolutions, the depthwise 3x3, the layout transposes around
-convolutions, elementwise, gathers (FM's warps), host->device uploads,
-device->host copies, lane rANS K1/K2, other), the device time a frame of
+convolutions, elementwise, the flow warps (W1, or ATen's gathers),
+host->device uploads, device->host copies, lane rANS K1/K2, other), the
+device time a frame of
 each entry point by the port's innermost `nn.*` / `wait.*` span around
 the launch (the port's trace, opendcvc_tpu_torch/utils/trace.py: each
 device operation goes to the host range that launched it by kineto's
@@ -77,8 +78,8 @@ def _kernel_class(name):
     if any(s in n for s in ("conv", "gemm", "cudnn", "xmma", "cutlass",
                             "winograd", "implicit", "nvjet")):
         return "convolution (cuDNN, cuBLASLt)"
-    if "gather" in n:
-        return "gather (flow warps)"
+    if "gather" in n or "flow_warp" in n:
+        return "flow warps (W1, gathers)"
     if "elementwise" in n or "vectorized" in n or "unrolled" in n:
         return "elementwise"
     return "other (copies, cat, scatter, reductions, ...)"
