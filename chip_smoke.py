@@ -402,10 +402,15 @@ def _sync(dev):
 _LAUNCH_BASE = [0, 0]
 
 
-def _launch_totals():
+def _counter(name):
+    """The process total of the port's trace counter `name`
+    (opendcvc_tpu_torch/utils/trace.py)."""
     from opendcvc_tpu_torch.utils import trace
-    c = trace.counters()
-    return [c.get("k1.launch", 0), c.get("k2.launch", 0)]
+    return trace.counters().get(name, 0)
+
+
+def _launch_totals():
+    return [_counter("k1.launch"), _counter("k2.launch")]
 
 
 def _reset_launches():
@@ -420,9 +425,8 @@ def _launches():
 
 
 def _w1_launches():
-    """W1's launches in this process (`ops/warp.py::launches`)."""
-    from opendcvc_tpu_torch.ops import warp
-    return warp.launches
+    """W1's launches in this process (the counter `warp.launch`)."""
+    return _counter("warp.launch")
 
 
 def _w1_counted(runs, name, fn, *args):
@@ -889,6 +893,7 @@ def phase_intra(dev, frame, qp, fz, dtype=torch.float32, label="phase 3"):
     net.update(force_zero_thres=fz)
     sps = {"height": frame.shape[1], "width": frame.shape[2]}
     results = []
+    r0 = _counter("ec.rerun")
     for _ in range(2):   # the first pass warms cuDNN; the second is timed
         enc, enc_ms = _timed(lambda: net.compress(frame, qp), dev)
         dec, dec_ms = _timed(
@@ -902,13 +907,14 @@ def phase_intra(dev, frame, qp, fz, dtype=torch.float32, label="phase 3"):
             not bool(torch.isfinite(x_hat).all()):
         _fail("DMCI x_hat has the wrong shape or is not finite")
     bpp = len(enc["bit_stream"]) * 8 / (frame.shape[1] * frame.shape[2])
+    reruns = _counter("ec.rerun") - r0
     _log(f"{label}: DMCI {frame.shape[1]}x{frame.shape[2]} enc "
          f"{enc_ms:.1f} ms dec {dec_ms:.1f} ms (second pass), bpp "
-         f"{bpp:.4f}, reruns {net._ec_rerun_count}; decoded frame exact")
+         f"{bpp:.4f}, reruns {reruns}; decoded frame exact")
     return {"params": net.params, "x_hat": x_hat, "bpp": bpp,
             "enc_ms": enc_ms, "dec_ms": dec_ms,
             "streams": [r[0]["bit_stream"] for r in results],
-            "reruns": net._ec_rerun_count}
+            "reruns": reruns}
 
 
 def phase_p(dev, x_ref, frames, qp, fz, dtype=torch.float32,
@@ -928,6 +934,7 @@ def phase_p(dev, x_ref, frames, qp, fz, dtype=torch.float32,
         net.add_ref_frame(None, x_ref)
     sps = {"height": frames[0].shape[1], "width": frames[0].shape[2]}
     streams, feats, enc_ms = [], [], []
+    r0 = _counter("ec.rerun")
     for x in frames:
         s, ms = _timed(lambda: enc_net.compress(x, qp)["bit_stream"], dev)
         streams.append(s)
@@ -943,14 +950,15 @@ def phase_p(dev, x_ref, frames, qp, fz, dtype=torch.float32,
         if not bool(torch.isfinite(out["x_hat"]).all()):
             _fail("DMC x_hat is not finite")
     bpp = [len(s) * 8 / (sps["height"] * sps["width"]) for s in streams]
+    reruns = _counter("ec.rerun") - r0
     _log(f"{label}: DMC P-frames enc ms " + " ".join(f"{t:.1f}" for t in
                                                      enc_ms)
          + " | dec ms " + " ".join(f"{t:.1f}" for t in dec_ms)
          + " | bpp " + " ".join(f"{b:.4f}" for b in bpp)
-         + f" | reruns {enc_net._ec_rerun_count}; feature chain exact")
+         + f" | reruns {reruns}; feature chain exact")
     return {"params": enc_net.params, "feats": feats, "dec_x": dec_x,
             "bpp": bpp, "enc_ms": enc_ms, "dec_ms": dec_ms,
-            "streams": streams, "reruns": enc_net._ec_rerun_count}
+            "streams": streams, "reruns": reruns}
 
 
 def phase_reference(dev, qp, fz):
@@ -1108,17 +1116,17 @@ def _reference_chain(dev, qp, fz):
                   f"(x_hat {x_err:g}, feature {feat_err:g})")
 
 
-def _frame_record(net, fn, dev):
+def _frame_record(fn, dev):
     """Run one frame's call, synchronized, in a session of the port's
     trace; returns (its result, {ms, the host coder's ms (`coder.*`
     spans), device->host waits and their ms (`wait.fetch`), uploads and
     their ms (`upload`)})."""
-    before = dict(net.transfers)
     out, ms, session = _traced(fn, dev)
     rec = {"ms": ms, "coder_ms": _coder_ms(session),
            "wait_ms": _span_ms(session, "wait.fetch"),
            "upload_ms": _span_ms(session, "upload")}
-    rec.update({k: net.transfers[k] - before[k] for k in net.transfers})
+    for key, span in (("d2h", "wait.fetch"), ("h2d", "upload")):
+        rec[key] = session["spans"].get(span, {"n": 0})["n"]
     return out, rec
 
 
@@ -1158,8 +1166,7 @@ def _host_sequence(dev, frames, qp, intra, p_run, i_net, p_net, sps, S,
     enc_recs, streams, feats, sps_bytes = [], [], [], 0
     for t, x in enumerate(frames):
         if t == 0:
-            enc, rec = _frame_record(i_net, lambda: i_net.compress(x, qp),
-                                     dev)
+            enc, rec = _frame_record(lambda: i_net.compress(x, qp), dev)
             if not torch.equal(enc["x_hat"], intra["x_hat"]):
                 _fail(f"{label}: host-EC I-frame x_hat differs from the "
                       f"device-EC run's")
@@ -1168,7 +1175,7 @@ def _host_sequence(dev, frames, qp, intra, p_run, i_net, p_net, sps, S,
             x_i, stream = enc["x_hat"], enc["bit_stream"]
         else:
             stream, rec = _frame_record(
-                p_net, lambda: p_net.compress(x, qp)["bit_stream"], dev)
+                lambda: p_net.compress(x, qp)["bit_stream"], dev)
             feats.append(p_net.dpb[0].feature.clone())
             if not torch.equal(feats[-1], p_run["feats"][t - 1]):
                 _fail(f"{label}: host-EC P-frame {t - 1} feature differs "
@@ -1197,7 +1204,7 @@ def _host_sequence(dev, frames, qp, intra, p_run, i_net, p_net, sps, S,
                   f"stream")
         if header["nal_type"] == S.NalType.NAL_I:
             dec, rec = _frame_record(
-                i_net, lambda: i_net.decompress(stream, f_sps, f_qp), dev)
+                lambda: i_net.decompress(stream, f_sps, f_qp), dev)
             if not torch.equal(dec["x_hat"], x_i):
                 _fail(f"{label}: host-EC decoded I-frame differs from the "
                       f"encoder's")
@@ -1205,7 +1212,7 @@ def _host_sequence(dev, frames, qp, intra, p_run, i_net, p_net, sps, S,
             p_net.add_ref_frame(None, dec["x_hat"])
         else:
             dec, rec = _frame_record(
-                p_net, lambda: p_net.decompress(stream, f_sps, f_qp), dev)
+                lambda: p_net.decompress(stream, f_sps, f_qp), dev)
             if not torch.equal(p_net.dpb[0].feature, feats[t - 1]):
                 _fail(f"{label}: host-EC enc/dec feature chain diverged "
                       f"at P-frame {t - 1}")
@@ -1752,6 +1759,7 @@ def _skip_gop(dev, params, x_ref, xs, qp, fz):
         nets.append(net)
     one, gop, dec = nets
     per, feats = [], []
+    r0 = _counter("ec.rerun")
     for x in xs:
         per.append(one.compress(x, qp)["bit_stream"])
         feats.append(one.dpb[0].feature.clone())
@@ -1780,8 +1788,8 @@ def _skip_gop(dev, params, x_ref, xs, qp, fz):
     plan = gop._plan_device_ec(xs[0].shape[1], xs[0].shape[2])
     mw, cap = gop._rung(plan.lanes, plan.steps(), gop.bytes_per_symbol)
     mw0, cap0 = gop._rung(plan.lanes, plan.steps(0), gop.bytes_per_symbol)
-    return {"streams": streams, "reruns": one._ec_rerun_count
-            + gop._ec_rerun_count, "enc_ms": enc_ms, "dec_ms": dec_ms,
+    return {"streams": streams, "reruns": _counter("ec.rerun") - r0,
+            "enc_ms": enc_ms, "dec_ms": dec_ms,
             "plan": plan, "staging": (n, cap + 3 * plan.lanes + 2),
             "staging_kyc0": (n, cap0 + 3 * plan.lanes)}
 
@@ -1910,7 +1918,6 @@ def _descent(dev, model, label="phase 10 (b)"):
     """The loss on one fixed batch (the defaults' shape) over N_DESCENT
     steps at lr 1e-4, no warmup, must fall, as the JAX package's
     tests/test_training.py holds its train step."""
-    from opendcvc_tpu_torch.models import common as C
     from opendcvc_tpu_torch.models.dcvc import dcvc_init
     from opendcvc_tpu_torch.models.dmc import dmc_init
     from opendcvc_tpu_torch.models.dmc_tcm import dmc_tcm_init
@@ -1918,6 +1925,7 @@ def _descent(dev, model, label="phase 10 (b)"):
     from opendcvc_tpu_torch.training import train as T
     from opendcvc_tpu_torch.training.data import SyntheticVideoDataset
     from opendcvc_tpu_torch.utils.params import to_device
+    from opendcvc_tpu_torch.utils.transfer import upload
     gen = torch.Generator().manual_seed(0)
     if model == "dmci":
         params = dmci_init(gen)
@@ -1937,8 +1945,8 @@ def _descent(dev, model, label="phase 10 (b)"):
     step = T.make_train_step(loss_fn, tx)
     state = tx.init(T.trainable_leaves(params))
     frames = 2 if model in ("dmci", "dcvc") else 3
-    batch = C.upload(next(SyntheticVideoDataset(frames, 256, seed=0)
-                          .batches(8, 1)), dev)
+    batch = upload(next(SyntheticVideoDataset(frames, 256, seed=0)
+                        .batches(8, 1)), dev)
     losses = []
     for _ in range(N_DESCENT):
         params, state, metrics = step(params, state, batch, 32, None)
@@ -2069,12 +2077,12 @@ def _fm_wrap(net, kind, log):
     compress, decompress = net.compress, net.decompress
 
     def timed(side, fn, *args):
-        r0, w0 = net.ec_reruns, _w1_launches()
+        r0, w0 = _counter("ec.rerun"), _w1_launches()
         out, ms, session = _traced(lambda: fn(*args), net.device)
         dpb = out["dpb"] if kind == "P" else {"ref_frame": out["x_hat"]}
         log[side].append({"kind": kind, "ms": ms,
                           "coder_ms": _coder_ms(session),
-                          "reruns": net.ec_reruns - r0, "dpb": dpb,
+                          "reruns": _counter("ec.rerun") - r0, "dpb": dpb,
                           "w1": _w1_launches() - w0})
         return out
 
@@ -2551,15 +2559,15 @@ def _fm_chain(dev, xs, h, w, device_ec, dtype=torch.float32,
     sps = {"height": h, "width": w, "qp": QP}
     rows = []
 
-    def coded(kind, enc_fn, dec_fn, enc_net, dec_net):
+    def coded(kind, enc_fn, dec_fn):
         k0 = _launches()
-        r0, w0 = enc_net.ec_reruns, _w1_launches()
+        r0, w0 = _counter("ec.rerun"), _w1_launches()
         out, ms_e, se = _traced(enc_fn, dev)
         w1 = _w1_launches()
         dec, ms_d, sd = _traced(lambda: dec_fn(out["bit_stream"]), dev)
         _w1_check((w1 - w0, _w1_launches() - w1), FM_W1[kind],
                   f"{label} frame {len(rows)}")
-        reruns = enc_net.ec_reruns - r0
+        reruns = _counter("ec.rerun") - r0
         launches = tuple(a - b for a, b in zip(_launches(), k0))
         want = (1 + reruns, FM_K2[kind]) if device_ec else (0, 0)
         if launches != want:
@@ -2576,7 +2584,7 @@ def _fm_chain(dev, xs, h, w, device_ec, dtype=torch.float32,
                      "enc": enc_dpb, "dec": dec_dpb})
 
     coded("I", lambda: i_enc.compress(xs[0], QP),
-          lambda s: i_dec.decompress(s, sps), i_enc, i_dec)
+          lambda s: i_dec.decompress(s, sps))
     none = dict.fromkeys(FM_DPB[1:])
     enc_dpb = dict(none, ref_frame=rows[0]["enc"]["ref_frame"])
     dec_dpb = dict(none, ref_frame=rows[0]["dec"]["ref_frame"])
@@ -2587,8 +2595,7 @@ def _fm_chain(dev, xs, h, w, device_ec, dtype=torch.float32,
             dec_dpb = dict(none, ref_frame=dec_dpb["ref_frame"])
         coded("P", lambda: p_enc.compress(xs[t], enc_dpb, qp, fa_in),
               lambda s: p_dec.decompress(s, dec_dpb,
-                                         dict(sps, qp=qp, fa_idx=fa_in)),
-              p_enc, p_dec)
+                                         dict(sps, qp=qp, fa_idx=fa_in)))
         enc_dpb, dec_dpb = rows[-1]["enc"], rows[-1]["dec"]
     return rows
 
@@ -3902,12 +3909,12 @@ def phase_fm_training(dev):
     """Phase 21 (c): make_fm_loss through the port's step at full width,
     batch 2, crop 256, 3 frames, q_index 30, float32 then AMP, FM_STEPS
     steps on one fixed batch: the loss falls, the state stays float32."""
-    from opendcvc_tpu_torch.models import common as C
     from opendcvc_tpu_torch.models.dmc_fm import dmc_fm_init
     from opendcvc_tpu_torch.training import train as T
     from opendcvc_tpu_torch.training.syndata import natural_seqs
     from opendcvc_tpu_torch.utils.params import to_device
-    batch = C.upload(np.stack(natural_seqs(2, 256, t=3, seed=5)), dev)
+    from opendcvc_tpu_torch.utils.transfer import upload
+    batch = upload(np.stack(natural_seqs(2, 256, t=3, seed=5)), dev)
     for amp in (False, True):
         label = f"phase 21 (c) FM {'AMP' if amp else 'float32'}"
         params = to_device(dmc_fm_init(torch.Generator().manual_seed(0)),
@@ -3977,11 +3984,11 @@ def phase_plateau(dev):
     PLATEAU_STEPS steps (ImageBank batches, crop 128, batch 8): every
     step's scale equals optax's rule replayed on the printed losses, and
     the scale fell."""
-    from opendcvc_tpu_torch.models import common as C
     from opendcvc_tpu_torch.models.dmci import dmci_init
     from opendcvc_tpu_torch.training import train as T
     from opendcvc_tpu_torch.training.syndata import ImageBank
     from opendcvc_tpu_torch.utils.params import to_device
+    from opendcvc_tpu_torch.utils.transfer import upload
     params = to_device(dmci_init(torch.Generator().manual_seed(0)), dev)
     tx = T.make_optimizer(1e-4, plateau=PLATEAU)
     state = tx.init(T.trainable_leaves(params))
@@ -3992,7 +3999,7 @@ def phase_plateau(dev):
     for i in range(PLATEAU_STEPS):
         r = np.random.default_rng(i)
         params, state, m = step(params, state,
-                                C.upload(bank.sample(r, 8, 128), dev),
+                                upload(bank.sample(r, 8, 128), dev),
                                 int(r.integers(0, 64)), None)
         losses.append(m["loss"])
         scales.append(state["plateau"]["scale"].clone())
@@ -4279,13 +4286,13 @@ def _halo_rank(dev, steps):
     events), then one step whose exchanges are counted and timed on the
     host around a synchronize each; whether the parameters stay
     bit-identical on every rank."""
-    from opendcvc_tpu_torch.models import common as C
     from opendcvc_tpu_torch.models.dmc import dmc_init
     from opendcvc_tpu_torch.parallel import spatial as S
     from opendcvc_tpu_torch.parallel.mesh import (batch_sharding, make_mesh,
                                                   replicate_sharding)
     from opendcvc_tpu_torch.training import train as T
     from opendcvc_tpu_torch.utils.params import to_device
+    from opendcvc_tpu_torch.utils.transfer import upload
     mesh = make_mesh((2, 2))
     params = to_device(dmc_init(torch.Generator().manual_seed(0)), dev)
     tx = T.make_optimizer(1e-4)
@@ -4294,7 +4301,7 @@ def _halo_rank(dev, steps):
                              spatial=True)
     frames = np.random.default_rng(0).random(
         (2, 2, HALO_H, HALO_W, 3)).astype(np.float32)
-    batch = C.upload(np.ascontiguousarray(
+    batch = upload(np.ascontiguousarray(
         batch_sharding(mesh, frames, spatial_dim=2)), dev)
     torch.cuda.reset_peak_memory_stats(dev)
     ms, losses = [], []
@@ -4580,13 +4587,12 @@ def _slim_pass(dev, xs, p_params, on):
     the bytes each part moved each way, the K1 / K2 launches, and the
     shapes of the DMC chunk's copies."""
     from opendcvc_tpu_torch.entropy import device_rans as D
-    from opendcvc_tpu_torch.utils import trace
     label = f"phase 23 (a) slim {'on' if on else 'off'}"
     saved = {k: os.environ.pop(k) for k in list(os.environ)
              if k.startswith("OPENDCVC_TPU_EC_")}
     if not on:
         os.environ["OPENDCVC_TPU_EC_SLIM"] = "0"
-    trace.reset_counters()
+    slim0 = _slim_counts()
     _reset_launches()
     streams, moved = {}, {}
     t0 = time.perf_counter()
@@ -4627,7 +4633,8 @@ def _slim_pass(dev, xs, p_params, on):
     finally:
         os.environ.pop("OPENDCVC_TPU_EC_SLIM", None)
         os.environ.update(saved)
-    launches, slim = _launches(), _slim_counts()
+    launches = _launches()
+    slim = {k: v - slim0[k] for k, v in _slim_counts().items()}
     _log(f"{label}: bytes moved device->host / host->device: " + "; ".join(
         f"{k} {int(a)} / {int(b)}" for k, (a, b) in moved.items())
         + f"; windowed fetches {slim['slim.fetch']}, misses "
@@ -5302,7 +5309,7 @@ def phase_warp(dev):
     import torch.nn.functional as TF
     from opendcvc_tpu_torch.ops import warp as W
     t0 = time.perf_counter()
-    n0 = W.launches
+    n0 = _w1_launches()
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for name, units, c, h, w, masked, mag in WARP_SHAPES:
@@ -5358,7 +5365,7 @@ def phase_warp(dev):
                  f"twin {row['plain_ms']:.4f}, grid_sample "
                  f"{row['library_ms']:.4f}")
     print(json.dumps({"warp_kernels": rows,
-                      "warp_launches": W.launches - n0}), flush=True)
+                      "warp_launches": _w1_launches() - n0}), flush=True)
     _log(f"phase 25 done in {time.perf_counter() - t0:.1f} s")
     return rows
 

@@ -18,7 +18,8 @@ Prints ONE JSON line:
   {"metric": "1080p_p_frame_enc_dec_fps", "value": N, "unit": "fps",
    "vs_baseline": N, "enc_fps": N, "dec_fps": N, "bpp": N,
    "gop_n": N, "intra_enc_fps": N, "intra_dec_fps": N}
-and "ec_reruns" when the staging ladder re-ran a frame.  value =
+and "ec_reruns" when the staging ladder re-ran a frame (the trace's
+`ec.rerun` over the run).  value =
 min(enc_fps, dec_fps); vs_baseline compares it with bench.py's A100
 figures (125.2 enc / 112.8 dec fps).
 
@@ -66,6 +67,7 @@ from .models import common as C
 from .models.dmc import DMC
 from .models.dmci import DMCI
 from .ops.fused import replicate_pad
+from .utils import trace
 
 METRIC = "1080p_p_frame_enc_dec_fps"
 BASELINE_ENC_FPS = 125.2
@@ -175,6 +177,10 @@ def run():
     cap_frac = C.ec_setting(None, "OPENDCVC_TPU_EC_CAP_FRAC", 0.375)
     coded = {"I": 0, "P": 0}
     decoded = {"I": 0, "P": 0}
+    reruns0 = trace.counters().get("ec.rerun", 0)
+
+    def reruns():
+        return trace.counters().get("ec.rerun", 0) - reruns0
 
     i_net, ckpt_i = _intra_net(dev, dtype, fz, lanes, bps)
 
@@ -317,7 +323,7 @@ def run():
         _sync(dev)
         i_streams = i_net.compress_batch(i_frames, qp)["bit_streams"]
         coded["I"] += n_intra
-        if i_net._ec_rerun_count:
+        if reruns():
             # the codec has learned the settled rung: warm once more at it
             i_streams = i_net.compress_batch(i_frames, qp)["bit_streams"]
             coded["I"] += n_intra
@@ -373,10 +379,10 @@ def run():
         "intra_dec_fps": None if intra_dec_fps is None
         else round(intra_dec_fps, 2),
     }
-    reruns = p_net._ec_rerun_count + i_net._ec_rerun_count
-    if reruns:
-        result["ec_reruns"] = reruns
-    state.update(result=result, reruns=reruns,
+    n_reruns = reruns()
+    if n_reruns:
+        result["ec_reruns"] = n_reruns
+    state.update(result=result, reruns=n_reruns,
                  verbose=(f"# platform={dev.type} dtype={dtype_name} "
                           f"frames={n_frames} gop={gop_n} {height}x{width} "
                           f"enc={1e3 / enc_fps:.2f}ms dec="

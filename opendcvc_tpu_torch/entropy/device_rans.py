@@ -24,10 +24,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..models.common import fetch_async
 from ..ops.lane_rans import DEC_SKIP, ENC_SKIP
 from ..utils import trace
 from ..utils.common import env_flag
+from ..utils.transfer import fetch_async, upload
 
 #: the JAX package's sentinel local row id of a force_zero_thres-skipped
 #: symbol: its scans pass it through at zero rate and decode it as 0.  The
@@ -373,8 +373,7 @@ WINDOW_STEP = 8192  # u16 words = 16 KiB
 #: guards the codecs' window dicts: GOP chunks settle on pool threads.
 #: The trace counts the copies (utils/trace.py): slim.fetch the windowed
 #: encode copies, slim.miss those whose payload overran the window (each
-#: cost one full copy more), d2h_bytes / h2d_bytes the bytes every staging
-#: copy and upload of this module moved, windowed or not.
+#: cost one full copy more); utils/transfer.py counts their bytes.
 _WINDOW_LOCK = threading.Lock()
 
 
@@ -439,9 +438,8 @@ def grow_fetch_w(windows, cap, total):
 def fetch_staging(staging):
     """Start the copy of a staging, or of a stack of them, to the host as
     u16 words (half the bytes of the int32 on the device) in one pinned
-    copy (models/common.py::fetch_async); returns the callable that waits
+    copy (utils/transfer.py::fetch_async); returns the callable that waits
     for it (trace span `wait.staging`) and gives the numpy u16 array."""
-    trace.count("d2h_bytes", 2 * staging.numel())
     wait = fetch_async(staging.to(torch.int16), "wait.staging")
     return lambda: wait().view(np.uint16)
 
@@ -494,8 +492,8 @@ def upload_stagings(bit_streams, device):
     frame.  With slimming on, the dense sections cross padded only to a
     quantized bucket around the chunk's largest payload and are
     zero-extended to cap on the device (expand_staging); off, they span
-    cap.  The u16 words cross in one copy (pinned and non-blocking on a
-    CUDA device; trace span `upload`) and are widened on the device."""
+    cap.  The u16 words cross in one copy (utils/transfer.py::upload)
+    and are widened on the device."""
     parts = [parse_frame_parts(s) for s in bit_streams]
     metas = [pp[0] for pp in parts]
     if len({(m["L"], m["MW"], m["cap"], m["kyc"]) for m in metas}) != 1:
@@ -507,12 +505,7 @@ def upload_stagings(bit_streams, device):
     host = torch.from_numpy(np.stack(
         [staging_from_parts(d, ln, st, cap, width=bucket)
          for _, d, ln, st, _ in parts]).view(np.int16))
-    trace.count("h2d_bytes", 2 * host.numel())
-    with trace.span("upload"):
-        if device.type == "cuda":
-            host = host.pin_memory()
-        dev = host.to(device, non_blocking=True)
-    dev = dev.to(torch.int32) & 0xFFFF
+    dev = upload(host, device).to(torch.int32) & 0xFFFF
     if bucket < cap:
         dev = expand_staging(dev, bucket, cap)
     return metas, dev

@@ -55,6 +55,7 @@ from ..utils.params import from_jax
 from ..utils.stream_helper import (NalType, SPSHelper, read_header,
                                    read_ip_remaining, read_sps_remaining,
                                    write_ip, write_sps)
+from ..utils.transfer import upload
 from ..utils.transforms import (rgb2ycbcr, ycbcr2rgb, ycbcr420_to_444_np,
                                 yuv_444_to_420)
 
@@ -173,11 +174,11 @@ def get_src_frame(args, src_reader, padding=(0, 0)):
         y, uv = frame
         yuv = ycbcr420_to_444_np(y.astype(np.float32) / 255.0,
                                  uv.astype(np.float32) / 255.0)
-        x = _prep_yuv(CM.upload(yuv.transpose(1, 2, 0)[None],
-                                torch.device(args['device'])), pb, pr)
+        x = _prep_yuv(upload(yuv.transpose(1, 2, 0)[None],
+                             torch.device(args['device'])), pb, pr)
     else:
-        x = _prep_png(CM.upload(np_image_to_tensor(frame),
-                                torch.device(args['device'])), pb, pr)
+        x = _prep_png(upload(np_image_to_tensor(frame),
+                             torch.device(args['device'])), pb, pr)
     return (x,) + _originals(args, frame)
 
 

@@ -35,6 +35,7 @@ from ..utils import checkpoint as ckpt
 from ..utils.common import env_flag
 from ..utils.metrics import calc_psnr
 from ..utils.params import from_jax, to_device
+from ..utils.transfer import upload
 
 #: the reduced DMCI widths of the trained RD-evidence checkpoint
 TINY_KW = {"N": 96, "z_channel": 64, "enc_dec_ch": 64}
@@ -122,7 +123,7 @@ def measure(ckpt_path, qps=(16, 26, 36, 46), size=128, n_images=4,
         for img in imgs:
             x = np.pad(img, ((0, 0), (0, pb), (0, pr), (0, 0)), mode="edge")
             with torch.no_grad():
-                fwd = dmci_forward(net.params, CM.upload(x, net.device), qp)
+                fwd = dmci_forward(net.params, upload(x, net.device), qp)
             est_bits += float(fwd["bpp"]) * n_pix
             enc = net.compress(x, qp)
             real_bits += len(enc["bit_stream"]) * 8
@@ -174,7 +175,7 @@ def train_tiny(out_ckpt, steps=3000, seed=0, crop=96, batch=8,
                                                seed=seed + 10 + i), axis=0)
         qp = int(rng.integers(0, 64))
         params, opt_state, metrics = step_fn(
-            params, opt_state, CM.upload(imgs, device), qp, None)
+            params, opt_state, upload(imgs, device), qp, None)
         if (i + 1) % log_every == 0:
             _log_step(i, metrics, qp)
         if (i + 1) % 500 == 0 or i + 1 == steps:
@@ -209,8 +210,8 @@ def measure_dmc(ckpt_path, qps=(16, 26, 36, 46), size=128, n_pairs=4,
         for ref, cur in pairs:
             with torch.no_grad():
                 fwd = dmc_forward_one_frame(
-                    net.params, CM.upload(cur, net.device),
-                    CM.upload(ref, net.device), None, qp)
+                    net.params, upload(cur, net.device),
+                    upload(ref, net.device), None, qp)
             est_bits += float(fwd["bpp"]) * size * size
             for codec in (net, dec):
                 codec.clear_dpb()
@@ -254,7 +255,7 @@ def train_tiny_dmc(out_ckpt, steps=2000, seed=0, crop=96, batch=4,
                            synthetic_pairs(batch, crop, seed=seed + 10 + i)])
         qp = int(rng.integers(0, 64))
         params, opt_state, metrics = step_fn(
-            params, opt_state, CM.upload(frames, device), qp, None)
+            params, opt_state, upload(frames, device), qp, None)
         if (i + 1) % log_every == 0:
             _log_step(i, metrics, qp)
         if (i + 1) % 250 == 0 or i + 1 == steps:

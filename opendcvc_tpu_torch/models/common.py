@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from ..ops.fused import replicate_pad
-from ..utils import trace
+from ..utils.transfer import upload
 
 QP_NUM = 64
 #: the codecs' activation dtypes, by the name the harness and bench take
@@ -60,41 +60,6 @@ def frame_to_nchw(x, device, dtype=torch.float32):
 
 def frame_to_nhwc(x):
     return x.permute(0, 2, 3, 1).contiguous()
-
-
-def fetch_async(t, wait="wait.fetch"):
-    """Start copying a tensor to the host; returns a callable that waits
-    for the copy and returns it as numpy, in the trace span `wait`.  A
-    CUDA copy lands in pinned memory behind an event, so the device queue
-    runs on meanwhile; the callable holds the pinned buffer, and the
-    caching host allocator keeps it from reuse until the copy's event has
-    passed."""
-    if t.device.type != "cuda":
-        def done():
-            with trace.wait(wait):
-                return t.numpy()
-        return done
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
-
-    def done():
-        with trace.wait(wait):
-            event.synchronize()
-        return host.numpy()
-
-    return done
-
-
-@trace.spanned("upload")
-def upload(a, device):
-    """numpy -> tensor on `device`; a CUDA upload goes through pinned
-    memory and does not wait for the device."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if device.type != "cuda":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
 
 
 def get_padding_size(height, width, p=64):
@@ -214,11 +179,10 @@ def code_host_ordered(coder, gaussian, buf, planes):
     return coder.get_encoded_stream()
 
 
-def decode_z_host(bit_estimator, qp, zh, zw, device, dtype, transfers):
+def decode_z_host(bit_estimator, qp, zh, zw, device, dtype):
     """Host-decode the (zh, zw) z plane next in the stream and upload it
-    as (1, C, zh, zw) `dtype` on `device`; counts the upload."""
+    as (1, C, zh, zw) `dtype` on `device`."""
     bit_estimator.decode_z((zh, zw), qp)
-    transfers["h2d"] += 1
     return from_host_nhwc(bit_estimator.get_z((zh, zw), np.int8), device,
                           dtype)
 
@@ -242,19 +206,15 @@ def from_host_nhwc(a, device, dtype):
     return torch.empty(nchw.shape, dtype=dtype, device=device).copy_(nchw)
 
 
-def decode_y_host(gaussian, fetch, shape, device, dtype, transfers,
-                  masked=False):
+def decode_y_host(gaussian, fetch, shape, device, dtype, masked=False):
     """Host-decode one y pass: wait for its index_buf (`fetch`, from
     fetch_async; with a keep mask when masked), decode it with the
     GaussianEncoder `gaussian`, upload.  Returns the dense (1, C, H, W)
-    symbols as `dtype` on `device`, zeros where skipped; counts the fetch
-    and the upload in `transfers`."""
+    symbols as `dtype` on `device`, zeros where skipped."""
     buf = fetch()
-    transfers["d2h"] += 1
     n = buf.shape[0] // 2 if masked else buf.shape[0]
     keep = buf[n:].astype(bool) if masked else None
     gaussian.decode_y(buf[:n], keep)
     b, c, h, w = shape
     y = gaussian.get_y((b, h, w, c), keep, dtype=np.int8)
-    transfers["h2d"] += 1
     return from_host_nhwc(y, device, dtype)

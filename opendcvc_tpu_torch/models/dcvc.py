@@ -43,6 +43,7 @@ from ..ops import fused as F
 from ..ops.fused import depth_to_space
 from ..ops.warp import flow_warp
 from ..utils.params import to_device
+from ..utils.transfer import fetch_async
 from . import common as C
 
 CH_MV = 128
@@ -423,7 +424,7 @@ class _ARCoder:
 def host_hwc(t):
     """Start copying a (1, C, H, W) plane to the host as float32 (H, W, C);
     returns fetch_async's callable."""
-    return C.fetch_async(t[0].permute(1, 2, 0).float().contiguous())
+    return fetch_async(t[0].permute(1, 2, 0).float().contiguous())
 
 
 def from_host_hwc(a, device, dtype):
@@ -443,8 +444,7 @@ class DCVCNet:
 
     device: torch device (default cuda; without CUDA that raises, and the
     CPU runs only when asked for).  dtype: float32 or bfloat16
-    activations.  `transfers` counts the host copies: "d2h" the fetches
-    the host waits for, "h2d" the uploads."""
+    activations."""
 
     def __init__(self, device="cuda", dtype=torch.float32):
         C.check_dtype(dtype, "DCVCNet")
@@ -457,7 +457,6 @@ class DCVCNet:
         self.gaussian_encoder = GaussianEncoder(
             distribution="laplace", scale_min=0.01, scale_max=64.0,
             scale_levels=256, support=50)
-        self.transfers = {"d2h": 0, "h2d": 0}
         self._ar = None
         self._ar_mv = None
 
@@ -495,11 +494,9 @@ class DCVCNet:
     def _fetch(self, *fetches):
         """Wait for host copies started together (fetch_async's
         callables); numpy."""
-        self.transfers["d2h"] += 1
         return [f() for f in fetches]
 
     def _upload(self, a):
-        self.transfers["h2d"] += 1
         return from_host_hwc(a, self.device, self.dtype)
 
     def compress(self, ref_frame, x):
@@ -513,7 +510,7 @@ class DCVCNet:
         mv_y, mv_z_hat, mv_z_int8 = _stage_mv_front(p, x, ref)
         params_mv = _stage_mv_prior_params(p, mv_z_hat)
         mv_z_np, mv_y_np, params_mv_np = self._fetch(
-            C.fetch_async(C.nhwc_flat(mv_z_int8)), host_hwc(mv_y),
+            fetch_async(C.nhwc_flat(mv_z_int8)), host_hwc(mv_y),
             host_hwc(params_mv))
         self.entropy_coder.reset()
         self.bit_estimator_z_mv.encode_z(mv_z_np, 0)
@@ -525,7 +522,7 @@ class DCVCNet:
         ctx = _stage_after_mv(p, ref, mv_y_hat)
         y, z_hat, z_int8 = _stage_ctx_front(p, x, ctx)
         prior = _stage_y_prior_params(p, z_hat, _stage_temporal(p, ctx))
-        z_np, y_np, prior_np = self._fetch(C.fetch_async(C.nhwc_flat(z_int8)),
+        z_np, y_np, prior_np = self._fetch(fetch_async(C.nhwc_flat(z_int8)),
                                            host_hwc(y), host_hwc(prior))
         self.bit_estimator_z.encode_z(z_np, 0)
         z_string = self._flush_segment()
@@ -548,7 +545,7 @@ class DCVCNet:
 
         self.entropy_coder.set_stream(mv_z_string)
         mv_z_hat = C.decode_z_host(self.bit_estimator_z_mv, 0, zh, zw,
-                                   self.device, self.dtype, self.transfers)
+                                   self.device, self.dtype)
         self.entropy_coder.check_stream_end()
         (params_mv,) = self._fetch(host_hwc(_stage_mv_prior_params(
             p, mv_z_hat)))
@@ -560,7 +557,7 @@ class DCVCNet:
         ctx = _stage_after_mv(p, ref, mv_y_hat)
         self.entropy_coder.set_stream(z_string)
         z_hat = C.decode_z_host(self.bit_estimator_z, 0, zh, zw, self.device,
-                                self.dtype, self.transfers)
+                                self.dtype)
         self.entropy_coder.check_stream_end()
         (prior,) = self._fetch(host_hwc(_stage_y_prior_params(
             p, z_hat, _stage_temporal(p, ctx))))

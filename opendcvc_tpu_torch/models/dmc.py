@@ -58,6 +58,7 @@ from ..ops.lane_rans import (DEC_SKIP, ENC_SKIP, decode_scan, encode_scan,
 from ..utils import trace
 from ..utils.common import env_flag
 from ..utils.params import cast_floating, to_device
+from ..utils.transfer import fetch_async
 from . import common as C
 
 QP_SHIFT = [0, 8, 4]
@@ -437,10 +438,9 @@ def _settle(net, arr, key, plan, bps, rerun):
     """settle_staging for a DMC or DMCI codec `net`: serialize a fetched
     staging launched by the StagingPlan `plan` at `bps` bytes per symbol
     (`rerun(mw, cap, kyc)` re-runs the frame at a grown rung and returns
-    its host staging), count the reruns in net._ec_rerun_count (and the
-    trace's `ec.rerun`) and learn
-    the settled rate for the frame size `key` in net._ec_learned.  Takes
-    net._ec_lock for the bookkeeping, so chunks may settle on several
+    its host staging), count the reruns in the trace's `ec.rerun` and
+    learn the settled rate for the frame size `key` in net._ec_learned.
+    Takes net._ec_lock for that, so chunks may settle on several
     threads."""
     stream, g_bps, reruns = settle_staging(
         arr, plan, functools.partial(net._rung, plan.lanes), bps,
@@ -448,7 +448,6 @@ def _settle(net, arr, key, plan, bps, rerun):
     if reruns:
         trace.count("ec.rerun", reruns)
     with net._ec_lock:
-        net._ec_rerun_count += reruns
         if g_bps > max(bps, net._ec_learned.get(key, 0.0)):
             net._ec_learned[key] = g_bps
     return stream
@@ -599,9 +598,7 @@ class DMC:
     _EC_BPS / _EC_CAP_FRAC (defaults 4096, 0.5, 0.5).  Skip compaction
     under force_zero_thres is on when OPENDCVC_TPU_EC_SKIP_COMPACT is set,
     its first rung's survivor share OPENDCVC_TPU_EC_SKIP_FRAC (default
-    0.5; `_kyc_for`), the JAX package's knobs.  `transfers` counts
-    the host-EC path's copies: "d2h" the fetches the host waits for,
-    "h2d" the uploads (which do not wait).
+    0.5; `_kyc_for`), the JAX package's knobs.
 
     Device EC also codes GOPs: `compress_gop(_async)` and
     `decompress_gop` / `upload_gop` + `decompress_gop_uploaded` run N
@@ -633,7 +630,6 @@ class DMC:
         self.gaussian_encoder = GaussianEncoder()
         self.force_zero_thres = None
         self.entropy_coder = None
-        self.transfers = {"d2h": 0, "h2d": 0}
         self.enc_table = None
         self.dec_table = None
         self.n_y_rows = 0
@@ -644,7 +640,6 @@ class DMC:
         # learned launch staging rate (bytes/symbol) per (H, W): content
         # hotter than the first-rung guess pays the regrow ladder once
         self._ec_learned = {}
-        self._ec_rerun_count = 0
         self._ec_lock = threading.Lock()
         # the encode copy's window for each staging capacity
         # (entropy/device_rans.py::slim_fetch)
@@ -802,17 +797,15 @@ class DMC:
         feature_out, z_int8, planes = _encode_stages(
             self.params, x, self.apply_feature_adaptor(), qp, fz)
         n_z, n_y = z_int8.numel(), planes[0][0].numel()
-        fetch = C.fetch_async(_pack_host(z_int8, planes, fz))
+        fetch = fetch_async(_pack_host(z_int8, planes, fz))
         self.add_ref_frame(feature_out, None)
         ids = trace.frame_ids()
 
         def finish():
             with trace.span("dmc.finish", ids):
-                buf = fetch()
-                self.transfers["d2h"] += 1
                 return C.code_host(self.entropy_coder,
                                    [(self.bit_estimator_z, qp)],
-                                   self.gaussian_encoder, buf, [n_z],
+                                   self.gaussian_encoder, fetch(), [n_z],
                                    [n_y] * len(planes), fz is not None)
 
         return finish
@@ -953,16 +946,14 @@ class DMC:
         z_hat = C.from_host_nhwc(self.bit_estimator_z.get_z((zh, zw),
                                                             np.int8),
                                  self.device, x1.dtype)
-        self.transfers["h2d"] += 1
         params_prior = _stage_prior(p, z_hat, ctx_t)
 
         def decode_y(fetch, shape):
             return C.decode_y_host(self.gaussian_encoder, fetch, shape,
-                                   self.device, x1.dtype, self.transfers,
-                                   fz is not None)
+                                   self.device, x1.dtype, fz is not None)
 
         idx0, keep0 = _stage_dec_index0(params_prior, fz)
-        fetch0 = C.fetch_async(C.index_buf(idx0, keep0))
+        fetch0 = fetch_async(C.index_buf(idx0, keep0))
         # the device runs the feature extractor's second part while the
         # host waits for the indexes and decodes y0
         ctx = _stage_fe_part2(p, x1)
@@ -973,7 +964,7 @@ class DMC:
         scales1, means1 = _stage_spatial(p, y_hat_0, params_prior)
         idx1, keep1 = _stage_fold_index_2x(scales1, 1, fz)
         y_hat_1 = _stage_dec_restore_2x(
-            decode_y(C.fetch_async(C.index_buf(idx1, keep1)), idx1.shape),
+            decode_y(fetch_async(C.index_buf(idx1, keep1)), idx1.shape),
             means1, 1)
         coder.check_stream_end()
 

@@ -50,6 +50,7 @@ from ..layers.blocks import conv_apply, conv_init
 from ..ops import fused as F
 from ..ops.fused import depth_to_space
 from ..utils.params import to_device
+from ..utils.transfer import fetch_async
 from . import common as C
 from .dmc_fm import (_seq, _spatial_pass, _stage_motion_comp,
                      compress_4x, decompress_4x, host_planes)
@@ -376,9 +377,7 @@ class DMCDC:
     raises, and the CPU runs only when asked for).  dtype: float32 or
     bfloat16 activations.  stream_part > 1 splits each frame's stream
     over that many coders (`NPartEntropyCoder`), each on a worker thread
-    of its own with ec_thread (threading changes no byte).  `transfers`
-    counts the copies: "d2h" the fetches the host waits for, "h2d" the
-    uploads."""
+    of its own with ec_thread (threading changes no byte)."""
 
     def __init__(self, device="cuda", anchor_num=4, dtype=torch.float32,
                  ec_thread=False, stream_part=1):
@@ -395,7 +394,6 @@ class DMCDC:
         self.gaussian_encoder = GaussianEncoder(
             distribution="laplace", scale_min=0.01, scale_max=64.0,
             scale_levels=256, support=50)
-        self.transfers = {"d2h": 0, "h2d": 0}
         self._fine = {}
         self._stages = make_pass_stages(gaussian_cfg(self.gaussian_encoder),
                                         4)
@@ -484,13 +482,12 @@ class DMCDC:
         y_packed, y_hat = compress_4x(
             self._stages, y, params,
             lambda k, so_far, prm: _stage_y_spatial(p, k, so_far, prm))
-        fetch = C.fetch_async(C.pack_host([mv_z_int8, z_int8],
-                                          mv_packed + y_packed))
+        fetch = fetch_async(C.pack_host([mv_z_int8, z_int8],
+                                        mv_packed + y_packed))
         # the device reconstructs while the host codes
         x_hat, feature = _stage_recon(p, y_hat, c1, c2, c3, y_q_dec)
         x_hat = C.frame_to_nhwc(x_hat)
         buf = fetch()
-        self.transfers["d2h"] += 1
         stream = C.code_host(
             self.entropy_coder,
             [(self.bit_estimator_z_mv, 0), (self.bit_estimator_z, 0)],
@@ -518,7 +515,7 @@ class DMCDC:
             self.entropy_coder,
             [("mv_z", self.bit_estimator_z_mv), ("z", self.bit_estimator_z)],
             self.gaussian_encoder, bit_stream, zh, zw, self.device,
-            self.dtype, self.transfers)
+            self.dtype)
         ref_frame = self._ref_frame(dpb)
 
         mv_params = _stage_mv_prior(p, z_plane("mv_z"), dpb["ref_mv_y"],

@@ -58,6 +58,7 @@ from ..ops.lane_rans import (pack_operand, prepare_decode_table,
 from ..ops.warp import bilinear_resize_2x, flow_warp
 from ..utils import trace
 from ..utils.params import to_device
+from ..utils.transfer import fetch_async
 from . import common as C
 from .dmc import _dec_plane, _lane_layout_t, _z_rows
 from .dmci_fm import (decode_carry, dec_y_plane, fm_device_ec, gaussian_cfg,
@@ -473,21 +474,20 @@ def decompress_4x(stages, params_prior, spatial_fn, decode):
 
 
 def host_planes(coder, z_estimators, gaussian, bit_stream, zh, zw, device,
-                dtype, transfers):
+                dtype):
     """Host EC: the z planes decoded on the host at once (they lead the
     stream), `z_estimators` [(name, BitEstimator)] in stream order;
     (z_plane(name), decode(idx), done()), decode host-decoding a y pass
     with `gaussian`, done checking that the stream ends with the frame's
-    last symbol.  Planes land on `device` as `dtype`; the copies are
-    counted in `transfers`."""
+    last symbol.  Planes land on `device` as `dtype`."""
     coder.set_stream(bit_stream)
     z = {}
     for name, be in z_estimators:
-        z[name] = C.decode_z_host(be, 0, zh, zw, device, dtype, transfers)
+        z[name] = C.decode_z_host(be, 0, zh, zw, device, dtype)
 
     def decode(idx):
-        return C.decode_y_host(gaussian, C.fetch_async(C.index_buf(idx)),
-                               idx.shape, device, dtype, transfers)
+        return C.decode_y_host(gaussian, fetch_async(C.index_buf(idx)),
+                               idx.shape, device, dtype)
 
     return z.__getitem__, decode, coder.check_stream_end
 
@@ -505,10 +505,7 @@ class DMCFM:
     stream_part > 1 splits each host-EC frame's stream over that many
     coders (`NPartEntropyCoder`), each on a worker thread of its own with
     ec_thread (as the JAX package's DMCFM(ec_thread=); threading changes
-    no byte).  dtype: float32 or bfloat16 activations.  `transfers`
-    counts the host-EC copies: "d2h" the fetches the host waits for,
-    "h2d" the uploads; `ec_reruns` the device-EC frames' ladder reruns
-    (one K1 launch each)."""
+    no byte).  dtype: float32 or bfloat16 activations."""
 
     def __init__(self, device="cuda", device_ec=None, dtype=torch.float32,
                  stream_part=1, ec_thread=False):
@@ -527,8 +524,6 @@ class DMCFM:
         self.gaussian_encoder = GaussianEncoder(
             distribution="laplace", scale_min=0.01, scale_max=64.0,
             scale_levels=256, support=50)
-        self.transfers = {"d2h": 0, "h2d": 0}
-        self.ec_reruns = 0
         # the encode copy's window for each staging capacity
         self._fetch_windows = {}
         self.enc_table = None
@@ -643,8 +638,8 @@ class DMCFM:
             finish = self._launch_device(x, mv_z_int8, z_int8, mv_packed,
                                          y_packed)
         else:
-            fetch = C.fetch_async(C.pack_host([mv_z_int8, z_int8],
-                                              mv_packed + y_packed))
+            fetch = fetch_async(C.pack_host([mv_z_int8, z_int8],
+                                            mv_packed + y_packed))
         # the device reconstructs while the host codes
         x_hat, feature = _stage_recon(p, y_hat, c1, c2, c3, qi)
         x_hat = C.frame_to_nhwc(x_hat)
@@ -652,12 +647,10 @@ class DMCFM:
         if self.device_ec:
             stream = finish()
         else:
-            buf = fetch()
-            self.transfers["d2h"] += 1
             stream = C.code_host(
                 self.entropy_coder,
                 [(self.bit_estimator_z_mv, 0), (self.bit_estimator_z, 0)],
-                self.gaussian_encoder, buf,
+                self.gaussian_encoder, fetch(),
                 [mv_z_int8.numel(), z_int8.numel()],
                 [pk.numel() for pk in mv_packed + y_packed])
         return {
@@ -695,7 +688,6 @@ class DMCFM:
                 first(), lanes, k_total, bps,
                 lambda mw, cap: launch_staging(operand, self.enc_table, mw,
                                                cap)())
-            self.ec_reruns += reruns
             if reruns:
                 trace.count("ec.rerun", reruns)
             return stream
@@ -719,7 +711,7 @@ class DMCFM:
                 [("mv_z", self.bit_estimator_z_mv),
                  ("z", self.bit_estimator_z)],
                 self.gaussian_encoder, bit_stream, zh, zw, self.device,
-                self.dtype, self.transfers)
+                self.dtype)
         ref_frame = self._ref_frame(dpb)
 
         mv_params = _stage_mv_prior(p, z_plane("mv_z"), dpb["ref_mv_y"],

@@ -52,6 +52,7 @@ from ..ops.warp import bilinear_resize_2x, flow_warp
 from ..utils import trace
 from ..utils.params import to_device
 from ..utils.stream_helper import interpolate_log
+from ..utils.transfer import fetch_async
 from . import common as C
 from .dmci_fm import gaussian_cfg
 from .prior_stages import make_pass_stages
@@ -331,8 +332,7 @@ class DMCHEM:
     compress / decompress exchange explicit DPB dicts (see the module
     docstring).  device: torch device (default cuda; without CUDA that
     raises, and the CPU runs only when asked for).  dtype: float32 or
-    bfloat16 activations.  `transfers` counts the host-EC copies: "d2h"
-    the fetches the host waits for, "h2d" the uploads."""
+    bfloat16 activations."""
 
     def __init__(self, device="cuda", anchor_num=4, dtype=torch.float32):
         C.check_dtype(dtype, "DMCHEM")
@@ -346,7 +346,6 @@ class DMCHEM:
         self.gaussian_encoder = GaussianEncoder(
             distribution="laplace", scale_min=0.01, scale_max=64.0,
             scale_levels=256, support=50)
-        self.transfers = {"d2h": 0, "h2d": 0}
         self._stages = make_pass_stages(gaussian_cfg(self.gaussian_encoder),
                                         2)
 
@@ -423,8 +422,8 @@ class DMCHEM:
 
     def _decode_y(self, idx):
         return C.decode_y_host(self.gaussian_encoder,
-                               C.fetch_async(C.index_buf(idx)), idx.shape,
-                               self.device, self.dtype, self.transfers)
+                               fetch_async(C.index_buf(idx)), idx.shape,
+                               self.device, self.dtype)
 
     # -- compress / decompress -----------------------------------------------
 
@@ -448,12 +447,11 @@ class DMCHEM:
             y, *_stage_ctx_prior(p, z_hat, c3, dpb["ref_y"]),
             p["y_spatial_prior"], y_q)
         planes = [mv_z_int8] + mv_packed + [z_int8] + y_packed
-        fetch = C.fetch_async(C.pack_planes(planes))
+        fetch = fetch_async(C.pack_planes(planes))
         # the device reconstructs while the host codes
         feature, x_hat = _stage_recon(p, y_hat, c1, c2, c3)
         x_hat = C.frame_to_nhwc(x_hat)
         buf = fetch()
-        self.transfers["d2h"] += 1
         z_coders = {0: (self.bit_estimator_z_mv, 0),
                     3: (self.bit_estimator_z, 0)}
         stream = C.code_host_ordered(
@@ -476,7 +474,7 @@ class DMCHEM:
         zh, zw = C.get_downsampled_shape(height, width, 64)
         self.entropy_coder.set_stream(bit_stream)
         mv_z_hat = C.decode_z_host(self.bit_estimator_z_mv, 0, zh, zw,
-                                   self.device, self.dtype, self.transfers)
+                                   self.device, self.dtype)
         ref_frame = self._ref_frame(dpb)
         mv_y_hat = self._decompress_2x(
             *_stage_mv_prior(p, mv_z_hat, dpb["ref_mv_y"]),
@@ -485,7 +483,7 @@ class DMCHEM:
         c1, c2, c3, _ = _stage_motion_comp(p, mv_hat, ref_frame,
                                            dpb["ref_feature"])
         z_hat = C.decode_z_host(self.bit_estimator_z, 0, zh, zw, self.device,
-                                self.dtype, self.transfers)
+                                self.dtype)
         y_hat = self._decompress_2x(
             *_stage_ctx_prior(p, z_hat, c3, dpb["ref_y"]),
             p["y_spatial_prior"], y_q)

@@ -42,6 +42,7 @@ from ..layers.gdn import gdn_apply, gdn_init
 from ..ops import fused as F
 from ..ops.fused import depth_to_space
 from ..utils.params import to_device
+from ..utils.transfer import fetch_async
 from . import common as C
 from .dmc_hem import _stage_motion_comp  # noqa: F401  (TCM's stage too)
 from .dmci_fm import gaussian_cfg
@@ -347,8 +348,7 @@ class DMCTCM:
 
     device: torch device (default cuda; without CUDA that raises, and the
     CPU runs only when asked for).  dtype: float32 or bfloat16
-    activations.  `transfers` counts the host-EC copies: "d2h" the
-    fetches the host waits for, "h2d" the uploads."""
+    activations."""
 
     def __init__(self, device="cuda", dtype=torch.float32):
         C.check_dtype(dtype, "DMCTCM")
@@ -361,7 +361,6 @@ class DMCTCM:
         self.gaussian_encoder = GaussianEncoder(
             distribution="laplace", scale_min=0.01, scale_max=64.0,
             scale_levels=256, support=50)
-        self.transfers = {"d2h": 0, "h2d": 0}
         self._cfg = gaussian_cfg(self.gaussian_encoder)
 
     def init_params(self, seed=0):
@@ -387,8 +386,8 @@ class DMCTCM:
     def _decode_y(self, scales, means):
         idx = _stage_index_dense(scales, self._cfg)
         y_q = C.decode_y_host(self.gaussian_encoder,
-                              C.fetch_async(C.index_buf(idx)), idx.shape,
-                              self.device, self.dtype, self.transfers)
+                              fetch_async(C.index_buf(idx)), idx.shape,
+                              self.device, self.dtype)
         return y_q + means
 
     def compress(self, x, ref_frame, ref_feature):
@@ -407,12 +406,11 @@ class DMCTCM:
         y_packed, y_hat = _stage_quantize_dense(
             y, *_stage_y_params(p, z_hat, c1, c2, c3), self._cfg)
         planes = [mv_z_int8, mv_packed, z_int8, y_packed]
-        fetch = C.fetch_async(C.pack_planes(planes))
+        fetch = fetch_async(C.pack_planes(planes))
         # the device reconstructs while the host codes
         feature, x_hat = _stage_recon(p, y_hat, c1, c2, c3)
         x_hat = C.frame_to_nhwc(x_hat)
         buf = fetch()
-        self.transfers["d2h"] += 1
         coders = [(self.bit_estimator_z_mv, 0), None,
                   (self.bit_estimator_z, 0), None]
         stream = C.code_host_ordered(
@@ -428,13 +426,13 @@ class DMCTCM:
         zh, zw = C.get_downsampled_shape(height, width, 64)
         self.entropy_coder.set_stream(bit_stream)
         mv_z_hat = C.decode_z_host(self.bit_estimator_z_mv, 0, zh, zw,
-                                   self.device, self.dtype, self.transfers)
+                                   self.device, self.dtype)
         ref_frame = C.frame_to_nchw(ref_frame, self.device, self.dtype)
         mv_y_hat = self._decode_y(*_stage_mv_params(p, mv_z_hat))
         mv_hat = _stage_mv_dec(p, mv_y_hat)
         c1, c2, c3, _ = _stage_motion_comp(p, mv_hat, ref_frame, ref_feature)
         z_hat = C.decode_z_host(self.bit_estimator_z, 0, zh, zw, self.device,
-                                self.dtype, self.transfers)
+                                self.dtype)
         y_hat = self._decode_y(*_stage_y_params(p, z_hat, c1, c2, c3))
         self.entropy_coder.check_stream_end()
         feature, x_hat = _stage_recon(p, y_hat, c1, c2, c3)

@@ -36,6 +36,7 @@ from ..ops.lane_rans import (prepare_decode_table,
 from ..utils import trace
 from ..utils.common import env_flag
 from ..utils.params import cast_floating, to_device
+from ..utils.transfer import fetch_async
 from . import common as C
 from .dmc import (_cm_unflat, _dcb_seq, _dec_plane, _dec_y_plane,
                   _indexes_of, _kyc_for, _launcher,
@@ -261,8 +262,7 @@ class DMCI:
     package reads them.  Skip compaction reads
     OPENDCVC_TPU_EC_SKIP_COMPACT / _EC_SKIP_FRAC as DMC does.  The
     cap fraction stays 0.5: the JAX package's DMCI does not read
-    OPENDCVC_TPU_EC_CAP_FRAC.  `transfers` counts the
-    host-EC copies, as DMC's.
+    OPENDCVC_TPU_EC_CAP_FRAC.
 
     Device EC also codes batches of independent frames:
     `compress_batch(_async)` and `decompress_batch` run each frame through
@@ -292,13 +292,11 @@ class DMCI:
         self.gaussian_encoder = GaussianEncoder()
         self.force_zero_thres = None
         self.entropy_coder = None
-        self.transfers = {"d2h": 0, "h2d": 0}
         self.enc_table = None
         self.dec_table = None
         self.n_y_rows = 0
         # learned launch staging rate per (H, W) (see DMC._ec_learned)
         self._ec_learned = {}
-        self._ec_rerun_count = 0
         self._ec_lock = threading.Lock()
         # the encode copy's window for each staging capacity
         # (entropy/device_rans.py::slim_fetch)
@@ -462,8 +460,7 @@ class DMCI:
         force_zero_thres) their skip masks, then the host coder."""
         fz = self.force_zero_thres
         x_hat, z_int8, planes = _encode_stages_i(self.params, x, qp, fz)
-        buf = C.fetch_async(_pack_host(z_int8, planes, fz))()
-        self.transfers["d2h"] += 1
+        buf = fetch_async(_pack_host(z_int8, planes, fz))()
         stream = C.code_host(self.entropy_coder,
                              [(self.bit_estimator_z, qp)],
                              self.gaussian_encoder, buf, [z_int8.numel()],
@@ -483,7 +480,7 @@ class DMCI:
         coder.set_use_two_entropy_coders(sps["ec_part"] == 1)
         coder.set_stream(bit_stream)
         z_hat = C.decode_z_host(self.bit_estimator_z, qp, zh, zw, self.device,
-                                self.dtype, self.transfers)
+                                self.dtype)
         _, q_dec_prior, scales, means, reduced = _stage_prior(p, z_hat, y_h,
                                                               y_w)
         so_far = None
@@ -492,9 +489,8 @@ class DMCI:
                 scales, means = _stage_spatial(p, k, so_far, reduced)
             idx, keep = _stage_fold_index(scales, k, fz)
             y_q_r = C.decode_y_host(
-                self.gaussian_encoder, C.fetch_async(C.index_buf(idx, keep)),
-                idx.shape, self.device, means.dtype, self.transfers,
-                fz is not None)
+                self.gaussian_encoder, fetch_async(C.index_buf(idx, keep)),
+                idx.shape, self.device, means.dtype, fz is not None)
             so_far = _stage_dec_restore(y_q_r, means, so_far, k)
         coder.check_stream_end()
         return _stage_recon(p, so_far, q_dec_prior, qp)

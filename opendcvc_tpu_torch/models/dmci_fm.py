@@ -53,6 +53,7 @@ from ..ops.lane_rans import (encode_scan, pack_operand, prepare_decode_table,
 from ..utils import trace
 from ..utils.common import env_flag
 from ..utils.params import to_device
+from ..utils.transfer import fetch_async
 from . import common as C
 from .dmc import _dec_plane, _lane_layout_t, _z_rows
 from .prior_stages import make_pass_stages
@@ -273,10 +274,7 @@ class DMCIFM:
     OPENDCVC_TPU_DEVICE_EC, as the JAX package's constructor does; its
     largest lane count and first staging rung come from
     OPENDCVC_TPU_EC_LANES / _EC_BPS, read there too).  dtype: float32
-    or bfloat16 activations (the module docstring).
-    `transfers` counts the host-EC path's copies: "d2h" the fetches the
-    host waits for, "h2d" the uploads; `ec_reruns` the device-EC frames'
-    ladder reruns (one K1 launch each)."""
+    or bfloat16 activations (the module docstring)."""
 
     def __init__(self, device="cuda", device_ec=None, dtype=torch.float32):
         C.check_dtype(dtype, "DMCIFM")
@@ -291,8 +289,6 @@ class DMCIFM:
         self.gaussian_encoder = GaussianEncoder(
             distribution="gaussian", scale_min=0.11, scale_max=64.0,
             scale_levels=256, support=50)
-        self.transfers = {"d2h": 0, "h2d": 0}
-        self.ec_reruns = 0
         # the encode copy's window for each staging capacity
         self._fetch_windows = {}
         self.enc_table = self.dec_table = None
@@ -362,12 +358,10 @@ class DMCIFM:
         if self.device_ec:
             return {"bit_stream": self._code_device(x, z_int8, packed, qp),
                     "x_hat": C.frame_to_nhwc(x_hat)}
-        fetch = C.fetch_async(C.pack_host([z_int8], packed))
+        fetch = fetch_async(C.pack_host([z_int8], packed))
         x_hat = C.frame_to_nhwc(x_hat)
-        buf = fetch()
-        self.transfers["d2h"] += 1
         stream = C.code_host(self.entropy_coder, [(self.bit_estimator_z, qp)],
-                             self.gaussian_encoder, buf, [z_int8.numel()],
+                             self.gaussian_encoder, fetch(), [z_int8.numel()],
                              [pk.numel() for pk in packed])
         return {"bit_stream": stream, "x_hat": x_hat}
 
@@ -392,7 +386,6 @@ class DMCIFM:
                            lanes)(), lanes, k_total,
             self.bytes_per_symbol,
             lambda mw, cap: launch_staging(operand, table, mw, cap)())
-        self.ec_reruns += reruns
         if reruns:
             trace.count("ec.rerun", reruns)
         return stream
@@ -422,13 +415,12 @@ class DMCIFM:
         else:
             self.entropy_coder.set_stream(bit_stream)
             z_hat = C.decode_z_host(self.bit_estimator_z, qp, zh, zw,
-                                    self.device, self.dtype, self.transfers)
+                                    self.device, self.dtype)
 
             def decode(idx):
                 return C.decode_y_host(self.gaussian_encoder,
-                                       C.fetch_async(C.index_buf(idx)),
-                                       idx.shape, self.device, self.dtype,
-                                       self.transfers)
+                                       fetch_async(C.index_buf(idx)),
+                                       idx.shape, self.device, self.dtype)
         _, q_dec_prior, scales, means, reduced = _stage_prior(p, z_hat, y_h,
                                                               y_w)
         so_far = None

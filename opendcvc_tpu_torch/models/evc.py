@@ -43,6 +43,7 @@ from ..layers import blocks_evc as E
 from ..layers.blocks import conv_apply, conv_init
 from ..ops import fused as F
 from ..utils.params import cast_floating, to_device
+from ..utils.transfer import fetch_async
 from . import common as C
 from .dmci_fm import gaussian_cfg as _fold_index_cfg
 from .prior_stages import make_pass_stages
@@ -222,9 +223,7 @@ class EVC:
     channel plans.
 
     device: torch device (default cuda; without CUDA that raises, and the
-    CPU runs only when asked for).  dtype: float32 or bfloat16.
-    `transfers` counts the host-EC copies: "d2h" the fetches the host
-    waits for, "h2d" the uploads."""
+    CPU runs only when asked for).  dtype: float32 or bfloat16."""
 
     enc_width = "L"
     dec_width = "L"
@@ -242,7 +241,6 @@ class EVC:
         self.gaussian_encoder = GaussianEncoder(
             distribution="gaussian", scale_min=0.11, scale_max=64.0,
             scale_levels=256, support=50)
-        self.transfers = {"d2h": 0, "h2d": 0}
         self._stages = make_pass_stages(
             _fold_index_cfg(self.gaussian_encoder), 2)
 
@@ -281,8 +279,8 @@ class EVC:
 
     def _decode_y(self, idx):
         return C.decode_y_host(self.gaussian_encoder,
-                               C.fetch_async(C.index_buf(idx)), idx.shape,
-                               self.device, self.y_dtype, self.transfers)
+                               fetch_async(C.index_buf(idx)), idx.shape,
+                               self.device, self.y_dtype)
 
     def compress(self, x, q_scale):
         """x: (1, H, W, 3) NHWC in [0, 1], H and W multiples of 64.
@@ -295,12 +293,11 @@ class EVC:
                                                         means)
         scales1, means1 = _stage_spatial(p, y_hat_0, means, scales, q_step)
         packed1, y_hat_1 = st["enc_pass_k"](y_div, scales1, means1, None, 1)
-        fetch = C.fetch_async(C.pack_host([z_int8], [packed0, packed1]))
+        fetch = fetch_async(C.pack_host([z_int8], [packed0, packed1]))
         # the device reconstructs while the host codes
         x_hat = C.frame_to_nhwc(_stage_recon(p, y_hat_0, y_hat_1, q_step,
                                              q_scale))
         buf = fetch()
-        self.transfers["d2h"] += 1
         stream = C.code_host(self.entropy_coder, [(self.bit_estimator_z, 0)],
                              self.gaussian_encoder, buf, [z_int8.numel()],
                              [packed0.numel(), packed1.numel()])
@@ -313,7 +310,7 @@ class EVC:
         self.entropy_coder.set_stream(bit_stream)
         zh, zw = C.get_downsampled_shape(height, width, 64)
         z_hat = C.decode_z_host(self.bit_estimator_z, 0, zh, zw, self.device,
-                                self.dtype, self.transfers)
+                                self.dtype)
         q_step, scales, means = _stage_prior(p, z_hat)
         y_hat_0 = st["dec_restore_acc"](
             self._decode_y(st["dec_index_k"](scales, 0)), means, None, 0)

@@ -33,6 +33,7 @@ from ..layers.blocks import conv_apply, conv_init
 from ..ops import fused as F
 from ..utils import trace
 from ..utils.params import to_device
+from ..utils.transfer import fetch_async
 from . import common as C
 from .dmc_hem import _stage_spatial as _spatial_stack
 from .dmci_fm import gaussian_cfg
@@ -101,8 +102,7 @@ class IntraNoAR:
 
     device: torch device (default cuda; without CUDA that raises, and the
     CPU runs only when asked for).  dtype: float32 or bfloat16
-    activations.  `transfers` counts the host-EC copies: "d2h" the
-    fetches the host waits for, "h2d" the uploads."""
+    activations."""
 
     def __init__(self, device="cuda", N=192, anchor_num=4,
                  dtype=torch.float32):
@@ -117,7 +117,6 @@ class IntraNoAR:
         self.gaussian_encoder = GaussianEncoder(
             distribution="gaussian", scale_min=0.11, scale_max=64.0,
             scale_levels=256, support=50)
-        self.transfers = {"d2h": 0, "h2d": 0}
         self._stages = make_pass_stages(gaussian_cfg(self.gaussian_encoder),
                                         2)
         # finalize's outer multiplier (the JAX package's ones((), dtype))
@@ -153,8 +152,8 @@ class IntraNoAR:
 
     def _decode_y(self, idx):
         return C.decode_y_host(self.gaussian_encoder,
-                               C.fetch_async(C.index_buf(idx)), idx.shape,
-                               self.device, self.dtype, self.transfers)
+                               fetch_async(C.index_buf(idx)), idx.shape,
+                               self.device, self.dtype)
 
     @trace.spanned("intra_no_ar.compress", 1)
     def compress(self, x, q_scale):
@@ -170,11 +169,10 @@ class IntraNoAR:
         scales1, means1 = _stage_spatial(p, y_hat_0, means, scales, q_step)
         packed1, y_hat_1 = st["enc_pass_k"](y_div, scales1, means1, None, 1)
         y_hat = st["finalize_qstep"](y_hat_0, y_hat_1, q_step, self._one)
-        fetch = C.fetch_async(C.pack_host([z_int8], [packed0, packed1]))
+        fetch = fetch_async(C.pack_host([z_int8], [packed0, packed1]))
         # the device reconstructs while the host codes
         x_hat = C.frame_to_nhwc(_stage_recon(p, y_hat, q))
         buf = fetch()
-        self.transfers["d2h"] += 1
         stream = C.code_host(self.entropy_coder, [(self.bit_estimator_z, 0)],
                              self.gaussian_encoder, buf, [z_int8.numel()],
                              [packed0.numel(), packed1.numel()])
@@ -189,7 +187,7 @@ class IntraNoAR:
         self.entropy_coder.set_stream(bit_stream)
         zh, zw = C.get_downsampled_shape(height, width, 64)
         z_hat = C.decode_z_host(self.bit_estimator_z, 0, zh, zw, self.device,
-                                self.dtype, self.transfers)
+                                self.dtype)
         q_step, scales, means = _stage_prior(p, z_hat)
         y_hat_0 = st["dec_restore_acc"](
             self._decode_y(st["dec_index_k"](scales, 0)), means, None, 0)

@@ -35,6 +35,7 @@ from ..layers.gdn import gdn_apply, gdn_init
 from ..ops import fused as F
 from ..ops.fused import depth_to_space
 from ..utils.params import to_device
+from ..utils.transfer import fetch_async
 from . import common as C
 from .dcvc import _ARCoder, from_host_hwc, host_hwc, masked_conv_init
 from .dmci_fm import gaussian_cfg
@@ -76,7 +77,7 @@ def _gs_apply(p, y):
 
 def _host_f32(t):
     """A (1, C, H, W) plane on the host as float32 numpy (1, H, W, C)."""
-    return C.fetch_async(t.permute(0, 2, 3, 1).float().contiguous())()
+    return fetch_async(t.permute(0, 2, 3, 1).float().contiguous())()
 
 
 class _ZooBase:
@@ -125,7 +126,7 @@ class _ZooBase:
     def _encode_factorized(self, q_int8):
         """q_int8: (1, C, H, W) int8 on the device."""
         self.entropy_coder.reset()
-        self.bottleneck.encode_z(C.fetch_async(C.nhwc_flat(q_int8))(), 0)
+        self.bottleneck.encode_z(fetch_async(C.nhwc_flat(q_int8))(), 0)
         return self._segment()
 
     def _decode_factorized(self, shape_hw):

@@ -25,8 +25,6 @@ from ..utils import trace
 #: W1's dtype codes (csrc/flow_warp.cu)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: W1's launches in this process
-launches = 0
 _FN = []    # the ctypes function, looked up once
 
 
@@ -70,7 +68,6 @@ def flow_warp_plain(im, flow, mask=None):
 def _launch(im, flow, mask):
     """W1 on contiguous checked operands, on the current stream; a new
     output."""
-    global launches
     if not _FN:
         from . import _build
         _FN.append(_build.load_kernels()["flow_warp"].flow_warp_launch)
@@ -82,7 +79,6 @@ def _launch(im, flow, mask):
                  torch._C._cuda_getCurrentRawStream(im.get_device()))
     if err:
         raise RuntimeError(f"flow_warp launch failed: cudaError {err}")
-    launches += 1
     trace.count("warp.launch")
     return out
 

@@ -34,6 +34,7 @@ from ..training.train import (make_optimizer, make_train_step, tree_leaves,
                               trainable_leaves)
 from ..utils import checkpoint as ckpt
 from ..utils.params import from_jax, to_device, tree_map
+from ..utils.transfer import upload
 from .mesh import (batch_sharding, init_distributed, make_mesh,
                    replicate_sharding)
 
@@ -135,7 +136,7 @@ def _parity_rank(dev, spec):
         step = make_train_step(loss_fn, tx, grad_transform=grad_transform,
                                mesh=mesh, spatial=spec["spatial"])
         rng = torch.Generator(device=dev).manual_seed(2)
-        batch = C.upload(np.ascontiguousarray(batch), dev)
+        batch = upload(np.ascontiguousarray(batch), dev)
         t0 = time.perf_counter()
         params, _, metrics = step(params, tx.init(trainable_leaves(params)),
                                   batch, QP, rng)

@@ -56,6 +56,7 @@ from .training.train import (dcvc_stage_grad_transform, make_dcvc_loss,
 from .utils import checkpoint as ckpt
 from .utils.common import create_folder, str2bool
 from .utils.params import from_jax, to_device
+from .utils.transfer import upload
 
 
 def parse_args(argv=None):
@@ -242,7 +243,7 @@ def main(argv=None):
         qp = int(qp_rng.integers(args.qp_min, args.qp_max + 1))
         if mesh is not None:
             batch = np.ascontiguousarray(batch_sharding(mesh, batch))
-        batch = C.upload(batch, device)
+        batch = upload(batch, device)
         start = _mark(device)
         params, opt_state, metrics = step_fn(params, opt_state, batch, qp,
                                              noise_rng)

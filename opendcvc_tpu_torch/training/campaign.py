@@ -33,7 +33,7 @@ step), the counterpart of the JAX package's fold_in(PRNGKey(seed + 2),
 step); the straight-through quantizers draw no noise, so neither is read.
 The initial weights are the port's own init, drawn by torch.Generator
 from the seed (not the JAX package's).  Batches reach the device through
-`models/common.py::upload` (pinned, no wait).  The campaign runs on
+`utils/transfer.py::upload` (pinned, no wait).  The campaign runs on
 `device` (default cuda; without CUDA that raises unless device="cpu") and
 logs each stage's median ms a step (CUDA events on the card, the host's
 clock on the CPU) when the stage ends.
@@ -52,6 +52,7 @@ from ..models.dmci import dmci_init
 from ..train_video import _elapsed_ms, _mark
 from ..utils import checkpoint as ckpt
 from ..utils.params import from_jax, to_device
+from ..utils.transfer import upload
 from .forward import dmc_forward_one_frame, dmci_forward
 from .syndata import (ImageBank, Prefetcher, SeqBank, natural_images,
                       natural_seqs)
@@ -129,7 +130,7 @@ def _eval_probe(params, eval_imgs, qps, device):
     bits (no coder): PSNR and bpp at each qp."""
     def run(qp):
         with torch.no_grad():
-            outs = [dmci_forward(params, C.upload(img, device), qp)
+            outs = [dmci_forward(params, upload(img, device), qp)
                     for img in eval_imgs]
         return [(float(o["mse"]), float(o["bpp"])) for o in outs]
     return _probe_rows(qps, run)
@@ -140,8 +141,8 @@ def _eval_probe_dmc(params, eval_seqs, qps, device):
     def run(qp):
         with torch.no_grad():
             outs = [dmc_forward_one_frame(
-                params, C.upload(seq[1:2], device),
-                C.upload(seq[0:1], device), None, qp) for seq in eval_seqs]
+                params, upload(seq[1:2], device),
+                upload(seq[0:1], device), None, qp) for seq in eval_seqs]
         return [(float(o["mse"]), float(o["bpp"])) for o in outs]
     return _probe_rows(qps, run)
 
@@ -185,7 +186,7 @@ def _campaign(out_ckpt, params, loss_fn, bounds, make_gen, describe,
                     data, qp = pf.next()
                     start = _mark(device)
                     params, opt_state, metrics = step_fn(
-                        params, opt_state, C.upload(data, device), qp,
+                        params, opt_state, upload(data, device), qp,
                         _noise_rng(seed, i, device))
                     marks.append((start, _mark(device)))
                     i += 1
@@ -269,7 +270,7 @@ def _recon_refs(bank, groups, dmci_ckpt, device):
             sel = idxs[lo:lo + 8]
             refs = bank.bank[sel, 0].astype(np.float32) / 255.0
             with torch.no_grad():
-                rec = dmci_forward(ipar, C.upload(refs, device), qp)["x_hat"]
+                rec = dmci_forward(ipar, upload(refs, device), qp)["x_hat"]
             bank.bank[sel, 0] = np.round(np.clip(
                 rec.float().cpu().numpy(), 0, 1) * 255).astype(np.uint8)
 

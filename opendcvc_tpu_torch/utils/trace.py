@@ -42,12 +42,14 @@ Names (PERF.md's contract):
     the settle of a queued stream `dmc.finish`, `dmci.finish`;
   * `nn.<stage>` around the codecs' NN stages (`spanned()`);
   * `wait.<what>` where the host waits for the device (`wait()`):
-    `wait.fetch` (models/common.py::fetch_async), `wait.staging` (a
+    `wait.fetch` (utils/transfer.py::fetch_async), `wait.staging` (a
     staging's copy, entropy/device_rans.py);
-  * `upload` (the host's part of an upload), `coder.<call>` (the host rANS
-    coder's calls, entropy/coder.py);
+  * `upload` (the host's part of an upload, utils/transfer.py),
+    `coder.<call>` (the host rANS coder's calls, entropy/coder.py);
   * counters `k1.launch`, `k2.launch`, `slim.fetch`, `slim.miss`,
-    `d2h_bytes`, `h2d_bytes`, `ec.rerun`, `wait`; `warp.call` (every
+    `ec.rerun` (the device-EC ladders' reruns), `wait`; `d2h_bytes`,
+    `h2d_bytes` (the bytes of every copy utils/transfer.py makes, host
+    EC, device EC and training alike); `warp.call` (every
     `ops/warp.py::flow_warp` call), `warp.fused` (those on the CUDA
     kernel W1), `warp.launch` (W1's launches).
 """

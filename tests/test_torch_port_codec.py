@@ -27,6 +27,7 @@ from opendcvc_tpu.models import dmc as JDMC
 from opendcvc_tpu.models import dmci as JDMCI
 from opendcvc_tpu_torch.models import dmc as PDMC
 from opendcvc_tpu_torch.models import dmci as PDMCI
+from opendcvc_tpu_torch.utils import trace
 from opendcvc_tpu_torch.utils.params import from_jax
 from test_torch_port_lane_rans import _one_thread  # noqa: F401  (fixture)
 
@@ -278,12 +279,13 @@ def test_dmci_staging_ladder_matches_jax(jax_params, monkeypatch):
     pi.load_params(from_jax(jax_params["i"]))
     pi.update()
     x0, _ = _frames()
+    r0 = trace.counters().get("ec.rerun", 0)
     ps = pi.compress(x0, QP)["bit_stream"]
-    reruns = pi._ec_rerun_count
-    assert reruns > 0 and pi._ec_learned
+    r1 = trace.counters().get("ec.rerun", 0)
+    assert r1 - r0 > 0 and pi._ec_learned
     assert ps == ji.compress(jnp.asarray(x0), QP)["bit_stream"]
     assert pi.compress(x0, QP)["bit_stream"] == ps
-    assert pi._ec_rerun_count == reruns
+    assert trace.counters().get("ec.rerun", 0) == r1
     np.testing.assert_array_equal(
         pi.decompress(ps, SPS, QP)["x_hat"].numpy(),
         pi.compress(x0, QP)["x_hat"].numpy())

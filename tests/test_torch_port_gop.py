@@ -33,6 +33,7 @@ import torch
 from opendcvc_tpu.models import dmc as JDMC
 from opendcvc_tpu_torch.entropy import device_rans as PD
 from opendcvc_tpu_torch.models import dmc as PDMC
+from opendcvc_tpu_torch.utils import trace
 from opendcvc_tpu_torch.utils.params import from_jax
 from test_torch_port_lane_rans import _one_thread  # noqa: F401  (fixture)
 
@@ -201,6 +202,11 @@ def overflow(jax_params):
     return params, frames, feat0, streams, single.dpb[0].feature
 
 
+def _reruns():
+    """The device-EC ladders' reruns so far (the trace's `ec.rerun`)."""
+    return trace.counters().get("ec.rerun", 0)
+
+
 def _overflow_codec(params, feat0):
     net = PDMC.DMC(device="cpu", device_ec=True, bytes_per_symbol=0.05)
     net.load_params(params)
@@ -215,8 +221,9 @@ def test_gop_rerun_writes_per_frame_bytes(overflow):
     DPB ends at the per-frame path's feature."""
     params, frames, feat0, streams, feat_last = overflow
     gop = _overflow_codec(params, feat0)
+    r0 = _reruns()
     got = gop.compress_gop(frames[1:], QPS[1:])["bit_streams"]
-    assert gop._ec_rerun_count >= len(got)
+    assert _reruns() - r0 >= len(got)
     assert gop._ec_learned[(128, 128)] > 0.05
     assert got == streams[1:]
     assert torch.equal(gop.dpb[0].feature, feat_last)
@@ -227,13 +234,16 @@ def test_gop_chunks_settle_on_pool_threads(overflow):
     the interpreter switching threads every microsecond: each overflowing
     frame re-runs from its own carry-in feature, and the streams, rerun
     count and learned rate are those of settling the chunks one after
-    the other (a lost update to the codec's counters would show)."""
+    the other (a lost update to a counter would show)."""
     params, frames, feat0, streams, _ = overflow
     chunks = [(frames[1:3], QPS[1:3]), (frames[3:], QPS[3:])]
     serial = _overflow_codec(params, feat0)
+    r0 = _reruns()
     want = [fin() for fin in [serial.compress_gop_async(x, q)
                               for x, q in chunks]]
+    serial_reruns = _reruns() - r0
     net = _overflow_codec(params, feat0)
+    r0 = _reruns()
     fins = [net.compress_gop_async(x, q) for x, q in chunks]
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
@@ -245,7 +255,7 @@ def test_gop_chunks_settle_on_pool_threads(overflow):
         sys.setswitchinterval(interval)
     assert got == want
     assert got[0] + got[1] == streams[1:]
-    assert net._ec_rerun_count == serial._ec_rerun_count >= len(streams) - 1
+    assert _reruns() - r0 == serial_reruns >= len(streams) - 1
     assert net._ec_learned == serial._ec_learned
 
 

@@ -76,6 +76,7 @@ def imported():
 def test_package_modules_found():
     assert f"{PACKAGE}.models.dmc_dc" in MODULES
     assert f"{PACKAGE}.family_bench" in MODULES
+    assert f"{PACKAGE}.utils.transfer" in MODULES
     assert len(MODULES) > 40
 
 
@@ -86,3 +87,20 @@ def test_imports_without_jax(imported, module):
 
 def test_no_jax_module_loaded(imported):
     assert imported["leaked"] == []
+
+
+def test_entropy_imports_nothing_from_models():
+    """The device coder sits below the codecs: importing
+    `entropy.device_rans` loads no module of `models`."""
+    child = ("import json, sys; import opendcvc_tpu_torch.entropy."
+             "device_rans; print(json.dumps(sorted(m for m in sys.modules "
+             f"if m.startswith('{PACKAGE}.models'))))")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env.pop("PYTHONSTARTUP", None)
+    proc = subprocess.run(
+        [sys.executable, "-S", "-c", child], cwd=ROOT,
+        env=dict(env, PYTHONPATH=ROOT + os.pathsep
+                 + os.pathsep.join(p for p in sys.path if p)),
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []

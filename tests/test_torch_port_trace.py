@@ -16,7 +16,7 @@ frames.  Held:
     coder's calls, and the chunk's `dmc.finish` on the pool thread lands
     in the session;
   * `ec.rerun` counts the ladder's reruns (a 128x128 frame at 0.05 bytes
-    a symbol) as `_ec_rerun_count` does, and a forced window miss counts
+    a symbol): one frame's K1 calls less one, and a forced window miss counts
     one `slim.miss` of one `slim.fetch`, in the process totals and the
     session alike;
   * spans and counters from many threads at once lose no update.
@@ -278,15 +278,24 @@ def _rerun_codec(trees, **kw):
     return net, rng.random((1, 128, 128, 3), dtype=np.float32)
 
 
-def test_ec_rerun_counts_the_ladders_reruns(trees):
+def test_ec_rerun_counts_the_ladders_reruns(trees, monkeypatch):
+    """The witness counts the frame's calls of K1's wrapper `encode_scan`
+    (one a launch; `k1.launch` counts the CUDA launches only)."""
     net, x = _rerun_codec(trees, bytes_per_symbol=0.05)
-    r0, c0 = net._ec_rerun_count, trace.counters().get("ec.rerun", 0)
+    scan, calls = PDMC.encode_scan, []
+
+    def counted(*args):
+        calls.append(1)
+        return scan(*args)
+
+    monkeypatch.setattr(PDMC, "encode_scan", counted)
+    c0 = trace.counters().get("ec.rerun", 0)
     trace.enable()
     try:
         net.compress(x, QP)
     finally:
         trace.disable()
-    reruns = net._ec_rerun_count - r0
+    reruns = len(calls) - 1
     assert reruns >= 1
     assert trace.counters()["ec.rerun"] - c0 == reruns
     assert trace.last_session()["counters"]["ec.rerun"] == reruns

@@ -37,6 +37,7 @@ def frame_symbols(device, height, width):
     from opendcvc_tpu_torch.models import common as C
     from opendcvc_tpu_torch.models import dmc as D
     from opendcvc_tpu_torch.models import dmci as DI
+    from opendcvc_tpu_torch.utils.transfer import fetch_async
 
     frames = synthetic_frames(height, width, 2)
     i_net = DI.DMCI(device=device)
@@ -59,7 +60,7 @@ def frame_symbols(device, height, width):
         else:
             feature = D._stage_adaptor_i(net.params, x_hat)
             _, z, planes = D._encode_stages(net.params, x, feature, QP, FZ)
-        buf = C.fetch_async(D._pack_host(z, planes, FZ))()
+        buf = fetch_async(D._pack_host(z, planes, FZ))()
         (z_np,), ys, keeps = C.unpack_host(
             buf, [z.numel()], [planes[0][0].numel()] * len(planes),
             FZ is not None)

@@ -55,12 +55,12 @@ def _train_class(name):
 
 
 def _setup(model, dev):
-    from opendcvc_tpu_torch.models import common as C
     from opendcvc_tpu_torch.models.dmc import dmc_init
     from opendcvc_tpu_torch.models.dmci import dmci_init
     from opendcvc_tpu_torch.training import train as T
     from opendcvc_tpu_torch.training.data import SyntheticVideoDataset
     from opendcvc_tpu_torch.utils.params import to_device
+    from opendcvc_tpu_torch.utils.transfer import upload
     gen = torch.Generator().manual_seed(0)
     if model == "dmci":
         params, loss_img = dmci_init(gen), T.make_dmci_loss(256.0)
@@ -71,8 +71,8 @@ def _setup(model, dev):
     else:
         params, loss_fn = dmc_init(gen), T.make_dmc_loss(256.0)
         n_frames = 3
-    batch = C.upload(next(SyntheticVideoDataset(n_frames, CROP, seed=0)
-                          .batches(BATCH, 1)), dev)
+    batch = upload(next(SyntheticVideoDataset(n_frames, CROP, seed=0)
+                        .batches(BATCH, 1)), dev)
     return to_device(params, dev), loss_fn, batch
 
 
