@@ -41,7 +41,13 @@ Phases (any failure exits nonzero and prints no result):
      decoded frame equal to the encoder's;
   4. DMC at 1080p full width, device EC, seeded from phase 3's frame:
      four P-frames compress, then decompress, the decoder's feature equal
-     to the encoder's after every frame;
+     to the encoder's after every frame; then decompress again from the
+     reference under torch.profiler, every frame a replay of the CUDA
+     graph the first decode captured (opendcvc_tpu_torch/utils/graph.py):
+     the x_hats the first decode's, and the K2 (`lr_decode_kernel`) and
+     D1-D4 (`dcb_elementwise_*`) kernels the trace lists equal to the
+     launches the replays counted (`k2.launch`, `dcb.launch.*`), which
+     no host call made;
   5. a 64x64 I-frame coded on the GPU and on the CPU with the same
      weights, through device EC and through host EC: the CPU decodes the
      GPU's stream and the two agree (the CPU path is the one the test
@@ -77,7 +83,10 @@ Phases (any failure exits nonzero and prints no result):
      16 frames and its PSNR lies within 0.5 dB of the JSON's; K1 and K2
      launch in (b) and not in (a); per-frame PSNR is equal in (a) and
      (b).  Prints per run the harness's average frame times (frames
-     10-15), bpp, PSNR, test_time and the time outside the codec calls.
+     10-15), bpp, PSNR, test_time, the time outside the codec calls and
+     the decoder graphs' counters (`graph.call`, `graph.replay`,
+     `graph.capture`) over its qp cycle (21, 29, 25: one graph for each
+     container rung the streams hold, not for each qp).
   8. the port's benchmark, `opendcvc_tpu_torch.bench`, in process at
      bench.py's defaults: 1080p, 32 P-frames in GOP chunks of 8 (encode
      pipelined over two pool threads, chunk k + 1 uploaded before chunk
@@ -307,7 +316,8 @@ Phases (any failure exits nonzero and prints no result):
      NaN); (c) DMCI's I-frame, a DMC P-frame and a GOP chunk of 4 at
      1080p, device EC, encoded and decoded on the kernels, on the unfused
      chain (`ops/dcb_epilogue.py::epilogues` held to the plain twins)
-     and on the kernels again: streams and decoded frames equal byte for
+     and on the kernels again, the decoder's body eager (no CUDA graph;
+     phase 26 holds the graphs to it): streams and decoded frames equal byte for
      byte, `dcb.fused` equal to `dcb.block` on the kernels and 0 on the
      chain, the launches by kernel; (b) every distinct block call of (c)
      (adaptor, shortcut, quant step, widths, planes) on the kernels
@@ -334,6 +344,27 @@ Phases (any failure exits nonzero and prints no result):
      written once), the twin's ms and `F.grid_sample`'s (border padding,
      corners aligned, times the mask; the library yardstick, which the
      port never calls), printed as one {"warp_kernels": [...]} line.
+ 26. DMC's device-EC decoder body replayed from CUDA graphs
+     (opendcvc_tpu_torch/utils/graph.py, run after phase 25): a 1080p
+     period (a pixel reference, the first P-frame alone, 8 GOP chunks of
+     8) encoded in float32 and in bfloat16 (phase 4's weights and
+     force_zero_thres), then decoded as the benchmark decodes it (each
+     chunk's upload queued before the previous chunk's decode) by the
+     eager twin and twice on the graph path (the first decode captures,
+     the second replays every frame): all 65 x_hats and the features
+     after the first P-frame and after each chunk equal the twin's bit
+     for bit, and the features the encoder's; `graph.call`,
+     `graph.replay` and `graph.capture` as counted, K2's and D1-D4's
+     launches equal on both paths.  The first P-frame and chunk 0 (9
+     frames) decoded again eagerly and replayed, each under
+     torch.profiler: the K2 and D1-D4 kernels the trace lists in each
+     equal the launches the eager frames' host calls counted.  Then eager
+     against replay: host ms a P-frame in the decode calls, wall ms a
+     P-frame (synchronized), device ms and device operations a P-frame
+     from those two traces, the capture's ms
+     (a new key's first frame, its eager warm-up included, less an eager
+     frame's) and the bytes the graphs' memory pools hold, printed as one
+     {"graph_decode": [...]} line; the timed periods count no launches.
 The host coder's ms, the device->host waits' and the uploads' come from
 the port's trace (opendcvc_tpu_torch/utils/trace.py): a session around
 each timed call, summing its `coder.*`, `wait.fetch` and `upload` spans.
@@ -349,8 +380,13 @@ phases 15-20, after which they must read 0, and before each device-EC
 run of phase 21, before each of phase 23's parts, before phase 24 (c),
 and before phase 22, after which they must read 0;
 `launches` adds the device-EC runs of phases 7 (b), 8,
-9, 10 (a, and the checkpoints' coding in b), 12, 14, 21 (e, f), 23 and 24 to
-phases 3-4's, and `launches_by_run` splits it.
+9, 10 (a, and the checkpoints' coding in b), 12, 14, 21 (e, f), 23, 24 and
+26 to phases 3-4's, and `launches_by_run` splits it.  K2's launches in a
+frame that a CUDA graph replayed are its capture's counts, added by the
+replay (`graph.replay.k2.launch`): K2's record gives them by phase as
+`replayed_by_run`, and as `replayed_traced` the K2 kernels that
+torch.profiler listed in the replayed periods of phases 4 and 26, which
+those phases hold equal to the counts.
 W1's launches (`ops/warp.py::launches`) are held exact a frame wherever
 DCVC-FM or DCVC-HEM codes one in phases 11 (a), 12 (a, b), 14, 16 (a)
 and 23: FM_W1 / HEM_W1's (encoder, decoder) counts, 8 / 5 a P-frame,
@@ -422,6 +458,96 @@ def _reset_launches():
 def _launches():
     """[K1, K2] launches since the last _reset_launches()."""
     return [a - b for a, b in zip(_launch_totals(), _LAUNCH_BASE)]
+
+
+def _replayed_k2():
+    """K2 launches in this process that CUDA graphs' replays added from
+    their captures' counts (the counter `graph.replay.k2.launch`, a part
+    of `k2.launch`; utils/graph.py)."""
+    return _counter("graph.replay.k2.launch")
+
+
+def _replay_counted(store, name, fn, *args):
+    """fn(*args), the K2 launches its graph replays added stored as
+    store[name]; its result."""
+    n0 = _replayed_k2()
+    out = fn(*args)
+    store[name] = _replayed_k2() - n0
+    return out
+
+
+#: the kernels phases 4 and 26 count by name in a torch.profiler trace:
+#: K2 and the DepthConvBlock epilogues D1-D4 (csrc/lane_rans.cu,
+#: csrc/dcb_epilogue.cu)
+TRACED_KERNELS = {"k2": "lr_decode_kernel", "dcb": "dcb_elementwise"}
+
+
+def _dcb_launched():
+    """Every D1-D4 launch the port's trace counted (`dcb.launch.*`), and
+    the share of them that graph replays added (`graph.replay.dcb.*`)."""
+    c = _counter
+    return (sum(c("dcb.launch." + k) for k in DCB_KERNELS),
+            sum(c("graph.replay.dcb.launch." + k) for k in DCB_KERNELS))
+
+
+def _profiled(fn):
+    """fn() under torch.profiler (the host's and the device's activity),
+    synchronized:
+    (its result, {"k2": K2 kernels, "dcb": D1-D4 kernels, "ops": every
+    device operation, "ms": their summed device ms}), each kernel counted
+    by its name in the trace, whichever launched it, a host call or a
+    graph's replay."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # late in this script a trace lost the first device operations
+        # after its start (14 D1-D4 kernels and no K2 of a 9- and of a
+        # 65-frame window: the first P-frame's first blocks, it seems, in
+        # phase 26's eager window, none when the phase ran alone): warm-up
+        # work, a marker kernel (`torch.cuda._sleep`'s `spin_kernel`) and
+        # a pause come first, and only what starts after the marker counts
+        warm = torch.zeros(1024, device="cuda")
+        for _ in range(256):
+            warm.add_(1)
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(0.1)
+        out = fn()
+        torch.cuda.synchronize()
+    events = [ev for ev in prof.profiler.kineto_results.events()
+              if ev.device_type() == torch.autograd.DeviceType.CUDA
+              and not ev.is_user_annotation()]
+    marks = [_ev_ns(ev, "start") for ev in events
+             if "spin_kernel" in ev.name()]
+    if not marks:
+        _fail("the profiler's trace lost its marker kernel")
+    got = dict.fromkeys(TRACED_KERNELS, 0)
+    ns = ops = 0
+    for ev in events:
+        if _ev_ns(ev, "start") <= marks[-1]:
+            continue
+        ns += _ev_ns(ev, "duration")
+        ops += 1
+        for k, name in TRACED_KERNELS.items():
+            got[k] += name in ev.name()
+    got.update(ops=ops, ms=ns * 1e-6)
+    return out, got
+
+
+def _ev_ns(ev, what):
+    """A kineto event's start or duration in ns."""
+    fn = getattr(ev, what + "_ns", None)
+    return fn() if fn is not None else getattr(ev, what + "_us")() * 1000
+
+
+def _traced_launches(label, got, k2, dcb):
+    """Fail unless the profiler's K2 and D1-D4 kernels (`got`, from
+    _profiled) are the (k2, dcb) launches the port's trace counted over
+    the same frames."""
+    if (got["k2"], got["dcb"]) != (k2, dcb):
+        _fail(f"{label}: the profiler lists {got['k2']} K2 and "
+              f"{got['dcb']} D1-D4 kernels, the counters {k2} and {dcb}; "
+              f"{got['ops']} device operations in the trace")
 
 
 def _w1_launches():
@@ -951,6 +1077,7 @@ def phase_p(dev, x_ref, frames, qp, fz, dtype=torch.float32,
             _fail("DMC x_hat is not finite")
     bpp = [len(s) * 8 / (sps["height"] * sps["width"]) for s in streams]
     reruns = _counter("ec.rerun") - r0
+    traced = _replays_traced(dec_net, x_ref, streams, sps, qp, dec_x, label)
     _log(f"{label}: DMC P-frames enc ms " + " ".join(f"{t:.1f}" for t in
                                                      enc_ms)
          + " | dec ms " + " ".join(f"{t:.1f}" for t in dec_ms)
@@ -958,7 +1085,34 @@ def phase_p(dev, x_ref, frames, qp, fz, dtype=torch.float32,
          + f" | reruns {reruns}; feature chain exact")
     return {"params": enc_net.params, "feats": feats, "dec_x": dec_x,
             "bpp": bpp, "enc_ms": enc_ms, "dec_ms": dec_ms,
-            "streams": streams, "reruns": reruns}
+            "streams": streams, "reruns": reruns, "traced_k2": traced}
+
+
+def _replays_traced(dec_net, x_ref, streams, sps, qp, dec_x, label):
+    """Phase 4's P-frames decoded again from the reference, every frame a
+    replay of the graph the first decode captured, under torch.profiler:
+    the x_hats the first decode's, and the K2 and D1-D4 kernels the
+    trace lists the launches the counters' replays added.  Returns the
+    K2 kernels the profiler counted."""
+    dec_net.clear_dpb()
+    dec_net.add_ref_frame(None, x_ref)
+    c0, d0, r0 = _counter("k2.launch"), _dcb_launched(), _replayed_k2()
+    again, got = _profiled(lambda: [dec_net.decompress(s, sps, qp)["x_hat"]
+                                    for s in streams])
+    k2, replayed = _counter("k2.launch") - c0, _replayed_k2() - r0
+    if k2 != replayed:
+        _fail(f"{label}: a second decode of the P-frames did not replay "
+              f"every frame (K2 {k2}, {replayed} replayed)")
+    # D1-D4 also launch from the host outside the body (the I-frame
+    # reference's feature adaptor): the trace holds both
+    _traced_launches(f"{label} (replays)", got, k2,
+                     _dcb_launched()[0] - d0[0])
+    if not all(torch.equal(a, b) for a, b in zip(again, dec_x)):
+        _fail(f"{label}: the replayed P-frames differ from the first decode")
+    _log(f"{label}: {len(streams)} P-frames replayed: the profiler lists "
+         f"{got['k2']} K2 and {got['dcb']} D1-D4 kernels, the launches the "
+         f"replays counted; x_hats the first decode's")
+    return got["k2"]
 
 
 def phase_reference(dev, qp, fz):
@@ -1244,6 +1398,9 @@ def _host_sequence(dev, frames, qp, intra, p_run, i_net, p_net, sps, S,
 
 
 N_HARNESS = 16          # phase 7's frames (configs' UVG shape, cut)
+#: the port's trace counters of DMC's decoder graphs (utils/graph.py)
+GRAPH_COUNTERS = ("graph.call", "graph.replay", "graph.capture")
+QP_SHIFT_CYCLE = "0 / 8 / 4"    # the harness's qp shifts (its index_map)
 
 
 def _write_sequence(root, h, w, n):
@@ -1418,6 +1575,7 @@ def _harness_run(harness, root, seq, device_ec, n=N_HARNESS,
     undo = _record_codecs(harness, log)
     steps, undo_steps = _clock_harness(harness)
     _reset_launches()
+    g0 = {k: _counter(k) for k in GRAPH_COUNTERS}
     try:
         harness.main([
             "--test_config", cfg,
@@ -1435,6 +1593,7 @@ def _harness_run(harness, root, seq, device_ec, n=N_HARNESS,
         if saved is not None:
             os.environ["OPENDCVC_TPU_DEVICE_EC"] = saved
     launches = _launches()
+    graphs = {k: _counter(k) - g0[k] for k in GRAPH_COUNTERS}
     out_dir = os.path.join(root, tag, "synthetic")
     with open(os.path.join(out_dir, f"seq1080_q{QP}.json")) as f:
         job = json.load(f)
@@ -1472,7 +1631,8 @@ def _harness_run(harness, root, seq, device_ec, n=N_HARNESS,
          f"{psnr_files:.4f}), test_time {job['test_time']:.2f} s, codec "
          f"calls {log['codec_s']:.2f} s, outside the codecs {outside:.2f} s; "
          f".bin {n_bytes} B; K1 {launches[0]}, K2 {launches[1]} launches; "
-         f"decoder exact on all {n} frames")
+         f"decoder exact on all {n} frames; DMC's decoder graphs (qps "
+         f"{QP} + {QP_SHIFT_CYCLE}): {graphs}")
     _log(f"{mode}: harness host steps (s, {n} frames): "
          + ", ".join(f"{HARNESS_STEPS[k]} {v:.3f}" for k, v in steps.items()))
     return {"job": job, "launches": launches}
@@ -1825,8 +1985,10 @@ def phase_skip(dev, f32):
     coded = [("I", s) for s in intra["streams"]] + \
         [("P", s) for s in p_run["streams"] + g["streams"] + g["streams"]]
     reruns = intra["reruns"] + p_run["reruns"] + g["reruns"]
+    # phase_p decodes its P-frames twice (the second time replayed under
+    # the profiler)
     want = [len(coded) + reruns,
-            5 * len(intra["streams"]) + 3 * (len(p_run["streams"])
+            5 * len(intra["streams"]) + 3 * (2 * len(p_run["streams"])
                                              + len(g["streams"]))]
     if launches != want:
         _fail(f"{label}: K1/K2 launched {launches} times, the frames coded "
@@ -4923,6 +5085,15 @@ def _plain_blocks():
         E.epilogues = epilogues
 
 
+def _eager_decoders():
+    """DMC's device-EC decoder body run eagerly, as on the CPU, where it
+    would replay a CUDA graph (opendcvc_tpu_torch/utils/graph.py::eager):
+    for a phase that swaps the code a graph captured, or times the eager
+    twin."""
+    from opendcvc_tpu_torch.utils import graph as G
+    return G.eager()
+
+
 @contextlib.contextmanager
 def _recorded_blocks(store):
     """Keep each distinct block call (its parameters' shapes, x's shape,
@@ -5039,13 +5210,17 @@ def _dcb_codecs(dev, store):
     frames = synthetic_frames(H, W, 2 + N_DCB_GOP)
     nets = _dcb_nets(dev)
     c0 = _dcb_counts()
-    with _recorded_blocks(store):
-        fused = _dcb_chain(dev, nets, frames)
-    c1 = _dcb_counts()
-    with _plain_blocks():
-        plain = _dcb_chain(dev, nets, frames)
-    c2 = _dcb_counts()
-    again = _dcb_chain(dev, nets, frames)
+    # a graph would replay the kernels it captured under the chain, and
+    # record a block call at its capture only (phase 26 holds the graphs
+    # to this eager path)
+    with _eager_decoders():
+        with _recorded_blocks(store):
+            fused = _dcb_chain(dev, nets, frames)
+        c1 = _dcb_counts()
+        with _plain_blocks():
+            plain = _dcb_chain(dev, nets, frames)
+        c2 = _dcb_counts()
+        again = _dcb_chain(dev, nets, frames)
     on, off = _dcb_delta(c0, c1), _dcb_delta(c1, c2)
     if not on["dcb.block"] or on["dcb.fused"] != on["dcb.block"] \
             or off["dcb.fused"] or off["dcb.block"] != on["dcb.block"] \
@@ -5370,6 +5545,201 @@ def phase_warp(dev):
     return rows
 
 
+N_GRAPH_CHUNKS, N_GRAPH_GOP = 8, 8     # phase 26's period: 1 + 8 x 8 P
+
+
+def _graph_encode(dev, dtype, x_ref, frame):
+    """Phase 26's period encoded by phase 4's DMC (seed 1, flat q banks,
+    FZ): (weights, the first P-frame's stream, the chunks' streams, the
+    encoder's features after the first P-frame and after each chunk)."""
+    from opendcvc_tpu_torch.models.dmc import DMC
+    enc = DMC(device=dev, device_ec=True, dtype=dtype)
+    enc.init_params(seed=1)
+    enc.params["q_encoder"] = torch.ones_like(enc.params["q_encoder"]) * 0.25
+    enc.params["q_decoder"] = torch.ones_like(enc.params["q_decoder"])
+    enc.update(force_zero_thres=FZ)
+    enc.add_ref_frame(None, x_ref)
+    s1 = enc.compress(frame(1), QP)["bit_stream"]
+    feats, chunks = [enc.dpb[0].feature], []
+    for c in range(N_GRAPH_CHUNKS):
+        lo = 2 + c * N_GRAPH_GOP
+        chunks.append(enc.compress_gop(
+            [frame(t) for t in range(lo, lo + N_GRAPH_GOP)],
+            [QP] * N_GRAPH_GOP)["bit_streams"])
+        feats.append(enc.dpb[0].feature)
+    return enc.params, s1, chunks, feats
+
+
+def _graph_decode(dec, dev, x_ref, s1, chunks):
+    """Decode phase 26's period as the benchmark does: (the 65 x_hats,
+    the features after the first P-frame and after each chunk, host ms in
+    the calls, wall ms to the decode's end)."""
+    sps = {"height": x_ref.shape[1], "width": x_ref.shape[2]}
+    qps = [QP] * N_GRAPH_GOP
+    _sync(dev)
+    t0 = time.perf_counter()
+    dec.clear_dpb()
+    dec.set_curr_poc(0)
+    dec.add_ref_frame(None, x_ref)
+    xs = [dec.decompress(s1, sps, QP)["x_hat"]]
+    feats = [dec.dpb[0].feature]
+    up = dec.upload_gop(chunks[0], sps)
+    for i, chunk in enumerate(chunks):
+        nxt = dec.upload_gop(chunks[i + 1], sps) \
+            if i + 1 < len(chunks) else None
+        out = dec.decompress_gop(chunk, sps, qps) if up is None \
+            else dec.decompress_gop_uploaded(up, sps, qps)
+        xs.extend(out["x_hat"])
+        feats.append(dec.dpb[0].feature)
+        up = nxt
+    host_ms = (time.perf_counter() - t0) * 1e3
+    _sync(dev)
+    return xs, feats, host_ms, (time.perf_counter() - t0) * 1e3
+
+
+def _graph_row(dev, dtype):
+    """Phase 26 for one dtype; returns its row."""
+    from opendcvc_tpu_torch.models.dmc import DMC
+    base = torch.from_numpy(synthetic_frames(H, W, 1)[0]).to(dev)
+
+    def frame(t):
+        return torch.roll(base, 4 * t, dims=2).to(dtype)
+
+    x_ref = frame(0)
+    params, s1, chunks, enc_feats = _graph_encode(dev, dtype, x_ref, frame)
+    n = 1 + N_GRAPH_CHUNKS * N_GRAPH_GOP
+    n_traced = 1 + N_GRAPH_GOP      # the profiled frames
+    label = f"phase 26 {str(dtype)[6:]}"
+
+    def decoder():
+        dec = DMC(device=dev, device_ec=True, dtype=dtype)
+        dec.load_params(params)
+        dec.update(force_zero_thres=FZ)
+        return dec
+
+    def decode(dec, n_chunks=N_GRAPH_CHUNKS):
+        return _graph_decode(dec, dev, x_ref, s1, chunks[:n_chunks])
+
+    def traced(dec):
+        """The first P-frame and chunk 0 under the profiler:
+        (its counts, the K2 and D1-D4 launches the counters saw)."""
+        k0, d0 = _counter("k2.launch"), _dcb_launched()
+        _, got = _profiled(lambda: decode(dec, 1))
+        return got, (_counter("k2.launch") - k0,
+                     _dcb_launched()[0] - d0[0])
+
+    eager = decoder()
+    with _eager_decoders():
+        k0, d0 = _counter("k2.launch"), _dcb_launched()
+        want_x, want_f, _, _ = decode(eager)
+        k2_eager = _counter("k2.launch") - k0
+        dcb_eager = _dcb_launched()[0] - d0[0]
+        traced_e, counted_e = traced(eager)
+    _traced_launches(f"{label} (eager)", traced_e, *counted_e)
+    dec = decoder()
+    names = ("graph.call", "graph.replay", "graph.capture", "k2.launch",
+             "graph.replay.k2.launch")
+    for run in ("captures", "replays"):
+        c0, d0 = {k: _counter(k) for k in names}, _dcb_launched()
+        xs, feats, _, _ = decode(dec)
+        got = {k: _counter(k) - c0[k] for k in c0}
+        dcb = [a - b for a, b in zip(_dcb_launched(), d0)]
+        bad = sum(not torch.equal(a, b) for a, b in zip(xs, want_x))
+        bad_f = sum(not torch.equal(a, b) for a, b in zip(feats, want_f))
+        bad_e = sum(not torch.equal(a, b) for a, b in zip(feats, enc_feats))
+        if len(xs) != n or bad or bad_f or bad_e:
+            _fail(f"{label} ({run}): {bad} of {len(xs)} x_hats, {bad_f} "
+                  f"and {bad_e} of {len(feats)} features differ from the "
+                  f"eager twin's and the encoder's")
+        if got["k2.launch"] != k2_eager or dcb[0] != dcb_eager or \
+                got["graph.call"] != n or (run == "replays" and (
+                    got["graph.replay"] != n
+                    or got["graph.replay.k2.launch"] != k2_eager)):
+            _fail(f"{label} ({run}): counters {got}, D1-D4 {dcb}; eager K2 "
+                  f"{k2_eager}, D1-D4 {dcb_eager}")
+        _log(f"{label} ({run}): {n} frames bit for bit the eager twin's, "
+             f"features the encoder's; {got}, D1-D4 {dcb[0]} launches "
+             f"({dcb[1]} added by replays)")
+        del xs, feats
+    del want_x, want_f
+    # every frame a replay: the replays' kernels as the profiler lists
+    # them, against the eager decode's launches (each counted by its host
+    # call) over the same frames
+    traced_r, counted_r = traced(dec)
+    if counted_r != counted_e:
+        _fail(f"{label}: {n_traced} replayed frames counted {counted_r} "
+              f"K2 / D1-D4 launches, the eager ones {counted_e}")
+    _traced_launches(f"{label} (replays)", traced_r, *counted_e)
+    _log(f"{label}: the profiler lists {traced_r['k2']} K2 and "
+         f"{traced_r['dcb']} D1-D4 kernels in {n_traced} replayed frames, "
+         f"{traced_e['k2']} and {traced_e['dcb']} in the eager ones")
+
+    row = {"dtype": str(dtype)[6:], "frames": n, "keys": len(dec._graphs),
+           "k2_traced": {"eager": traced_e["k2"], "replay": traced_r["k2"]},
+           "dcb_traced": {"eager": traced_e["dcb"],
+                          "replay": traced_r["dcb"]}}
+    # the timed periods count nothing: their launches are not the
+    # profiler's to check
+    with trace_counted_into({}):
+        with _eager_decoders():
+            decode(eager)
+            _, _, host, wall = decode(eager)
+            # an eager frame, synchronized, for the capture's cost
+            _, eager_ms = _timed(lambda: eager.decompress(s1, {
+                "height": x_ref.shape[1], "width": x_ref.shape[2]}, QP),
+                dev)
+        row["eager"] = {"host_ms": host / n, "wall_ms": wall / n,
+                        "device_ms": traced_e["ms"] / n_traced,
+                        "launches": traced_e["ops"] / n_traced}
+        _, _, host, wall = decode(dec)
+        row["replay"] = {"host_ms": host / n, "wall_ms": wall / n,
+                         "device_ms": traced_r["ms"] / n_traced,
+                         "launches": traced_r["ops"] / n_traced}
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_reserved(dev)
+        dec._graphs.clear()
+        torch.cuda.empty_cache()
+        row["pool_bytes"] = held - torch.cuda.memory_reserved(dev)
+        # a new key's first frame: the eager warm-up and the capture
+        dec.clear_dpb()
+        dec.add_ref_frame(None, x_ref)
+        _, first_ms = _timed(lambda: dec.decompress(s1, {
+            "height": x_ref.shape[1], "width": x_ref.shape[2]}, QP), dev)
+    row["capture_ms"] = first_ms - eager_ms
+    row["eager_frame_ms"] = eager_ms
+    e, r = row["eager"], row["replay"]
+    _log(f"{label}: a P-frame eager / replay: host {e['host_ms']:.3f} / "
+         f"{r['host_ms']:.3f} ms, wall {e['wall_ms']:.3f} / "
+         f"{r['wall_ms']:.3f} ms, device {e['device_ms']:.3f} / "
+         f"{r['device_ms']:.3f} ms, launches {e['launches']:.1f} / "
+         f"{r['launches']:.1f}; capture {row['capture_ms']:.1f} ms; "
+         f"{row['keys']} graphs' pools {row['pool_bytes'] / 2**30:.3f} GiB")
+    return row
+
+
+def trace_counted_into(counts):
+    """The port's trace's counted_into (utils/trace.py): this thread's
+    counts go to `counts` alone."""
+    from opendcvc_tpu_torch.utils import trace
+    return trace.counted_into(counts)
+
+
+def phase_graph(dev):
+    """Phase 26: DMC's decoder body replayed from CUDA graphs against its
+    eager twin, bit for bit, its replayed K2 and D1-D4 kernels counted
+    from a profiler's trace, then timed.  Returns the K1 / K2 launches
+    and the K2 kernels the profiler counted in replayed periods."""
+    t0 = time.perf_counter()
+    _reset_launches()
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        rows.append(_graph_row(dev, dtype))
+        torch.cuda.empty_cache()
+    print(json.dumps({"graph_decode": rows}), flush=True)
+    _log(f"phase 26 done in {time.perf_counter() - t0:.1f} s")
+    return _launches(), sum(r["k2_traced"]["replay"] for r in rows)
+
+
 def _w1_record(rows, runs):
     """W1's record of the `kernels` line: phase 25's float32 offset
     diversity call (the largest) as its head, every row as its shapes,
@@ -5421,8 +5791,12 @@ def main():
 
     frames = synthetic_frames(H, W, 5)
     _reset_launches()
+    replayed = {}
+    r0 = _replayed_k2()
     intra = phase_intra(dev, frames[0], QP, FZ)
     p_run = phase_p(dev, intra["x_hat"], frames[1:], QP, FZ)
+    replayed["phases 3-4"] = _replayed_k2() - r0
+    traced = {"phases 3-4": p_run["traced_k2"]}
     f32 = _times(intra, p_run)
     launches = _launches()
     _log(f"main path launches: K1 {launches[0]}, K2 {launches[1]}")
@@ -5446,12 +5820,16 @@ def main():
         seq = _write_sequence(root, H, W, N_HARNESS)
         _log(f"phase 7: {N_HARNESS} frames of {W}x{H} YUV420 written in "
              f"{time.perf_counter() - t0:.1f} s")
-        stream7 = phase_harness(root, seq)
+        stream7 = _replay_counted(replayed, "phase 7 device EC",
+                                  phase_harness, root, seq)
         runs = {"phase 7 device EC": stream7["launches"],
-                "phase 8": phase_bench(dev)}
-        runs.update(phase_bf16(dev, frames, f32, root, seq))
-        runs.update(phase_training_slice(dev, f32, root,
-                                         stream7["job"]))
+                "phase 8": _replay_counted(replayed, "phase 8",
+                                           phase_bench, dev)}
+        runs.update(_replay_counted(replayed, "phase 9", phase_bf16, dev,
+                                    frames, f32, root, seq))
+        runs.update(_replay_counted(replayed, "phase 10",
+                                    phase_training_slice, dev, f32, root,
+                                    stream7["job"]))
         w1_runs = {}
         fm_host = _w1_counted(w1_runs, "phase 11 FM host EC", phase_fm,
                               dev, root)
@@ -5470,15 +5848,21 @@ def main():
         phase_evc(dev, root)
         _w1_counted(w1_runs, "phase 19 DCVC", phase_dcvc, dev, root)
         phase_zoo(dev)
-        runs["phase 21"] = _w1_counted(w1_runs, "phase 21",
-                                       phase_training_extras, dev, root)
+        runs["phase 21"] = _replay_counted(
+            replayed, "phase 21", _w1_counted, w1_runs, "phase 21",
+            phase_training_extras, dev, root)
         torch.cuda.empty_cache()
-        runs["phase 23"] = _w1_counted(w1_runs, "phase 23", phase_slice15,
-                                       dev, root)
+        runs["phase 23"] = _replay_counted(
+            replayed, "phase 23", _w1_counted, w1_runs, "phase 23",
+            phase_slice15, dev, root)
         torch.cuda.empty_cache()
-        runs["phase 24"] = phase_dcb(dev)
+        runs["phase 24"] = _replay_counted(replayed, "phase 24", phase_dcb,
+                                           dev)
         torch.cuda.empty_cache()
         warp_rows = _w1_counted(w1_runs, "phase 25", phase_warp, dev)
+        torch.cuda.empty_cache()
+        runs["phase 26"], traced["phase 26"] = _replay_counted(
+            replayed, "phase 26", phase_graph, dev)
         torch.cuda.empty_cache()
         _reset_launches()
         phase_multi_gpu(root)
@@ -5489,6 +5873,10 @@ def main():
         for name, n in runs.items():
             k["launches_by_run"][name] = n[i]
             k["launches"] += n[i]
+    # K2's launches that graph replays added (their captures' counts), by
+    # run; in phases 4 and 26 the profiler lists each replayed kernel
+    kernels[1]["replayed_by_run"] = {k: n for k, n in replayed.items() if n}
+    kernels[1]["replayed_traced"] = traced
     kernels.append(_w1_record(warp_rows, w1_runs))
 
     card = _card()

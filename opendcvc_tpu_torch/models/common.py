@@ -105,8 +105,11 @@ def q_vec(bank, qp, dtype=None):
     """A qp's row of a bank as a (1, C, 1, 1) multiplier in `dtype`, the
     activation's (default: the bank's own): a float32 bank (a checkpoint
     loaded into a bfloat16 codec) must not promote the activation to
-    float32."""
-    return bank[qp][None, :, None, None].to(dtype or bank.dtype)
+    float32.  qp is an int, or a (1,) int64 tensor on the bank's device
+    (a CUDA graph's input): the same row, gathered without a host read."""
+    row = bank.index_select(0, qp) if isinstance(qp, torch.Tensor) \
+        else bank[qp][None]
+    return row[:, :, None, None].to(dtype or bank.dtype)
 
 
 # ---------------------------------------------------------------------------

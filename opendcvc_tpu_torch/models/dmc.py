@@ -29,7 +29,11 @@ Entropy coding has two modes, as in the JAX package (`device_ec`):
     container is the JAX package's "tpu-lane" v6.  The K1 launch returns
     at once; the staging's copy to the host completes in the callable
     that compress_async returns.  GOP coding (device EC) runs N frames through the same
-    stages with one copy or one upload for the chunk.
+    stages with one copy or one upload for the chunk.  On a card the
+    decoder's body (`_decompress_frame_core`, K2 launches included)
+    replays from a CUDA graph captured once per frame size and container
+    rung, qp being one of its inputs (utils/graph.py); on the CPU and
+    under autograd it runs eagerly.
 Both write the JAX package's bytes.
 """
 
@@ -57,6 +61,7 @@ from ..ops.lane_rans import (DEC_SKIP, ENC_SKIP, decode_scan, encode_scan,
                               prepare_encode_table)
 from ..utils import trace
 from ..utils.common import env_flag
+from ..utils.graph import BodyGraphs
 from ..utils.params import cast_floating, to_device
 from ..utils.transfer import fetch_async
 from . import common as C
@@ -530,20 +535,33 @@ def _compress_gop(p, xs, feature_in, qps, lanes, n_y_rows, enc_table, mw,
     return feat, torch.stack(segs), feats_in
 
 
+def _z_table(dec_table, n_y_rows, qp):
+    """qp's G_CH_Z z rows of a prepared table: a slice for an int qp, a
+    gather for a (1,) int64 tensor on the table's device (no host
+    read)."""
+    if not isinstance(qp, torch.Tensor):
+        z_base = n_y_rows + qp * G_CH_Z
+        return dec_table[z_base:z_base + G_CH_Z]
+    rows = torch.arange(G_CH_Z, device=qp.device) + (n_y_rows
+                                                      + qp * G_CH_Z)
+    return dec_table.index_select(0, rows)
+
+
 def _decompress_frame_core(p, staging, feature, qp, dec_table, n_y_rows,
                            zh, zw, lanes, cap, mw, fz=None, kyc=0):
     """Decoder body on an adapted feature: compact staging -> (next
     reference feature, x_hat NCHW).  The three K2 launches share one rANS
     state/pointer carry and read row slices of the prepared decode table;
-    every shared stage is the code the encoder ran."""
+    every shared stage is the code the encoder ran.  qp is an int or a
+    (1,) int64 tensor on the device (`C.q_vec`, `_z_table`): the same
+    rows either way."""
     x1, ctx_t = _stage_fe_part1(p, feature, qp)
     data, states = _undensify_device(staging, cap, lanes, mw)
     carry = (states, torch.zeros((lanes,), dtype=torch.int32,
                                  device=data.device))
     n_z = zh * zw * G_CH_Z
-    z_base = n_y_rows + qp * G_CH_Z
     z_syms, carry = _dec_plane(data, _z_rows(n_z, G_CH_Z, data.device),
-                               dec_table[z_base:z_base + G_CH_Z], carry,
+                               _z_table(dec_table, n_y_rows, qp), carry,
                                lanes)
     z_hat = _cm_unflat(z_syms, (1, G_CH_Z, zh, zw)).to(x1.dtype)
     params_prior = _stage_prior(p, z_hat, ctx_t)
@@ -633,6 +651,9 @@ class DMC:
         self.enc_table = None
         self.dec_table = None
         self.n_y_rows = 0
+        # qp ids on the device: the decoder body takes its qp as a (1,)
+        # slice of them, so one CUDA graph serves every qp
+        self._qp_ids = None
 
         self.dpb = []
         self.max_dpb_size = 1
@@ -644,6 +665,9 @@ class DMC:
         # the encode copy's window for each staging capacity
         # (entropy/device_rans.py::slim_fetch)
         self._fetch_windows = {}
+        # the device-EC decoder body's CUDA graphs, dropped whenever the
+        # weights or the tables they read by address change
+        self._graphs = BodyGraphs()
 
     # -- setup ---------------------------------------------------------------
 
@@ -653,18 +677,23 @@ class DMC:
         gen = torch.Generator().manual_seed(seed)
         self.params = to_device(cast_floating(dmc_init(gen), self.dtype),
                                 self.device)
+        self._graphs.clear()
         return self.params
 
     def load_params(self, params):
         self.params = to_device(params, self.device)
+        self._graphs.clear()
 
     def update(self, force_zero_thres=None):
         """Build the CDF tables.  Host EC: register them with a new host
         coder (group 0 the gaussian scale rows, group 1 the z rows by qp,
         channel).  Device EC: rows [0, n_y) are the gaussian scale rows,
         rows n_y + qp * 128 + channel the z rows; K1 and K2 read slices of
-        their prepared forms, `enc_table` and `dec_table`."""
+        their prepared forms, `enc_table` and `dec_table`.  Drops the
+        decoder's CUDA graphs, which read the weights and tables by
+        address, so the next decode reads those set before this call."""
         self.force_zero_thres = force_zero_thres
+        self._graphs.clear()
         if not self.device_ec:
             self.entropy_coder = EntropyCoder()
             self.gaussian_encoder.update(self.entropy_coder,
@@ -680,6 +709,7 @@ class DMC:
             np.concatenate([y_rows, z_rows])).to(self.device)
         self.enc_table = prepare_encode_table(table)
         self.dec_table = prepare_decode_table(table)
+        self._qp_ids = torch.arange(C.QP_NUM + EXTRA_QP, device=self.device)
 
     def set_use_two_entropy_coders(self, b):
         """Split each plane between two host coders (the harness's choice
@@ -872,19 +902,43 @@ class DMC:
 
     # -- decompress ----------------------------------------------------------
 
-    def _decode_staged(self, meta, staging, feature, sps, qp):
+    @staticmethod
+    def _x_hats(n, feature):
+        """An (n, 1, H, W, 3) NHWC buffer for n frames decoded from
+        features like `feature` ((1, C, H / 8, W / 8): H and W padded, not
+        the sps's picture size)."""
+        _, _, h, w = feature.shape
+        return feature.new_empty((n, 1, 8 * h, 8 * w, 3))
+
+    def _decode_staged(self, meta, staging, feature, sps, qp, x_out):
         """Device-EC decoder body on an adapted feature and an uploaded
-        staging; returns (next reference feature, x_hat NCHW)."""
-        zh, zw = C.get_downsampled_shape(sps["height"], sps["width"], 64)
-        return _decompress_frame_core(
-            self.params, staging, feature, qp, self.dec_table, self.n_y_rows,
-            zh, zw, meta["L"], meta["cap"], meta["MW"],
-            self.force_zero_thres, meta["kyc"])
+        staging: writes x_hat into `x_out` (NHWC (1, H, W, 3)) and returns
+        the next reference feature, a tensor of its own.  On a card it
+        replays from the CUDA graph of its key: the frame size, the
+        container's (L, MW, cap, kyc), force_zero_thres, dtype and device
+        (utils/graph.py).  qp is an input of the graph, a (1,) slice of
+        the device's qp ids, so frames at any qps share one graph."""
+        h, w = sps["height"], sps["width"]
+        zh, zw = C.get_downsampled_shape(h, w, 64)
+        fz = self.force_zero_thres
+        lanes, mw, cap, kyc = meta["L"], meta["MW"], meta["cap"], meta["kyc"]
+
+        def body(staging, feature, qp):
+            return _decompress_frame_core(
+                self.params, staging, feature, qp, self.dec_table,
+                self.n_y_rows, zh, zw, lanes, cap, mw, fz, kyc)
+
+        key = (feature.dtype, feature.device, h, w, lanes, mw, cap, kyc, fz)
+        return self._graphs.run(
+            key, body, (staging, feature, self._qp_ids[qp].reshape(1)),
+            self.params, (None, x_out.permute(0, 3, 1, 2)))[0]
 
     def _decompress_device(self, bit_stream, sps, qp):
         metas, stagings = upload_stagings([bit_stream], self.device)
-        return self._decode_staged(metas[0], stagings[0],
-                                   self.apply_feature_adaptor(), sps, qp)
+        feature = self.apply_feature_adaptor()
+        x_hat = self._x_hats(1, feature)[0]
+        return self._decode_staged(metas[0], stagings[0], feature, sps, qp,
+                                   x_hat), x_hat
 
     @trace.spanned("dmc.upload_gop")
     def upload_gop(self, bit_streams, sps):
@@ -900,7 +954,8 @@ class DMC:
 
     def decompress_gop_uploaded(self, uploaded, sps, qps):
         """Decode an upload_gop chunk at `qps` against the DPB's feature:
-        each frame runs the single-frame decoder's stages.  Returns
+        each frame runs the single-frame decoder's stages (`_decode_staged`,
+        a graph's replay on a card).  Returns
         {"x_hat": (N, 1, H, W, 3)} NHWC; the DPB ends at the last frame's
         (feature, x_hat)."""
         self._check_gop("decompress_gop_uploaded")
@@ -908,15 +963,15 @@ class DMC:
         if len(qps) != n:
             raise ValueError(f"{len(qps)} qps for a chunk of {n} frames")
         with trace.span("dmc.decompress_gop", n):
-            feat, x_hats = self.dpb[0].feature, []
-            for staging, qp in zip(stagings, qps):
-                feat, x_hat = self._decode_staged(
+            feat = self.dpb[0].feature
+            x_hats = self._x_hats(n, feat)
+            for staging, qp, x_hat in zip(stagings, qps, x_hats):
+                feat = self._decode_staged(
                     meta, staging, _stage_adaptor_p(self.params, feat), sps,
-                    int(qp))
-                x_hats.append(C.frame_to_nhwc(x_hat))
+                    int(qp), x_hat)
             self.add_ref_frame(feat, x_hats[-1], increase_poc=False)
             self.curr_poc += n
-            return {"x_hat": torch.stack(x_hats)}
+            return {"x_hat": x_hats}
 
     def decompress_gop(self, bit_streams, sps, qps):
         """GOP decode (device EC) of N streams at `qps`; a chunk of mixed
@@ -936,7 +991,7 @@ class DMC:
         while the device runs the feature extractor's first part; each y
         pass's indexes are fetched (the host waits) and its symbols
         uploaded.  A stream that is not exactly the frame's symbols raises
-        ValueError.  Returns (next reference feature, x_hat NCHW)."""
+        ValueError.  Returns (next reference feature, x_hat NHWC)."""
         p, fz, coder = self.params, self.force_zero_thres, self.entropy_coder
         zh, zw = C.get_downsampled_shape(sps["height"], sps["width"], 64)
         coder.set_use_two_entropy_coders(sps["ec_part"] == 1)
@@ -970,7 +1025,8 @@ class DMC:
 
         feature_out = _stage_feature_out(p, y_hat_0, y_hat_1, params_prior,
                                          ctx, qp)
-        return feature_out, _stage_recon_x(p, feature_out, qp)
+        return feature_out, C.frame_to_nhwc(_stage_recon_x(p, feature_out,
+                                                           qp))
 
     @trace.spanned("dmc.decompress", 1)
     def decompress(self, bit_stream, sps, qp):
@@ -980,6 +1036,5 @@ class DMC:
             feature_out, x_hat = self._decompress_device(bit_stream, sps, qp)
         else:
             feature_out, x_hat = self._decompress_host(bit_stream, sps, qp)
-        x_hat = C.frame_to_nhwc(x_hat)
         self.add_ref_frame(feature_out, x_hat)
         return {"x_hat": x_hat}

@@ -31,7 +31,11 @@ nested in it carry its ids, and an entry span nested in it counts nothing.
 settle) to carry as `frame` (a range).
 
 Counters are process totals, always on (`counters()`, `reset_counters()`),
-and are added to an open session too.
+and are added to an open session too.  Inside `counted_into(d)` a
+thread's counts go to the dict `d` alone: a CUDA graph's capture counts
+nothing, and each replay adds what its capture would have counted
+(`add_counts`), so counters read as if every frame ran eagerly, and
+adds it again under `graph.replay.<name>`.
 
 Names (PERF.md's contract):
   * entry points `dmci.compress`, `dmci.decompress`, `dmc.compress`,
@@ -51,7 +55,12 @@ Names (PERF.md's contract):
     `h2d_bytes` (the bytes of every copy utils/transfer.py makes, host
     EC, device EC and training alike); `warp.call` (every
     `ops/warp.py::flow_warp` call), `warp.fused` (those on the CUDA
-    kernel W1), `warp.launch` (W1's launches).
+    kernel W1), `warp.launch` (W1's launches); `graph.call` (every frame
+    through a body utils/graph.py can replay: DMC's device-EC decoder),
+    `graph.replay` (those replayed from a CUDA graph), `graph.capture`
+    (the graphs captured), `graph.replay.<name>` (the share of counter
+    `<name>`, such as `graph.replay.k2.launch`, that replays added from
+    their capture's counts rather than a host call).
 """
 
 import contextlib
@@ -64,7 +73,7 @@ import torch
 _AP = torch.autograd.profiler     # ._is_profiler_enabled: any thread's
 _NULL = contextlib.nullcontext()
 _lock = threading.Lock()
-_local = threading.local()       # .ids (range or None), .entry (bool)
+_local = threading.local()   # .ids (range or None), .entry (bool), .into
 
 _session = None        # the open session's totals, or None
 _by_profiler = False   # the open session follows a profiler recording
@@ -141,13 +150,42 @@ def reset_counters():
 
 
 def count(name, n=1):
-    """Add n to counter `name`: the process total and an open session's."""
+    """Add n to counter `name`: the process total and an open session's,
+    or, inside counted_into(d) on this thread, d's alone."""
+    into = getattr(_local, "into", None)
+    if into is not None:
+        into[name] = into.get(name, 0) + n
+        return
     s = _sync() if _session is not None or _AP._is_profiler_enabled \
         else None
     with _lock:
         _totals[name] = _totals.get(name, 0) + n
         if s is not None:
             s["counters"][name] = s["counters"].get(name, 0) + n
+
+
+def add_counts(counts):
+    """Add each counter's n in `counts` ({name: n}) under one lock, to the
+    process totals and an open session (a replay's counts)."""
+    s = _sync() if _session is not None or _AP._is_profiler_enabled \
+        else None
+    with _lock:
+        for name, n in counts.items():
+            _totals[name] = _totals.get(name, 0) + n
+            if s is not None:
+                s["counters"][name] = s["counters"].get(name, 0) + n
+
+
+@contextlib.contextmanager
+def counted_into(counts):
+    """Send this thread's counts to the dict `counts` alone while the body
+    runs (a CUDA graph's capture)."""
+    prev = getattr(_local, "into", None)
+    _local.into = counts
+    try:
+        yield counts
+    finally:
+        _local.into = prev
 
 
 def frame_ids():

@@ -3,6 +3,7 @@
 
     python3 tools/profile_torch_port.py [--frames 2] [--dtype bfloat16]
         [--codec rt|fm|dc|hem|tcm|evc|dcvc] [--size HxW] [--trace PATH]
+        [--eager]
 
 Every codec runs in --dtype (float32 or bfloat16).  --codec rt (the
 default) codes 1080p P-frames with DMC at full width on the device-EC
@@ -35,11 +36,16 @@ each entry point by the port's innermost `nn.*` / `wait.*` span around
 the launch (the port's trace, opendcvc_tpu_torch/utils/trace.py: each
 device operation goes to the host range that launched it by kineto's
 correlation ids), and the device busy and idle shares of the window;
-writes the Chrome trace to --trace.  The profiler slows the
-host's launches, so the window's idle share overstates the idle of an
-unprofiled frame: the same number of frames is first timed without the
-profiler, and the device time an enc + dec pair took under it is also
-printed as a share of an unprofiled pair's host-clock time.
+writes the Chrome trace to --trace.  On the card DMC's decoder body
+replays a CUDA graph (opendcvc_tpu_torch/utils/graph.py), whose kernels
+all go to the one host call that launched it, `dmc.decompress`, with no
+stage below it: --eager runs that body eagerly (`graph.eager()`), so the
+decoder's device time splits by its `nn.*` stages (the host's launches
+are then the eager decoder's).  The profiler slows the host's launches,
+so the window's idle share overstates the idle of an unprofiled frame:
+the same number of frames is first timed without the profiler, and the
+device time an enc + dec pair took under it is also printed as a share
+of an unprofiled pair's host-clock time.
 """
 
 import argparse
@@ -361,7 +367,18 @@ def main():
     ap.add_argument("--size", default=None,
                     help="HxW instead of the codec's frame size")
     ap.add_argument("--trace", default="chiprun_out/torch_port_trace.json")
+    ap.add_argument("--eager", action="store_true",
+                    help="run DMC's decoder body eagerly, not from its "
+                    "CUDA graph, to split its device time by stage")
     args = ap.parse_args()
+    if args.eager:
+        from opendcvc_tpu_torch.utils import graph
+        with graph.eager():
+            return _main(args)
+    return _main(args)
+
+
+def _main(args):
     if not torch.cuda.is_available():
         sys.exit("profile_torch_port: CUDA is not available")
     from torch.profiler import ProfilerActivity, profile
